@@ -1,0 +1,34 @@
+"""deepqlearning_tpu_torch — the PyTorch + CUDA port of deepqlearning_tpu.
+
+The feed-forward, prioritized-replay, dueling double-DQN actor-learner loop
+(``learner/loop.py::build_loop``) on one NVIDIA Hopper GPU, with the JAX
+package's Pallas kernels rewritten as hand-written CUDA kernels
+(``csrc/``, bound in ``ops/cuda/``). Module paths and public names mirror
+``deepqlearning_tpu``; this package imports PyTorch and never JAX.
+"""
+
+from .config import DQNConfig
+from .envs.base import Env
+from .envs.gridworld import SimpleGridWorld
+from .learner.loop import LoopCarry, build_loop, init_carry
+from .models.chain import Activation, Chain, Dense, Flatten, isrecurrent
+from .models.dueling import DuelingNetwork, create_dueling_network
+from .ops.helpers import flattenbatch, globalnorm, huber_loss
+from .replay.prioritized import PrioritizedReplayBuffer, ReplayBuffer, ReplayState
+from .replay.transition import DQExperience, TransitionBatch
+from .solver.exploration import (
+    ConstantEpsilon,
+    LinearDecaySchedule,
+    epsilon_greedy_select,
+)
+
+__all__ = [
+    "DQNConfig", "Env", "SimpleGridWorld", "LoopCarry", "build_loop",
+    "init_carry", "Activation", "Chain", "Dense", "Flatten", "isrecurrent",
+    "DuelingNetwork", "create_dueling_network", "flattenbatch", "globalnorm",
+    "huber_loss", "PrioritizedReplayBuffer", "ReplayBuffer", "ReplayState",
+    "DQExperience", "TransitionBatch", "ConstantEpsilon",
+    "LinearDecaySchedule", "epsilon_greedy_select",
+]
+
+__version__ = "0.1.0"

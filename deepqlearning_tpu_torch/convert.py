@@ -1,0 +1,117 @@
+"""Moving state between the JAX package and the port, as numpy arrays.
+
+The JAX package keeps a network's parameters as a pytree (a ``Chain`` is a
+tuple with one dict per layer, ``{"w": [din, dout], "b": [dout]}`` for
+Dense and ``{}`` otherwise; a ``DuelingNetwork`` is ``{"base", "val",
+"adv"}``). The port keeps the same arrays in a dict keyed like
+``named_parameters()``, in the same ``w [din, dout]`` layout, so the map is
+1:1 with no transpose. The helpers take numpy copies of JAX state, e.g.
+``jax.tree_util.tree_map(np.asarray, params)``; this module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from .learner.actor import ActorState
+from .learner.train_step import AdamState
+from .models.chain import Chain, Dense, params_of
+from .models.dueling import DuelingNetwork
+from .replay.prioritized import ReplayState
+
+
+def _walk(module, tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(parameter name, leaf of ``tree``) pairs in module order."""
+    if isinstance(module, DuelingNetwork):
+        for part in ("base", "val", "adv"):
+            yield from _walk(getattr(module, part), tree[part],
+                             f"{prefix}{part}.")
+    elif isinstance(module, Chain):
+        for i, (layer, sub) in enumerate(zip(module.layers, tree)):
+            yield from _walk(layer, sub, f"{prefix}layers.{i}.")
+    elif isinstance(module, Dense):
+        yield prefix + "w", tree["w"]
+        if module.use_bias:
+            yield prefix + "b", tree["b"]
+
+
+def _as_dict(network, tree, device) -> Dict[str, torch.Tensor]:
+    return {name: torch.tensor(np.asarray(leaf, np.float32), device=device)
+            for name, leaf in _walk(network, tree)}
+
+
+def params_from_numpy(network, tree) -> Dict[str, torch.Tensor]:
+    """Copy a JAX param pytree (numpy leaves) into the network's parameters,
+    in place, and return the port's parameter dict."""
+    params = params_of(network)
+    new = _as_dict(network, tree, next(iter(params.values())).device)
+    if new.keys() != params.keys():
+        raise ValueError(f"parameter names differ: {sorted(new)} vs "
+                         f"{sorted(params)}")
+    with torch.no_grad():
+        for k, t in new.items():
+            params[k].copy_(t)
+    return params
+
+
+def params_to_numpy(network, params: Dict[str, torch.Tensor]):
+    """The port's parameter dict as a JAX-shaped pytree of numpy arrays."""
+    def build(module, prefix=""):
+        if isinstance(module, DuelingNetwork):
+            return {part: build(getattr(module, part), f"{prefix}{part}.")
+                    for part in ("base", "val", "adv")}
+        if isinstance(module, Chain):
+            return tuple(build(l, f"{prefix}layers.{i}.")
+                         for i, l in enumerate(module.layers))
+        if isinstance(module, Dense):
+            out = {"w": params[prefix + "w"].detach().cpu().numpy()}
+            if module.use_bias:
+                out["b"] = params[prefix + "b"].detach().cpu().numpy()
+            return out
+        return {}
+
+    return build(network)
+
+
+def adam_from_numpy(network, m_tree, v_tree, count, device=None) -> AdamState:
+    """``AdamState`` from JAX Adam moments shaped like the params (the
+    fused path's ``FusedAdamState``) and its step count."""
+    return AdamState(
+        m=_as_dict(network, m_tree, device), v=_as_dict(network, v_tree, device),
+        count=torch.tensor(int(count), dtype=torch.int32, device=device),
+    )
+
+
+def gridworld_state_from_numpy(pos, terminal, device=None) -> torch.Tensor:
+    """JAX ``GridWorldState`` (pos [E, 2] int, terminal [E] bool) -> the
+    port's ``[E, 3]`` f32 block."""
+    pos = np.asarray(pos, np.float32)
+    term = np.asarray(terminal, np.float32)[:, None]
+    return torch.tensor(np.concatenate([pos, term], axis=1), device=device)
+
+
+def actor_from_numpy(actor, device=None) -> ActorState:
+    """The port's ``ActorState`` from a JAX ``ActorState`` whose leaves were
+    copied to numpy (SimpleGridWorld env state)."""
+    t = lambda x, dt=torch.float32: torch.tensor(np.asarray(x),
+                                                 device=device).to(dt)
+    return ActorState(
+        env_state=gridworld_state_from_numpy(actor.env_state.pos,
+                                             actor.env_state.terminal, device),
+        obs=t(actor.obs), net_state=(),
+        ep_step=t(actor.ep_step, torch.int32), ep_ret=t(actor.ep_ret),
+        ret_ring=t(actor.ret_ring), ep_count=t(actor.ep_count, torch.int32),
+        step_ring=t(actor.step_ring), cnt_ring=t(actor.cnt_ring),
+        tick=int(actor.tick), t=int(actor.t),
+    )
+
+
+def replay_from_numpy(rows, tree, insert_pos, size, device=None
+                      ) -> ReplayState:
+    """The port's ``ReplayState`` from a JAX ``ReplayState``'s numpy copies
+    (f32 rows ``[C, 2no+4]``, tree levels leaves first)."""
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
+    return ReplayState(rows=t(rows), tree=tuple(t(l) for l in tree),
+                       insert_pos=int(insert_pos), size=int(size))

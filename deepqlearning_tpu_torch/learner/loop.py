@@ -1,0 +1,168 @@
+"""The (collect → train → maybe-sync-target) iteration
+(``deepqlearning_tpu.learner.loop``).
+
+One iteration = ``steps_per_iter`` lockstep env steps feeding the replay,
+then ``updates_per_iter`` train updates (one grouped call when grouped),
+then a hard target sync on crossing a ``target_update_freq`` boundary.
+
+Routing, feed-forward networks:
+* grouped (``updates_per_iter > 1``): kernel K3 when ``plan_for`` supports
+  the network (``fused_updates`` None or True), else the plain grouped step;
+  ``fused_updates=True`` on an unsupported network raises.
+* ungrouped: ``make_dqn_train_step``, its loss head kernel K1 unless
+  ``fused_updates=False``.
+* collect: kernel K4 when ``collect_plan_for`` supports env, network and
+  buffer and no custom ``select_fn`` is given (``fused_collect`` None or
+  True), else the plain keyed step; ``fused_collect=True`` that cannot be
+  honoured raises.
+The kernel wrappers run the CUDA kernels for CUDA tensors and their plain
+twins for CPU tensors; nothing here moves work between devices.
+
+The random state is one ``torch.Generator`` on the loop's device, in the
+carry. Every draw can be replaced by injected uniforms: ``iteration(carry,
+collect_u=[u [6, E] per collect step], sample_u=[u [U·B] per train call])``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..config import DQNConfig
+from .actor import ActorState, init_actor, make_collect_step
+from .train_step import (
+    make_dqn_train_step,
+    make_fused_grouped_train_step,
+    make_grouped_dqn_train_step,
+    sync_target,
+)
+
+
+class LoopCarry(NamedTuple):
+    actor: ActorState
+    replay: object
+    params: dict
+    target_params: dict
+    opt_state: object
+    generator: torch.Generator
+    loss: torch.Tensor
+    gnorm: torch.Tensor
+    # env steps accumulated since the last hard target sync
+    sync_acc: int = 0
+
+
+def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
+               axis_name: Optional[str] = None, select_fn=None):
+    """Returns ``(iteration, populate_step, optimizer)``.
+
+    ``iteration(carry, collect_u=None, sample_u=None) -> carry``;
+    ``populate_step`` is the ε=1 collect step used to pre-fill the replay.
+    """
+    if axis_name is not None:
+        raise NotImplementedError(
+            "data-parallel training (axis_name) is not ported yet")
+    if cfg.recurrence:
+        raise NotImplementedError("the recurrent (DRQN) path is not ported yet")
+    if cfg.dtype != torch.float32:
+        raise NotImplementedError(f"dtype {cfg.dtype}: only float32 so far")
+    grouped = cfg.grouped_updates and cfg.updates_per_iter > 1
+    kernels = cfg.fused_updates is not False
+
+    fused = False
+    if grouped and kernels:
+        from ..ops.cuda.fused_update import plan_for
+
+        fused = plan_for(network) is not None
+        if cfg.fused_updates is True and not fused:
+            raise ValueError(
+                "fused_updates=True cannot be honoured: the network is not "
+                "supported by the fused update kernel (see plan_for)")
+    if fused:
+        train_step, optimizer = make_fused_grouped_train_step(
+            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
+            cfg.updates_per_iter)
+    elif grouped:
+        train_step, optimizer = make_grouped_dqn_train_step(
+            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
+            cfg.updates_per_iter)
+    else:
+        train_step, optimizer = make_dqn_train_step(
+            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
+            use_kernel=kernels)
+    insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
+
+    cplan = None
+    if cfg.fused_collect is not False:
+        from ..ops.cuda.fused_collect import collect_plan_for
+
+        cplan = None if select_fn is not None else collect_plan_for(
+            env, network, buffer)
+        if cfg.fused_collect is True and cplan is None:
+            raise ValueError(
+                "fused_collect=True cannot be honoured: the collect kernel "
+                "needs the default ε-greedy strategy (no select_fn), a "
+                "SimpleGridWorld env, a supported network and f32 replay")
+    if cplan is not None:
+        from .actor import make_fused_collect_step
+
+        collect_step = make_fused_collect_step(
+            env, network, cfg.max_episode_length, eps_fn, insert_fn, cplan)
+        populate_step = make_fused_collect_step(
+            env, network, cfg.max_episode_length, lambda t: 1.0, insert_fn,
+            cplan)
+    else:
+        collect_step = make_collect_step(
+            env, network, cfg.max_episode_length, eps_fn, insert_fn,
+            select_fn=select_fn)
+        populate_step = make_collect_step(
+            env, network, cfg.max_episode_length, lambda t: 1.0, insert_fn)
+    tuf = cfg.target_update_freq
+    n_calls = 1 if grouped else cfg.updates_per_iter
+
+    def iteration(carry: LoopCarry,
+                  collect_u: Optional[Sequence[torch.Tensor]] = None,
+                  sample_u: Optional[Sequence[torch.Tensor]] = None
+                  ) -> LoopCarry:
+        gen = carry.generator
+        cc = (carry.actor, carry.replay, carry.params)
+        for i in range(cfg.steps_per_iter):
+            cc = collect_step(cc, gen,
+                              None if collect_u is None else collect_u[i])
+        actor, replay, params = cc
+        opt_state, loss, gnorm = carry.opt_state, carry.loss, carry.gnorm
+        for i in range(n_calls):
+            res = train_step(params, carry.target_params, opt_state, replay,
+                             u=None if sample_u is None else sample_u[i],
+                             generator=gen)
+            params, opt_state, replay = (res.params, res.opt_state,
+                                         res.replay_state)
+            loss, gnorm = res.loss, res.grad_norm
+        sync_acc = carry.sync_acc + cfg.env_steps_per_iter
+        do_sync = sync_acc >= tuf
+        if do_sync:
+            sync_acc %= tuf
+        target_params = sync_target(params, carry.target_params, do_sync)
+        return LoopCarry(actor, replay, params, target_params, opt_state,
+                         gen, loss, gnorm, sync_acc)
+
+    return iteration, populate_step, optimizer
+
+
+def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
+               device=None, params=None) -> LoopCarry:
+    """A fresh carry on ``device``: one generator seeded from ``cfg.seed``
+    draws the initial parameters (unless given) and the envs' first states;
+    the target network starts as a copy of the parameters."""
+    device = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    if params is None:
+        params = network.init(gen)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return LoopCarry(
+        actor=init_actor(env, network, cfg.num_envs, gen, device),
+        replay=buffer.init(), params=params,
+        target_params={k: p.clone() for k, p in params.items()},
+        opt_state=optimizer.init(params), generator=gen,
+        loss=zero, gnorm=zero.clone(), sync_acc=0,
+    )

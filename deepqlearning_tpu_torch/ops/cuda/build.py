@@ -1,0 +1,154 @@
+"""Build and load the port's CUDA kernels (``deepqlearning_tpu_torch/csrc``).
+
+The ``*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, into ``csrc/_build/``; the
+file name carries a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is loaded as it is. The library is bound
+with ``ctypes``: pointers and streams are passed as ``c_void_p`` and every
+launch function returns ``cudaGetLastError()``, which :func:`check` turns
+into an exception. A failed build raises; nothing falls back to the plain
+PyTorch versions.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+MAXL = 16  # DQ_MAXL of csrc/common.cuh
+
+
+class NetDesc(ctypes.Structure):
+    """Mirror of ``struct NetDesc`` in ``csrc/common.cuh``."""
+
+    _fields_ = [
+        ("dueling", ctypes.c_int), ("n_val", ctypes.c_int),
+        ("n_adv", ctypes.c_int), ("in_dim", ctypes.c_int),
+        ("num_actions", ctypes.c_int), ("n_params", ctypes.c_int),
+        ("maxw", ctypes.c_int), ("h_per_row", ctypes.c_int),
+        ("din", ctypes.c_int * MAXL), ("dout", ctypes.c_int * MAXL),
+        ("act", ctypes.c_int * MAXL), ("off_w", ctypes.c_int * MAXL),
+        ("off_b", ctypes.c_int * MAXL), ("off_h", ctypes.c_int * MAXL),
+    ]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdq_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if this source hash has not been built yet."""
+    out = _library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its signatures."""
+    lib = ctypes.CDLL(str(build()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    NP = ctypes.POINTER(NetDesc)
+    I64P = ctypes.POINTER(ctypes.c_int64)
+    sig = {
+        "dq_td_loss": [P, P, P, P, P, P, P, I, I, F, F, F, I, P, P, P, P, P],
+        "dq_tree_sample": [I, I64P, ctypes.POINTER(ctypes.c_int), P, I, P, P,
+                           P],
+        "dq_fused_update": [NP, I64P, I64P, I64P, P, I, I, P, P, P, P, P, P,
+                            P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P],
+        "dq_fused_collect": [NP, I64P, ctypes.POINTER(ctypes.c_float), I, F,
+                             F, F, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
+                             P],
+    }
+    for name, argtypes in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dq_error_string.argtypes = [ctypes.c_int]
+    lib.dq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err != 0:
+        msg = library().dq_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def int64_array(values):
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def require_shape(t, shape, name: str) -> None:
+    """Raise unless ``t`` has exactly ``shape``: the kernels index raw
+    pointers with these sizes."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def require_plan_params(plan, tensors) -> None:
+    """The parameter tensors (plan order w0, b0, ...) match the plan."""
+    for lp, (w, b) in zip(plan.layers, zip(tensors[::2], tensors[1::2])):
+        require_shape(w, (lp.din, lp.dout), lp.w_name)
+        require_shape(b, (lp.dout,), lp.b_name)
+
+
+def require_cuda(*tensors) -> None:
+    """Every tensor must be a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")

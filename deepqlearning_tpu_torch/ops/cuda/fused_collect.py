@@ -1,0 +1,156 @@
+"""K4: one collect step for all E envs, feed-forward plan (``csrc/fused_collect.cu``).
+
+Replaces ``fused_collect`` (feed-forward plan; body ``_collect_block``) of
+``deepqlearning_tpu/ops/pallas/fused_collect.py``: the (dueling) Dense
+forward, ε-greedy with the first-max argmax and a random action
+``floor(u1·A)`` when ``u0 < ε``, SimpleGridWorld's ``step_cols`` and
+``reset_cols``, truncation at ``max_episode_length``, auto-reset and the
+episode accumulators. Transition fields come out in replay-row order
+``[E, 2·no + 4]`` = (obs, obs', action, reward, done, ended); the per-block
+(Σ ret·ended, Σ len·ended, Σ ended) partials are summed by plain torch.
+
+Uniforms come in as ``u [6, E]`` — rows: explore, random action, two step
+uniforms, two reset uniforms — the layout of the JAX kernel's host
+uniforms. The kernel serves SimpleGridWorld only; it reads the reward cells,
+``tprob`` and the grid size from the env object. On the card a thread per
+env does the whole step; the per-env forward's FLOPs bound it (see the
+source).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ...envs.gridworld import SimpleGridWorld
+from . import build
+from .fused_update import FusedPlan, MAX_SMEM, plan_for, q_values
+
+MAX_WIDTH = 128   # FC_MAXW of csrc/fused_collect.cu
+MAX_CELLS = 16    # FC_MAXCELLS
+THREADS = 256     # FC_THREADS
+N_UNIFORMS = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectPlan:
+    net: FusedPlan
+    no: int   # flat obs dim
+    W: int    # env state width
+    nf: int   # replay field columns: 2*no + 4 (a, r, done, ended)
+
+
+def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
+    """Static gate: a SimpleGridWorld env, a kernel-supported (dueling)
+    Dense stack on the flat obs within the kernel's widths, and f32 replay
+    storage. None means the plain keyed collect step."""
+    if not isinstance(env, SimpleGridWorld):
+        return None
+    if len(env.reward_cells) > MAX_CELLS:
+        return None
+    net = plan_for(network)
+    if net is None:
+        return None
+    no = 1
+    for s in env.obs_shape:
+        no *= int(s)
+    if net.in_dim != no:
+        return None
+    if any(lp.dout > MAX_WIDTH for lp in net.layers):
+        return None
+    if 4 * (net.desc().n_params + 3 * THREADS) > MAX_SMEM:
+        return None
+    if buffer is not None and getattr(buffer, "obs_dtype", None) != \
+            torch.float32:
+        return None
+    return CollectPlan(net=net, no=no, W=env.lane_state_width, nf=2 * no + 4)
+
+
+def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
+                        ep_step, ep_ret, u, eps: float,
+                        max_episode_length: int):
+    """Plain PyTorch version; same contract as :func:`fused_collect`."""
+    A = plan.net.num_actions
+    q, _, _ = q_values(plan.net, params, obs.reshape(obs.shape[0], -1))
+    greedy = torch.argmax(q, dim=1).float()
+    rand_a = torch.floor(u[1] * float(A))
+    action = torch.where(u[0] < eps, rand_a, greedy)
+    new_state, nobs, rew, done = env.step_cols(state, action, u[2:4])
+    ep1 = ep_step.float() + 1.0
+    ended = torch.maximum(done, (ep1 >= float(max_episode_length)).float())
+    ret1 = ep_ret + rew
+    r_state, r_obs = env.reset_cols(u[4:6])
+    end = ended[:, None] > 0.5
+    fields = torch.cat([obs.reshape(obs.shape[0], -1), nobs, action[:, None],
+                        rew[:, None], done[:, None], ended[:, None]], dim=1)
+    totals = torch.stack([(ret1 * ended).sum(), (ep1 * ended).sum(),
+                          ended.sum()])
+    return (fields, torch.where(end, r_obs, nobs),
+            torch.where(end, r_state, new_state),
+            torch.where(ended > 0.5, 0.0, ep1).to(torch.int32),
+            torch.where(ended > 0.5, 0.0, ret1), totals)
+
+
+def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
+                       ep_step, ep_ret, u, eps: float,
+                       max_episode_length: int):
+    """Launch K4 on the current stream."""
+    E = obs.shape[0]
+    obs = obs.reshape(E, -1).float().contiguous()
+    state = state.float().contiguous()
+    ep_step = ep_step.to(torch.int32).contiguous()
+    ep_ret = ep_ret.float().contiguous()
+    u = u[:N_UNIFORMS].float().contiguous()
+    tensors = [params[n] for n in plan.net.names]
+    build.require_cuda(obs, state, ep_step, ep_ret, u, *tensors)
+    build.require_plan_params(plan.net, tensors)
+    build.require_shape(obs, (E, plan.no), "obs")
+    build.require_shape(state, (E, plan.W), "state")
+    dev = obs.device
+    fields = torch.empty(E, plan.nf, dtype=torch.float32, device=dev)
+    obs_out = torch.empty_like(obs)
+    state_out = torch.empty_like(state)
+    ep_step_out = torch.empty_like(ep_step)
+    ep_ret_out = torch.empty_like(ep_ret)
+    nblk = -(-E // THREADS)
+    partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
+    cells = [c for cell in env.reward_cells for c in cell]
+    err = build.library().dq_fused_collect(
+        plan.net.desc(), build.int64_array([t.data_ptr() for t in tensors]),
+        (ctypes.c_float * max(1, len(cells)))(*cells),
+        len(env.reward_cells), env.tprob, float(env.size[0]),
+        float(env.size[1]), obs.data_ptr(), state.data_ptr(),
+        ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(), E, float(eps),
+        int(max_episode_length), fields.data_ptr(), obs_out.data_ptr(),
+        state_out.data_ptr(), ep_step_out.data_ptr(), ep_ret_out.data_ptr(),
+        partials.data_ptr(), build.stream_ptr(dev))
+    build.check(err, "fused_collect")
+    fused_collect_cuda.launches += 1
+    return (fields, obs_out, state_out, ep_step_out, ep_ret_out,
+            partials.sum(dim=0))
+
+
+fused_collect_cuda.launches = 0
+
+
+def fused_collect(env, plan: CollectPlan, params, *, obs, state, ep_step,
+                  ep_ret, u, eps: float, max_episode_length: int):
+    """One collect step over all E envs.
+
+    ``obs [E, no]``, ``state [E, 3]`` (the env's batched state), ``ep_step
+    [E]`` int32, ``ep_ret [E]`` f32, ``u [6, E]`` uniforms, ``eps`` float.
+    Returns ``(fields [E, 2no+4], obs' [E, no], state' [E, 3], ep_step'
+    [E] int32, ep_ret' [E], totals [3])`` with totals = (ended return sum,
+    ended length sum, ended count)."""
+    E = obs.shape[0]
+    if u.dim() != 2 or u.shape[0] < N_UNIFORMS or u.shape[1] != E:
+        raise ValueError(f"u must be [{N_UNIFORMS}, E={E}] uniforms, got "
+                         f"{tuple(u.shape)}")
+    if state.shape[0] != E or ep_step.shape[0] != E or ep_ret.shape[0] != E:
+        raise ValueError("obs, state, ep_step and ep_ret must share E")
+    fn = fused_collect_cuda if obs.is_cuda else fused_collect_plain
+    return fn(env, plan, params, obs=obs, state=state, ep_step=ep_step,
+              ep_ret=ep_ret, u=u, eps=eps,
+              max_episode_length=max_episode_length)

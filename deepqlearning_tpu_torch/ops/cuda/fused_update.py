@@ -1,0 +1,337 @@
+"""K3: the grouped train phase, U sequential sub-updates (``csrc/fused_update.cu``).
+
+Replaces ``fused_group_update`` of ``deepqlearning_tpu/ops/pallas/
+fused_update.py``. Each sub-update u takes rows ``[u·B, (u+1)·B)`` of the
+u-major sample: the dueling (or plain) Dense forward on s and, for double-Q,
+on s' for the argmax; the TD loss against the precomputed target-net
+Q(s'); the hand-derived backward; Adam with bias correction at
+``t = count + u + 1``. Params, m and v are updated IN PLACE, and ``count``
+advances by U in place.
+
+On the card: two launches per sub-update on the current stream, with no
+host sync (a batch-tiled forward/TD/backward kernel writing per-block
+partial gradients, then a one-block reduce + Adam kernel); every sum has a
+fixed order. At the loop's shapes the phase is bound by launch and
+synchronisation latency, not by bytes or FLOPs (see the source).
+
+:func:`plan_for` is the gate, as in the JAX package: a dueling or plain
+stack of Dense layers with tanh/relu/identity and bias, a scalar value head,
+every layer at most ``MAX_WIDTH`` wide, at most ``MAX_ACTIONS`` actions and
+``MAX_LAYERS`` Dense layers, and a block's shared memory within
+``MAX_SMEM`` bytes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ...models.chain import Chain, Dense, Flatten
+from ...models.dueling import DuelingNetwork
+from . import build
+
+MAX_WIDTH = 256
+MAX_ACTIONS = 128
+MAX_LAYERS = build.MAXL
+MAX_SMEM = 200 * 1024
+TILE = 16  # FU_TILE of csrc/fused_update.cu
+_ACTS = {"id": 0, "tanh": 1, "relu": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    din: int
+    dout: int
+    act: str      # 'id' | 'tanh' | 'relu'
+    w_name: str   # parameter dict keys
+    b_name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    dueling: bool
+    in_dim: int
+    num_actions: int
+    val: Tuple[LayerPlan, ...]  # () when not dueling
+    adv: Tuple[LayerPlan, ...]  # the main chain when not dueling
+
+    @property
+    def layers(self) -> Tuple[LayerPlan, ...]:
+        return self.val + self.adv
+
+    @property
+    def names(self):
+        """Parameter keys in kernel order: w0, b0, w1, b1, ..."""
+        return [n for lp in self.layers for n in (lp.w_name, lp.b_name)]
+
+    def desc(self) -> build.NetDesc:
+        """The kernels' ``NetDesc`` for this plan."""
+        d = build.NetDesc()
+        d.dueling = int(self.dueling)
+        d.n_val, d.n_adv = len(self.val), len(self.adv)
+        d.in_dim, d.num_actions = self.in_dim, self.num_actions
+        off = off_h = 0
+        maxw = self.in_dim
+        for l, lp in enumerate(self.layers):
+            d.din[l], d.dout[l], d.act[l] = lp.din, lp.dout, _ACTS[lp.act]
+            d.off_w[l] = off
+            d.off_b[l] = off + lp.din * lp.dout
+            off += lp.din * lp.dout + lp.dout
+            d.off_h[l] = off_h
+            off_h += lp.dout
+            maxw = max(maxw, lp.dout)
+        d.n_params, d.h_per_row, d.maxw = off, off_h, maxw
+        return d
+
+    def smem_bytes(self) -> int:
+        """Shared memory of one forward/backward block (fu_smem_bytes)."""
+        d = self.desc()
+        return 4 * (d.n_params + 2 * TILE * d.in_dim + TILE * d.h_per_row
+                    + 2 * TILE * d.maxw + 2 * TILE * d.num_actions + 3 * TILE)
+
+
+def _act_name(fn) -> Optional[str]:
+    if fn is None:
+        return "id"
+    if fn is torch.tanh:
+        return "tanh"
+    if fn is torch.relu or fn is F.relu:
+        return "relu"
+    return None
+
+
+def _chain_layers(chain: Chain, prefix: str) -> Optional[Tuple[LayerPlan, ...]]:
+    """All-Dense (after leading Flattens) chain -> layer plans, else None."""
+    layers = list(enumerate(chain.layers))
+    while layers and isinstance(layers[0][1], Flatten):
+        layers = layers[1:]
+    if not layers or not all(isinstance(l, Dense) for _, l in layers):
+        return None
+    plans = []
+    for i, l in layers:
+        act = _act_name(l.activation)
+        if act is None or not l.use_bias:
+            return None
+        plans.append(LayerPlan(l.in_dim, l.out_dim, act,
+                               f"{prefix}layers.{i}.w", f"{prefix}layers.{i}.b"))
+    return tuple(plans)
+
+
+def plan_for(network) -> Optional[FusedPlan]:
+    """A kernel plan if the network is a supported (dueling) Dense stack,
+    else None."""
+    if isinstance(network, DuelingNetwork):
+        if any(not isinstance(l, Flatten) for l in network.base.layers):
+            return None
+        val = _chain_layers(network.val, "val.")
+        adv = _chain_layers(network.adv, "adv.")
+        if not val or not adv or val[0].din != adv[0].din:
+            return None
+        if val[-1].dout != 1:
+            return None
+        plan = FusedPlan(True, adv[0].din, adv[-1].dout, val, adv)
+    elif isinstance(network, Chain):
+        adv = _chain_layers(network, "")
+        if not adv:
+            return None
+        plan = FusedPlan(False, adv[0].din, adv[-1].dout, (), adv)
+    else:
+        return None
+    if (len(plan.layers) > MAX_LAYERS or plan.num_actions > MAX_ACTIONS
+            or any(max(lp.din, lp.dout) > MAX_WIDTH for lp in plan.layers)
+            or plan.smem_bytes() > MAX_SMEM):
+        return None
+    return plan
+
+
+# ------------------------------------------------------------ plain version
+
+def _apply_act(z, act: str):
+    if act == "tanh":
+        return torch.tanh(z)
+    if act == "relu":
+        return torch.relu(z)
+    return z
+
+
+def _act_grad(h, act: str):
+    """d act / d z expressed through the post-activation value h."""
+    if act == "tanh":
+        return 1.0 - h * h
+    if act == "relu":
+        return (h > 0.0).float()
+    return torch.ones_like(h)
+
+
+def _fwd(plan: FusedPlan, params, x, layers):
+    """Forward through a Dense stack; post-activation values, input first."""
+    hs = [x]
+    for lp in layers:
+        hs.append(_apply_act(hs[-1] @ params[lp.w_name] + params[lp.b_name],
+                             lp.act))
+    return hs
+
+
+def q_values(plan: FusedPlan, params, x):
+    """``(q [N, A], adv activations, val activations or None)``: dueling
+    ``V + A - Σ A / A`` or the chain's output."""
+    adv_hs = _fwd(plan, params, x, plan.adv)
+    if not plan.dueling:
+        return adv_hs[-1], adv_hs, None
+    val_hs = _fwd(plan, params, x, plan.val)
+    a = adv_hs[-1]
+    q = val_hs[-1][:, :1] + a - a.sum(dim=1, keepdim=True) * (
+        1.0 / plan.num_actions)
+    return q, adv_hs, val_hs
+
+
+def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
+             weights, q_sp_tgt, gamma, double_q, alpha, eps):
+    """One sub-update's forward, TD loss and hand-derived backward.
+    Returns ``(grads {name: tensor}, td, prio, loss)``."""
+    B, A = obs_s.shape[0], plan.num_actions
+    q_s, adv_hs, val_hs = q_values(plan, params, obs_s)
+    if double_q:
+        best = torch.argmax(q_values(plan, params, obs_sp)[0], dim=1)
+        q_sp_max = torch.gather(q_sp_tgt, 1, best[:, None])[:, 0]
+    else:
+        q_sp_max = q_sp_tgt.max(dim=1).values
+    target = reward + (1.0 - done) * gamma * q_sp_max
+    q_sa = torch.gather(q_s, 1, action[:, None])[:, 0]
+    td = q_sa - target
+    xw = weights * td
+    absx = xw.abs()
+    quad = absx.clamp(max=1.0)
+    loss = (0.5 * quad * quad + (absx - quad)).sum() * (1.0 / B)
+    prio = (td.abs() + eps) ** alpha
+
+    g_sa = weights * xw.clamp(-1.0, 1.0) * (1.0 / B)
+    g_q = torch.zeros_like(q_s).scatter_(1, action[:, None], g_sa[:, None])
+    grads: Dict[str, torch.Tensor] = {}
+
+    def bwd(layers, hs, dh):
+        for i in reversed(range(len(layers))):
+            lp = layers[i]
+            dz = dh * _act_grad(hs[i + 1], lp.act)
+            grads[lp.w_name] = hs[i].t() @ dz
+            grads[lp.b_name] = dz.sum(dim=0)
+            if i > 0:
+                dh = dz @ params[lp.w_name].t()
+
+    if plan.dueling:
+        # through q = v + a - mean(a): g_adv = g_q - sum(g_q)/A, g_val = sum
+        sum_g = g_q.sum(dim=1, keepdim=True)
+        bwd(plan.val, val_hs, sum_g)
+        bwd(plan.adv, adv_hs, g_q - sum_g * (1.0 / A))
+    else:
+        bwd(plan.adv, adv_hs, g_q)
+    return grads, td, prio, loss
+
+
+def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
+                             action, reward, done, weights, q_sp_tgt, *,
+                             gamma, double_q, lr, alpha, eps, batch_size,
+                             n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """Plain PyTorch version; same contract as :func:`fused_group_update`."""
+    B, U = batch_size, n_updates
+    tds, prios = [], []
+    loss = gnorm = None
+    t0 = int(count)
+    for u in range(U):
+        sl = slice(u * B, (u + 1) * B)
+        grads, td, prio, loss = _fwd_bwd(
+            plan, params, obs[sl], nobs[sl] if double_q else None,
+            action[sl].long(), reward[sl], done[sl], weights[sl],
+            q_sp_tgt[sl], gamma, double_q, alpha, eps)
+        tds.append(td)
+        prios.append(prio)
+        gnorm = torch.stack([g.abs().max() for g in grads.values()]).max()
+        t = t0 + u + 1
+        c1 = 1.0 / (1.0 - b1 ** t)
+        c2 = 1.0 / (1.0 - b2 ** t)
+        for name in plan.names:
+            g = grads[name]
+            m[name].mul_(b1).add_((1.0 - b1) * g)
+            v[name].mul_(b2).add_((1.0 - b2) * (g * g))
+            params[name].sub_(lr * (m[name] * c1)
+                              / (torch.sqrt(v[name] * c2) + adam_eps))
+    count.add_(U)
+    return torch.stack(tds), torch.stack(prios), loss, gnorm
+
+
+def fused_group_update_cuda(plan: FusedPlan, params, m, v, count, obs, nobs,
+                            action, reward, done, weights, q_sp_tgt, *,
+                            gamma, double_q, lr, alpha, eps, batch_size,
+                            n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """Launch K3 (2·U kernels on the current stream)."""
+    B, U = batch_size, n_updates
+    obs = obs.float().contiguous()
+    nobs = nobs.float().contiguous()
+    action = action.to(torch.int32).contiguous()
+    reward, done, weights, q_sp_tgt = (
+        t.float().contiguous() for t in (reward, done, weights, q_sp_tgt))
+    tensors = [params[n] for n in plan.names]
+    mt, vt = [m[n] for n in plan.names], [v[n] for n in plan.names]
+    build.require_cuda(obs, nobs, action, reward, done, weights, q_sp_tgt,
+                       count, *tensors, *mt, *vt)
+    if count.dtype != torch.int32:
+        raise ValueError("the Adam count must be an int32 tensor")
+    for ts in (tensors, mt, vt):
+        build.require_plan_params(plan, ts)
+    for name, t in (("obs", obs), ("nobs", nobs)):
+        build.require_shape(t, (U * B, plan.in_dim), name)
+    build.require_shape(q_sp_tgt, (U * B, plan.num_actions), "q_sp_tgt")
+    dev = obs.device
+    d = plan.desc()
+    nblk = -(-B // TILE)
+    td = torch.empty(U * B, dtype=torch.float32, device=dev)
+    prio = torch.empty_like(td)
+    part_grad = torch.empty(nblk, d.n_params, dtype=torch.float32, device=dev)
+    part_loss = torch.empty(nblk, dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    gnorm = torch.empty((), dtype=torch.float32, device=dev)
+    ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
+    err = build.library().dq_fused_update(
+        d, ptrs(tensors), ptrs(mt), ptrs(vt), count.data_ptr(), U, B,
+        obs.data_ptr(), nobs.data_ptr(), action.data_ptr(),
+        reward.data_ptr(), done.data_ptr(), weights.data_ptr(),
+        q_sp_tgt.data_ptr(), gamma, alpha, eps, int(bool(double_q)), lr, b1,
+        b2, adam_eps, td.data_ptr(), prio.data_ptr(), part_grad.data_ptr(),
+        part_loss.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
+        build.stream_ptr(dev))
+    build.check(err, "fused_group_update")
+    fused_group_update_cuda.launches += 1
+    count.add_(U)
+    return td.view(U, B), prio.view(U, B), loss, gnorm
+
+
+fused_group_update_cuda.launches = 0
+
+
+def fused_group_update(plan: FusedPlan, params, m, v, count, obs, nobs,
+                       action, reward, done, weights, q_sp_tgt, *, gamma,
+                       double_q, lr, alpha, eps, batch_size, n_updates,
+                       b1=0.9, b2=0.999, adam_eps=1e-8):
+    """Run U fused sub-updates IN PLACE on ``params``/``m``/``v`` (dicts of
+    tensors keyed as ``plan.names``) and ``count`` (int32 scalar tensor).
+
+    ``obs``/``nobs`` ``[U·B, in_dim]`` (``nobs`` unused without double-Q),
+    ``action``/``reward``/``done``/``weights`` ``[U·B]``, ``q_sp_tgt``
+    ``[U·B, A]``, all u-major. Returns ``(tds [U, B], prios [U, B], loss,
+    gnorm)`` with the last sub-update's loss and max-abs gradient."""
+    n = batch_size * n_updates
+    for name, t in (("obs", obs), ("action", action), ("reward", reward),
+                    ("done", done), ("weights", weights),
+                    ("q_sp_tgt", q_sp_tgt)) + ((("nobs", nobs),)
+                                               if double_q else ()):
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected "
+                             f"batch_size*n_updates = {n}")
+    fn = fused_group_update_cuda if obs.is_cuda else fused_group_update_plain
+    flat = lambda x: x.reshape(x.shape[0], -1)
+    return fn(plan, params, m, v, count, flat(obs), flat(nobs), action,
+              reward, done, weights, q_sp_tgt, gamma=gamma, double_q=double_q, lr=lr,
+              alpha=alpha, eps=eps, batch_size=batch_size,
+              n_updates=n_updates, b1=b1, b2=b2, adam_eps=adam_eps)

@@ -1,0 +1,106 @@
+"""K1: fused TD loss / priority head (``csrc/td_kernel.cu``).
+
+Replaces ``td_loss_fused`` of ``deepqlearning_tpu/ops/pallas/td_kernel.py``:
+double-Q argmax of the online Q(s') (or the plain max of the target),
+target ``r + (1-d)·γ·Q_tgt(s', a*)``, ``td = Q(s,a) - target``,
+``loss = Σ huber(w·td) / B``, priorities ``(|td| + ε)^α`` and
+``dL/dq_s = w·clip(w·td, ±1)/B`` at the taken action.
+
+On the card the kernel is bound by launch latency (one block, a thread per
+row; see the source). :func:`td_loss` is a ``torch.autograd.Function``:
+its forward runs the kernel for CUDA tensors and :func:`td_loss_plain` for
+CPU tensors; its backward is ``grad · g_loss``, plain, as the TPU's custom
+VJP was. The gradient flows into ``q_s`` only.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+
+def td_loss_plain(q_s, q_sp_online, q_sp_target, action, reward, done,
+                  weights, gamma: float, alpha: float, eps: float,
+                  double_q: bool):
+    """Plain PyTorch version: ``(loss, td [B], prio [B], grad [B, A])``."""
+    B, A = q_s.shape
+    action = action.long()
+    if double_q:
+        best = torch.argmax(q_sp_online, dim=1)
+        q_sp_max = torch.gather(q_sp_target, 1, best[:, None])[:, 0]
+    else:
+        q_sp_max = q_sp_target.max(dim=1).values
+    target = reward + (1.0 - done) * gamma * q_sp_max
+    q_sa = torch.gather(q_s, 1, action[:, None])[:, 0]
+    td = q_sa - target
+    x = weights * td
+    absx = x.abs()
+    quad = absx.clamp(max=1.0)
+    loss = (0.5 * quad * quad + (absx - quad)).sum() * (1.0 / B)
+    prio = (td.abs() + eps) ** alpha
+    g = weights * x.clamp(-1.0, 1.0) * (1.0 / B)
+    grad = torch.zeros_like(q_s)
+    grad.scatter_(1, action[:, None], g[:, None])
+    return loss, td, prio, grad
+
+
+def td_loss_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
+                 weights, gamma: float, alpha: float, eps: float,
+                 double_q: bool):
+    """Launch K1 on the current stream; same outputs as the plain version."""
+    q_s, q_sp_online, q_sp_target = (
+        t.float().contiguous() for t in (q_s, q_sp_online, q_sp_target))
+    action = action.to(torch.int32).contiguous()
+    reward, done, weights = (t.float().contiguous()
+                             for t in (reward, done, weights))
+    build.require_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
+                       weights)
+    B, A = q_s.shape
+    for name, t in (("q_sp_online", q_sp_online), ("q_sp_target", q_sp_target)):
+        build.require_shape(t, (B, A), name)
+    for name, t in (("action", action), ("reward", reward), ("done", done),
+                    ("weights", weights)):
+        build.require_shape(t, (B,), name)
+    loss = torch.empty((), dtype=torch.float32, device=q_s.device)
+    td = torch.empty(B, dtype=torch.float32, device=q_s.device)
+    prio = torch.empty_like(td)
+    grad = torch.empty_like(q_s)
+    lib = build.library()
+    err = lib.dq_td_loss(
+        q_s.data_ptr(), q_sp_online.data_ptr(), q_sp_target.data_ptr(),
+        action.data_ptr(), reward.data_ptr(), done.data_ptr(),
+        weights.data_ptr(), B, A, gamma, alpha, eps, int(bool(double_q)),
+        loss.data_ptr(), td.data_ptr(), prio.data_ptr(), grad.data_ptr(),
+        build.stream_ptr(q_s.device))
+    build.check(err, "td_loss")
+    td_loss_cuda.launches += 1
+    return loss, td, prio, grad
+
+
+td_loss_cuda.launches = 0
+
+
+class _TDLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_s, q_sp_online, q_sp_target, action, reward, done,
+                weights, gamma, alpha, eps, double_q):
+        fn = td_loss_cuda if q_s.is_cuda else td_loss_plain
+        loss, td, prio, grad = fn(q_s.detach(), q_sp_online.detach(),
+                                  q_sp_target.detach(), action, reward, done,
+                                  weights, gamma, alpha, eps, double_q)
+        ctx.save_for_backward(grad)
+        ctx.mark_non_differentiable(td, prio)
+        return loss, td, prio
+
+    @staticmethod
+    def backward(ctx, g_loss, g_td, g_prio):
+        (grad,) = ctx.saved_tensors
+        return (grad * g_loss,) + (None,) * 10
+
+
+def td_loss(q_s, q_sp_online, q_sp_target, action, reward, done, weights,
+            gamma: float, alpha: float, eps: float, double_q: bool):
+    """``(loss, td [B], prio [B])``, differentiable in ``q_s``."""
+    return _TDLoss.apply(q_s, q_sp_online, q_sp_target, action, reward, done,
+                         weights, float(gamma), float(alpha), float(eps),
+                         bool(double_q))

@@ -1,0 +1,170 @@
+"""Prioritized (and uniform) experience replay on the device.
+
+Counterpart of ``deepqlearning_tpu.replay.prioritized`` for f32 storage:
+
+* one merged row per slot, ``[C, 2·no + 4]``: obs, next_obs and the four
+  f32 scalars (action, reward, done, pad);
+* priority at insert ``(|r| + eps)^alpha``, at update ``(|td| + eps)^alpha``;
+* IS weights ``(N·p/total)^(-beta)``, not max-normalized, with the
+  empty-buffer clamp to unit weight;
+* uniform replay = constant priorities, no updates, unit weights.
+
+The rows and the sum-tree levels are updated IN PLACE; ``insert`` and
+``update_priorities`` return a ``ReplayState`` over the same tensors, with
+the insert position and fill size as Python ints (they advance by a fixed
+batch size, so the host knows them without reading the device).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..ops import sumtree
+from .transition import TransitionBatch
+
+
+class ReplayState(NamedTuple):
+    rows: torch.Tensor     # [C, 2*no + 4] f32
+    tree: tuple            # per-level sum-tree tensors (leaves = cap2 >= C)
+    insert_pos: int
+    size: int
+
+
+class PrioritizedReplayBuffer:
+    """Static descriptor + ops for a PER buffer on ``device``."""
+
+    def __init__(self, obs_shape: Tuple[int, ...], max_size: int,
+                 batch_size: int, alpha: float = 0.6, beta: float = 0.4,
+                 eps: float = 1e-3, prioritized: bool = True,
+                 obs_dtype=torch.float32, sample_mode: str = "stratified",
+                 device=None):
+        self.obs_shape = tuple(int(s) for s in obs_shape)
+        self.no = 1
+        for s in self.obs_shape:
+            self.no *= s
+        self.max_size = int(max_size)
+        self.batch_size = int(batch_size)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.eps = float(eps)
+        self.prioritized = bool(prioritized)
+        if obs_dtype != torch.float32:
+            raise NotImplementedError(
+                f"obs_dtype {obs_dtype}: only float32 replay storage is "
+                "supported so far")
+        self.obs_dtype = obs_dtype
+        if sample_mode != "stratified":
+            raise NotImplementedError(
+                f"sample_mode {sample_mode!r}: only 'stratified' is "
+                "supported so far")
+        self.sample_mode = sample_mode
+        self.device = torch.device(device) if device is not None else \
+            torch.device("cpu")
+
+    def init(self) -> ReplayState:
+        return ReplayState(
+            rows=torch.zeros(self.max_size, 2 * self.no + 4,
+                             dtype=torch.float32, device=self.device),
+            tree=sumtree.init_tree(self.max_size, self.device),
+            insert_pos=0, size=0,
+        )
+
+    def _pack(self, batch: TransitionBatch) -> torch.Tensor:
+        E = batch.action.shape[0]
+        return torch.cat([
+            batch.obs.reshape(E, self.no).float(),
+            batch.next_obs.reshape(E, self.no).float(),
+            batch.action.float()[:, None], batch.reward.float()[:, None],
+            batch.done.float()[:, None],
+            torch.zeros(E, 1, dtype=torch.float32, device=batch.reward.device),
+        ], dim=1)
+
+    def _initial_priority(self, reward: torch.Tensor) -> torch.Tensor:
+        if self.prioritized:
+            return (reward.abs() + self.eps) ** self.alpha
+        return torch.full_like(reward, self.eps ** self.alpha)
+
+    def insert(self, state: ReplayState, batch: TransitionBatch
+               ) -> ReplayState:
+        """Ring-insert E transitions, in place. When E divides the capacity
+        the write is one contiguous slice; otherwise a scatter with
+        wraparound."""
+        E = batch.action.shape[0]
+        prio = self._initial_priority(batch.reward.float())
+        rows = self._pack(batch)
+        pos = state.insert_pos
+        if self.max_size % E == 0:
+            state.rows[pos:pos + E] = rows
+            sumtree.set_priorities_slice(state.tree, pos, prio)
+        else:
+            idx = (pos + torch.arange(E, device=rows.device)) % self.max_size
+            state.rows[idx] = rows[sumtree.last_source(idx, self.max_size)]
+            sumtree.set_priorities(state.tree, idx, prio)
+        return ReplayState(state.rows, state.tree,
+                           (pos + E) % self.max_size,
+                           min(state.size + E, self.max_size))
+
+    def sample(self, state: ReplayState, u=None, generator=None):
+        return self.sample_n(state, 1, u=u, generator=generator)
+
+    def sample_n(self, state: ReplayState, n_batches: int,
+                 u: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Draw ``n_batches * batch_size`` transitions in one stratified
+        descent (kernel K2, ``ops/cuda/tree_sample.py``). ``u`` are the raw
+        uniforms ``[n*B]`` (drawn from ``generator`` if not given).
+
+        The flat outputs are u-major: sub-batch ``u`` occupies rows
+        ``[u*B, (u+1)*B)`` and takes strata ``{u, n+u, 2n+u, ...}``.
+        Returns ``(TransitionBatch, indices [nB] int64, weights [nB])``."""
+        from ..ops.cuda.tree_sample import tree_sample
+
+        B = self.batch_size
+        D = B * n_batches
+        if u is None:
+            u = torch.rand(D, generator=generator, device=state.rows.device)
+        mass = sumtree.stratified_mass(state.tree, u)
+        idx, prio = tree_sample(state.tree, mass)
+        if n_batches > 1:
+            um = lambda x: x.reshape(B, n_batches).t().reshape(-1)
+            idx, prio = um(idx), um(prio)
+        idx = idx.long()
+        rows = state.rows[idx]
+        oshape = (D,) + self.obs_shape
+        batch = TransitionBatch(
+            obs=rows[:, :self.no].reshape(oshape),
+            action=rows[:, 2 * self.no].long(),
+            reward=rows[:, 2 * self.no + 1],
+            next_obs=rows[:, self.no:2 * self.no].reshape(oshape),
+            done=rows[:, 2 * self.no + 2],
+        )
+        if self.prioritized:
+            p = prio / torch.clamp(sumtree.total(state.tree), min=1e-30)
+            n = float(max(state.size, 1))
+            weights = torch.where(p > 0, (n * p) ** (-self.beta),
+                                  torch.ones_like(p))
+        else:
+            weights = torch.ones(D, dtype=torch.float32, device=idx.device)
+        return batch, idx, weights
+
+    def update_priorities(self, state: ReplayState, indices: torch.Tensor,
+                          td_errors: torch.Tensor,
+                          priorities: Optional[torch.Tensor] = None
+                          ) -> ReplayState:
+        """Set ``(|td| + eps)^alpha`` (or the given ``priorities``) at
+        ``indices``, in place; a leaf drawn twice keeps its last value."""
+        if not self.prioritized:
+            return state
+        if priorities is None:
+            priorities = (td_errors.abs() + self.eps) ** self.alpha
+        sumtree.set_priorities(state.tree, indices, priorities)
+        return state
+
+
+def ReplayBuffer(obs_shape, max_size, batch_size, obs_dtype=torch.float32,
+                 device=None):
+    """Uniform replay buffer: PER with constant priorities."""
+    return PrioritizedReplayBuffer(obs_shape, max_size, batch_size,
+                                   prioritized=False, obs_dtype=obs_dtype,
+                                   device=device)

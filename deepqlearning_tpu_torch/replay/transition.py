@@ -1,0 +1,26 @@
+"""Transition records (``deepqlearning_tpu.replay.transition``)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class DQExperience(NamedTuple):
+    """Single transition (s, a, r, sp, done)."""
+
+    s: torch.Tensor
+    a: int
+    r: float
+    sp: torch.Tensor
+    done: bool
+
+
+class TransitionBatch(NamedTuple):
+    """Struct-of-arrays batch of transitions; leading axis is batch."""
+
+    obs: torch.Tensor       # [B, *obs_shape] f32
+    action: torch.Tensor    # [B] int
+    reward: torch.Tensor    # [B] f32
+    next_obs: torch.Tensor  # [B, *obs_shape] f32
+    done: torch.Tensor      # [B] f32 (0/1)
