@@ -8,19 +8,23 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off;
 2. build: compiles the kernel library, prints the seconds;
-3. kernels: each kernel against its plain PyTorch twin on the card, at the
-   main path's shapes, with stated tolerances, and both times;
-4. slice: the small loop on the card against the same loop on the CPU
-   (plain twins) with injected uniforms;
+3. kernels: each kernel (K1-K6) against its plain PyTorch twin on the
+   card, at the main paths' shapes, with stated tolerances, and both times;
+4. slices: the small feed-forward loop and the small DRQN loop on the card
+   against the same loops on the CPU (plain twins) with injected uniforms
+   and draws;
 5. headline loop: the headline configuration (131072 envs, 2^20 replay,
    batch 512, train_freq 4096) through ``build_loop``, env-steps/s;
-6. ungrouped loop: 128 envs, one update per iteration (the K1 path).
+6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
+7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
+   LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s.
 
-The launch counters are zeroed just before phase 5 and read after phase 6:
-every kernel of the path must have launched there. Prints the card's line,
-a JSON line of per-kernel results, and last the line
-``{"ok": true, "device": {...}}``. Any failed phase raises and exits
-non-zero; without a CUDA device it exits non-zero before printing a result.
+Each of the paths 5, 6 and 7 runs with the launch counters zeroed just
+before it and read just after: every kernel of the path must have launched
+there. Prints the card's line, a JSON line of per-kernel results, and last
+the line ``{"ok": true, "device": {...}}``. Any failed phase raises and
+exits non-zero; without a CUDA device it exits non-zero before printing a
+result. About 80 s on an H100, the kernels' build included.
 """
 import json
 import subprocess
@@ -219,6 +223,136 @@ def phase_kernels(torch, dev, results):
     results["fused_collect"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
     _say(f"K4 fused_collect E=131072: ok, actions agree {frac:.6f}, "
          f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    phase_recurrent_kernels(torch, dev, g, results)
+
+
+def phase_recurrent_kernels(torch, dev, g, results):
+    from deepqlearning_tpu_torch import (
+        GRU, LSTM, Chain, Dense, DuelingNetwork, create_dueling_network)
+    from deepqlearning_tpu_torch.envs.gridworld import SimpleGridWorld
+    from deepqlearning_tpu_torch.ops.cuda import (
+        fused_collect as fc, fused_drqn as fd, fused_update as fu)
+
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    uni = lambda *s: torch.rand(*s, generator=g, device=dev)
+
+    # --- K5: B=512, T=8; LSTM(2,32)+Dense(32,4) with double-Q at U=4 and
+    # U=32, and a dueling GRU net with a Dense layer before the cell and
+    # max targets. params/m/v rtol 2e-4 / atol 2e-5, loss rtol 1e-4, gnorm
+    # rtol 1e-3 (the JAX package's fused-vs-XLA tolerances).
+    B, T = 512, 8
+    lstm = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
+    gru = create_dueling_network(Chain(
+        Dense(2, 16, torch.tanh, device=dev), GRU(16, 32, device=dev),
+        Dense(32, 32, torch.tanh, device=dev), Dense(32, 4, device=dev)))
+    err = 0.0
+    timing = None
+    for name, net, double_q, U in (("LSTM32 double-Q", lstm, True, 4),
+                                   ("LSTM32 double-Q", lstm, True, 32),
+                                   ("dueling GRU max", gru, False, 4)):
+        plan = fd.drqn_plan_for(net, T, B, double_q)
+        _check(plan is not None, f"K5 plan {name}")
+        params = net.init(g)
+        n = U * B
+        lens = torch.randint(1, T + 1, (n,), generator=g, device=dev)
+        data = dict(
+            obs=uni(n, T, 2) * 10, nobs=uni(n, T, 2) * 10,
+            action=torch.randint(0, 4, (n, T), generator=g, device=dev),
+            reward=rnd(n, T), done=(uni(n, T) < 0.1).float(),
+            mask=(torch.arange(T, device=dev)[None] < lens[:, None]).float(),
+            q_sp_tgt=rnd(n, T, 4))
+        kw = dict(gamma=0.95, double_q=double_q, lr=1e-3, batch_size=B,
+                  n_updates=U)
+
+        def state():
+            p = {k: v.clone() for k, v in params.items()}
+            z = {k: torch.zeros_like(v) for k, v in params.items()}
+            return (p, z, {k: v.clone() for k, v in z.items()},
+                    torch.zeros((), dtype=torch.int32, device=dev))
+
+        ks, ps = state(), state()
+        kl, kg = fd.fused_drqn_group_update_cuda(plan, *ks, **data, **kw)
+        pl, pg = fd.fused_drqn_group_update_plain(plan, *ps, **data, **kw)
+        for k in plan.names:
+            for i, what in ((0, "param"), (1, "m"), (2, "v")):
+                err = max(err, _close(ks[i][k], ps[i][k], 2e-4, 2e-5,
+                                      f"K5 {name} U={U} {what} {k}"))
+        err = max(err, _close(kl, pl, 1e-4, 0.0, "K5 loss"))
+        err = max(err, _close(kg, pg, 1e-3, 1e-7, "K5 gnorm"))
+        _check(int(ks[3]) == int(ps[3]) == U, "K5 count")
+        if timing is None:
+            timing = (
+                _time_ms(lambda: fd.fused_drqn_group_update_cuda(
+                    plan, *state(), **data, **kw), 20),
+                _time_ms(lambda: fd.fused_drqn_group_update_plain(
+                    plan, *state(), **data, **kw), 3, 1))
+        _say(f"K5 fused_drqn_group_update {name} U={U} B=512 T=8: ok")
+    results["fused_drqn_group_update"] = dict(max_abs_err=err, ms=timing[0],
+                                              plain_ms=timing[1])
+    _say(f"K5 fused_drqn_group_update LSTM32 U=4 B=512 T=8: kernel "
+         f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
+
+    # --- K6: E=16384 GridWorld with LSTM32, with GRU16 + Dense(16,32,
+    # tanh) + Dense(32,4), and with a dueling net on an LSTM16 base, shared
+    # uniforms. Actions equal for >= 99.99% of
+    # envs, a differing env's top-two Q within 1e-5; on agreeing envs the
+    # fields, obs and env state at 1e-6 (the same f32 env math) and the new
+    # h/c at rtol/atol 1e-5 (gate sums in other orders).
+    env = SimpleGridWorld()
+    E = 16384
+    err = 0.0
+    timing = None
+    nets = (("LSTM32", lstm),
+            ("GRU16", Chain(GRU(2, 16, device=dev),
+                            Dense(16, 32, torch.tanh, device=dev),
+                            Dense(32, 4, device=dev))),
+            ("dueling LSTM16", DuelingNetwork(
+                Chain(LSTM(2, 16, device=dev)),
+                Chain(Dense(16, 32, torch.tanh, device=dev),
+                      Dense(32, 1, device=dev)),
+                Chain(Dense(16, 32, torch.tanh, device=dev),
+                      Dense(32, 4, device=dev)))))
+    for name, net in nets:
+        plan = fc.collect_plan_for(env, net, None)
+        _check(plan is not None and plan.cell is not None, f"K6 plan {name}")
+        params = net.init(g)
+        st, obs = env.reset_batch(E, torch.Generator(device=dev).manual_seed(2))
+        st[:, 2] = (uni(E) < 0.05).float()
+        ins = dict(obs=obs, state=st,
+                   ep_step=torch.randint(0, 100, (E,), generator=g,
+                                         device=dev, dtype=torch.int32),
+                   ep_ret=rnd(E), u=uni(6, E), eps=0.3, max_episode_length=100,
+                   nstate=rnd(E, plan.state_width) * 0.5)
+        ko = fc.fused_collect_rnn_cuda(env, plan, params, **ins)
+        po = fc.fused_collect_plain(env, plan, params, **ins)
+        agree = ko[0][:, 4] == po[0][:, 4]
+        frac = agree.float().mean().item()
+        _check(frac >= 0.9999, f"K6 {name} actions agree on only {frac:.6f}")
+        if not bool(agree.all()):
+            H = plan.cell.hidden
+            ns = ins["nstate"][~agree]
+            h, _ = fd.cell_step(plan.cell, params, obs[~agree], ns[:, :H],
+                                ns[:, H:] if plan.cell.kind == "lstm" else None)
+            top2 = fu.q_values(plan.net, params, h)[0].topk(2, dim=1).values
+            _check(bool(((top2[:, 0] - top2[:, 1]) <= 1e-5).all()),
+                   f"K6 {name} differing action without a near tie")
+        for k, p, n, tol in zip(ko, po, ("fields", "obs", "state", "ep_step",
+                                         "ep_ret", "totals", "h/c"),
+                                (1e-6,) * 5 + (None, 1e-5)):
+            if tol is not None:
+                err = max(err, _close(k[agree], p[agree], tol, tol,
+                                      f"K6 {name} {n}"))
+        if timing is None:
+            timing = (_time_ms(lambda: fc.fused_collect_rnn_cuda(
+                          env, plan, params, **ins), 50),
+                      _time_ms(lambda: fc.fused_collect_plain(
+                          env, plan, params, **ins), 20))
+        _say(f"K6 fused_collect (recurrent) {name} E=16384: ok, actions "
+             f"agree {frac:.6f}, max_abs_err {err:.3g}")
+    results["fused_collect_rnn"] = dict(max_abs_err=err, ms=timing[0],
+                                        plain_ms=timing[1])
+    _say(f"K6 fused_collect (recurrent) LSTM32 E=16384: kernel "
+         f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
 
 
 def _small_loop(torch, dev, sample_u, collect_u):
@@ -277,12 +411,127 @@ def phase_slice(torch, dev):
          f"params max_abs_err {err:.3g}, replay actions agree {agree:.4f}")
 
 
+def _small_drqn_loop(torch, dev, collect_u, draws):
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer,
+        LinearDecaySchedule, SimpleGridWorld)
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.models.chain import params_of
+
+    env = SimpleGridWorld()
+    net = Chain(LSTM(2, 8), Dense(8, 4))
+    net.init(torch.Generator().manual_seed(0))  # same weights on both devices
+    net.to(dev)
+    cfg = DQNConfig(num_envs=128, batch_size=16, buffer_size=256,
+                    train_freq=64, trace_length=4, max_episode_length=5,
+                    target_update_freq=256, learning_rate=1e-3,
+                    recurrence=True)
+    buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size, cfg.batch_size,
+                              cfg.trace_length, cfg.max_episode_length,
+                              num_envs=cfg.num_envs, device=dev)
+    it, pop, opt = build_loop(env, net, buf, cfg,
+                              LinearDecaySchedule(1.0, 0.05, 500), 0.95)
+    c = init_carry(env, net, buf, cfg, opt, dev, params=params_of(net))
+    st, obs = env.reset_cols(collect_u[0][:2].to(dev))
+    c = c._replace(actor=c.actor._replace(env_state=st, obs=obs))
+    n_pop = cfg.max_episode_length + 1
+    c = populate(pop, buf, c, n_pop, [u.to(dev) for u in collect_u[:n_pop]])
+    to = lambda d: type(d)(*(x if x is None else x.to(dev) for x in d))
+    for i in range(2):
+        c = it(c, collect_u=[collect_u[n_pop + i].to(dev)],
+               sample_u=[to(draws[i])])
+    return c
+
+
+def phase_drqn_slice(torch, dev):
+    """The small DRQN loop (128 envs, LSTM(2,8), B=16, T=4, U=2) on the card
+    vs on the CPU from the same seed, uniforms and draws: populate and two
+    iterations. Params rtol 1e-3 / atol 1e-4 (the card sums in other
+    orders); the stored episodes exactly on envs whose actions agree."""
+    from deepqlearning_tpu_torch import EpisodeDraws
+
+    rng = np.random.default_rng(1)
+    collect_u = [torch.from_numpy(rng.random((6, 128), np.float32))
+                 for _ in range(8)]
+    draws = [EpisodeDraws(
+        env_u=torch.from_numpy(rng.random(32, np.float32)),
+        rec=torch.from_numpy(rng.integers(0, 1 << 30, 32)),
+        start=torch.from_numpy(rng.integers(0, 1 << 30, 32)))
+        for _ in range(2)]
+    cg = _small_drqn_loop(torch, dev, collect_u, draws)
+    torch.cuda.synchronize()
+    cc = _small_drqn_loop(torch, torch.device("cpu"), collect_u, draws)
+    err = 0.0
+    for k in cc.params:
+        err = max(err, _close(cg.params[k], cc.params[k], 1e-3, 1e-4,
+                              f"drqn slice {k}"))
+    _close(cg.loss, cc.loss, 1e-3, 1e-5, "drqn slice loss")
+    rg, rc = cg.replay, cc.replay
+    _check(rg.t == rc.t == 8, "drqn slice steps")
+    data_g = rg.data.cpu()
+    agree = (data_g[..., 4] == rc.data[..., 4]).all(dim=0)   # per env
+    frac = agree.float().mean().item()
+    _check(frac >= 0.99, f"drqn slice actions agree on only {frac}")
+    _check(torch.equal(data_g[:, agree], rc.data[:, agree]),
+           "drqn slice episode rows differ on agreeing envs")
+    for name in ("ep_start", "ep_len", "rec_count"):
+        _check(torch.equal(getattr(rg, name).cpu()[agree],
+                           getattr(rc, name)[agree]),
+               f"drqn slice {name} differs on agreeing envs")
+    _say(f"DRQN slice GPU vs CPU (128 envs, LSTM(2,8), B=16, T=4, U=2, "
+         f"2 iterations): ok, params max_abs_err {err:.3g}, envs agree "
+         f"{frac:.4f}")
+
+
+def _drqn_loop(torch, dev, num_envs, n_iters):
+    """``scripts/drqn_bench.py``'s configuration through ``build_loop``."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer,
+        LinearDecaySchedule, SimpleGridWorld)
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
+
+    env = SimpleGridWorld()
+    net = Chain(LSTM(2, 32, device=dev), Dense(32, env.num_actions,
+                                               device=dev))
+    cfg = DQNConfig(num_envs=num_envs, batch_size=512, buffer_size=4096,
+                    train_freq=4096, trace_length=8, max_episode_length=100,
+                    recurrence=True, double_q=True)
+    buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size, cfg.batch_size,
+                              cfg.trace_length, cfg.max_episode_length,
+                              num_envs=num_envs, device=dev)
+    it, pop, opt = build_loop(env, net, buf, cfg,
+                              LinearDecaySchedule(1.0, 0.01, 100_000),
+                              gamma=env.discount)
+    c = init_carry(env, net, buf, cfg, opt, dev)
+    # every env commits an episode before the first sample
+    c = populate(pop, buf, c, cfg.max_episode_length + 1)
+    for _ in range(3):  # warm-up
+        c = it(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        c = it(c)
+    loss = float(c.loss)  # device -> host read ends the timed region
+    dt = time.perf_counter() - t0
+    _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
+    _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
+           "params finite")
+    _check(int(c.replay.rec_count.min()) > 0 and int(c.actor.ep_count) > 0,
+           "loop progress")
+    _check(all(bool(torch.isfinite(s).all()) for s in c.actor.net_state[0]),
+           "LSTM state finite")
+    return cfg, n_iters * cfg.env_steps_per_iter / dt, loss
+
+
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
           n_iters, n_pop):
     from deepqlearning_tpu_torch import (
         Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
         PrioritizedReplayBuffer, SimpleGridWorld, create_dueling_network)
-    from deepqlearning_tpu_torch.learner.loop import build_loop, init_carry
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
 
     env = SimpleGridWorld()
     net = create_dueling_network(Chain(
@@ -300,11 +549,7 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
     it, pop, opt = build_loop(env, net, buf, cfg,
                               LinearDecaySchedule(1.0, 0.01, 100_000),
                               gamma=env.discount)
-    c = init_carry(env, net, buf, cfg, opt, dev)
-    cc = (c.actor, c.replay, c.params)
-    for _ in range(n_pop):
-        cc = pop(cc, c.generator)
-    c = c._replace(actor=cc[0], replay=cc[1])
+    c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), n_pop)
     c = it(c)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -330,8 +575,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from deepqlearning_tpu_torch.ops.cuda import (
-        build, fused_collect as fc, fused_update as fu, td_kernel as tk,
-        tree_sample as ts)
+        build, fused_collect as fc, fused_drqn as fd, fused_update as fu,
+        td_kernel as tk, tree_sample as ts)
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -354,28 +599,47 @@ def main():
     results = {}
     phase_kernels(torch, dev, results)
 
-    # 4. the small slice on the card vs the CPU
+    # 4. the small slices on the card vs the CPU
     phase_slice(torch, dev)
+    phase_drqn_slice(torch, dev)
 
-    # 5. + 6. the main path, counters from zero
+    # 5. - 7. the main paths, each with the counters from zero
     wrappers = {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
                 "fused_group_update": fu.fused_group_update_cuda,
-                "fused_collect": fc.fused_collect_cuda}
-    for w in wrappers.values():
-        w.launches = 0
-    cfg, sps, loss = _loop(torch, dev, 131072, 1 << 20, 512, 4096, 20, 2)
-    head = {k: w.launches for k, w in wrappers.items()}
-    for k in ("tree_sample", "fused_group_update", "fused_collect"):
-        _check(head[k] > 0, f"headline loop did not launch {k}")
+                "fused_collect": fc.fused_collect_cuda,
+                "fused_drqn_group_update": fd.fused_drqn_group_update_cuda,
+                "fused_collect_rnn": fc.fused_collect_rnn_cuda}
+    launches = dict.fromkeys(wrappers, 0)
+
+    def run_path(name, fn, kernels):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k in kernels:
+            _check(counts[k] > 0, f"{name} did not launch {k}")
+        for k in wrappers:
+            launches[k] += counts[k]
+        return out, counts
+
+    (cfg, sps, loss), head = run_path(
+        "headline loop",
+        lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 20, 2),
+        ("tree_sample", "fused_group_update", "fused_collect"))
     _say(f"headline loop: 131072 envs, 2^20 replay, batch 512, U="
          f"{cfg.updates_per_iter}: {sps:.1f} env-steps/s, loss {loss:.5g} "
          f"| {card} | launches {head}")
-    cfg, sps2, loss2 = _loop(torch, dev, 128, 4096, 32, 128, 20, 4)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    for k in ("td_loss", "tree_sample", "fused_collect"):
-        _check(launches[k] > head[k], f"ungrouped loop did not launch {k}")
+    (cfg, sps2, loss2), _ = run_path(
+        "ungrouped loop", lambda: _loop(torch, dev, 128, 4096, 32, 128, 20, 4),
+        ("td_loss", "tree_sample", "fused_collect"))
     _say(f"ungrouped loop: 128 envs, batch 32, U={cfg.updates_per_iter}: "
          f"{sps2:.1f} env-steps/s, loss {loss2:.5g} | {card}")
+    (cfg, sps3, loss3), rec = run_path(
+        "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
+        ("fused_drqn_group_update", "fused_collect_rnn"))
+    _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
+         f"512, trace 8, U={cfg.updates_per_iter}: {sps3:.1f} env-steps/s, "
+         f"loss {loss3:.5g} | {card} | launches {rec}")
 
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
@@ -387,6 +651,12 @@ def main():
             "deepqlearning_tpu/ops/pallas/fused_update.py:421"),
         "fused_collect": ("deepqlearning_tpu_torch/csrc/fused_collect.cu",
                           "deepqlearning_tpu/ops/pallas/fused_collect.py:434"),
+        "fused_drqn_group_update": (
+            "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
+            "deepqlearning_tpu/ops/pallas/fused_drqn.py:662"),
+        "fused_collect_rnn": (
+            "deepqlearning_tpu_torch/csrc/fused_collect.cu",
+            "deepqlearning_tpu/ops/pallas/fused_collect.py:434"),
     }
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k], **results[k])

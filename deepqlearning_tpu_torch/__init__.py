@@ -1,6 +1,7 @@
 """deepqlearning_tpu_torch — the PyTorch + CUDA port of deepqlearning_tpu.
 
 The feed-forward, prioritized-replay, dueling double-DQN actor-learner loop
+and the recurrent (DRQN) loop over episode replay
 (``learner/loop.py::build_loop``) on one NVIDIA Hopper GPU, with the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels
 (``csrc/``, bound in ``ops/cuda/``). Module paths and public names mirror
@@ -10,10 +11,13 @@ package's Pallas kernels rewritten as hand-written CUDA kernels
 from .config import DQNConfig
 from .envs.base import Env
 from .envs.gridworld import SimpleGridWorld
-from .learner.loop import LoopCarry, build_loop, init_carry
-from .models.chain import Activation, Chain, Dense, Flatten, isrecurrent
+from .learner.loop import LoopCarry, build_loop, init_carry, populate
+from .models.chain import (
+    GRU, LSTM, Activation, Chain, Dense, Flatten, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
 from .ops.helpers import flattenbatch, globalnorm, huber_loss
+from .replay.episode import (
+    EpisodeBatch, EpisodeDraws, EpisodeReplayBuffer, EpisodeReplayState)
 from .replay.prioritized import PrioritizedReplayBuffer, ReplayBuffer, ReplayState
 from .replay.transition import DQExperience, TransitionBatch
 from .solver.exploration import (
@@ -24,7 +28,9 @@ from .solver.exploration import (
 
 __all__ = [
     "DQNConfig", "Env", "SimpleGridWorld", "LoopCarry", "build_loop",
-    "init_carry", "Activation", "Chain", "Dense", "Flatten", "isrecurrent",
+    "init_carry", "populate", "Activation", "Chain", "Dense", "Flatten",
+    "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
+    "EpisodeReplayBuffer", "EpisodeReplayState",
     "DuelingNetwork", "create_dueling_network", "flattenbatch", "globalnorm",
     "huber_loss", "PrioritizedReplayBuffer", "ReplayBuffer", "ReplayState",
     "DQExperience", "TransitionBatch", "ConstantEpsilon",

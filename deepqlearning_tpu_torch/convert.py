@@ -2,8 +2,8 @@
 
 The JAX package keeps a network's parameters as a pytree (a ``Chain`` is a
 tuple with one dict per layer, ``{"w": [din, dout], "b": [dout]}`` for
-Dense and ``{}`` otherwise; a ``DuelingNetwork`` is ``{"base", "val",
-"adv"}``). The port keeps the same arrays in a dict keyed like
+Dense, ``{"wi", "wh", "b"}`` for LSTM/GRU and ``{}`` otherwise; a
+``DuelingNetwork`` is ``{"base", "val", "adv"}``). The port keeps the same arrays in a dict keyed like
 ``named_parameters()``, in the same ``w [din, dout]`` layout, so the map is
 1:1 with no transpose. The helpers take numpy copies of JAX state, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``; this module imports no JAX.
@@ -17,9 +17,12 @@ import torch
 
 from .learner.actor import ActorState
 from .learner.train_step import AdamState
-from .models.chain import Chain, Dense, params_of
+from .models.chain import GRU, LSTM, Chain, Dense, params_of
 from .models.dueling import DuelingNetwork
+from .replay.episode import EpisodeReplayState
 from .replay.prioritized import ReplayState
+
+_CELL_KEYS = ("wi", "wh", "b")
 
 
 def _walk(module, tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -35,6 +38,9 @@ def _walk(module, tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
         yield prefix + "w", tree["w"]
         if module.use_bias:
             yield prefix + "b", tree["b"]
+    elif isinstance(module, (LSTM, GRU)):
+        for k in _CELL_KEYS:
+            yield prefix + k, tree[k]
 
 
 def _as_dict(network, tree, device) -> Dict[str, torch.Tensor]:
@@ -70,6 +76,9 @@ def params_to_numpy(network, params: Dict[str, torch.Tensor]):
             if module.use_bias:
                 out["b"] = params[prefix + "b"].detach().cpu().numpy()
             return out
+        if isinstance(module, (LSTM, GRU)):
+            return {k: params[prefix + k].detach().cpu().numpy()
+                    for k in _CELL_KEYS}
         return {}
 
     return build(network)
@@ -92,15 +101,32 @@ def gridworld_state_from_numpy(pos, terminal, device=None) -> torch.Tensor:
     return torch.tensor(np.concatenate([pos, term], axis=1), device=device)
 
 
+def net_state_from_numpy(tree, device=None):
+    """A network state (nested tuples of numpy arrays, one entry per layer)
+    as the same tuples of f32 tensors; ``()`` when it holds no array (a
+    feed-forward network's state, as the port's actor keeps it)."""
+    def build(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(build(y) for y in x)
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    def has_leaf(x):
+        return (any(has_leaf(y) for y in x) if isinstance(x, (tuple, list))
+                else True)
+
+    return build(tree) if has_leaf(tree) else ()
+
+
 def actor_from_numpy(actor, device=None) -> ActorState:
     """The port's ``ActorState`` from a JAX ``ActorState`` whose leaves were
-    copied to numpy (SimpleGridWorld env state)."""
+    copied to numpy (SimpleGridWorld env state, any network state)."""
     t = lambda x, dt=torch.float32: torch.tensor(np.asarray(x),
                                                  device=device).to(dt)
     return ActorState(
         env_state=gridworld_state_from_numpy(actor.env_state.pos,
                                              actor.env_state.terminal, device),
-        obs=t(actor.obs), net_state=(),
+        obs=t(actor.obs), net_state=net_state_from_numpy(actor.net_state,
+                                                         device),
         ep_step=t(actor.ep_step, torch.int32), ep_ret=t(actor.ep_ret),
         ret_ring=t(actor.ret_ring), ep_count=t(actor.ep_count, torch.int32),
         step_ring=t(actor.step_ring), cnt_ring=t(actor.cnt_ring),
@@ -115,3 +141,18 @@ def replay_from_numpy(rows, tree, insert_pos, size, device=None
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
     return ReplayState(rows=t(rows), tree=tuple(t(l) for l in tree),
                        insert_pos=int(insert_pos), size=int(size))
+
+
+def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
+    """The port's ``EpisodeReplayState`` from a JAX ``EpisodeReplayState``'s
+    numpy copies (f32 ring). The JAX ring ``[R+T-1, E/G, G·F]`` groups G
+    envs per row; the port's ``[R+T-1, E, F]`` is the same memory."""
+    i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32,
+                                 device=device)
+    data = np.asarray(state.data, np.float32)
+    E = np.asarray(state.rec_count).shape[0]
+    return EpisodeReplayState(
+        data=torch.tensor(data.reshape(data.shape[0], E, -1), device=device),
+        ep_start=i32(state.ep_start), ep_len=i32(state.ep_len),
+        rec_count=i32(state.rec_count), cur_len=i32(state.cur_len),
+        t=int(state.t))

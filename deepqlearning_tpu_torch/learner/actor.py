@@ -5,7 +5,9 @@ A collect step is ``step((actor, replay, params), generator=None, u=None)
 -> (actor, replay, params)``: ε-greedy act → env step → replay insert →
 episode bookkeeping, for all E envs at once. Episode-completion aggregates
 go into small rings for the recent-average log metric. The rings, the
-episode counter and the replay are updated IN PLACE.
+episode counter and the replay are updated IN PLACE. A recurrent network's
+state (``net_state``, one entry per layer as ``init_state`` gives it) is
+carried from step to step and zeroed where an episode ended.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ T_MAX = 1 << 30  # saturation of the aggregate step counter
 class ActorState(NamedTuple):
     env_state: torch.Tensor  # env's batched state, e.g. [E, 3]
     obs: torch.Tensor        # [E, *obs_shape]
-    net_state: tuple         # () for feed-forward networks
+    net_state: tuple         # network.init_state(E); () if feed-forward
     ep_step: torch.Tensor    # [E] int32 — steps in the current episode
     ep_ret: torch.Tensor     # [E] f32 — return of the current episode
     ret_ring: torch.Tensor   # [RETURN_RING] f32 — per-step ended returns
@@ -40,7 +42,9 @@ def init_actor(env, network, num_envs: int, generator: torch.Generator,
     env_state, obs = env.reset_batch(num_envs, generator)
     f32 = dict(dtype=torch.float32, device=device)
     return ActorState(
-        env_state=env_state, obs=obs, net_state=(),
+        env_state=env_state, obs=obs,
+        net_state=(network.init_state(num_envs, device)
+                   if network.recurrent else ()),
         ep_step=torch.zeros(num_envs, dtype=torch.int32, device=device),
         ep_ret=torch.zeros(num_envs, **f32),
         ret_ring=torch.zeros(RETURN_RING, **f32),
@@ -51,7 +55,15 @@ def init_actor(env, network, num_envs: int, generator: torch.Generator,
     )
 
 
-def _advance(actor: ActorState, env_state, obs, ep_step, ep_ret, totals):
+def zero_ended(net_state, ended: torch.Tensor):
+    """The network state with every stream whose episode ended set to 0."""
+    if isinstance(net_state, tuple):
+        return tuple(zero_ended(s, ended) for s in net_state)
+    return torch.where(ended[:, None], 0.0, net_state)
+
+
+def _advance(actor: ActorState, env_state, obs, ep_step, ep_ret, totals,
+             net_state=()):
     """Write this step's completion aggregates into the rings (in place)
     and advance the counters."""
     actor.ret_ring[actor.tick] = totals[0]
@@ -59,8 +71,8 @@ def _advance(actor: ActorState, env_state, obs, ep_step, ep_ret, totals):
     actor.cnt_ring[actor.tick] = totals[2]
     actor.ep_count.add_(totals[2].to(torch.int32))
     return actor._replace(
-        env_state=env_state, obs=obs, ep_step=ep_step, ep_ret=ep_ret,
-        tick=(actor.tick + 1) % RETURN_RING,
+        env_state=env_state, obs=obs, net_state=net_state, ep_step=ep_step,
+        ep_ret=ep_ret, tick=(actor.tick + 1) % RETURN_RING,
         t=min(actor.t + obs.shape[0], T_MAX),
     )
 
@@ -83,7 +95,7 @@ def make_collect_step(env, network, max_episode_length: int, eps_fn,
                              "fused collect step")
         actor, replay, params = carry
         with torch.no_grad():
-            q, _ = network.apply(params, actor.obs)
+            q, net_state = network.apply(params, actor.obs, actor.net_state)
         action, _eps = select_fn(q, actor.t, generator)
         env_state, next_obs, reward, done = env.step_batch(
             actor.env_state, action, generator)
@@ -103,7 +115,8 @@ def make_collect_step(env, network, max_episode_length: int, eps_fn,
         actor = _advance(
             actor, env_state, obs,
             torch.where(ended, 0, ep_step).to(torch.int32),
-            torch.where(ended, 0.0, ep_ret), totals)
+            torch.where(ended, 0.0, ep_ret), totals,
+            zero_ended(net_state, ended))
         return actor, replay, params
 
     return step
@@ -117,12 +130,15 @@ def avg_recent(ret_ring: torch.Tensor, cnt_ring: torch.Tensor):
 
 def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
                             insert_fn, plan):
-    """Collect step through kernel K4 (``ops/cuda/fused_collect.py``); same
-    step contract. ``u [6, E]`` injects the uniforms; otherwise they are
-    drawn with ``torch.rand`` from ``generator`` on the envs' device."""
+    """Collect step through kernel K4, or K6 for a recurrent plan
+    (``ops/cuda/fused_collect.py``); same step contract. ``u [6, E]``
+    injects the uniforms; otherwise they are drawn with ``torch.rand`` from
+    ``generator`` on the envs' device. The cell's state entry of
+    ``net_state`` goes through the kernel as one ``[E, S]`` block."""
     from ..ops.cuda.fused_collect import N_UNIFORMS, fused_collect
 
     no = plan.no
+    cell = plan.cell
 
     def step(carry, generator=None, u=None):
         actor, replay, params = carry
@@ -130,10 +146,20 @@ def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
         if u is None:
             u = torch.rand(N_UNIFORMS, E, generator=generator,
                            device=actor.obs.device)
-        fields, obs_n, state_n, ep_step_n, ep_ret_n, totals = fused_collect(
-            env, plan, params, obs=actor.obs, state=actor.env_state,
-            ep_step=actor.ep_step, ep_ret=actor.ep_ret, u=u,
-            eps=eps_fn(actor.t), max_episode_length=max_episode_length)
+        net_state = actor.net_state
+        kw = {}
+        if cell is not None:
+            kw["nstate"] = torch.cat(net_state[cell.layer_idx], dim=1)
+        fields, obs_n, state_n, ep_step_n, ep_ret_n, totals, *rest = \
+            fused_collect(
+                env, plan, params, obs=actor.obs, state=actor.env_state,
+                ep_step=actor.ep_step, ep_ret=actor.ep_ret, u=u,
+                eps=eps_fn(actor.t), max_episode_length=max_episode_length,
+                **kw)
+        if cell is not None:
+            entry = tuple(rest[0].split(cell.hidden, dim=1))
+            net_state = tuple(entry if i == cell.layer_idx else s
+                              for i, s in enumerate(net_state))
         obs_shape = tuple(actor.obs.shape[1:])
         transition = TransitionBatch(
             obs=fields[:, :no].reshape((E,) + obs_shape),
@@ -144,7 +170,7 @@ def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
         )
         replay = insert_fn(replay, transition, fields[:, 2 * no + 3] > 0.5)
         actor = _advance(actor, state_n, obs_n.reshape((E,) + obs_shape),
-                         ep_step_n, ep_ret_n, totals)
+                         ep_step_n, ep_ret_n, totals, net_state)
         return actor, replay, params
 
     return step

@@ -11,16 +11,23 @@ Routing, feed-forward networks:
   ``fused_updates=True`` on an unsupported network raises.
 * ungrouped: ``make_dqn_train_step``, its loss head kernel K1 unless
   ``fused_updates=False``.
-* collect: kernel K4 when ``collect_plan_for`` supports env, network and
-  buffer and no custom ``select_fn`` is given (``fused_collect`` None or
-  True), else the plain keyed step; ``fused_collect=True`` that cannot be
-  honoured raises.
+Recurrent networks (``cfg.recurrence``, an ``EpisodeReplayBuffer``):
+* kernel K5 whenever ``drqn_plan_for`` supports the network and
+  ``fused_updates`` is not False, with U = ``updates_per_iter`` sub-updates
+  per call when grouped, else U = 1 per call; otherwise the plain grouped
+  or ungrouped DRQN step. ``fused_updates=True`` that cannot be honoured
+  raises.
+Collect: kernel K4 (K6 for a recurrent network) when ``collect_plan_for``
+supports env, network and buffer and no custom ``select_fn`` is given
+(``fused_collect`` None or True), else the plain keyed step;
+``fused_collect=True`` that cannot be honoured raises.
 The kernel wrappers run the CUDA kernels for CUDA tensors and their plain
 twins for CPU tensors; nothing here moves work between devices.
 
 The random state is one ``torch.Generator`` on the loop's device, in the
 carry. Every draw can be replaced by injected uniforms: ``iteration(carry,
-collect_u=[u [6, E] per collect step], sample_u=[u [U·B] per train call])``.
+collect_u=[u [6, E] per collect step], sample_u=[per train call: u [U·B]
+for PER, an ``EpisodeDraws`` for episode replay])``.
 """
 from __future__ import annotations
 
@@ -32,8 +39,11 @@ from ..config import DQNConfig
 from .actor import ActorState, init_actor, make_collect_step
 from .train_step import (
     make_dqn_train_step,
+    make_drqn_train_step,
+    make_fused_grouped_drqn_train_step,
     make_fused_grouped_train_step,
     make_grouped_dqn_train_step,
+    make_grouped_drqn_train_step,
     sync_target,
 )
 
@@ -61,35 +71,52 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
     if axis_name is not None:
         raise NotImplementedError(
             "data-parallel training (axis_name) is not ported yet")
-    if cfg.recurrence:
-        raise NotImplementedError("the recurrent (DRQN) path is not ported yet")
     if cfg.dtype != torch.float32:
         raise NotImplementedError(f"dtype {cfg.dtype}: only float32 so far")
     grouped = cfg.grouped_updates and cfg.updates_per_iter > 1
     kernels = cfg.fused_updates is not False
+    U = cfg.updates_per_iter if grouped else 1
 
     fused = False
-    if grouped and kernels:
-        from ..ops.cuda.fused_update import plan_for
+    if kernels and (grouped or cfg.recurrence):
+        if cfg.recurrence:
+            from ..ops.cuda.fused_drqn import drqn_plan_for as gate
 
-        fused = plan_for(network) is not None
+            fused = gate(network, buffer.trace_length, buffer.batch_size,
+                         cfg.double_q) is not None
+        else:
+            from ..ops.cuda.fused_update import plan_for as gate
+
+            fused = gate(network) is not None
         if cfg.fused_updates is True and not fused:
             raise ValueError(
                 "fused_updates=True cannot be honoured: the network is not "
-                "supported by the fused update kernel (see plan_for)")
-    if fused:
-        train_step, optimizer = make_fused_grouped_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter)
-    elif grouped:
-        train_step, optimizer = make_grouped_dqn_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            cfg.updates_per_iter)
+                f"supported by the fused update kernel (see {gate.__name__})")
+    args = (network, buffer, gamma, cfg.double_q, cfg.learning_rate)
+    if cfg.recurrence:
+        if not network.recurrent:
+            raise ValueError("recurrence=True needs a recurrent network")
+        if fused:
+            train_step, optimizer = make_fused_grouped_drqn_train_step(
+                *args, U)
+        elif grouped:
+            train_step, optimizer = make_grouped_drqn_train_step(*args, U)
+        else:
+            train_step, optimizer = make_drqn_train_step(*args)
+        insert_fn = buffer.add_step
     else:
-        train_step, optimizer = make_dqn_train_step(
-            network, buffer, gamma, cfg.double_q, cfg.learning_rate,
-            use_kernel=kernels)
-    insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
+        if network.recurrent:
+            raise ValueError(
+                "DeepQLearningError: a recurrent network needs "
+                "recurrence=True")
+        if fused:
+            train_step, optimizer = make_fused_grouped_train_step(*args, U)
+        elif grouped:
+            train_step, optimizer = make_grouped_dqn_train_step(*args, U)
+        else:
+            train_step, optimizer = make_dqn_train_step(
+                *args, use_kernel=kernels)
+        insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
 
     cplan = None
     if cfg.fused_collect is not False:
@@ -101,7 +128,8 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
             raise ValueError(
                 "fused_collect=True cannot be honoured: the collect kernel "
                 "needs the default ε-greedy strategy (no select_fn), a "
-                "SimpleGridWorld env, a supported network and f32 replay")
+                "SimpleGridWorld env, a supported network (see "
+                "collect_plan_for) and f32 replay")
     if cplan is not None:
         from .actor import make_fused_collect_step
 
@@ -117,7 +145,7 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
         populate_step = make_collect_step(
             env, network, cfg.max_episode_length, lambda t: 1.0, insert_fn)
     tuf = cfg.target_update_freq
-    n_calls = 1 if grouped else cfg.updates_per_iter
+    n_calls = cfg.updates_per_iter // U
 
     def iteration(carry: LoopCarry,
                   collect_u: Optional[Sequence[torch.Tensor]] = None,
@@ -146,6 +174,23 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
                          gen, loss, gnorm, sync_acc)
 
     return iteration, populate_step, optimizer
+
+
+def populate(populate_step, buffer, carry: LoopCarry, n_steps: int,
+             collect_u: Optional[Sequence[torch.Tensor]] = None) -> LoopCarry:
+    """Pre-fill the replay with ``n_steps`` ε=1 collect steps. An episode
+    buffer then drops its open episodes (``reset_in_progress``), so that the
+    training actor's episodes start fresh; for the recurrent path pass
+    ``n_steps = max_episode_length + 1``, so every env has committed an
+    episode before the first sample."""
+    cc = (carry.actor, carry.replay, carry.params)
+    for i in range(n_steps):
+        cc = populate_step(cc, carry.generator,
+                           None if collect_u is None else collect_u[i])
+    replay = cc[1]
+    if hasattr(buffer, "reset_in_progress"):
+        replay = buffer.reset_in_progress(replay)
+    return carry._replace(actor=cc[0], replay=replay)
 
 
 def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,

@@ -1,7 +1,10 @@
-"""Feed-forward DQN train steps (``deepqlearning_tpu.learner.train_step``).
+"""DQN and DRQN train steps (``deepqlearning_tpu.learner.train_step``).
 
 sample → Bellman targets (double-Q or max, outside the gradient) →
-importance-weighted Huber loss → gradient → Adam → priority update.
+importance-weighted Huber loss → gradient → Adam → priority update. The
+recurrent (DRQN) steps draw trace windows from the episode replay, take
+their targets from zero-state unrolls of the online and target nets over
+s', and minimise the masked, time-summed Huber loss / (B·T); no priorities.
 
 State is updated IN PLACE: parameters, Adam moments and the Adam count by
 the optimizer (or kernel K3), replay tree levels by the priority update.
@@ -17,6 +20,10 @@ Paths:
   the ``fused_updates=False`` path).
 * ``make_fused_grouped_train_step``: the same U updates through kernel K3
   (``ops/cuda/fused_update.py``).
+* ``make_drqn_train_step`` / ``make_grouped_drqn_train_step``: one / U
+  recurrent updates per call, plain torch with autograd.
+* ``make_fused_grouped_drqn_train_step``: U recurrent updates through
+  kernel K5 (``ops/cuda/fused_drqn.py``), U >= 1.
 """
 from __future__ import annotations
 
@@ -228,6 +235,130 @@ def make_fused_grouped_train_step(network, buffer, gamma: float,
                 eps=buffer.eps, batch_size=B, n_updates=U)
         replay_state = buffer.update_priorities(
             replay_state, idx, tds.reshape(-1), priorities=prios.reshape(-1))
+        return TrainResult(params, opt_state, replay_state, loss, gnorm)
+
+    return step, optimizer
+
+
+def _time_major(x):
+    return x.transpose(0, 1)
+
+
+def _drqn_targets(network, params, target_params, nobs_t, r_t, d_t, gamma,
+                  double_q):
+    """``r + (1-done)·γ·Q_target(s', a*)`` over time-major ``[T, B]`` from
+    zero-state unrolls over s' of the target and (double-Q) online nets."""
+    with torch.no_grad():
+        init = network.init_state(nobs_t.shape[1], nobs_t.device)
+        q_tgt, _ = network.apply_sequence(target_params, nobs_t, init)
+        if double_q:
+            q_onl, _ = network.apply_sequence(params, nobs_t, init)
+            best = torch.argmax(q_onl, dim=-1)
+            q_sp_max = torch.gather(q_tgt, -1, best[..., None])[..., 0]
+        else:
+            q_sp_max = q_tgt.max(dim=-1).values
+        return r_t + (1.0 - d_t) * gamma * q_sp_max
+
+
+def _make_drqn_update(network, gamma, double_q, optimizer):
+    """One EpisodeBatch → grads (autograd) → Adam, in place. Returns
+    ``update(params, target_params, opt_state, batch) -> (loss, grad_norm)``."""
+
+    def update(params, target_params, opt_state, batch):
+        B, T = batch.action.shape
+        obs_t, nobs_t = _time_major(batch.obs), _time_major(batch.next_obs)
+        a_t, r_t, d_t, m_t = (_time_major(x) for x in (
+            batch.action, batch.reward, batch.done, batch.mask))
+        q_targets = _drqn_targets(network, params, target_params, nobs_t,
+                                  r_t, d_t, gamma, double_q)
+        p = {k: t.detach().requires_grad_() for k, t in params.items()}
+        q_seq, _ = network.apply_sequence(
+            p, obs_t, network.init_state(B, obs_t.device))     # [T, B, A]
+        q_sa = torch.gather(q_seq, -1, a_t.long()[..., None])[..., 0]
+        loss = huber_loss(m_t * (q_sa - q_targets)).sum() / B / T
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        grad_norm = globalnorm(grads)
+        optimizer.update(grads, opt_state, params)
+        return loss.detach(), grad_norm
+
+    return update
+
+
+def make_drqn_train_step(network, buffer, gamma: float, double_q: bool,
+                         learning_rate: float,
+                         axis_name: Optional[str] = None):
+    """One recurrent update per call: ``step(params, target_params,
+    opt_state, replay_state, u=None, generator=None) -> TrainResult``, with
+    ``u`` the sample's injected ``EpisodeDraws``."""
+    _no_axis(axis_name)
+    optimizer = make_optimizer(learning_rate)
+    update = _make_drqn_update(network, gamma, double_q, optimizer)
+
+    def step(params, target_params, opt_state, replay_state, u=None,
+             generator=None):
+        batch = buffer.sample(replay_state, draws=u, generator=generator)
+        loss, grad_norm = update(params, target_params, opt_state, batch)
+        return TrainResult(params, opt_state, replay_state, loss, grad_norm)
+
+    return step, optimizer
+
+
+def make_grouped_drqn_train_step(network, buffer, gamma: float,
+                                 double_q: bool, learning_rate: float,
+                                 n_updates: int,
+                                 axis_name: Optional[str] = None):
+    """``n_updates`` sequential recurrent updates on one u-major draw of
+    ``n_updates · B`` windows (sub-batch u is rows ``[u·B, (u+1)·B)``):
+    exactly U ungrouped calls on pre-drawn batches (uniform sampling, no
+    priorities)."""
+    _no_axis(axis_name)
+    optimizer = make_optimizer(learning_rate)
+    B, U = buffer.batch_size, int(n_updates)
+    update = _make_drqn_update(network, gamma, double_q, optimizer)
+
+    def step(params, target_params, opt_state, replay_state, u=None,
+             generator=None):
+        batch = buffer.sample_n(replay_state, U, draws=u,
+                                generator=generator)
+        loss = grad_norm = None
+        for k in range(U):
+            sub = type(batch)(*(x[k * B:(k + 1) * B] for x in batch))
+            loss, grad_norm = update(params, target_params, opt_state, sub)
+        return TrainResult(params, opt_state, replay_state, loss, grad_norm)
+
+    return step, optimizer
+
+
+def make_fused_grouped_drqn_train_step(network, buffer, gamma: float,
+                                       double_q: bool, learning_rate: float,
+                                       n_updates: int):
+    """The grouped recurrent step with the online unrolls, the masked loss,
+    BPTT and Adam of all U sub-updates in kernel K5. The target net's Q(s')
+    (one zero-state unroll over all U·B windows; the target net is frozen
+    within the step) stays outside the kernel, as plain torch."""
+    from ..ops.cuda.fused_drqn import drqn_plan_for, fused_drqn_group_update
+
+    B, T, U = buffer.batch_size, buffer.trace_length, int(n_updates)
+    plan = drqn_plan_for(network, T, B, double_q)
+    if plan is None:
+        raise ValueError("network not supported by the fused DRQN kernel")
+    optimizer = make_optimizer(learning_rate)
+
+    def step(params, target_params, opt_state, replay_state, u=None,
+             generator=None):
+        batch = buffer.sample_n(replay_state, U, draws=u,
+                                generator=generator)
+        with torch.no_grad():
+            nobs_t = _time_major(batch.next_obs)
+            q_tgt, _ = network.apply_sequence(
+                target_params, nobs_t,
+                network.init_state(U * B, nobs_t.device))   # [T, U·B, A]
+            loss, gnorm = fused_drqn_group_update(
+                plan, params, opt_state.m, opt_state.v, opt_state.count,
+                batch.obs, batch.next_obs, batch.action, batch.reward,
+                batch.done, batch.mask, _time_major(q_tgt), gamma=gamma,
+                double_q=double_q, lr=learning_rate, batch_size=B,
+                n_updates=U)
         return TrainResult(params, opt_state, replay_state, loss, gnorm)
 
     return step, optimizer

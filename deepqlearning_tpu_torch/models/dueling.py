@@ -3,7 +3,7 @@
 Counterpart of ``deepqlearning_tpu.models.dueling``: the trailing run of
 Dense layers becomes the advantage head, a copy of it with the last layer
 replaced by ``Dense(n, 1)`` the value head, and everything before the
-shared base.
+shared base. A recurrent base (e.g. an LSTM) carries the network's state.
 """
 from __future__ import annotations
 
@@ -17,11 +17,23 @@ class DuelingNetwork(_Functional):
         super().__init__()
         self.base, self.val, self.adv = base, val, adv
 
-    def forward(self, x):
-        x = self.base(x)
+    def forward(self, x, state=None, sequence: bool = False):
+        new_state = ()
+        if state is None:
+            x = self.base(x)
+        else:
+            x, new_state = self.base(x, state, sequence)
         v = self.val(x)
         a = self.adv(x)
-        return v + a - a.mean(dim=-1, keepdim=True)
+        q = v + a - a.mean(dim=-1, keepdim=True)
+        return q if state is None else (q, new_state)
+
+    def init_state(self, batch_size: int, device=None) -> tuple:
+        return self.base.init_state(batch_size, device)
+
+    @property
+    def recurrent(self) -> bool:
+        return self.base.recurrent
 
     @property
     def out_dim(self):

@@ -28,6 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 MAXL = 16  # DQ_MAXL of csrc/common.cuh
+DR_MAXL = 16  # DR_MAXL of csrc/fused_drqn.cu
+DR_MAXT = 2 * DR_MAXL + 3
 
 
 class NetDesc(ctypes.Structure):
@@ -42,6 +44,24 @@ class NetDesc(ctypes.Structure):
         ("act", ctypes.c_int * MAXL), ("off_w", ctypes.c_int * MAXL),
         ("off_b", ctypes.c_int * MAXL), ("off_h", ctypes.c_int * MAXL),
     ]
+
+
+class DrqnDesc(ctypes.Structure):
+    """Mirror of ``struct DrqnDesc`` in ``csrc/fused_drqn.cu``."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "cell", "n_pre", "n_val", "n_adv", "dueling", "in_dim", "cin",
+            "H", "G", "A", "T", "n_params", "n_tensors")]
+        + [(n, ctypes.c_int * DR_MAXL) for n in (
+            "din", "dout", "act", "off_w", "off_b", "off_a")]
+        + [(n, ctypes.c_int) for n in (
+            "off_wi", "off_wh", "off_bc", "a_gates", "a_aux", "a_c", "a_h",
+            "step_floats", "s_steps", "s_x", "s_h2", "s_c2", "s_tmp", "s_q", "s_q2",
+            "s_zero", "s_dht", "s_dhc", "s_dcc", "s_dz", "s_dhh", "s_b0",
+            "s_b1", "s_gtd", "s_act", "warp_floats")]
+        + [(n, ctypes.c_int * DR_MAXT) for n in ("t_off", "t_size")]
+    )
 
 
 def _nvcc() -> str:
@@ -102,6 +122,13 @@ def library() -> ctypes.CDLL:
         "dq_fused_collect": [NP, I64P, ctypes.POINTER(ctypes.c_float), I, F,
                              F, F, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
                              P],
+        "dq_fused_collect_rnn": [NP, I64P, I, I, P, P, P,
+                                 ctypes.POINTER(ctypes.c_float), I, F, F, F,
+                                 P, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
+                                 P, P],
+        "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
+                          I, I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P,
+                          P, P, P],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

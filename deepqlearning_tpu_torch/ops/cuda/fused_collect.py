@@ -1,8 +1,10 @@
-"""K4: one collect step for all E envs, feed-forward plan (``csrc/fused_collect.cu``).
+"""K4 and K6: one collect step for all E envs (``csrc/fused_collect.cu``).
 
-Replaces ``fused_collect`` (feed-forward plan; body ``_collect_block``) of
-``deepqlearning_tpu/ops/pallas/fused_collect.py``: the (dueling) Dense
-forward, ε-greedy with the first-max argmax and a random action
+Replaces ``fused_collect`` (body ``_collect_block``) of
+``deepqlearning_tpu/ops/pallas/fused_collect.py``, K4 its feed-forward plan
+and K6 its recurrent plan: (K6 only: one LSTM or GRU cell step on the obs
+and the env's state row, the state zeroed where the episode ended) the
+(dueling) Dense forward, ε-greedy with the first-max argmax and a random action
 ``floor(u1·A)`` when ``u0 < ε``, SimpleGridWorld's ``step_cols`` and
 ``reset_cols``, truncation at ``max_episode_length``, auto-reset and the
 episode accumulators. Transition fields come out in replay-row order
@@ -11,10 +13,16 @@ episode accumulators. Transition fields come out in replay-row order
 
 Uniforms come in as ``u [6, E]`` — rows: explore, random action, two step
 uniforms, two reset uniforms — the layout of the JAX kernel's host
-uniforms. The kernel serves SimpleGridWorld only; it reads the reward cells,
-``tprob`` and the grid size from the env object. On the card a thread per
-env does the whole step; the per-env forward's FLOPs bound it (see the
+uniforms. The kernels serve SimpleGridWorld only; they read the reward
+cells, ``tprob`` and the grid size from the env object. On the card a thread
+per env does the whole step; the per-env forward's FLOPs bound it (see the
 source).
+
+:func:`collect_plan_for` is the gate. The recurrent plan takes a leading
+LSTM/GRU cell followed by a Dense stack, or a dueling net whose base is
+exactly that cell; unlike the JAX plan it also budgets the cell and the head
+together against this card's shared memory and the kernel's per-thread
+arrays (``MAX_WIDTH`` floats).
 """
 from __future__ import annotations
 
@@ -25,8 +33,13 @@ from typing import Optional
 import torch
 
 from ...envs.gridworld import SimpleGridWorld
+from ...models.chain import Chain, Flatten
+from ...models.dueling import DuelingNetwork
 from . import build
-from .fused_update import FusedPlan, MAX_SMEM, plan_for, q_values
+from .fused_drqn import CellPlan, cell_plan, cell_step
+from .fused_update import (
+    MAX_LAYERS, FusedPlan, MAX_SMEM, _chain_layers, dense_plans, plan_for,
+    q_values)
 
 MAX_WIDTH = 128   # FC_MAXW of csrc/fused_collect.cu
 MAX_CELLS = 16    # FC_MAXCELLS
@@ -36,44 +49,109 @@ N_UNIFORMS = 6
 
 @dataclasses.dataclass(frozen=True)
 class CollectPlan:
-    net: FusedPlan
+    net: FusedPlan             # the Dense head (input: obs, or h')
+    cell: Optional[CellPlan]   # the leading recurrent cell (K6), or None
     no: int   # flat obs dim
     W: int    # env state width
     nf: int   # replay field columns: 2*no + 4 (a, r, done, ended)
 
+    @property
+    def state_width(self) -> int:
+        """Columns of the cell's state rows ``[E, S]``: h;c or h."""
+        return (2 if self.cell.kind == "lstm" else 1) * self.cell.hidden
+
+
+def _recurrent_plan(network):
+    """(head plan, cell plan) for ``[Flatten]* LSTM|GRU [Dense]+`` or a
+    dueling net whose base is ``[Flatten]* LSTM|GRU``, else None."""
+    if isinstance(network, DuelingNetwork):
+        layers = [(i, l) for i, l in enumerate(network.base.layers)
+                  if not isinstance(l, Flatten)]
+        if len(layers) != 1:
+            return None
+        ci, cell = layers[0]
+        cp = cell_plan(cell, f"base.layers.{ci}.", ci)
+        val = _chain_layers(network.val, "val.")
+        adv = _chain_layers(network.adv, "adv.")
+        if cp is None or not val or not adv or val[-1].dout != 1:
+            return None
+        head = FusedPlan(True, cp.hidden, adv[-1].dout, val, adv)
+    elif isinstance(network, Chain):
+        layers = [(i, l) for i, l in enumerate(network.layers)]
+        while layers and isinstance(layers[0][1], Flatten):
+            layers = layers[1:]
+        if not layers:
+            return None
+        ci, cell = layers[0]
+        cp = cell_plan(cell, f"layers.{ci}.", ci)
+        adv = dense_plans(layers[1:], "")
+        if cp is None or not adv:
+            return None
+        head = FusedPlan(False, cp.hidden, adv[-1].dout, (), adv)
+    else:
+        return None
+    if head.val and head.val[0].din != cp.hidden or \
+            head.adv[0].din != cp.hidden:
+        return None
+    return head, cp
+
 
 def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
-    """Static gate: a SimpleGridWorld env, a kernel-supported (dueling)
-    Dense stack on the flat obs within the kernel's widths, and f32 replay
-    storage. None means the plain keyed collect step."""
+    """Static gate: a SimpleGridWorld env, a kernel-supported network on the
+    flat obs — a (dueling) Dense stack (K4), or a leading LSTM/GRU cell
+    before one (K6) — within the kernel's widths and shared memory, and f32
+    replay storage. None means the plain keyed collect step."""
     if not isinstance(env, SimpleGridWorld):
         return None
     if len(env.reward_cells) > MAX_CELLS:
         return None
-    net = plan_for(network)
-    if net is None:
-        return None
+    cell = None
+    if getattr(network, "recurrent", False):
+        rp = _recurrent_plan(network)
+        if rp is None:
+            return None
+        net, cell = rp
+    else:
+        net = plan_for(network)
+        if net is None:
+            return None
     no = 1
     for s in env.obs_shape:
         no *= int(s)
-    if net.in_dim != no:
+    if (cell.in_dim if cell is not None else net.in_dim) != no:
         return None
     if any(lp.dout > MAX_WIDTH for lp in net.layers):
         return None
-    if 4 * (net.desc().n_params + 3 * THREADS) > MAX_SMEM:
+    if len(net.layers) > MAX_LAYERS:
+        return None
+    cell_floats = 0
+    if cell is not None:
+        if cell.hidden > MAX_WIDTH:
+            return None
+        g = cell.n_gates * cell.hidden
+        cell_floats = g * (cell.in_dim + cell.hidden + 1)
+    if 4 * (net.desc().n_params + cell_floats + 3 * THREADS) > MAX_SMEM:
         return None
     if buffer is not None and getattr(buffer, "obs_dtype", None) != \
             torch.float32:
         return None
-    return CollectPlan(net=net, no=no, W=env.lane_state_width, nf=2 * no + 4)
+    return CollectPlan(net=net, cell=cell, no=no, W=env.lane_state_width,
+                       nf=2 * no + 4)
 
 
 def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
                         ep_step, ep_ret, u, eps: float,
-                        max_episode_length: int):
+                        max_episode_length: int, nstate=None):
     """Plain PyTorch version; same contract as :func:`fused_collect`."""
     A = plan.net.num_actions
-    q, _, _ = q_values(plan.net, params, obs.reshape(obs.shape[0], -1))
+    x = obs.reshape(obs.shape[0], -1)
+    if plan.cell is not None:
+        H = plan.cell.hidden
+        h, c = cell_step(plan.cell, params, x, nstate[:, :H],
+                         nstate[:, H:] if plan.cell.kind == "lstm" else None)
+        nstate = h if c is None else torch.cat([h, c], dim=1)
+        x = h
+    q, _, _ = q_values(plan.net, params, x)
     greedy = torch.argmax(q, dim=1).float()
     rand_a = torch.floor(u[1] * float(A))
     action = torch.where(u[0] < eps, rand_a, greedy)
@@ -87,10 +165,13 @@ def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
                         rew[:, None], done[:, None], ended[:, None]], dim=1)
     totals = torch.stack([(ret1 * ended).sum(), (ep1 * ended).sum(),
                           ended.sum()])
-    return (fields, torch.where(end, r_obs, nobs),
-            torch.where(end, r_state, new_state),
-            torch.where(ended > 0.5, 0.0, ep1).to(torch.int32),
-            torch.where(ended > 0.5, 0.0, ret1), totals)
+    out = (fields, torch.where(end, r_obs, nobs),
+           torch.where(end, r_state, new_state),
+           torch.where(ended > 0.5, 0.0, ep1).to(torch.int32),
+           torch.where(ended > 0.5, 0.0, ret1), totals)
+    if plan.cell is not None:
+        out += (torch.where(end, 0.0, nstate),)
+    return out
 
 
 def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
@@ -135,22 +216,86 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
 fused_collect_cuda.launches = 0
 
 
+def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
+                           ep_step, ep_ret, u, eps: float,
+                           max_episode_length: int, nstate):
+    """Launch K6 on the current stream."""
+    E = obs.shape[0]
+    obs = obs.reshape(E, -1).float().contiguous()
+    state = state.float().contiguous()
+    ep_step = ep_step.to(torch.int32).contiguous()
+    ep_ret = ep_ret.float().contiguous()
+    u = u[:N_UNIFORMS].float().contiguous()
+    nstate = nstate.float().contiguous()
+    tensors = [params[n] for n in plan.net.names]
+    wi, wh, b = (params[n] for n in plan.cell.names)
+    build.require_cuda(obs, state, ep_step, ep_ret, u, nstate, wi, wh, b,
+                       *tensors)
+    build.require_plan_params(plan.net, tensors)
+    cp = plan.cell
+    g = cp.n_gates * cp.hidden
+    build.require_shape(wi, (cp.in_dim, g), cp.names[0])
+    build.require_shape(wh, (cp.hidden, g), cp.names[1])
+    build.require_shape(b, (g,), cp.names[2])
+    build.require_shape(obs, (E, plan.no), "obs")
+    build.require_shape(state, (E, plan.W), "state")
+    build.require_shape(nstate, (E, plan.state_width), "nstate")
+    dev = obs.device
+    fields = torch.empty(E, plan.nf, dtype=torch.float32, device=dev)
+    obs_out = torch.empty_like(obs)
+    state_out = torch.empty_like(state)
+    ep_step_out = torch.empty_like(ep_step)
+    ep_ret_out = torch.empty_like(ep_ret)
+    nstate_out = torch.empty_like(nstate)
+    nblk = -(-E // THREADS)
+    partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
+    cells = [c for cell in env.reward_cells for c in cell]
+    err = build.library().dq_fused_collect_rnn(
+        plan.net.desc(), build.int64_array([t.data_ptr() for t in tensors]),
+        0 if cp.kind == "lstm" else 1, cp.hidden, wi.data_ptr(),
+        wh.data_ptr(), b.data_ptr(),
+        (ctypes.c_float * max(1, len(cells)))(*cells),
+        len(env.reward_cells), env.tprob, float(env.size[0]),
+        float(env.size[1]), obs.data_ptr(), state.data_ptr(),
+        ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(),
+        nstate.data_ptr(), E, float(eps), int(max_episode_length),
+        fields.data_ptr(), obs_out.data_ptr(), state_out.data_ptr(),
+        ep_step_out.data_ptr(), ep_ret_out.data_ptr(), nstate_out.data_ptr(),
+        partials.data_ptr(), build.stream_ptr(dev))
+    build.check(err, "fused_collect (recurrent)")
+    fused_collect_rnn_cuda.launches += 1
+    return (fields, obs_out, state_out, ep_step_out, ep_ret_out,
+            partials.sum(dim=0), nstate_out)
+
+
+fused_collect_rnn_cuda.launches = 0
+
+
 def fused_collect(env, plan: CollectPlan, params, *, obs, state, ep_step,
-                  ep_ret, u, eps: float, max_episode_length: int):
+                  ep_ret, u, eps: float, max_episode_length: int,
+                  nstate=None):
     """One collect step over all E envs.
 
     ``obs [E, no]``, ``state [E, 3]`` (the env's batched state), ``ep_step
-    [E]`` int32, ``ep_ret [E]`` f32, ``u [6, E]`` uniforms, ``eps`` float.
-    Returns ``(fields [E, 2no+4], obs' [E, no], state' [E, 3], ep_step'
-    [E] int32, ep_ret' [E], totals [3])`` with totals = (ended return sum,
-    ended length sum, ended count)."""
+    [E]`` int32, ``ep_ret [E]`` f32, ``u [6, E]`` uniforms, ``eps`` float;
+    a recurrent plan also takes the cell's state rows ``nstate [E, S]`` (h;c
+    for LSTM, h for GRU). Returns ``(fields [E, 2no+4], obs' [E, no], state'
+    [E, 3], ep_step' [E] int32, ep_ret' [E], totals [3])`` with totals =
+    (ended return sum, ended length sum, ended count), and for a recurrent
+    plan a trailing ``nstate' [E, S]``, zero where the episode ended."""
     E = obs.shape[0]
     if u.dim() != 2 or u.shape[0] < N_UNIFORMS or u.shape[1] != E:
         raise ValueError(f"u must be [{N_UNIFORMS}, E={E}] uniforms, got "
                          f"{tuple(u.shape)}")
     if state.shape[0] != E or ep_step.shape[0] != E or ep_ret.shape[0] != E:
         raise ValueError("obs, state, ep_step and ep_ret must share E")
+    kw = dict(obs=obs, state=state, ep_step=ep_step, ep_ret=ep_ret, u=u,
+              eps=eps, max_episode_length=max_episode_length)
+    if plan.cell is not None:
+        if nstate is None or tuple(nstate.shape) != (E, plan.state_width):
+            raise ValueError(f"a recurrent plan needs nstate [E={E}, "
+                             f"{plan.state_width}]")
+        fn = fused_collect_rnn_cuda if obs.is_cuda else fused_collect_plain
+        return fn(env, plan, params, nstate=nstate, **kw)
     fn = fused_collect_cuda if obs.is_cuda else fused_collect_plain
-    return fn(env, plan, params, obs=obs, state=state, ep_step=ep_step,
-              ep_ret=ep_ret, u=u, eps=eps,
-              max_episode_length=max_episode_length)
+    return fn(env, plan, params, **kw)

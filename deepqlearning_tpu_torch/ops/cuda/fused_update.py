@@ -102,21 +102,29 @@ def _act_name(fn) -> Optional[str]:
     return None
 
 
+def dense_plans(indexed_layers, prefix: str
+                ) -> Optional[Tuple[LayerPlan, ...]]:
+    """``(index, layer)`` pairs of Dense layers (tanh/relu/identity with
+    bias) -> layer plans keyed ``{prefix}layers.{index}``, else None."""
+    plans = []
+    for i, l in indexed_layers:
+        if not isinstance(l, Dense):
+            return None
+        act = _act_name(l.activation)
+        if act is None or not l.use_bias:
+            return None
+        plans.append(LayerPlan(l.in_dim, l.out_dim, act,
+                               f"{prefix}layers.{i}.w",
+                               f"{prefix}layers.{i}.b"))
+    return tuple(plans)
+
+
 def _chain_layers(chain: Chain, prefix: str) -> Optional[Tuple[LayerPlan, ...]]:
     """All-Dense (after leading Flattens) chain -> layer plans, else None."""
     layers = list(enumerate(chain.layers))
     while layers and isinstance(layers[0][1], Flatten):
         layers = layers[1:]
-    if not layers or not all(isinstance(l, Dense) for _, l in layers):
-        return None
-    plans = []
-    for i, l in layers:
-        act = _act_name(l.activation)
-        if act is None or not l.use_bias:
-            return None
-        plans.append(LayerPlan(l.in_dim, l.out_dim, act,
-                               f"{prefix}layers.{i}.w", f"{prefix}layers.{i}.b"))
-    return tuple(plans)
+    return dense_plans(layers, prefix) if layers else None
 
 
 def plan_for(network) -> Optional[FusedPlan]:

@@ -2,7 +2,8 @@
 
 A subprocess blocks ``jax`` and ``deepqlearning_tpu`` (an import of either
 raises), imports every module of ``deepqlearning_tpu_torch`` and runs one
-CPU loop iteration through each route (kernel twins and plain paths).
+CPU loop iteration through each route (kernel twins and plain paths), for
+the feed-forward and the recurrent (DRQN) loop.
 """
 import os
 import subprocess
@@ -44,6 +45,17 @@ SCRIPT = textwrap.dedent("""
             cc = pop((c.actor, c.replay, c.params), c.generator)
             c = it(c._replace(actor=cc[0], replay=cc[1]))
             assert torch.isfinite(c.loss) and c.replay.size == 256
+        net = Chain(LSTM(2, 8), Dense(8, 4))
+        cfg = DQNConfig(num_envs=128, train_freq=64, batch_size=8,
+                        buffer_size=256, trace_length=4, max_episode_length=5,
+                        recurrence=True, fused_updates=fused,
+                        fused_collect=fused)
+        buf = EpisodeReplayBuffer(env.obs_shape, 256, 8, 4, 5, num_envs=128)
+        it, pop, opt = build_loop(env, net, buf, cfg, LinearDecaySchedule(),
+                                  env.discount)
+        c = populate(pop, buf, init_carry(env, net, buf, cfg, opt), 6)
+        c = it(c)
+        assert torch.isfinite(c.loss) and c.replay.t == 7
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
     assert not bad, bad
