@@ -8,8 +8,10 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off;
 2. build: compiles the kernel library, prints the seconds;
-3. kernels: each kernel (K1-K6) against its plain PyTorch twin on the
-   card, at the main paths' shapes, with stated tolerances, and both times;
+3. kernels: each kernel (K1-K8) against its plain PyTorch twin on the
+   card, at the main paths' shapes, with stated tolerances, and both times
+   (K7/K8 also run the data-parallel update, K7/K8 and an Adam launch per
+   sub-update, against K3's/K5's update and its twin);
 4. slices: the small feed-forward loop and the small DRQN loop on the card
    against the same loops on the CPU (plain twins) with injected uniforms
    and draws;
@@ -17,14 +19,23 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    batch 512, train_freq 4096) through ``build_loop``, env-steps/s;
 6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
-   LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s.
+   LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s;
+8. DP headline loop: the headline configuration through
+   ``DataParallelRunner`` in a one-rank NCCL world (K7, ``pmean_flat``
+   and one Adam launch per sub-update), env-steps/s and ms/iteration;
+9. DP DRQN loop: the DRQN configuration the same way (K8);
+10. two ranks: a small data-parallel slice in two gloo ranks on the one
+    card (NCCL refuses two ranks on one device) against the same two-rank
+    program on CPU tensors.
 
-Each of the paths 5, 6 and 7 runs with the launch counters zeroed just
-before it and read just after: every kernel of the path must have launched
-there. Prints the card's line, a JSON line of per-kernel results, and last
-the line ``{"ok": true, "device": {...}}``. Any failed phase raises and
-exits non-zero; without a CUDA device it exits non-zero before printing a
-result. About 80 s on an H100, the kernels' build included.
+Each of the paths 5 to 9 runs with the launch counters (and
+``pmean_flat.calls``) zeroed just before it and read just after: every
+kernel of the path must have launched there, K3 / K5 not on the
+data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
+card's line, a JSON line of per-kernel results, and last the line
+``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+non-zero; without a CUDA device it exits non-zero before printing a
+result. About 2 minutes on an H100, the kernels' build included.
 """
 import json
 import subprocess
@@ -353,6 +364,172 @@ def phase_recurrent_kernels(torch, dev, g, results):
                                         plain_ms=timing[1])
     _say(f"K6 fused_collect (recurrent) LSTM32 E=16384: kernel "
          f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
+    phase_grads_kernels(torch, dev, g, results, lstm, gru)
+
+
+def phase_grads_kernels(torch, dev, g, results, lstm, gru):
+    """K7 and K8, the grads-emitting sub-updates of the data-parallel
+    route, against their twins, and the one-block Adam launch that follows
+    them on a flat gradient."""
+    from deepqlearning_tpu_torch import Chain, Dense, Flatten, create_dueling_network
+    from deepqlearning_tpu_torch.ops.cuda import (
+        fused_drqn as fd, fused_update as fu)
+
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    uni = lambda *s: torch.rand(*s, generator=g, device=dev)
+
+    # --- K7: B=512, dueling 2->64->64->{1,4} with double-Q (the headline)
+    # and the plain chain with max targets. grads rtol 1e-4 / atol 1e-6
+    # (f32 sums over 512 rows in another order: 32 tile partials reduced
+    # in block order vs matmuls), td/prio rtol 1e-4 / atol 1e-5, loss and
+    # gnorm rtol 1e-4. Then the flat Adam (K3's Adam kernel, one partial)
+    # against its twin: params/m/v rtol 1e-5 / atol 1e-6.
+    B = 512
+    err = 0.0
+    timing = None
+    for dueling, double_q in ((True, True), (False, False)):
+        chain = Chain(Flatten(), Dense(2, 64, torch.tanh, device=dev),
+                      Dense(64, 64, torch.tanh, device=dev),
+                      Dense(64, 4, device=dev))
+        net = create_dueling_network(chain) if dueling else chain
+        plan = fu.plan_for(net)
+        params = net.init(g)
+        data = dict(obs_s=uni(B, 2) * 10, obs_sp=uni(B, 2) * 10,
+                    action=torch.randint(0, 4, (B,), generator=g, device=dev),
+                    reward=rnd(B), done=(uni(B) < 0.05).float(),
+                    weights=uni(B) + 0.5, q_sp_tgt=rnd(B, 4))
+        kw = dict(gamma=0.95, double_q=double_q, alpha=0.6, eps=1e-3)
+        ko = fu.fused_grads_cuda(plan, params, **data, **kw)
+        po = fu.fused_grads_plain(plan, params, **data, **kw)
+        err = max(err, _close(ko[0], po[0], 1e-4, 1e-6, "K7 flat grads"))
+        err = max(err, _close(ko[1], po[1], 1e-4, 1e-5, "K7 td"))
+        err = max(err, _close(ko[2], po[2], 1e-4, 1e-5, "K7 prio"))
+        err = max(err, _close(ko[3], po[3], 1e-4, 0.0, "K7 loss"))
+        err = max(err, _close(ko[4], po[4], 1e-4, 0.0, "K7 gnorm"))
+        # the data-parallel update (K7, a reduce, K3's Adam kernel per
+        # sub-update) at U=32 with a reduce that leaves the gradient as it
+        # is: K3's update (the same partials summed in the same order, the
+        # same Adam arithmetic) to rtol 1e-6, and its twin within K3's
+        # tolerances (params/m/v rtol 2e-4 / atol 2e-5, loss rtol 1e-4)
+        dp_err, same = _dp_group_check(
+            torch, fu.fused_dp_group_update_cuda,
+            fu.fused_dp_group_update_plain, fu.fused_group_update_cuda, plan,
+            params, dict(gamma=0.95, double_q=double_q, lr=1e-4, alpha=0.6,
+                         eps=1e-3), 32, B, lambda n: dict(
+                obs=uni(n, 2) * 10, nobs=uni(n, 2) * 10,
+                action=torch.randint(0, 4, (n,), generator=g, device=dev),
+                reward=rnd(n), done=(uni(n) < 0.05).float(),
+                weights=uni(n) + 0.5, q_sp_tgt=rnd(n, 4)), "K7")
+        err = max(err, dp_err)
+        if timing is None:
+            timing = (
+                _time_ms(lambda: fu.fused_grads_cuda(plan, params, **data,
+                                                     **kw), 200),
+                _time_ms(lambda: fu.fused_grads_plain(plan, params, **data,
+                                                      **kw), 20))
+        _say(f"K7 fused_grads dueling={dueling} double_q={double_q} B=512: "
+             f"ok; DP update U=32 equals K3's bit for bit: {same}")
+    results["fused_grads"] = dict(max_abs_err=err, ms=timing[0],
+                                  plain_ms=timing[1])
+    _say(f"K7 fused_grads B=512: kernel {timing[0]:.4f} ms, plain "
+         f"{timing[1]:.4f} ms")
+
+    # --- K8: B=512, T=8, LSTM(2,32)+Dense(32,4) with double-Q
+    # (drqn_bench) and the dueling GRU net with a Dense layer before the
+    # cell and max targets. grads rtol 1e-4 / atol 1e-6 (f32 sums over
+    # 4096 window steps in another order: warp and block partials vs
+    # autograd), loss and gnorm rtol 1e-4; the flat Adam (K5's Adam kernel)
+    # against its twin at rtol 1e-5 / atol 1e-6.
+    T = 8
+    err = 0.0
+    timing = None
+    for name, net, double_q in (("LSTM32 double-Q", lstm, True),
+                                ("dueling GRU max", gru, False)):
+        plan = fd.drqn_plan_for(net, T, B, double_q)
+        params = net.init(g)
+        lens = torch.randint(1, T + 1, (B,), generator=g, device=dev)
+        data = dict(
+            obs=uni(B, T, 2) * 10, nobs=uni(B, T, 2) * 10,
+            action=torch.randint(0, 4, (B, T), generator=g, device=dev),
+            reward=rnd(B, T), done=(uni(B, T) < 0.1).float(),
+            mask=(torch.arange(T, device=dev)[None] < lens[:, None]).float(),
+            q_sp_tgt=rnd(B, T, 4))
+        kw = dict(gamma=0.95, double_q=double_q)
+        ko = fd.fused_drqn_grads_cuda(plan, params, **data, **kw)
+        po = fd.fused_drqn_grads_plain(plan, params, **data, **kw)
+        err = max(err, _close(ko[0], po[0], 1e-4, 1e-6, f"K8 {name} grads"))
+        err = max(err, _close(ko[1], po[1], 1e-4, 0.0, f"K8 {name} loss"))
+        err = max(err, _close(ko[2], po[2], 1e-4, 0.0, f"K8 {name} gnorm"))
+        # the data-parallel update at U=4 with an identity reduce against
+        # K5's update (rtol 1e-6) and its twin (K5's tolerances)
+        dp_err, same = _dp_group_check(
+            torch, fd.fused_drqn_dp_group_update_cuda,
+            fd.fused_drqn_dp_group_update_plain,
+            fd.fused_drqn_group_update_cuda, plan, params,
+            dict(gamma=0.95, double_q=double_q, lr=1e-3), 4, B, lambda n: dict(
+                obs=uni(n, T, 2) * 10, nobs=uni(n, T, 2) * 10,
+                action=torch.randint(0, 4, (n, T), generator=g, device=dev),
+                reward=rnd(n, T), done=(uni(n, T) < 0.1).float(),
+                mask=(torch.arange(T, device=dev)[None]
+                      < torch.randint(1, T + 1, (n, 1), generator=g,
+                                      device=dev)).float(),
+                q_sp_tgt=rnd(n, T, 4)), "K8")
+        err = max(err, dp_err)
+        if timing is None:
+            timing = (
+                _time_ms(lambda: fd.fused_drqn_grads_cuda(
+                    plan, params, **data, **kw), 100),
+                _time_ms(lambda: fd.fused_drqn_grads_plain(
+                    plan, params, **data, **kw), 3, 1))
+        _say(f"K8 fused_drqn_grads {name} B=512 T=8: ok; DP update U=4 "
+             f"equals K5's bit for bit: {same}")
+    results["fused_drqn_grads"] = dict(max_abs_err=err, ms=timing[0],
+                                       plain_ms=timing[1])
+    _say(f"K8 fused_drqn_grads LSTM32 B=512 T=8: kernel {timing[0]:.4f} ms, "
+         f"plain {timing[1]:.4f} ms")
+
+
+def _dp_group_check(torch, dp_cuda, dp_plain, whole_cuda, plan, params, kw,
+                    U, B, make_data, what):
+    """The data-parallel grouped update (kernel, reduce, Adam launch per
+    sub-update) with a reduce that leaves the gradient as it is, against
+    the whole-phase kernel's update (rtol 1e-6) and against its own twin
+    (params/m/v rtol 2e-4 / atol 2e-5, loss rtol 1e-4, gnorm rtol 1e-3, the
+    JAX package's fused-vs-XLA tolerances); prints both kernel routes'
+    times. Returns the max abs error against the twin and whether the
+    kernels agree bit for bit."""
+    dev = next(iter(params.values())).device
+    data = make_data(U * B)
+    kw = dict(kw, batch_size=B, n_updates=U)
+    keep = lambda flat: None
+
+    def state():
+        p = {k: v.clone() for k, v in params.items()}
+        z = {k: torch.zeros_like(v) for k, v in params.items()}
+        return (p, z, {k: v.clone() for k, v in z.items()},
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    ds, ws, ps = state(), state(), state()
+    do = dp_cuda(plan, *ds, **data, reduce=keep, **kw)
+    wo = whole_cuda(plan, *ws, **data, **kw)
+    po = dp_plain(plan, *ps, **data, reduce=keep, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(do, wo)) and all(
+        torch.equal(ds[i][k], ws[i][k]) for i in range(3) for k in plan.names)
+    err = 0.0
+    for i, name in ((0, "param"), (1, "m"), (2, "v")):
+        for k in plan.names:
+            _close(ds[i][k], ws[i][k], 1e-6, 0.0, f"{what} DP vs whole {k}")
+            err = max(err, _close(ds[i][k], ps[i][k], 2e-4, 2e-5,
+                                  f"{what} DP {name} {k}"))
+    _close(do[-2], po[-2], 1e-4, 0.0, f"{what} DP loss")
+    _close(do[-1], po[-1], 1e-3, 1e-7, f"{what} DP gnorm")
+    _check(int(ds[3]) == int(ps[3]) == U, f"{what} DP count")
+    ms = _time_ms(lambda: dp_cuda(plan, *state(), **data, reduce=keep, **kw),
+                  10)
+    wms = _time_ms(lambda: whole_cuda(plan, *state(), **data, **kw), 10)
+    _say(f"{what} DP update U={U} B={B}: {ms:.4f} ms (K7/K8 + Adam launch "
+         f"per sub-update) vs {wms:.4f} ms (whole-phase kernel)")
+    return err, same
 
 
 def _small_loop(torch, dev, sample_u, collect_u):
@@ -565,6 +742,136 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
     return cfg, sps, loss
 
 
+def _dp_loop(torch, dev, recurrent, n_iters):
+    """The headline (or, ``recurrent``, the DRQN) configuration through
+    ``DataParallelRunner`` over the one-rank NCCL mesh: the data-parallel
+    route (K7 / K8, ``pmean_flat``, one Adam launch per sub-update)."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer, Flatten,
+        LinearDecaySchedule, PrioritizedReplayBuffer, SimpleGridWorld,
+        create_dueling_network)
+    from deepqlearning_tpu_torch.parallel.mesh import (
+        DataParallelRunner, make_mesh)
+
+    env = SimpleGridWorld()
+    if recurrent:
+        net = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
+        cfg = DQNConfig(num_envs=16384, batch_size=512, buffer_size=4096,
+                        train_freq=4096, trace_length=8,
+                        max_episode_length=100, recurrence=True,
+                        double_q=True)
+        buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                  cfg.batch_size, cfg.trace_length,
+                                  cfg.max_episode_length,
+                                  num_envs=cfg.num_envs, device=dev)
+        n_pop, warmup = cfg.max_episode_length + 1, 3
+    else:
+        net = create_dueling_network(Chain(
+            Flatten(), Dense(2, 64, torch.tanh, device=dev),
+            Dense(64, 64, torch.tanh, device=dev), Dense(64, 4, device=dev)))
+        cfg = DQNConfig(num_envs=131072, batch_size=512, buffer_size=1 << 20,
+                        train_freq=4096, max_episode_length=100,
+                        double_q=True, dueling=True, prioritized_replay=True)
+        buf = PrioritizedReplayBuffer(
+            env.obs_shape, cfg.buffer_size, cfg.batch_size,
+            alpha=cfg.prioritized_replay_alpha,
+            beta=cfg.prioritized_replay_beta,
+            eps=cfg.prioritized_replay_epsilon, prioritized=True, device=dev)
+        n_pop, warmup = 2, 1
+    runner = DataParallelRunner(env, net, buf, cfg,
+                                LinearDecaySchedule(1.0, 0.01, 100_000),
+                                env.discount, mesh=make_mesh(1))
+    c = runner.run_populate(runner.init_carry(0), n_pop)
+    c = runner.run_segment(c, warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = runner.run_segment(c, n_iters)
+    loss = float(c.loss)  # device -> host read ends the timed region
+    dt = time.perf_counter() - t0
+    _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
+    _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
+           "params finite")
+    _check(int(c.actor.ep_count) > 0 and c.iters == warmup + n_iters,
+           "loop progress")
+    return (cfg, n_iters * cfg.env_steps_per_iter / dt,
+            1000.0 * dt / n_iters, loss, warmup + n_iters)
+
+
+def _two_rank_slice(rank, world, device):
+    """One rank of a small data-parallel slice (1024 envs per rank, U = 4,
+    batch 32) with injected uniforms, on ``device``; returns its params and
+    its replay's action column."""
+    import torch
+
+    from deepqlearning_tpu_torch import (
+        Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
+        PrioritizedReplayBuffer, SimpleGridWorld, create_dueling_network)
+    from deepqlearning_tpu_torch.learner.loop import init_carry
+    from deepqlearning_tpu_torch.models.chain import params_of
+    from deepqlearning_tpu_torch.parallel.mesh import (
+        DataParallelRunner, make_mesh)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # both ranks share the one card
+        torch.backends.cuda.matmul.allow_tf32 = False
+    env = SimpleGridWorld()
+    net = create_dueling_network(Chain(
+        Flatten(), Dense(2, 16, torch.tanh), Dense(16, 16, torch.tanh),
+        Dense(16, 4)))
+    net.init(torch.Generator().manual_seed(0))  # same weights everywhere
+    net.to(dev)
+    E = 1024
+    cfg = DQNConfig(num_envs=E, batch_size=32, buffer_size=8192,
+                    train_freq=256, max_episode_length=5,
+                    target_update_freq=2048, learning_rate=1e-3)
+    buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                  cfg.batch_size, device=dev)
+    runner = DataParallelRunner(env, net, buf, cfg,
+                                LinearDecaySchedule(1.0, 0.05, 500), 0.95,
+                                mesh=make_mesh(world))
+    c = init_carry(env, net, buf, cfg, runner.optimizer, dev,
+                   params=params_of(net))
+    rng = np.random.default_rng(100 + rank)
+    u = lambda *s: torch.from_numpy(rng.random(s, np.float32)).to(dev)
+    st, obs = env.reset_cols(u(2, E))
+    c = c._replace(actor=c.actor._replace(env_state=st, obs=obs))
+    c = runner.run_populate(c, 2, [u(6, E), u(6, E)])
+    U, n = cfg.updates_per_iter, 3
+    c = runner.run_segment(c, n, [[u(6, E)] for _ in range(n)],
+                           [[u(U * cfg.batch_size)] for _ in range(n)])
+    return ({k: t.cpu().numpy() for k, t in c.params.items()},
+            c.replay.rows[:, 4].cpu().numpy(), float(c.loss))
+
+
+def phase_two_ranks():
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), against the same two-rank program on CPU tensors (the plain
+    twins). Params equal across the card's ranks bit for bit; card vs CPU
+    params rtol 1e-3 / atol 1e-4 and replay actions equal on >= 99% of
+    slots (the card sums in other orders, as phase 4)."""
+    from deepqlearning_tpu_torch.parallel.launch import spawn
+
+    gpu = spawn(_two_rank_slice, 2, "cuda")
+    cpu = spawn(_two_rank_slice, 2, "cpu")
+    err = 0.0
+    for k in gpu[0][0]:
+        _check(np.array_equal(gpu[0][0][k], gpu[1][0][k]),
+               f"two ranks: {k} differs across the card's ranks")
+        _check(np.array_equal(cpu[0][0][k], cpu[1][0][k]),
+               f"two ranks: {k} differs across the CPU ranks")
+        np.testing.assert_allclose(gpu[0][0][k], cpu[0][0][k], rtol=1e-3,
+                                   atol=1e-4, err_msg=f"two ranks {k}")
+        err = max(err, float(np.abs(gpu[0][0][k] - cpu[0][0][k]).max()))
+    agree = min(float((g[1] == c[1]).mean()) for g, c in zip(gpu, cpu))
+    _check(agree >= 0.99, f"two ranks: replay actions agree on {agree}")
+    _check(not np.array_equal(gpu[0][1], gpu[1][1]),
+           "two ranks: the ranks collected the same data")
+    _say(f"two gloo ranks on one card vs CPU (1024 envs per rank, U=4, "
+         f"B=32, 3 iterations): ok, params equal across ranks, card vs CPU "
+         f"max_abs_err {err:.3g}, replay actions agree {agree:.4f}")
+
+
 def main():
     try:
         import torch
@@ -574,9 +881,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import torch.distributed as dist
+
+    from deepqlearning_tpu_torch.learner import train_step as tsm
     from deepqlearning_tpu_torch.ops.cuda import (
         build, fused_collect as fc, fused_drqn as fd, fused_update as fu,
         td_kernel as tk, tree_sample as ts)
+    from deepqlearning_tpu_torch.parallel.launch import free_port
+    from deepqlearning_tpu_torch.parallel.multihost import (
+        initialize_multihost)
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -608,16 +921,27 @@ def main():
                 "fused_group_update": fu.fused_group_update_cuda,
                 "fused_collect": fc.fused_collect_cuda,
                 "fused_drqn_group_update": fd.fused_drqn_group_update_cuda,
-                "fused_collect_rnn": fc.fused_collect_rnn_cuda}
+                "fused_collect_rnn": fc.fused_collect_rnn_cuda,
+                "fused_grads": fu.fused_grads_cuda,
+                "fused_drqn_grads": fd.fused_drqn_grads_cuda}
+    # the data-parallel updates (calls; each launches K7 / K8, the
+    # all-reduce and an Adam kernel per sub-update)
+    others = {"dp_update": fu.fused_dp_group_update_cuda,
+              "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda}
     launches = dict.fromkeys(wrappers, 0)
 
-    def run_path(name, fn, kernels):
-        for w in wrappers.values():
+    def run_path(name, fn, kernels, absent=()):
+        for w in (*wrappers.values(), *others.values()):
             w.launches = 0
+        tsm.pmean_flat.calls = 0
         out = fn()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = {k: w.launches for k, w in (*wrappers.items(),
+                                             *others.items())}
+        counts["pmean_flat"] = tsm.pmean_flat.calls
         for k in kernels:
             _check(counts[k] > 0, f"{name} did not launch {k}")
+        for k in absent:
+            _check(counts[k] == 0, f"{name} launched {k}")
         for k in wrappers:
             launches[k] += counts[k]
         return out, counts
@@ -641,6 +965,37 @@ def main():
          f"512, trace 8, U={cfg.updates_per_iter}: {sps3:.1f} env-steps/s, "
          f"loss {loss3:.5g} | {card} | launches {rec}")
 
+    # 8. - 9. the data-parallel routes in a one-rank NCCL world
+    torch.cuda.set_device(dev)
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    (cfg, sps4, ms4, loss4, iters), dph = run_path(
+        "DP headline loop", lambda: _dp_loop(torch, dev, False, 20),
+        ("fused_grads", "tree_sample", "fused_collect"),
+        ("fused_group_update",))
+    U = cfg.updates_per_iter
+    _check(dph["pmean_flat"] == U * iters == dph["fused_grads"]
+           and dph["dp_update"] == iters, f"DP headline: counts {dph}")
+    _say(f"DP headline loop (NCCL, world 1): 131072 envs, 2^20 replay, "
+         f"batch 512, U={U}: {sps4:.1f} env-steps/s, {ms4:.3f} ms/iteration "
+         f"(non-DP headline above: {sps:.1f} env-steps/s, "
+         f"{1000.0 * cfg.env_steps_per_iter / sps:.3f} ms/iteration), loss "
+         f"{loss4:.5g} | {card} | launches {dph}")
+    (cfg, sps5, ms5, loss5, iters), dpr = run_path(
+        "DP DRQN loop", lambda: _dp_loop(torch, dev, True, 20),
+        ("fused_drqn_grads", "fused_collect_rnn"),
+        ("fused_drqn_group_update",))
+    U = cfg.updates_per_iter
+    _check(dpr["pmean_flat"] == U * iters == dpr["fused_drqn_grads"]
+           and dpr["drqn_dp_update"] == iters, f"DP DRQN: counts {dpr}")
+    _say(f"DP DRQN loop (NCCL, world 1): 16384 envs, LSTM(2,32), U={U}: "
+         f"{sps5:.1f} env-steps/s, {ms5:.3f} ms/iteration (non-DP DRQN "
+         f"above: {sps3:.1f} env-steps/s), loss {loss5:.5g} | {card} | "
+         f"launches {dpr}")
+    dist.destroy_process_group()
+
+    # 10. two gloo ranks on the one card vs the same program on the CPU
+    phase_two_ranks()
+
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
                     "deepqlearning_tpu/ops/pallas/td_kernel.py:72"),
@@ -657,6 +1012,11 @@ def main():
         "fused_collect_rnn": (
             "deepqlearning_tpu_torch/csrc/fused_collect.cu",
             "deepqlearning_tpu/ops/pallas/fused_collect.py:434"),
+        "fused_grads": ("deepqlearning_tpu_torch/csrc/fused_update.cu",
+                        "deepqlearning_tpu/ops/pallas/fused_update.py:575"),
+        "fused_drqn_grads": (
+            "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
+            "deepqlearning_tpu/ops/pallas/fused_drqn.py:773"),
     }
     kernels = [dict(name=k, route="cuda", source=src[k][0],
                     replaces=src[k][1], launches=launches[k], **results[k])

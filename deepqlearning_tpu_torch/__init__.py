@@ -2,7 +2,8 @@
 
 The feed-forward, prioritized-replay, dueling double-DQN actor-learner loop
 and the recurrent (DRQN) loop over episode replay
-(``learner/loop.py::build_loop``) on one NVIDIA Hopper GPU, with the JAX
+(``learner/loop.py::build_loop``) on NVIDIA Hopper GPUs, on one card or
+data-parallel over ``torch.distributed`` ranks (``parallel/``), with the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels
 (``csrc/``, bound in ``ops/cuda/``). Module paths and public names mirror
 ``deepqlearning_tpu``; this package imports PyTorch and never JAX.
@@ -11,11 +12,14 @@ package's Pallas kernels rewritten as hand-written CUDA kernels
 from .config import DQNConfig
 from .envs.base import Env
 from .envs.gridworld import SimpleGridWorld
+from .envs.test_mdp import TestMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .models.chain import (
     GRU, LSTM, Activation, Chain, Dense, Flatten, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
 from .ops.helpers import flattenbatch, globalnorm, huber_loss
+from .parallel.dryrun import dryrun_multichip
+from .parallel.mesh import DataParallelRunner, make_mesh
 from .replay.episode import (
     EpisodeBatch, EpisodeDraws, EpisodeReplayBuffer, EpisodeReplayState)
 from .replay.prioritized import PrioritizedReplayBuffer, ReplayBuffer, ReplayState
@@ -27,7 +31,8 @@ from .solver.exploration import (
 )
 
 __all__ = [
-    "DQNConfig", "Env", "SimpleGridWorld", "LoopCarry", "build_loop",
+    "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "LoopCarry",
+    "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
     "init_carry", "populate", "Activation", "Chain", "Dense", "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",

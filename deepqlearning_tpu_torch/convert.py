@@ -7,6 +7,11 @@ Dense, ``{"wi", "wh", "b"}`` for LSTM/GRU and ``{}`` otherwise; a
 ``named_parameters()``, in the same ``w [din, dout]`` layout, so the map is
 1:1 with no transpose. The helpers take numpy copies of JAX state, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``; this module imports no JAX.
+
+A JAX ``DataParallelRunner`` carry stacks every device's shard on leading
+mesh axes; :func:`loop_carry_from_numpy` takes one shard of it as one
+rank's ``LoopCarry``, and :func:`adam_from_optax` reads the
+``optax.flatten(adam)`` state of the plain and data-parallel paths.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from .learner.actor import ActorState
+from .learner.loop import LoopCarry
 from .learner.train_step import AdamState
 from .models.chain import GRU, LSTM, Chain, Dense, params_of
 from .models.dueling import DuelingNetwork
@@ -156,3 +162,78 @@ def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
         ep_start=i32(state.ep_start), ep_len=i32(state.ep_len),
         rec_count=i32(state.rec_count), cur_len=i32(state.cur_len),
         t=int(state.t))
+
+
+def _jax_leaves(tree, prefix: str = ""):
+    """(parameter name, leaf) pairs of a JAX param pytree in JAX's flatten
+    order (dict keys sorted, sequences in order): the order in which
+    ``optax.flatten`` ravels the Adam moments."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from _jax_leaves(sub, f"{prefix}layers.{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def adam_from_optax(params_tree, opt_state, device=None) -> AdamState:
+    """``AdamState`` from the ``optax.flatten(optax.adam(...))`` state
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())`` of the JAX plain
+    and data-parallel train steps, whose ``mu``/``nu`` are the moments
+    raveled in the flatten order of ``params_tree`` (numpy leaves)."""
+    adam = opt_state[0]
+    mu, nu = np.asarray(adam.mu, np.float32), np.asarray(adam.nu, np.float32)
+    m, v, off = {}, {}, 0
+    for name, leaf in _jax_leaves(params_tree):
+        shape = np.shape(leaf)
+        k = int(np.prod(shape))
+        m[name] = torch.tensor(mu[off:off + k].reshape(shape), device=device)
+        v[name] = torch.tensor(nu[off:off + k].reshape(shape), device=device)
+        off += k
+    if off != mu.size:
+        raise ValueError(f"moments hold {mu.size} values, the params {off}")
+    return AdamState(m=m, v=v, count=torch.tensor(
+        int(adam.count), dtype=torch.int32, device=device))
+
+
+def _take(tree, index):
+    """Entry ``index`` of every array leaf of a (nested tuple / NamedTuple /
+    dict) tree; other leaves as they are."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_take(x, index) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_take(x, index) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _take(x, index) for k, x in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return tree[index]
+    return tree
+
+
+def loop_carry_from_numpy(network, carry, index=None, device=None,
+                          generator=None) -> LoopCarry:
+    """One rank's ``LoopCarry`` from a JAX ``LoopCarry`` whose leaves were
+    copied to numpy: shard ``index`` (``d`` on a 1-D mesh, ``(i, j)`` on a
+    2-D one) of a ``DataParallelRunner`` carry, or the whole carry when
+    ``index`` is None. SimpleGridWorld actors; PER or episode replay; the
+    ``optax.flatten`` Adam state. The JAX keys have no counterpart: the
+    rank's ``generator`` (default: a fresh one seeded 0) takes their
+    place."""
+    c = carry if index is None else _take(carry, index)
+    if hasattr(c.replay, "rows"):
+        replay = replay_from_numpy(c.replay.rows, c.replay.tree,
+                                   c.replay.insert_pos, c.replay.size, device)
+    else:
+        replay = episode_replay_from_numpy(c.replay, device)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
+    if generator is None:
+        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+    return LoopCarry(
+        actor=actor_from_numpy(c.actor, device), replay=replay,
+        params=_as_dict(network, c.params, device),
+        target_params=_as_dict(network, c.target_params, device),
+        opt_state=adam_from_optax(c.params, c.opt_state, device),
+        generator=generator, loss=f32(c.loss), gnorm=f32(c.gnorm),
+        sync_acc=int(c.sync_acc))

@@ -68,3 +68,11 @@ __device__ __forceinline__ void dq_load_params(const NetDesc& d,
       sp[d.off_b[l] + k] = p.t[2 * l + 1][k];
   }
 }
+
+// Fixed-order sum of nblk per-block partial gradients [nblk, n] into one
+// flat gradient [n], the loss (the nblk partial losses summed, times inv)
+// and the max-abs entry; launched on stream s after zeroing gnorm. Defined
+// in fused_update.cu; kernels K7 and K8 end with it.
+cudaError_t dq_launch_grad_reduce(const void* part_grad, const void* part_loss,
+                                  int nblk, int n, float inv, void* flat,
+                                  void* loss, void* gnorm, cudaStream_t s);

@@ -449,9 +449,11 @@ __global__ void __launch_bounds__(DR_ADAM_THREADS) dr_adam_kernel(
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int b = 0; b < nblk; ++b) s += part_loss[b];
-    loss_out[0] = s * inv_bt;
+    if (loss_out != nullptr) {  // null when the loss comes from K8
+      float s = 0.0f;
+      for (int b = 0; b < nblk; ++b) s += part_loss[b];
+      loss_out[0] = s * inv_bt;
+    }
     gnorm_out[0] = red[0];
   }
 }
@@ -522,4 +524,58 @@ DQ_API int dq_fused_drqn(const DrqnDesc* d, const int64_t* p_ptrs,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// K8: one recurrent sub-update's trace forward, masked TD loss and BPTT,
+// emitting gradients (replaces fused_drqn_grads of
+// deepqlearning_tpu/ops/pallas/fused_drqn.py). Launch (a) above writes
+// per-block partials; dq_grad_reduce_kernel (csrc/fused_update.cu) sums
+// them in block order into one flat gradient [n_params] in the packed
+// tensor order (Dense w, b ..., then wi, wh, b), with the loss and the
+// local max-abs entry. At B = 512 windows both launches are bound by
+// latency (the T-step recurrence in (a); the reduce reads 86 partials of
+// 4612 floats at LSTM(2, 32) + Dense(32, 4)), not by bytes.
+DQ_API int dq_fused_drqn_grads(const DrqnDesc* d, const int64_t* p_ptrs,
+                               int B, int wpb, const void* obs,
+                               const void* nobs, const void* action,
+                               const void* reward, const void* done,
+                               const void* mask, const void* q_sp_tgt,
+                               float gamma, int double_q, void* part_grad,
+                               void* part_loss, void* flat, void* loss,
+                               void* gnorm, void* stream) {
+  if (wpb < 1 || wpb > DR_MAXWARPS || d->n_tensors > DR_MAXT ||
+      d->n_pre + d->n_val + d->n_adv > DR_MAXL)
+    return (int)cudaErrorInvalidValue;
+  DrqnPtrs P;
+  dr_fill(&P, p_ptrs, d->n_tensors);
+  cudaError_t err = cudaFuncSetAttribute(
+      dr_fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dr_smem_bytes(d, wpb));
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = dr_launch_fwd_bwd(d, P, B, wpb, 0, obs, nobs, action, reward, done,
+                          mask, q_sp_tgt, gamma, double_q, part_grad,
+                          part_loss, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dq_launch_grad_reduce(part_grad, part_loss, (B + wpb - 1) / wpb,
+                                    d->n_params, 1.0f / (float)(B * d->T),
+                                    flat, loss, gnorm, s);
+}
+
+// Adam on a flat gradient after the all-reduce: dr_adam_kernel above with
+// the averaged gradient as its only partial (see dq_fused_adam).
+DQ_API int dq_drqn_adam(const DrqnDesc* d, const int64_t* p_ptrs,
+                        const int64_t* m_ptrs, const int64_t* v_ptrs,
+                        const void* count, int u, const void* grad, float lr,
+                        float b1, float b2, float adam_eps, void* gnorm,
+                        void* stream) {
+  if (d->n_tensors > DR_MAXT) return (int)cudaErrorInvalidValue;
+  DrqnPtrs P, M, V;
+  dr_fill(&P, p_ptrs, d->n_tensors);
+  dr_fill(&M, m_ptrs, d->n_tensors);
+  dr_fill(&V, v_ptrs, d->n_tensors);
+  dr_adam_kernel<<<1, DR_ADAM_THREADS, 0, (cudaStream_t)stream>>>(
+      *d, P, M, V, (const float*)grad, nullptr, 1, (const int*)count, u, lr,
+      b1, b2, adam_eps, 1.0f, nullptr, (float*)gnorm);
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 // K3: the grouped train phase, U sequential DQN sub-updates (replaces
 // fused_group_update of deepqlearning_tpu/ops/pallas/fused_update.py).
+// K7, the grads-emitting sub-update of the data-parallel step, and the
+// gradient reduce it shares with K8 follow at the end of the file.
 //
 // The host issues two launches per sub-update u on one stream, with no
 // host sync between them:
@@ -274,9 +276,11 @@ __global__ void __launch_bounds__(FU_ADAM_THREADS) fu_adam_kernel(
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int b = 0; b < nblk; ++b) s += part_loss[b];
-    loss_out[0] = s * inv_b;
+    if (loss_out != nullptr) {  // null when the loss comes from K7
+      float s = 0.0f;
+      for (int b = 0; b < nblk; ++b) s += part_loss[b];
+      loss_out[0] = s * inv_b;
+    }
     gnorm_out[0] = red[0];
   }
 }
@@ -333,4 +337,114 @@ DQ_API int dq_fused_update(const NetDesc* d, const int64_t* p_ptrs,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// K7: one sub-update's forward, TD loss and backward, emitting gradients
+// (replaces fused_grads of deepqlearning_tpu/ops/pallas/fused_update.py).
+// The data-parallel train step all-reduces the flat gradient between K7 and
+// the Adam launch, which is why the two cannot be one kernel as in K3.
+//
+// Two launches on the caller's stream, no host sync: launch (a) of K3 above
+// (fu_fwd_bwd_kernel, per-block partial gradients [n_blocks, n_params]),
+// then dq_grad_reduce_kernel: one thread per parameter sums the n_blocks
+// partials in block order into one contiguous flat gradient [n_params] in
+// the packed order w0, b0, w1, b1, ... (the plan's names), block 0 sums the
+// Huber partials into the loss, and every block's max-abs entry meets in one
+// atomicMax on the float's bits (a max does not depend on the order). The
+// flat buffer is the vector the all-reduce takes, so nothing is
+// concatenated or split. At B = 512 and the headline net (9029 parameters,
+// 32 partials) both launches are bound by launch and synchronisation
+// latency, not by bytes: the reduce reads 1.2 MB.
+
+#define DQ_RED_THREADS 256
+
+__global__ void __launch_bounds__(DQ_RED_THREADS) dq_grad_reduce_kernel(
+    const float* __restrict__ part_grad, const float* __restrict__ part_loss,
+    int nblk, int n, float inv, float* __restrict__ flat,
+    float* __restrict__ loss, unsigned int* __restrict__ gmax_bits) {
+  __shared__ float red[DQ_RED_THREADS];
+  const int k = blockIdx.x * DQ_RED_THREADS + threadIdx.x;
+  float a = 0.0f;
+  if (k < n) {
+    float g = 0.0f;
+    for (int b = 0; b < nblk; ++b) g += part_grad[(size_t)b * n + k];
+    flat[k] = g;
+    a = fabsf(g);
+  }
+  red[threadIdx.x] = a;
+  __syncthreads();
+  for (int s = DQ_RED_THREADS / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s)
+      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+    __syncthreads();
+  }
+  // the bits of non-negative floats order as unsigned ints
+  if (threadIdx.x == 0) atomicMax(gmax_bits, __float_as_uint(red[0]));
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int b = 0; b < nblk; ++b) s += part_loss[b];
+    loss[0] = s * inv;
+  }
+}
+
+cudaError_t dq_launch_grad_reduce(const void* part_grad, const void* part_loss,
+                                  int nblk, int n, float inv, void* flat,
+                                  void* loss, void* gnorm, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(gnorm, 0, sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  const int grid = (n + DQ_RED_THREADS - 1) / DQ_RED_THREADS;
+  dq_grad_reduce_kernel<<<grid, DQ_RED_THREADS, 0, s>>>(
+      (const float*)part_grad, (const float*)part_loss, nblk, n, inv,
+      (float*)flat, (float*)loss, (unsigned int*)gnorm);
+  return cudaGetLastError();
+}
+
+DQ_API int dq_fused_grads(const NetDesc* d, const int64_t* p_ptrs, int B,
+                          const void* obs, const void* nobs,
+                          const void* action, const void* reward,
+                          const void* done, const void* weights,
+                          const void* q_sp_tgt, float gamma, float alpha,
+                          float eps, int double_q, void* td, void* prio,
+                          void* part_grad, void* part_loss, void* flat,
+                          void* loss, void* gnorm, void* stream) {
+  TensorPtrs P;
+  fu_fill(&P, p_ptrs, 2 * (d->n_val + d->n_adv));
+  const int smem = fu_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fu_fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = (B + FU_TILE - 1) / FU_TILE;
+  const float inv_b = 1.0f / (float)B;
+  cudaStream_t s = (cudaStream_t)stream;
+  fu_fwd_bwd_kernel<<<nblk, FU_THREADS, smem, s>>>(
+      *d, P, (const float*)obs, (const float*)nobs, (const int*)action,
+      (const float*)reward, (const float*)done, (const float*)weights,
+      (const float*)q_sp_tgt, B, 0, gamma, alpha, eps, double_q, inv_b,
+      (float*)td, (float*)prio, (float*)part_grad, (float*)part_loss);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)dq_launch_grad_reduce(part_grad, part_loss, nblk, d->n_params,
+                                    inv_b, flat, loss, gnorm, s);
+}
+
+// Adam on a flat gradient (the data-parallel step, after the all-reduce):
+// fu_adam_kernel above with the averaged gradient as its only "partial".
+// One block suffices: it reads 9029 floats once at the headline net, and a
+// multi-block Adam would need the same launch; gnorm is the averaged
+// gradient's max-abs entry, as the JAX data-parallel step logs it.
+DQ_API int dq_fused_adam(const NetDesc* d, const int64_t* p_ptrs,
+                         const int64_t* m_ptrs, const int64_t* v_ptrs,
+                         const void* count, int u, const void* grad,
+                         float lr, float b1, float b2, float adam_eps,
+                         void* gnorm, void* stream) {
+  const int nt = 2 * (d->n_val + d->n_adv);
+  TensorPtrs P, M, V;
+  fu_fill(&P, p_ptrs, nt);
+  fu_fill(&M, m_ptrs, nt);
+  fu_fill(&V, v_ptrs, nt);
+  fu_adam_kernel<<<1, FU_ADAM_THREADS, 0, (cudaStream_t)stream>>>(
+      *d, P, M, V, (const float*)grad, nullptr, 1, (const int*)count, u, lr,
+      b1, b2, adam_eps, 1.0f, nullptr, (float*)gnorm);
+  return (int)cudaGetLastError();
 }

@@ -17,6 +17,14 @@ Recurrent networks (``cfg.recurrence``, an ``EpisodeReplayBuffer``):
   per call when grouped, else U = 1 per call; otherwise the plain grouped
   or ungrouped DRQN step. ``fused_updates=True`` that cannot be honoured
   raises.
+Under ``axis_name`` (a ``torch.distributed`` process group or a tuple of
+them, innermost first; data parallelism, ``parallel/mesh.py``) the
+whole-phase kernels K3 and K5 never run, because their in-kernel Adam
+cannot average across ranks: the kernel routes above take kernel K7
+(``make_fused_dp_train_step``, grouped feed-forward) or K8
+(``make_fused_dp_drqn_train_step``, recurrent) instead, and the plain
+steps average their gradients over the axis. Collect is per rank and takes
+no collective.
 Collect: kernel K4 (K6 for a recurrent network) when ``collect_plan_for``
 supports env, network and buffer and no custom ``select_fn`` is given
 (``fused_collect`` None or True), else the plain keyed step;
@@ -38,8 +46,11 @@ import torch
 from ..config import DQNConfig
 from .actor import ActorState, init_actor, make_collect_step
 from .train_step import (
+    check_axis,
     make_dqn_train_step,
     make_drqn_train_step,
+    make_fused_dp_drqn_train_step,
+    make_fused_dp_train_step,
     make_fused_grouped_drqn_train_step,
     make_fused_grouped_train_step,
     make_grouped_dqn_train_step,
@@ -59,18 +70,20 @@ class LoopCarry(NamedTuple):
     gnorm: torch.Tensor
     # env steps accumulated since the last hard target sync
     sync_acc: int = 0
+    # iterations run on this carry (local-SGD counts its period by it)
+    iters: int = 0
 
 
 def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
-               axis_name: Optional[str] = None, select_fn=None):
+               axis_name=None, select_fn=None):
     """Returns ``(iteration, populate_step, optimizer)``.
 
     ``iteration(carry, collect_u=None, sample_u=None) -> carry``;
     ``populate_step`` is the ε=1 collect step used to pre-fill the replay.
+    ``axis_name``: None, or the process group(s) to average gradients over
+    (see the module docstring).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel training (axis_name) is not ported yet")
+    check_axis(axis_name)
     if cfg.dtype != torch.float32:
         raise NotImplementedError(f"dtype {cfg.dtype}: only float32 so far")
     grouped = cfg.grouped_updates and cfg.updates_per_iter > 1
@@ -93,29 +106,39 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
                 "fused_updates=True cannot be honoured: the network is not "
                 f"supported by the fused update kernel (see {gate.__name__})")
     args = (network, buffer, gamma, cfg.double_q, cfg.learning_rate)
+    ax = dict(axis_name=axis_name)
+    dp = axis_name is not None
     if cfg.recurrence:
         if not network.recurrent:
             raise ValueError("recurrence=True needs a recurrent network")
-        if fused:
+        if fused and dp:
+            train_step, optimizer = make_fused_dp_drqn_train_step(
+                *args, U, axis_name)
+        elif fused:
             train_step, optimizer = make_fused_grouped_drqn_train_step(
                 *args, U)
         elif grouped:
-            train_step, optimizer = make_grouped_drqn_train_step(*args, U)
+            train_step, optimizer = make_grouped_drqn_train_step(*args, U,
+                                                                 **ax)
         else:
-            train_step, optimizer = make_drqn_train_step(*args)
+            train_step, optimizer = make_drqn_train_step(*args, **ax)
         insert_fn = buffer.add_step
     else:
         if network.recurrent:
             raise ValueError(
                 "DeepQLearningError: a recurrent network needs "
                 "recurrence=True")
-        if fused:
+        if fused and dp:
+            train_step, optimizer = make_fused_dp_train_step(*args, U,
+                                                             axis_name)
+        elif fused:
             train_step, optimizer = make_fused_grouped_train_step(*args, U)
         elif grouped:
-            train_step, optimizer = make_grouped_dqn_train_step(*args, U)
+            train_step, optimizer = make_grouped_dqn_train_step(*args, U,
+                                                                **ax)
         else:
             train_step, optimizer = make_dqn_train_step(
-                *args, use_kernel=kernels)
+                *args, use_kernel=kernels, **ax)
         insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
 
     cplan = None
@@ -171,7 +194,7 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
             sync_acc %= tuf
         target_params = sync_target(params, carry.target_params, do_sync)
         return LoopCarry(actor, replay, params, target_params, opt_state,
-                         gen, loss, gnorm, sync_acc)
+                         gen, loss, gnorm, sync_acc, carry.iters + 1)
 
     return iteration, populate_step, optimizer
 
@@ -209,5 +232,5 @@ def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
         replay=buffer.init(), params=params,
         target_params={k: p.clone() for k, p in params.items()},
         opt_state=optimizer.init(params), generator=gen,
-        loss=zero, gnorm=zero.clone(), sync_acc=0,
+        loss=zero, gnorm=zero.clone(), sync_acc=0, iters=0,
     )

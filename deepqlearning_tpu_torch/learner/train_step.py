@@ -24,6 +24,18 @@ Paths:
   recurrent updates per call, plain torch with autograd.
 * ``make_fused_grouped_drqn_train_step``: U recurrent updates through
   kernel K5 (``ops/cuda/fused_drqn.py``), U >= 1.
+
+Data parallelism: every step but the two whole-phase kernel steps (K3, K5,
+whose in-kernel Adam cannot average across ranks) takes an ``axis_name``,
+one ``torch.distributed`` process group or a tuple of them (innermost
+first), and averages each sub-update's gradient over it with
+:func:`pmean_flat` before Adam. The logged loss stays the rank's own; the
+logged gradient norm is that of the averaged gradient.
+* ``make_fused_dp_train_step``: the grouped step with each sub-update's
+  forward/TD/backward in kernel K7 (``fused_grads``), then the all-reduce
+  of its flat gradient and one Adam launch.
+* ``make_fused_dp_drqn_train_step``: the same for recurrent updates, with
+  kernel K8 (``fused_drqn_grads``).
 """
 from __future__ import annotations
 
@@ -31,7 +43,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops.helpers import globalnorm, huber_loss
+from ..ops.helpers import flatten, globalnorm, huber_loss, unflatten
 
 
 class TrainResult(NamedTuple):
@@ -98,8 +110,56 @@ def _bellman_targets(network, params, target_params, next_obs, reward, done,
         return reward + (1.0 - done) * gamma * q_sp_max
 
 
+def _groups(axis_name) -> tuple:
+    return (tuple(axis_name) if isinstance(axis_name, (tuple, list))
+            else (axis_name,))
+
+
+def check_axis(axis_name) -> None:
+    """``axis_name`` must be None, a ``torch.distributed`` process group or
+    a non-empty tuple of them (innermost first)."""
+    if axis_name is None:
+        return
+    import torch.distributed as dist
+
+    groups = _groups(axis_name)
+    if not groups or not all(isinstance(g, dist.ProcessGroup)
+                             for g in groups):
+        raise TypeError(
+            "axis_name must be a torch.distributed ProcessGroup or a tuple "
+            f"of them (e.g. DeviceMesh.get_group), got {axis_name!r}")
+
+
+def pmean_flat(grads, axis_name):
+    """Average gradients over ``axis_name`` as ONE flat f32 vector.
+
+    ``grads`` is a dict of tensors (concatenated, reduced and split back
+    into new tensors) or a flat f32 vector, which is reduced in place and
+    returned (the fused steps' kernels write that vector directly).
+    ``axis_name`` is one process group (``all_reduce(SUM)``, then divide by
+    its size: a ``pmean``) or a tuple of groups, innermost (ICI) first:
+    ``all_reduce(SUM)`` over each in order, then divide by the product of
+    their sizes (the hierarchical mode of the JAX ``pmean_flat``). The
+    collective is issued even over a group of one. ``pmean_flat.calls``
+    counts the calls."""
+    import torch.distributed as dist
+
+    pmean_flat.calls += 1
+    flat = grads if isinstance(grads, torch.Tensor) else flatten(grads, grads)
+    n = 1
+    for g in _groups(axis_name):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=g)
+        n *= dist.get_world_size(g)
+    flat.div_(n)
+    return flat if isinstance(grads, torch.Tensor) else unflatten(
+        flat, grads, grads)
+
+
+pmean_flat.calls = 0
+
+
 def _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                       use_kernel: bool):
+                       use_kernel: bool, axis_name=None):
     """One (batch, weights) → grads → Adam. Returns ``update(params,
     target_params, opt_state, batch, weights, q_sp_tgt=None) -> (params,
     opt_state, td, prio_or_None, loss, grad_norm)``."""
@@ -133,6 +193,8 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
             loss = huber_loss(weights * td).sum() / B
             prio = None
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        if axis_name is not None:
+            grads = pmean_flat(grads, axis_name)
         grad_norm = globalnorm(grads)
         optimizer.update(grads, opt_state, params)
         return params, opt_state, td.detach(), prio, loss.detach(), grad_norm
@@ -140,23 +202,17 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
     return update
 
 
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel training (axis_name) is not ported yet")
-
-
 def make_dqn_train_step(network, buffer, gamma: float, double_q: bool,
-                        learning_rate: float, axis_name: Optional[str] = None,
+                        learning_rate: float, axis_name=None,
                         use_kernel: Optional[bool] = None):
     """One update per call. Returns ``(step, optimizer)`` with
     ``step(params, target_params, opt_state, replay_state, u=None,
     generator=None) -> TrainResult``; ``u`` are the sample's uniforms [B].
     ``use_kernel`` (default on) takes kernel K1 for the loss head."""
-    _no_axis(axis_name)
+    check_axis(axis_name)
     optimizer = make_optimizer(learning_rate)
     update = _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                                use_kernel is not False)
+                                use_kernel is not False, axis_name)
 
     def step(params, target_params, opt_state, replay_state, u=None,
              generator=None):
@@ -174,16 +230,16 @@ def make_dqn_train_step(network, buffer, gamma: float, double_q: bool,
 def make_grouped_dqn_train_step(network, buffer, gamma: float,
                                 double_q: bool, learning_rate: float,
                                 n_updates: int,
-                                axis_name: Optional[str] = None):
+                                axis_name=None):
     """``n_updates`` sequential Adam updates sharing ONE stratified sample
     (u-major: sub-batch u is rows ``[u·B, (u+1)·B)``) and one merged
     priority update; the target net runs once on all U·B rows. Plain torch
     ops throughout."""
-    _no_axis(axis_name)
+    check_axis(axis_name)
     optimizer = make_optimizer(learning_rate)
     B, U = buffer.batch_size, int(n_updates)
     update = _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                                use_kernel=False)
+                                use_kernel=False, axis_name=axis_name)
 
     def step(params, target_params, opt_state, replay_state, u=None,
              generator=None):
@@ -240,6 +296,47 @@ def make_fused_grouped_train_step(network, buffer, gamma: float,
     return step, optimizer
 
 
+def make_fused_dp_train_step(network, buffer, gamma: float, double_q: bool,
+                             learning_rate: float, n_updates: int,
+                             axis_name):
+    """The data-parallel grouped step: one u-major sample of U·B rows and
+    the target net once on all of them, then per sub-update kernel K7
+    (forward/TD/backward, emitting the flat gradient), :func:`pmean_flat`
+    of that vector over ``axis_name`` and one Adam launch at ``t = count +
+    u + 1`` (``ops/cuda/fused_update.py::fused_dp_group_update``); last,
+    one merged priority update from the U sub-updates' td/prio."""
+    from ..ops.cuda.fused_update import fused_dp_group_update, plan_for
+
+    check_axis(axis_name)
+    if axis_name is None:
+        raise ValueError("the data-parallel step needs an axis_name")
+    plan = plan_for(network)
+    if plan is None:
+        raise ValueError("network not supported by the fused update kernel")
+    optimizer = make_optimizer(learning_rate)
+    B, U = buffer.batch_size, int(n_updates)
+    reduce = lambda flat: pmean_flat(flat, axis_name)
+
+    def step(params, target_params, opt_state, replay_state, u=None,
+             generator=None):
+        batch, idx, weights = buffer.sample_n(replay_state, U, u=u,
+                                              generator=generator)
+        with torch.no_grad():
+            q_sp_tgt_all, _ = network.apply(target_params, batch.next_obs)
+            tds, prios, loss, gnorm = fused_dp_group_update(
+                plan, params, opt_state.m, opt_state.v, opt_state.count,
+                batch.obs, batch.next_obs, batch.action, batch.reward,
+                batch.done, weights, q_sp_tgt_all, reduce=reduce,
+                gamma=gamma, double_q=double_q, lr=learning_rate,
+                alpha=buffer.alpha, eps=buffer.eps, batch_size=B,
+                n_updates=U)
+        replay_state = buffer.update_priorities(
+            replay_state, idx, tds.reshape(-1), priorities=prios.reshape(-1))
+        return TrainResult(params, opt_state, replay_state, loss, gnorm)
+
+    return step, optimizer
+
+
 def _time_major(x):
     return x.transpose(0, 1)
 
@@ -260,7 +357,7 @@ def _drqn_targets(network, params, target_params, nobs_t, r_t, d_t, gamma,
         return r_t + (1.0 - d_t) * gamma * q_sp_max
 
 
-def _make_drqn_update(network, gamma, double_q, optimizer):
+def _make_drqn_update(network, gamma, double_q, optimizer, axis_name=None):
     """One EpisodeBatch → grads (autograd) → Adam, in place. Returns
     ``update(params, target_params, opt_state, batch) -> (loss, grad_norm)``."""
 
@@ -277,6 +374,8 @@ def _make_drqn_update(network, gamma, double_q, optimizer):
         q_sa = torch.gather(q_seq, -1, a_t.long()[..., None])[..., 0]
         loss = huber_loss(m_t * (q_sa - q_targets)).sum() / B / T
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        if axis_name is not None:
+            grads = pmean_flat(grads, axis_name)
         grad_norm = globalnorm(grads)
         optimizer.update(grads, opt_state, params)
         return loss.detach(), grad_norm
@@ -286,13 +385,13 @@ def _make_drqn_update(network, gamma, double_q, optimizer):
 
 def make_drqn_train_step(network, buffer, gamma: float, double_q: bool,
                          learning_rate: float,
-                         axis_name: Optional[str] = None):
+                         axis_name=None):
     """One recurrent update per call: ``step(params, target_params,
     opt_state, replay_state, u=None, generator=None) -> TrainResult``, with
     ``u`` the sample's injected ``EpisodeDraws``."""
-    _no_axis(axis_name)
+    check_axis(axis_name)
     optimizer = make_optimizer(learning_rate)
-    update = _make_drqn_update(network, gamma, double_q, optimizer)
+    update = _make_drqn_update(network, gamma, double_q, optimizer, axis_name)
 
     def step(params, target_params, opt_state, replay_state, u=None,
              generator=None):
@@ -306,15 +405,15 @@ def make_drqn_train_step(network, buffer, gamma: float, double_q: bool,
 def make_grouped_drqn_train_step(network, buffer, gamma: float,
                                  double_q: bool, learning_rate: float,
                                  n_updates: int,
-                                 axis_name: Optional[str] = None):
+                                 axis_name=None):
     """``n_updates`` sequential recurrent updates on one u-major draw of
     ``n_updates · B`` windows (sub-batch u is rows ``[u·B, (u+1)·B)``):
     exactly U ungrouped calls on pre-drawn batches (uniform sampling, no
     priorities)."""
-    _no_axis(axis_name)
+    check_axis(axis_name)
     optimizer = make_optimizer(learning_rate)
     B, U = buffer.batch_size, int(n_updates)
-    update = _make_drqn_update(network, gamma, double_q, optimizer)
+    update = _make_drqn_update(network, gamma, double_q, optimizer, axis_name)
 
     def step(params, target_params, opt_state, replay_state, u=None,
              generator=None):
@@ -359,6 +458,47 @@ def make_fused_grouped_drqn_train_step(network, buffer, gamma: float,
                 batch.done, batch.mask, _time_major(q_tgt), gamma=gamma,
                 double_q=double_q, lr=learning_rate, batch_size=B,
                 n_updates=U)
+        return TrainResult(params, opt_state, replay_state, loss, gnorm)
+
+    return step, optimizer
+
+
+def make_fused_dp_drqn_train_step(network, buffer, gamma: float,
+                                  double_q: bool, learning_rate: float,
+                                  n_updates: int, axis_name):
+    """The data-parallel recurrent step: one u-major draw of U·B windows and
+    the target net's zero-state unroll once on all of them, then per
+    sub-update kernel K8 (unrolls, masked loss, BPTT, emitting the flat
+    gradient), :func:`pmean_flat` of that vector over ``axis_name`` and one
+    Adam launch at ``t = count + u + 1``
+    (``ops/cuda/fused_drqn.py::fused_drqn_dp_group_update``). U >= 1."""
+    from ..ops.cuda.fused_drqn import drqn_plan_for, fused_drqn_dp_group_update
+
+    check_axis(axis_name)
+    if axis_name is None:
+        raise ValueError("the data-parallel step needs an axis_name")
+    B, T, U = buffer.batch_size, buffer.trace_length, int(n_updates)
+    plan = drqn_plan_for(network, T, B, double_q)
+    if plan is None:
+        raise ValueError("network not supported by the fused DRQN kernel")
+    optimizer = make_optimizer(learning_rate)
+    reduce = lambda flat: pmean_flat(flat, axis_name)
+
+    def step(params, target_params, opt_state, replay_state, u=None,
+             generator=None):
+        batch = buffer.sample_n(replay_state, U, draws=u,
+                                generator=generator)
+        with torch.no_grad():
+            nobs_t = _time_major(batch.next_obs)
+            q_tgt, _ = network.apply_sequence(
+                target_params, nobs_t,
+                network.init_state(U * B, nobs_t.device))   # [T, U·B, A]
+            loss, gnorm = fused_drqn_dp_group_update(
+                plan, params, opt_state.m, opt_state.v, opt_state.count,
+                batch.obs, batch.next_obs, batch.action, batch.reward,
+                batch.done, batch.mask, _time_major(q_tgt), reduce=reduce,
+                gamma=gamma, double_q=double_q, lr=learning_rate,
+                batch_size=B, n_updates=U)
         return TrainResult(params, opt_state, replay_state, loss, gnorm)
 
     return step, optimizer

@@ -129,6 +129,13 @@ def library() -> ctypes.CDLL:
         "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
                           I, I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P,
                           P, P, P],
+        "dq_fused_grads": [NP, I64P, I, P, P, P, P, P, P, P, F, F, F, I, P,
+                           P, P, P, P, P, P, P],
+        "dq_fused_adam": [NP, I64P, I64P, I64P, P, I, P, F, F, F, F, P, P],
+        "dq_fused_drqn_grads": [ctypes.POINTER(DrqnDesc), I64P, I, I, P, P,
+                                P, P, P, P, P, F, I, P, P, P, P, P, P],
+        "dq_drqn_adam": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I, P,
+                         F, F, F, F, P, P],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

@@ -1,4 +1,5 @@
-"""K5: the recurrent (DRQN) train phase, U sub-updates (``csrc/fused_drqn.cu``).
+"""K5: the recurrent (DRQN) train phase, U sub-updates, and K8: one
+sub-update emitting gradients, for data parallelism (``csrc/fused_drqn.cu``).
 
 Replaces ``fused_drqn_group_update`` of ``deepqlearning_tpu/ops/pallas/
 fused_drqn.py``. Each sub-update u takes the trace windows ``[u·B, (u+1)·B)``
@@ -19,8 +20,15 @@ the warp's own gradient accumulators live in shared memory, and each block
 sums its warps' gradients in a fixed order into a per-block partial.
 (b) ``dr_adam_kernel``: one block sums the block partials in a fixed order,
 takes the max-abs gnorm and applies Adam. Every sum has a fixed order, so
-runs are deterministic. Launch (a) plus a reduce is the grads-emitting
-variant (``fused_drqn_grads``) that data parallelism needs.
+runs are deterministic.
+
+K8 (:func:`fused_drqn_grads`) replaces ``fused_drqn_grads`` of the same
+JAX file: launch (a) on one sub-batch of B windows, then the fixed-order
+multi-block reduce K7 uses, into one flat gradient in ``plan.names``
+order with the loss and the local max-abs.
+:func:`fused_drqn_dp_group_update` is the data-parallel step's U
+sub-updates: per sub-update K8, a caller's reduce of the flat vector in
+place, and K5's one-block Adam kernel on it.
 
 :func:`drqn_plan_for` is the gate, on the network family of the JAX
 kernel: ``[Flatten]* [Dense]* LSTM|GRU`` and a Dense or dueling head with a
@@ -40,11 +48,11 @@ import torch
 
 from ...models.chain import GRU, LSTM, Chain, Flatten, gru_cell, lstm_cell
 from ...models.dueling import DuelingNetwork
-from ...ops.helpers import huber_loss
+from ...ops.helpers import flatten, huber_loss, unflatten
 from . import build
 from .fused_update import (
     _ACTS, MAX_ACTIONS, MAX_SMEM, FusedPlan, LayerPlan, _apply_act,
-    dense_plans, q_values)
+    adam_flat_plain, adam_plain, dense_plans, q_values)
 
 MAX_WIDTH = 256
 MAX_WARPS = 8  # warps (trace windows) per block of dr_fwd_bwd_kernel
@@ -286,15 +294,8 @@ def fused_drqn_group_update_plain(plan: DRQNPlan, params, m, v, count, obs,
                                   action[sl].long(), reward[sl], done[sl],
                                   mask[sl], q_sp_tgt[sl], gamma, double_q)
         gnorm = torch.stack([g.abs().max() for g in grads.values()]).max()
-        t = t0 + u + 1
-        c1 = 1.0 / (1.0 - b1 ** t)
-        c2 = 1.0 / (1.0 - b2 ** t)
-        for name in plan.names:
-            g = grads[name]
-            m[name].mul_(b1).add_((1.0 - b1) * g)
-            v[name].mul_(b2).add_((1.0 - b2) * (g * g))
-            params[name].sub_(lr * (m[name] * c1)
-                              / (torch.sqrt(v[name] * c2) + adam_eps))
+        adam_plain(plan.names, params, m, v, grads, t0 + u + 1, lr, b1, b2,
+                   adam_eps)
     count.add_(U)
     return loss, gnorm
 
@@ -367,13 +368,8 @@ def fused_drqn_group_update(plan: DRQNPlan, params, m, v, count, obs, nobs,
     ``reward``/``done``/``mask [N, T]``, ``q_sp_tgt [N, T, A]`` the target
     net's Q(s') from a zero-state unroll. Returns ``(loss, gnorm)`` of the
     last sub-update."""
-    n = batch_size * n_updates
-    for name, t in (("obs", obs), ("nobs", nobs), ("action", action),
-                    ("reward", reward), ("done", done), ("mask", mask),
-                    ("q_sp_tgt", q_sp_tgt)):
-        if t.shape[0] != n or t.shape[1] != action.shape[1]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"[batch_size*n_updates = {n}, T, ...]")
+    _check_windows(batch_size * n_updates, obs, nobs, action, reward, done,
+                   mask, q_sp_tgt)
     fn = (fused_drqn_group_update_cuda if obs.is_cuda
           else fused_drqn_group_update_plain)
     flat = lambda x: x.reshape(x.shape[0], x.shape[1], -1)
@@ -381,3 +377,195 @@ def fused_drqn_group_update(plan: DRQNPlan, params, m, v, count, obs, nobs,
               reward, done, mask, q_sp_tgt, gamma=gamma, double_q=double_q,
               lr=lr, batch_size=batch_size, n_updates=n_updates, b1=b1,
               b2=b2, adam_eps=adam_eps)
+
+
+# ------------------------------- K8: one recurrent sub-update, emitting grads
+
+def fused_drqn_grads_plain(plan: DRQNPlan, params, obs, nobs, action, reward,
+                           done, mask, q_sp_tgt, *, gamma, double_q):
+    """Plain PyTorch version of :func:`fused_drqn_grads`, returning the
+    flat gradient ``[n_params]`` in place of the dict."""
+    grads, loss = _drqn_grads(plan, params, obs, nobs, action.long(), reward,
+                              done, mask, q_sp_tgt, gamma, double_q)
+    flat = flatten(grads, plan.names)
+    return flat, loss, flat.abs().max()
+
+
+def _k8_inputs(plan: DRQNPlan, params, n, obs, nobs, action, reward, done,
+               mask, q_sp_tgt):
+    """K8's inputs of ``n`` windows as contiguous f32 (int32 actions) CUDA
+    tensors, checked against the plan; the parameter tensors in plan
+    order; and the kernels' descriptor."""
+    T = action.shape[1]
+    obs, nobs, reward, done, mask, q_sp_tgt = (
+        t.float().contiguous()
+        for t in (obs, nobs, reward, done, mask, q_sp_tgt))
+    action = action.to(torch.int32).contiguous()
+    tensors = [params[k] for k in plan.names]
+    build.require_cuda(obs, nobs, action, reward, done, mask, q_sp_tgt,
+                       *tensors)
+    d = plan.desc(T)
+    for k, t in enumerate(tensors):
+        if t.numel() != d.t_size[k]:
+            raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
+                             f"expected {d.t_size[k]}")
+    for name, t in (("obs", obs), ("nobs", nobs)):
+        build.require_shape(t, (n, T, plan.in_dim), name)
+    for name, t in (("action", action), ("reward", reward), ("done", done),
+                    ("mask", mask)):
+        build.require_shape(t, (n, T), name)
+    build.require_shape(q_sp_tgt, (n, T, plan.head.num_actions), "q_sp_tgt")
+    return (obs, nobs, action, reward, done, mask, q_sp_tgt), tensors, d
+
+
+def fused_drqn_grads_cuda(plan: DRQNPlan, params, obs, nobs, action, reward,
+                          done, mask, q_sp_tgt, *, gamma, double_q):
+    """Launch K8 (two kernels on the current stream); returns what
+    :func:`fused_drqn_grads_plain` returns."""
+    B, T = action.shape
+    xs, tensors, d = _k8_inputs(plan, params, B, obs, nobs, action, reward,
+                                done, mask, q_sp_tgt)
+    wpb = plan.warps_per_block(T)
+    f32 = dict(dtype=torch.float32, device=xs[0].device)
+    part_grad = torch.empty(-(-B // wpb), d.n_params, **f32)
+    part_loss = torch.empty(part_grad.shape[0], **f32)
+    flat = torch.empty(d.n_params, **f32)
+    loss, gnorm = torch.empty((), **f32), torch.empty((), **f32)
+    err = build.library().dq_fused_drqn_grads(
+        d, build.int64_array([t.data_ptr() for t in tensors]), B, wpb,
+        *(x.data_ptr() for x in xs), gamma, int(bool(double_q)),
+        part_grad.data_ptr(), part_loss.data_ptr(), flat.data_ptr(),
+        loss.data_ptr(), gnorm.data_ptr(), build.stream_ptr(flat.device))
+    build.check(err, "fused_drqn_grads")
+    fused_drqn_grads_cuda.launches += 1
+    return flat, loss, gnorm
+
+
+fused_drqn_grads_cuda.launches = 0
+
+
+def _check_windows(n, obs, nobs, action, reward, done, mask, q_sp_tgt):
+    for name, t in (("obs", obs), ("nobs", nobs), ("action", action),
+                    ("reward", reward), ("done", done), ("mask", mask),
+                    ("q_sp_tgt", q_sp_tgt)):
+        if t.shape[0] != n or t.shape[1] != action.shape[1]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"[{n}, {action.shape[1]}, ...]")
+
+
+def fused_drqn_grads(plan: DRQNPlan, params, obs, nobs, action, reward, done,
+                     mask, q_sp_tgt, *, gamma, double_q):
+    """One recurrent sub-update's unrolls, masked TD loss and BPTT on ``B``
+    windows, params read only: ``obs``/``nobs [B, T, *obs]``, ``action``/
+    ``reward``/``done``/``mask [B, T]``, ``q_sp_tgt [B, T, A]``. Returns
+    ``(grads, loss, gnorm)``, the contract of the JAX ``fused_drqn_grads``:
+    ``grads`` are views of one flat f32 gradient in ``plan.names`` order
+    (which ``fused_drqn_grads_cuda``/``_plain`` return), ``gnorm`` the
+    local max-abs."""
+    _check_windows(action.shape[0], obs, nobs, action, reward, done, mask,
+                   q_sp_tgt)
+    fn = fused_drqn_grads_cuda if obs.is_cuda else fused_drqn_grads_plain
+    flat3 = lambda x: x.reshape(x.shape[0], x.shape[1], -1)
+    flat, loss, gnorm = fn(plan, params, flat3(obs), flat3(nobs), action,
+                           reward, done, mask, q_sp_tgt, gamma=gamma,
+                           double_q=double_q)
+    return unflatten(flat, params, plan.names), loss, gnorm
+
+
+# ----------------- the data-parallel recurrent update: K8, reduce, Adam
+
+def fused_drqn_dp_group_update_plain(plan: DRQNPlan, params, m, v, count,
+                                     obs, nobs, action, reward, done, mask,
+                                     q_sp_tgt, *, reduce, gamma, double_q,
+                                     lr, batch_size, n_updates, b1=0.9,
+                                     b2=0.999, adam_eps=1e-8):
+    """Plain PyTorch version; same contract as
+    :func:`fused_drqn_dp_group_update`."""
+    B, U = batch_size, n_updates
+    for u in range(U):
+        sl = slice(u * B, (u + 1) * B)
+        flat, loss, _ = fused_drqn_grads_plain(
+            plan, params, obs[sl], nobs[sl], action[sl], reward[sl],
+            done[sl], mask[sl], q_sp_tgt[sl], gamma=gamma, double_q=double_q)
+        reduce(flat)
+        gnorm = adam_flat_plain(plan.names, params, m, v, count, flat, u=u,
+                                lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
+    count.add_(U)
+    return loss, gnorm
+
+
+def fused_drqn_dp_group_update_cuda(plan: DRQNPlan, params, m, v, count,
+                                    obs, nobs, action, reward, done, mask,
+                                    q_sp_tgt, *, reduce, gamma, double_q, lr,
+                                    batch_size, n_updates, b1=0.9, b2=0.999,
+                                    adam_eps=1e-8):
+    """Per sub-update on the current stream: K8 (two launches), ``reduce``
+    of its flat gradient, and K5's one-block Adam kernel on that vector;
+    checks and allocations once for all U sub-updates."""
+    B, U = batch_size, n_updates
+    T = action.shape[1]
+    xs, tensors, d = _k8_inputs(plan, params, U * B, obs, nobs, action,
+                                reward, done, mask, q_sp_tgt)
+    mt, vt = [m[k] for k in plan.names], [v[k] for k in plan.names]
+    build.require_cuda(count, *mt, *vt)
+    if count.dtype != torch.int32:
+        raise ValueError("the Adam count must be an int32 tensor")
+    for ts in (mt, vt):
+        for k, t in enumerate(ts):
+            if t.numel() != d.t_size[k]:
+                raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
+                                 f"expected {d.t_size[k]}")
+    wpb = plan.warps_per_block(T)
+    dev = xs[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_grad = torch.empty(-(-B // wpb), d.n_params, **f32)
+    part_loss = torch.empty(part_grad.shape[0], **f32)
+    flat = torch.empty(U, d.n_params, **f32)
+    loss, lgn, gnorm = (torch.empty(U, **f32) for _ in range(3))
+    ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
+    P, M, V = ptrs(tensors), ptrs(mt), ptrs(vt)
+    lib, stream = build.library(), build.stream_ptr(dev)
+    # sub-batch u starts u·B windows into each input; elements are 4 bytes
+    rows = [(x.data_ptr(), 4 * B * x[0].numel()) for x in xs]
+    scratch = part_grad.data_ptr(), part_loss.data_ptr()
+    per_u = [(t.data_ptr(), 4 * k) for t, k in ((flat, d.n_params),
+                                                 (loss, 1), (lgn, 1))]
+    dq, cnt, g_out = int(bool(double_q)), count.data_ptr(), gnorm.data_ptr()
+    for u in range(U):
+        err = lib.dq_fused_drqn_grads(
+            d, P, B, wpb, *(base + u * step for base, step in rows), gamma,
+            dq, *scratch, *(base + u * step for base, step in per_u), stream)
+        build.check(err, "fused_drqn_grads")
+        fused_drqn_grads_cuda.launches += 1
+        reduce(flat[u])
+        err = lib.dq_drqn_adam(d, P, M, V, cnt, u, per_u[0][0] +
+                               u * per_u[0][1], lr, b1, b2, adam_eps,
+                               g_out + 4 * u, stream)
+        build.check(err, "fused_drqn_dp_group_update (Adam)")
+    fused_drqn_dp_group_update_cuda.launches += 1
+    count.add_(U)
+    return loss[U - 1], gnorm[U - 1]
+
+
+fused_drqn_dp_group_update_cuda.launches = 0
+
+
+def fused_drqn_dp_group_update(plan: DRQNPlan, params, m, v, count, obs,
+                               nobs, action, reward, done, mask, q_sp_tgt, *,
+                               reduce, gamma, double_q, lr, batch_size,
+                               n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """U data-parallel recurrent sub-updates IN PLACE on ``params``/``m``/
+    ``v`` and ``count``, with the inputs of :func:`fused_drqn_group_update`.
+    Per sub-update u: K8 on windows ``[u·B, (u+1)·B)``, ``reduce(flat)``
+    on its flat gradient (in place: the all-reduce), then Adam at ``t =
+    count + u + 1`` from that vector. Returns ``(loss, gnorm)``: the last
+    sub-update's local loss and the max-abs of its reduced gradient."""
+    _check_windows(batch_size * n_updates, obs, nobs, action, reward, done,
+                   mask, q_sp_tgt)
+    fn = fused_drqn_dp_group_update_cuda if obs.is_cuda else \
+        fused_drqn_dp_group_update_plain
+    flat3 = lambda x: x.reshape(x.shape[0], x.shape[1], -1)
+    return fn(plan, params, m, v, count, flat3(obs), flat3(nobs), action,
+              reward, done, mask, q_sp_tgt, reduce=reduce, gamma=gamma,
+              double_q=double_q, lr=lr, batch_size=batch_size,
+              n_updates=n_updates, b1=b1, b2=b2, adam_eps=adam_eps)

@@ -1,4 +1,5 @@
-"""K3: the grouped train phase, U sequential sub-updates (``csrc/fused_update.cu``).
+"""K3: the grouped train phase, U sequential sub-updates, and K7: one
+sub-update emitting gradients, for data parallelism (``csrc/fused_update.cu``).
 
 Replaces ``fused_group_update`` of ``deepqlearning_tpu/ops/pallas/
 fused_update.py``. Each sub-update u takes rows ``[u·B, (u+1)·B)`` of the
@@ -14,6 +15,16 @@ partial gradients, then a one-block reduce + Adam kernel); every sum has a
 fixed order. At the loop's shapes the phase is bound by launch and
 synchronisation latency, not by bytes or FLOPs (see the source).
 
+K7 (:func:`fused_grads`) replaces ``fused_grads`` of the same JAX file:
+launch (a) of K3 on one sub-batch of B rows, then a multi-block reduce
+(one thread per parameter, block partials summed in block order) into one
+flat gradient in ``plan.names`` order, with the loss and the local max-abs.
+:func:`fused_dp_group_update` is the data-parallel step's U sub-updates:
+per sub-update K7, a caller's reduce (the all-reduce) of that flat vector
+in place, and K3's one-block Adam kernel with the reduced vector as its
+only partial. One block suffices: it reads 9029 floats once at the
+headline net, where K3's Adam sums 32 partials.
+
 :func:`plan_for` is the gate, as in the JAX package: a dueling or plain
 stack of Dense layers with tanh/relu/identity and bias, a scalar value head,
 every layer at most ``MAX_WIDTH`` wide, at most ``MAX_ACTIONS`` actions and
@@ -23,6 +34,7 @@ every layer at most ``MAX_WIDTH`` wide, at most ``MAX_ACTIONS`` actions and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,6 +42,7 @@ import torch.nn.functional as F
 
 from ...models.chain import Chain, Dense, Flatten
 from ...models.dueling import DuelingNetwork
+from ..helpers import flatten, unflatten
 from . import build
 
 MAX_WIDTH = 256
@@ -66,8 +79,10 @@ class FusedPlan:
         """Parameter keys in kernel order: w0, b0, w1, b1, ..."""
         return [n for lp in self.layers for n in (lp.w_name, lp.b_name)]
 
+    @functools.lru_cache(maxsize=None)
     def desc(self) -> build.NetDesc:
-        """The kernels' ``NetDesc`` for this plan."""
+        """The kernels' ``NetDesc`` for this plan (built once per plan;
+        callers must not modify it)."""
         d = build.NetDesc()
         d.dueling = int(self.dueling)
         d.n_val, d.n_adv = len(self.val), len(self.adv)
@@ -238,6 +253,19 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
     return grads, td, prio, loss
 
 
+def adam_plain(names, params, m, v, grads, t: int, lr, b1, b2, adam_eps):
+    """Adam with bias correction at step ``t``, in place on ``params``,
+    ``m`` and ``v`` for each key of ``names``."""
+    c1 = 1.0 / (1.0 - b1 ** t)
+    c2 = 1.0 / (1.0 - b2 ** t)
+    for name in names:
+        g = grads[name]
+        m[name].mul_(b1).add_((1.0 - b1) * g)
+        v[name].mul_(b2).add_((1.0 - b2) * (g * g))
+        params[name].sub_(lr * (m[name] * c1)
+                          / (torch.sqrt(v[name] * c2) + adam_eps))
+
+
 def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
                              action, reward, done, weights, q_sp_tgt, *,
                              gamma, double_q, lr, alpha, eps, batch_size,
@@ -256,15 +284,8 @@ def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
         tds.append(td)
         prios.append(prio)
         gnorm = torch.stack([g.abs().max() for g in grads.values()]).max()
-        t = t0 + u + 1
-        c1 = 1.0 / (1.0 - b1 ** t)
-        c2 = 1.0 / (1.0 - b2 ** t)
-        for name in plan.names:
-            g = grads[name]
-            m[name].mul_(b1).add_((1.0 - b1) * g)
-            v[name].mul_(b2).add_((1.0 - b2) * (g * g))
-            params[name].sub_(lr * (m[name] * c1)
-                              / (torch.sqrt(v[name] * c2) + adam_eps))
+        adam_plain(plan.names, params, m, v, grads, t0 + u + 1, lr, b1, b2,
+                   adam_eps)
     count.add_(U)
     return torch.stack(tds), torch.stack(prios), loss, gnorm
 
@@ -343,3 +364,219 @@ def fused_group_update(plan: FusedPlan, params, m, v, count, obs, nobs,
               reward, done, weights, q_sp_tgt, gamma=gamma, double_q=double_q, lr=lr,
               alpha=alpha, eps=eps, batch_size=batch_size,
               n_updates=n_updates, b1=b1, b2=b2, adam_eps=adam_eps)
+
+
+# -------------------------------------- K7: one sub-update, emitting grads
+
+def fused_grads_plain(plan: FusedPlan, params, obs_s, obs_sp, action, reward,
+                      done, weights, q_sp_tgt, *, gamma, double_q, alpha,
+                      eps):
+    """Plain PyTorch version of :func:`fused_grads`, returning the flat
+    gradient ``[n_params]`` in place of the dict."""
+    grads, td, prio, loss = _fwd_bwd(
+        plan, params, obs_s, obs_sp if double_q else None, action.long(),
+        reward, done, weights, q_sp_tgt, gamma, double_q, alpha, eps)
+    flat = flatten(grads, plan.names)
+    return flat, td, prio, loss, flat.abs().max()
+
+
+def _k7_inputs(plan: FusedPlan, params, n, obs, nobs, action, reward, done,
+               weights, q_sp_tgt, double_q):
+    """K7's inputs of ``n`` rows as contiguous f32 (int32 actions) CUDA
+    tensors, checked against the plan; and the parameter tensors in plan
+    order."""
+    obs = obs.float().contiguous()
+    nobs = nobs.float().contiguous() if double_q else obs
+    action = action.to(torch.int32).contiguous()
+    reward, done, weights, q_sp_tgt = (
+        t.float().contiguous() for t in (reward, done, weights, q_sp_tgt))
+    tensors = [params[k] for k in plan.names]
+    build.require_cuda(obs, nobs, action, reward, done, weights, q_sp_tgt,
+                       *tensors)
+    build.require_plan_params(plan, tensors)
+    for name, t in (("obs", obs), ("nobs", nobs)):
+        build.require_shape(t, (n, plan.in_dim), name)
+    for name, t in (("action", action), ("reward", reward), ("done", done),
+                    ("weights", weights)):
+        build.require_shape(t, (n,), name)
+    build.require_shape(q_sp_tgt, (n, plan.num_actions), "q_sp_tgt")
+    return (obs, nobs, action, reward, done, weights, q_sp_tgt), tensors
+
+
+def fused_grads_cuda(plan: FusedPlan, params, obs_s, obs_sp, action, reward,
+                     done, weights, q_sp_tgt, *, gamma, double_q, alpha,
+                     eps):
+    """Launch K7 (two kernels on the current stream); returns what
+    :func:`fused_grads_plain` returns."""
+    B = action.shape[0]
+    xs, tensors = _k7_inputs(plan, params, B, obs_s, obs_sp, action, reward,
+                             done, weights, q_sp_tgt, double_q)
+    d = plan.desc()
+    f32 = dict(dtype=torch.float32, device=xs[0].device)
+    td, prio = torch.empty(B, **f32), torch.empty(B, **f32)
+    part_grad = torch.empty(-(-B // TILE), d.n_params, **f32)
+    part_loss = torch.empty(part_grad.shape[0], **f32)
+    flat = torch.empty(d.n_params, **f32)
+    loss, gnorm = torch.empty((), **f32), torch.empty((), **f32)
+    err = build.library().dq_fused_grads(
+        d, build.int64_array([t.data_ptr() for t in tensors]), B,
+        *(x.data_ptr() for x in xs), gamma, alpha, eps, int(bool(double_q)),
+        td.data_ptr(), prio.data_ptr(), part_grad.data_ptr(),
+        part_loss.data_ptr(), flat.data_ptr(), loss.data_ptr(),
+        gnorm.data_ptr(), build.stream_ptr(flat.device))
+    build.check(err, "fused_grads")
+    fused_grads_cuda.launches += 1
+    return flat, td, prio, loss, gnorm
+
+
+fused_grads_cuda.launches = 0
+
+
+def fused_grads(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
+                weights, q_sp_tgt, *, gamma, double_q, alpha, eps):
+    """One sub-update's forward, TD loss and backward on ``B`` rows, params
+    read only: ``obs_s``/``obs_sp [B, in_dim]`` (``obs_sp`` unused without
+    double-Q), ``action``/``reward``/``done``/``weights [B]``, ``q_sp_tgt
+    [B, A]``. Returns ``(grads, td [B], prio [B], loss, gnorm)``, the
+    contract of the JAX ``fused_grads``: ``grads`` are views, shaped like
+    ``params``, of one flat f32 gradient in ``plan.names`` order (which
+    ``fused_grads_cuda``/``_plain`` return), and ``gnorm`` is the local
+    max-abs."""
+    B = action.shape[0]
+    for name, t in (("obs_s", obs_s), ("obs_sp", obs_sp), ("reward", reward),
+                    ("done", done), ("weights", weights)):
+        if t.shape[0] != B:
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected {B}")
+    if tuple(q_sp_tgt.shape) != (B, plan.num_actions):
+        raise ValueError(f"q_sp_tgt has shape {tuple(q_sp_tgt.shape)}, "
+                         f"expected {(B, plan.num_actions)}")
+    fn = fused_grads_cuda if obs_s.is_cuda else fused_grads_plain
+    flat2 = lambda x: x.reshape(x.shape[0], -1)
+    flat, td, prio, loss, gnorm = fn(
+        plan, params, flat2(obs_s), flat2(obs_sp), action, reward, done,
+        weights, q_sp_tgt, gamma=gamma, double_q=double_q, alpha=alpha,
+        eps=eps)
+    return unflatten(flat, params, plan.names), td, prio, loss, gnorm
+
+
+# ------------------- the data-parallel grouped update: K7, reduce, Adam
+
+def adam_flat_plain(names, params, m, v, count, flat, *, u, lr, b1=0.9,
+                    b2=0.999, adam_eps=1e-8):
+    """Plain Adam step ``t = count + u + 1`` from a flat gradient in
+    ``names`` order, in place; returns the gradient's max-abs entry.
+    ``count`` is not advanced."""
+    adam_plain(names, params, m, v, unflatten(flat, params, names),
+               int(count) + u + 1, lr, b1, b2, adam_eps)
+    return flat.abs().max()
+
+
+def fused_dp_group_update_plain(plan: FusedPlan, params, m, v, count, obs,
+                                nobs, action, reward, done, weights, q_sp_tgt,
+                                *, reduce, gamma, double_q, lr, alpha, eps,
+                                batch_size, n_updates, b1=0.9, b2=0.999,
+                                adam_eps=1e-8):
+    """Plain PyTorch version; same contract as
+    :func:`fused_dp_group_update`."""
+    B, U = batch_size, n_updates
+    tds, prios = [], []
+    for u in range(U):
+        sl = slice(u * B, (u + 1) * B)
+        flat, td, prio, loss, _ = fused_grads_plain(
+            plan, params, obs[sl], nobs[sl], action[sl], reward[sl],
+            done[sl], weights[sl], q_sp_tgt[sl], gamma=gamma,
+            double_q=double_q, alpha=alpha, eps=eps)
+        reduce(flat)
+        gnorm = adam_flat_plain(plan.names, params, m, v, count, flat, u=u,
+                                lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
+        tds.append(td)
+        prios.append(prio)
+    count.add_(U)
+    return torch.stack(tds), torch.stack(prios), loss, gnorm
+
+
+def fused_dp_group_update_cuda(plan: FusedPlan, params, m, v, count, obs,
+                               nobs, action, reward, done, weights, q_sp_tgt,
+                               *, reduce, gamma, double_q, lr, alpha, eps,
+                               batch_size, n_updates, b1=0.9, b2=0.999,
+                               adam_eps=1e-8):
+    """Per sub-update on the current stream: K7 (two launches), ``reduce``
+    of its flat gradient, and K3's one-block Adam kernel on that vector.
+    The inputs, parameters and moments are checked, and the outputs and
+    scratch allocated, once for all U sub-updates."""
+    B, U = batch_size, n_updates
+    xs, tensors = _k7_inputs(plan, params, U * B, obs, nobs, action, reward,
+                             done, weights, q_sp_tgt, double_q)
+    mt, vt = [m[k] for k in plan.names], [v[k] for k in plan.names]
+    build.require_cuda(count, *mt, *vt)
+    if count.dtype != torch.int32:
+        raise ValueError("the Adam count must be an int32 tensor")
+    for ts in (mt, vt):
+        build.require_plan_params(plan, ts)
+    d = plan.desc()
+    nblk = -(-B // TILE)
+    dev = xs[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    td, prio = torch.empty(U * B, **f32), torch.empty(U * B, **f32)
+    part_grad = torch.empty(nblk, d.n_params, **f32)
+    part_loss = torch.empty(nblk, **f32)
+    flat = torch.empty(U, d.n_params, **f32)
+    loss, lgn, gnorm = (torch.empty(U, **f32) for _ in range(3))
+    ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
+    P, M, V = ptrs(tensors), ptrs(mt), ptrs(vt)
+    lib, stream = build.library(), build.stream_ptr(dev)
+    # sub-batch u starts u·B rows into each input and output; every element
+    # is 4 bytes
+    rows = [(x.data_ptr(), 4 * B * x[0].numel()) for x in (*xs, td, prio)]
+    scratch = part_grad.data_ptr(), part_loss.data_ptr()
+    per_u = [(t.data_ptr(), 4 * k) for t, k in ((flat, d.n_params),
+                                                 (loss, 1), (lgn, 1))]
+    dq, cnt, g_out = int(bool(double_q)), count.data_ptr(), gnorm.data_ptr()
+    for u in range(U):
+        p = [base + u * step for base, step in rows]
+        err = lib.dq_fused_grads(d, P, B, *p[:7], gamma, alpha, eps, dq,
+                                 *p[7:], *scratch,
+                                 *(base + u * step for base, step in per_u),
+                                 stream)
+        build.check(err, "fused_grads")
+        fused_grads_cuda.launches += 1
+        reduce(flat[u])
+        err = lib.dq_fused_adam(d, P, M, V, cnt, u, per_u[0][0] +
+                                u * per_u[0][1], lr, b1, b2, adam_eps,
+                                g_out + 4 * u, stream)
+        build.check(err, "fused_dp_group_update (Adam)")
+    fused_dp_group_update_cuda.launches += 1
+    count.add_(U)
+    return td.view(U, B), prio.view(U, B), loss[U - 1], gnorm[U - 1]
+
+
+fused_dp_group_update_cuda.launches = 0
+
+
+def fused_dp_group_update(plan: FusedPlan, params, m, v, count, obs, nobs,
+                          action, reward, done, weights, q_sp_tgt, *, reduce,
+                          gamma, double_q, lr, alpha, eps, batch_size,
+                          n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """U data-parallel sub-updates IN PLACE on ``params``/``m``/``v`` and
+    ``count``, with the inputs of :func:`fused_group_update`. Per
+    sub-update u: K7 on rows ``[u·B, (u+1)·B)``, ``reduce(flat)`` on its
+    flat gradient (in place: the all-reduce that averages it over the
+    ranks), then Adam at ``t = count + u + 1`` from that vector. Returns
+    ``(tds [U, B], prios [U, B], loss, gnorm)``: the last sub-update's
+    local loss and the max-abs of its reduced gradient."""
+    n = batch_size * n_updates
+    for name, t in (("obs", obs), ("action", action), ("reward", reward),
+                    ("done", done), ("weights", weights),
+                    ("q_sp_tgt", q_sp_tgt)) + ((("nobs", nobs),)
+                                               if double_q else ()):
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected "
+                             f"batch_size*n_updates = {n}")
+    fn = fused_dp_group_update_cuda if obs.is_cuda else \
+        fused_dp_group_update_plain
+    flat2 = lambda x: x.reshape(x.shape[0], -1)
+    return fn(plan, params, m, v, count, flat2(obs), flat2(nobs), action,
+              reward, done, weights, q_sp_tgt, reduce=reduce, gamma=gamma,
+              double_q=double_q, lr=lr, alpha=alpha, eps=eps,
+              batch_size=batch_size, n_updates=n_updates, b1=b1, b2=b2,
+              adam_eps=adam_eps)

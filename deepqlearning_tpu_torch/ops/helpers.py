@@ -25,3 +25,20 @@ def globalnorm(grads) -> torch.Tensor:
     if not grads:
         return torch.zeros((), dtype=torch.float32)
     return torch.stack([g.abs().max() for g in grads]).max()
+
+
+def flatten(tensors, names) -> torch.Tensor:
+    """The tensors ``tensors[n]`` for ``n`` in ``names`` as one flat f32
+    vector, in that order."""
+    return torch.cat([tensors[n].reshape(-1).float() for n in names])
+
+
+def unflatten(flat: torch.Tensor, like, names):
+    """Views of ``flat`` shaped like ``like[n]``, keyed by ``names`` in
+    order (the inverse of :func:`flatten`)."""
+    out, off = {}, 0
+    for n in names:
+        k = like[n].numel()
+        out[n] = flat[off:off + k].view(like[n].shape)
+        off += k
+    return out

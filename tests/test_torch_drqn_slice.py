@@ -225,7 +225,8 @@ def test_recurrent_forced_kernels_and_axis_name_raise():
     with pytest.raises(ValueError, match="fused_collect=True"):
         build_loop(env, dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 4)), buf,
                    _cfg(dt, fused_collect=True), sched, 0.95, select_fn=sel)
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    # the data axis is a torch.distributed process group, not a name
+    with pytest.raises(TypeError, match="axis_name"):
         build_loop(env, pre, buf, _cfg(dt), sched, 0.95, axis_name="data")
     with pytest.raises(ValueError, match="recurrent"):
         build_loop(env, pre, buf, _cfg(dt).replace(recurrence=False), sched,

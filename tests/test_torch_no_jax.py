@@ -3,7 +3,8 @@
 A subprocess blocks ``jax`` and ``deepqlearning_tpu`` (an import of either
 raises), imports every module of ``deepqlearning_tpu_torch`` and runs one
 CPU loop iteration through each route (kernel twins and plain paths), for
-the feed-forward and the recurrent (DRQN) loop.
+the feed-forward and the recurrent (DRQN) loop, and one data-parallel
+iteration of each through ``DataParallelRunner`` in a one-rank gloo world.
 """
 import os
 import subprocess
@@ -56,6 +57,26 @@ SCRIPT = textwrap.dedent("""
         c = populate(pop, buf, init_carry(env, net, buf, cfg, opt), 6)
         c = it(c)
         assert torch.isfinite(c.loss) and c.replay.t == 7
+    # data parallelism in a one-rank gloo world: the K7 and K8 routes
+    import torch.distributed as dist
+    from deepqlearning_tpu_torch.parallel.launch import free_port
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    mdp = TestMDP((5, 5), 1, 6)
+    for rec in (False, True):
+        net = (Chain(Flatten(), LSTM(25, 8), Dense(8, 4)) if rec else
+               create_dueling_network(Chain(Flatten(), Dense(25, 8, torch.tanh),
+                                            Dense(8, 4))))
+        cfg = DQNConfig(num_envs=4, train_freq=2, batch_size=4,
+                        buffer_size=32, trace_length=3, max_episode_length=6,
+                        recurrence=rec, fused_updates=True)
+        buf = (EpisodeReplayBuffer(mdp.obs_shape, 32, 4, 3, 6, num_envs=4)
+               if rec else PrioritizedReplayBuffer(mdp.obs_shape, 32, 4))
+        runner = DataParallelRunner(mdp, net, buf, cfg, LinearDecaySchedule(),
+                                    mdp.discount)
+        c = runner.run_segment(runner.run_populate(runner.init_carry(0), 8), 1)
+        assert torch.isfinite(c.loss) and int(c.opt_state.count) == 2
+    dist.destroy_process_group()
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
     assert not bad, bad
