@@ -7,16 +7,22 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off;
-2. build: compiles the kernel library, prints the seconds;
+2. build: compiles the kernel library, prints the seconds; then the
+   replay buffers and ``init_carry`` built with no ``device`` argument must
+   hold their tensors on the card;
 3. kernels: each kernel (K1-K8) against its plain PyTorch twin on the
-   card, at the main paths' shapes, with stated tolerances, and both times
-   (K7/K8 also run the data-parallel update, K7/K8 and an Adam launch per
-   sub-update, against K3's/K5's update and its twin);
+   card, at the main paths' shapes, with stated tolerances, both times and
+   the kernel's bound (the least time for the same bytes or FLOPs on the
+   card) and its share of it (K3 also against the tile-order reference and
+   two runs bit for bit; K7/K8 also run the data-parallel update, K7/K8
+   and an Adam launch per sub-update, against K3's/K5's update and its
+   twin);
 4. slices: the small feed-forward loop and the small DRQN loop on the card
    against the same loops on the CPU (plain twins) with injected uniforms
    and draws;
 5. headline loop: the headline configuration (131072 envs, 2^20 replay,
-   batch 512, train_freq 4096) through ``build_loop``, env-steps/s;
+   batch 512, train_freq 4096) through ``build_loop``, env-steps/s and
+   ms/iteration;
 6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s;
@@ -26,16 +32,20 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 9. DP DRQN loop: the DRQN configuration the same way (K8);
 10. two ranks: a small data-parallel slice in two gloo ranks on the one
     card (NCCL refuses two ranks on one device) against the same two-rank
-    program on CPU tensors.
+    program on CPU tensors;
+11. headline profile: the headline loop once more, last, with the host's
+    enqueue per iteration and, under ``torch.profiler``, the device busy
+    share and the kernel launches and device time per iteration (K3
+    exactly once: one cooperative launch per grouped call).
 
-Each of the paths 5 to 9 runs with the launch counters (and
+Each of the paths 5 to 9 and 11 runs with the launch counters (and
 ``pmean_flat.calls``) zeroed just before it and read just after: every
 kernel of the path must have launched there, K3 / K5 not on the
 data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 2 minutes on an H100, the kernels' build included.
+result. About 2-3 minutes on an H100, the kernels' build included.
 """
 import json
 import subprocess
@@ -67,6 +77,60 @@ def _time_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+# The card's peaks for a bound (the least time for the same work): FP32 on
+# the CUDA cores and HBM3, NVIDIA H100 SXM data sheet, dense, at 700 W.
+PEAK_F32 = 67e12      # FLOP/s
+PEAK_BYTES = 3.35e12  # bytes/s
+
+
+def _nbytes(*xs):
+    """Bytes of tensors, or of the tensors in dicts, lists and tuples."""
+    n = 0
+    for x in xs:
+        if isinstance(x, dict):
+            n += _nbytes(*x.values())
+        elif isinstance(x, (list, tuple)):
+            n += _nbytes(*x)
+        elif hasattr(x, "element_size"):
+            n += x.numel() * x.element_size()
+    return n
+
+
+def _bound(nbytes, flops):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
+    rate and the operations over the FP32 rate."""
+    tb, tf = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _macs(layers):
+    """Multiply-adds of one row through Dense layers."""
+    return sum(lp.din * lp.dout for lp in layers)
+
+
+def _dense_update_flops(plan, B, U, double_q):
+    """FLOPs of U feed-forward sub-updates of B rows: the forward on s (and
+    s' for double-Q), dW of every layer and dh of every layer but each
+    head's first; 2 per multiply-add."""
+    macs = _macs(plan.layers)
+    first = sum(h[0].din * h[0].dout for h in (plan.val, plan.adv) if h)
+    return 2 * U * B * (macs * (2 if double_q else 1) + macs + macs - first)
+
+
+def _drqn_update_flops(plan, B, T, U, double_q):
+    """FLOPs of U recurrent sub-updates of B windows of T steps: per step
+    the Dense layers and the cell's (cin + H) x G gate product, forward on
+    s (and s' for double-Q), backward twice the forward (dW and dh)."""
+    cp = plan.cell
+    macs = _macs(plan.dense) + (cp.in_dim + cp.hidden) * cp.n_gates * cp.hidden
+    return 2 * U * B * T * macs * ((2 if double_q else 1) + 2)
+
+
+def _kernel_line(name, ms, plain_ms, bound_ms, bound_by):
+    return (f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4f}")
+
+
 def _check(ok, what):
     if not ok:
         raise AssertionError(what)
@@ -81,6 +145,43 @@ def _close(a, b, rtol, atol, what):
         raise AssertionError(f"{what}: max abs err {err} beyond "
                              f"rtol {rtol} / atol {atol}")
     return (a - b).abs().max().item() if a.numel() else 0.0
+
+
+def phase_default_device(torch):
+    """The entry points with no ``device`` argument put their tensors on
+    the card."""
+    from deepqlearning_tpu_torch import (
+        Chain, Dense, DQNConfig, EpisodeReplayBuffer, Flatten,
+        LinearDecaySchedule, PrioritizedReplayBuffer, ReplayBuffer,
+        SimpleGridWorld)
+    from deepqlearning_tpu_torch.learner.loop import build_loop, init_carry
+
+    def tensors(x):
+        if hasattr(x, "device"):
+            return [x]
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in tensors(v)]
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in tensors(v)]
+        return []
+
+    env = SimpleGridWorld()
+    bufs = (PrioritizedReplayBuffer(env.obs_shape, 64, 8),
+            ReplayBuffer(env.obs_shape, 64, 8),
+            EpisodeReplayBuffer(env.obs_shape, 8, 4, 2, 4, num_envs=2))
+    net = Chain(Flatten(), Dense(2, 8, torch.tanh, device="cuda"),
+                Dense(8, 4, device="cuda"))
+    cfg = DQNConfig(num_envs=16, batch_size=8, buffer_size=64, train_freq=16)
+    _, _, opt = build_loop(env, net, bufs[0], cfg, LinearDecaySchedule(),
+                           0.95)
+    carry = init_carry(env, net, bufs[0], cfg, opt)
+    got = [t for b in bufs for t in tensors(b.init())] + tensors(
+        [carry.actor, carry.replay, carry.params, carry.target_params,
+         carry.opt_state, carry.loss])
+    _check(len(got) > 20 and all(t.device.type == "cuda" for t in got),
+           "an entry point without device= left the card")
+    _say(f"default device: three buffers and init_carry built with no "
+         f"device argument hold {len(got)} tensors, all on cuda")
 
 
 def phase_kernels(torch, dev, results):
@@ -112,9 +213,11 @@ def phase_kernels(torch, dev, results):
             err = max(err, _close(k, p, 1e-5, 1e-6, f"K1 {n}"))
     ms = _time_ms(lambda: tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, True), 200)
     pms = _time_ms(lambda: tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, True), 200)
-    results["td_loss"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
-    _say(f"K1 td_loss B=512 A=4: ok, max_abs_err {err:.3g}, "
-         f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    bms, by = _bound(_nbytes(args, ko), 12 * B * A)
+    results["td_loss"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                              bound_ms=bms, bound_by=by)
+    _say(f"K1 td_loss B=512 A=4: ok, max_abs_err {err:.3g} | "
+         + _kernel_line("K1", ms, pms, bms, by))
 
     # --- K2: 2^20 leaves / 16384 draws and 4096 / 600. Indices >= 99%
     # exact and the rest adjacent (the twin's cumsum sums in another
@@ -136,16 +239,25 @@ def phase_kernels(torch, dev, results):
         if timing is None:
             timing = (_time_ms(lambda: ts.tree_sample_cuda(tree, mass), 100),
                       _time_ms(lambda: ts.tree_sample_plain(tree, mass), 100))
+            # each draw reads one 64-wide node per level, the tree at most
+            # once; a compare-add per child read
+            reads = min(_nbytes(tree), D * len(tree) * 64 * 4)
+            bound = _bound(reads + _nbytes(mass, pk) + 4 * D,
+                           D * len(tree) * 64 * 2)
         _say(f"K2 tree_sample {cap} leaves / {D} draws: ok, exact {exact:.5f}")
     results["tree_sample"] = dict(max_abs_err=float(err), ms=timing[0],
-                                  plain_ms=timing[1])
-    _say(f"K2 tree_sample 2^20/16384: kernel {timing[0]:.4f} ms, "
-         f"plain {timing[1]:.4f} ms")
+                                  plain_ms=timing[1], bound_ms=bound[0],
+                                  bound_by=bound[1])
+    _say(_kernel_line("K2 tree_sample 2^20/16384", *timing, *bound))
 
     # --- K3: U=32, B=512, dueling 2->64->64->4 double-Q lr 1e-4, and a
     # plain chain with max. params rtol 2e-4 / atol 2e-5 and loss rtol
     # 1e-4, gnorm rtol 1e-3 (the JAX package's fused-vs-XLA tolerances);
-    # td/prio rtol 1e-4 / atol 1e-5.
+    # td/prio rtol 1e-4 / atol 1e-5. Against the tile-order reference
+    # (the kernel's sum order) rtol 1e-5: params atol 1e-6 (1% of lr; the
+    # forward's dot products still round in another order), td/prio atol
+    # 1e-5 (the twin's: (|td| + 1e-3)^0.6 multiplies a td error by up to
+    # ~10 near td = 0), loss and gnorm atol 0. Two runs bit-identical.
     U, B = 32, 512
     err = 0.0
     timing = None
@@ -171,28 +283,50 @@ def phase_kernels(torch, dev, results):
             return (p, z, {k: v.clone() for k, v in z.items()},
                     torch.zeros((), dtype=torch.int32, device=dev))
 
-        ks, ps = state(), state()
+        ks, ps, rs, ks2 = state(), state(), state(), state()
         ko = fu.fused_group_update_cuda(plan, *ks, **data, **kw)
+        ko2 = fu.fused_group_update_cuda(plan, *ks2, **data, **kw)
         po = fu.fused_group_update_plain(plan, *ps, **data, **kw)
+        ro = fu.fused_group_update_tiled(plan, *rs, **data, **kw)
+        _check(all(torch.equal(a, b) for a, b in zip(ko, ko2)) and all(
+            torch.equal(ks[i][k], ks2[i][k]) for i in range(3)
+            for k in plan.names), "K3 two runs differ")
         for k in plan.names:
             err = max(err, _close(ks[0][k], ps[0][k], 2e-4, 2e-5, f"K3 {k}"))
+            _close(ks[0][k], rs[0][k], 1e-5, 1e-6, f"K3 vs tile-order {k}")
+        for i, n in ((0, "td"), (1, "prio")):
+            _close(ko[i], ro[i], 1e-5, 1e-5, f"K3 vs tile-order {n}")
+        for i, n in ((2, "loss"), (3, "gnorm")):
+            _close(ko[i], ro[i], 1e-5, 0.0, f"K3 vs tile-order {n}")
         err = max(err, _close(ko[0], po[0], 1e-4, 1e-5, "K3 td"))
         err = max(err, _close(ko[1], po[1], 1e-4, 1e-5, "K3 prio"))
         err = max(err, _close(ko[2], po[2], 1e-4, 0.0, "K3 loss"))
         err = max(err, _close(ko[3], po[3], 1e-3, 1e-7, "K3 gnorm"))
         _check(int(ks[3]) == int(ps[3]) == U, "K3 count")
         if timing is None:
+            # one state for all timed calls: the state's copies stay out
+            # of the kernel's time
+            st = state()
             timing = (
                 _time_ms(lambda: fu.fused_group_update_cuda(
-                    plan, *state(), **data, **kw), 10),
+                    plan, *st, **data, **kw), 20),
                 _time_ms(lambda: fu.fused_group_update_plain(
-                    plan, *state(), **data, **kw), 3, 1))
+                    plan, *st, **data, **kw), 3, 1))
+            copy_ms = _time_ms(state, 20)
+            # inputs read once, params/m/v read and written, td/prio out
+            bound = _bound(_nbytes(data) + 6 * _nbytes(params)
+                           + _nbytes(ko[:2]),
+                           _dense_update_flops(plan, B, U, double_q))
         _say(f"K3 fused_group_update dueling={dueling} double_q={double_q} "
-             f"U=32 B=512: ok")
-    results["fused_group_update"] = dict(max_abs_err=err, ms=timing[0],
-                                         plain_ms=timing[1])
-    _say(f"K3 fused_group_update U=32 B=512: kernel {timing[0]:.4f} ms, "
-         f"plain {timing[1]:.4f} ms")
+             f"U=32 B=512: ok, matches the tile-order reference at rtol "
+             f"1e-5, two runs bit-identical, grid "
+             f"{fu.launch_grid(plan, B, dev)} blocks of {fu.THREADS}")
+    results["fused_group_update"] = dict(
+        max_abs_err=err, ms=timing[0], plain_ms=timing[1], bound_ms=bound[0],
+        bound_by=bound[1])
+    _say(_kernel_line("K3 fused_group_update U=32 B=512 (dueling, double-Q; "
+                      "one cooperative launch)", *timing, *bound)
+         + f"; a fresh params/m/v/count copy takes {copy_ms:.4f} ms")
 
     # --- K4: E=131072 GridWorld, shared uniforms. Actions equal for
     # >= 99.99% of envs, a differing env's top-two Q within 1e-5; the other
@@ -231,9 +365,13 @@ def phase_kernels(torch, dev, results):
         err = max(err, _close(ko[5], po[5], 1e-5, 1e-3, "K4 totals"))
     ms = _time_ms(lambda: fc.fused_collect_cuda(env, plan, params, **ins), 50)
     pms = _time_ms(lambda: fc.fused_collect_plain(env, plan, params, **ins), 20)
-    results["fused_collect"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    bms, by = _bound(_nbytes(ins, params, ko[:5]) + 12 * E // plan.tile,
+                     2 * E * _macs(plan.net.layers))
+    results["fused_collect"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                    bound_ms=bms, bound_by=by)
     _say(f"K4 fused_collect E=131072: ok, actions agree {frac:.6f}, "
-         f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+         f"{plan.tile} envs per block | "
+         + _kernel_line("K4", ms, pms, bms, by))
     phase_recurrent_kernels(torch, dev, g, results)
 
 
@@ -297,11 +435,14 @@ def phase_recurrent_kernels(torch, dev, g, results):
                     plan, *state(), **data, **kw), 20),
                 _time_ms(lambda: fd.fused_drqn_group_update_plain(
                     plan, *state(), **data, **kw), 3, 1))
+            bound = _bound(_nbytes(data) + 6 * _nbytes(params),
+                           _drqn_update_flops(plan, B, T, U, double_q))
         _say(f"K5 fused_drqn_group_update {name} U={U} B=512 T=8: ok")
-    results["fused_drqn_group_update"] = dict(max_abs_err=err, ms=timing[0],
-                                              plain_ms=timing[1])
-    _say(f"K5 fused_drqn_group_update LSTM32 U=4 B=512 T=8: kernel "
-         f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
+    results["fused_drqn_group_update"] = dict(
+        max_abs_err=err, ms=timing[0], plain_ms=timing[1], bound_ms=bound[0],
+        bound_by=bound[1])
+    _say(_kernel_line("K5 fused_drqn_group_update LSTM32 U=4 B=512 T=8",
+                      *timing, *bound))
 
     # --- K6: E=16384 GridWorld with LSTM32, with GRU16 + Dense(16,32,
     # tanh) + Dense(32,4), and with a dueling net on an LSTM16 base, shared
@@ -358,12 +499,19 @@ def phase_recurrent_kernels(torch, dev, g, results):
                           env, plan, params, **ins), 50),
                       _time_ms(lambda: fc.fused_collect_plain(
                           env, plan, params, **ins), 20))
+            cp = plan.cell
+            bound = _bound(_nbytes(ins, params, ko[:5], ko[6])
+                           + 12 * E // fc.THREADS,
+                           2 * E * (_macs(plan.net.layers) + (
+                               cp.in_dim + cp.hidden) * cp.n_gates
+                               * cp.hidden))
         _say(f"K6 fused_collect (recurrent) {name} E=16384: ok, actions "
              f"agree {frac:.6f}, max_abs_err {err:.3g}")
     results["fused_collect_rnn"] = dict(max_abs_err=err, ms=timing[0],
-                                        plain_ms=timing[1])
-    _say(f"K6 fused_collect (recurrent) LSTM32 E=16384: kernel "
-         f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
+                                        plain_ms=timing[1], bound_ms=bound[0],
+                                        bound_by=bound[1])
+    _say(_kernel_line("K6 fused_collect (recurrent) LSTM32 E=16384", *timing,
+                      *bound))
     phase_grads_kernels(torch, dev, g, results, lstm, gru)
 
 
@@ -427,12 +575,16 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
                                                      **kw), 200),
                 _time_ms(lambda: fu.fused_grads_plain(plan, params, **data,
                                                       **kw), 20))
+            # inputs and params read once; td, prio and the flat grad out
+            bound = _bound(_nbytes(data, params, ko[:3]),
+                           _dense_update_flops(plan, B, 1, double_q))
         _say(f"K7 fused_grads dueling={dueling} double_q={double_q} B=512: "
              f"ok; DP update U=32 equals K3's bit for bit: {same}")
     results["fused_grads"] = dict(max_abs_err=err, ms=timing[0],
-                                  plain_ms=timing[1])
-    _say(f"K7 fused_grads B=512: kernel {timing[0]:.4f} ms, plain "
-         f"{timing[1]:.4f} ms")
+                                  plain_ms=timing[1], bound_ms=bound[0],
+                                  bound_by=bound[1])
+    _say(_kernel_line("K7 fused_grads B=512 (one cooperative launch)",
+                      *timing, *bound))
 
     # --- K8: B=512, T=8, LSTM(2,32)+Dense(32,4) with double-Q
     # (drqn_bench) and the dueling GRU net with a Dense layer before the
@@ -481,12 +633,15 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
                     plan, params, **data, **kw), 100),
                 _time_ms(lambda: fd.fused_drqn_grads_plain(
                     plan, params, **data, **kw), 3, 1))
+            bound = _bound(_nbytes(data, params, ko[0]),
+                           _drqn_update_flops(plan, B, T, 1, double_q))
         _say(f"K8 fused_drqn_grads {name} B=512 T=8: ok; DP update U=4 "
              f"equals K5's bit for bit: {same}")
     results["fused_drqn_grads"] = dict(max_abs_err=err, ms=timing[0],
-                                       plain_ms=timing[1])
-    _say(f"K8 fused_drqn_grads LSTM32 B=512 T=8: kernel {timing[0]:.4f} ms, "
-         f"plain {timing[1]:.4f} ms")
+                                       plain_ms=timing[1], bound_ms=bound[0],
+                                       bound_by=bound[1])
+    _say(_kernel_line("K8 fused_drqn_grads LSTM32 B=512 T=8", *timing,
+                      *bound))
 
 
 def _dp_group_check(torch, dp_cuda, dp_plain, whole_cuda, plan, params, kw,
@@ -702,8 +857,48 @@ def _drqn_loop(torch, dev, num_envs, n_iters):
     return cfg, n_iters * cfg.env_steps_per_iter / dt, loss
 
 
+def _profile_iterations(torch, it, c, n):
+    """``n`` iterations from an idle queue, each timed on the host until
+    ``it`` returns (the enqueue), then ``n`` under ``torch.profiler``:
+    returns ``(carry, enqueue ms per iteration, device busy share of the
+    profiled window, device ms per iteration, {kernel name: (launches, device
+    ms) per iteration})``; ATen's own kernels are summed under "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    enq = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = it(c)
+        enq.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            c = it(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, per_iter, other = 0.0, {}, [0, 0.0]
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        dev_us += us
+        name = e.key.split("(")[0].split(" ")[-1]
+        if us > 0 and name.endswith("kernel") and not name.startswith("void"):
+            per_iter[name] = (e.count / n, round(us * 1e-3 / n, 4))
+        elif us > 0:
+            other[0] += e.count
+            other[1] += us
+    per_iter["other"] = (other[0] / n, round(other[1] * 1e-3 / n, 4))
+    _check(dev_us > 0, "the profiler saw no device time")
+    return (c, 1e3 * sum(enq) / n, dev_us * 1e-6 / wall, dev_us * 1e-3 / n,
+            per_iter)
+
+
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
-          n_iters, n_pop):
+          n_iters, n_pop, profile_iters=0):
     from deepqlearning_tpu_torch import (
         Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
         PrioritizedReplayBuffer, SimpleGridWorld, create_dueling_network)
@@ -739,7 +934,10 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
            "params finite")
     _check(c.replay.size > 0 and int(c.actor.ep_count) > 0, "loop progress")
     sps = n_iters * cfg.env_steps_per_iter / dt
-    return cfg, sps, loss
+    if not profile_iters:
+        return cfg, sps, loss
+    return (cfg, sps, loss, 1e3 * dt / n_iters,
+            *_profile_iterations(torch, it, c, profile_iters)[1:])
 
 
 def _dp_loop(torch, dev, recurrent, n_iters):
@@ -908,6 +1106,8 @@ def main():
     _say(f"build: {time.perf_counter() - t0:.2f} s -> "
          f"{build._library_path().name}")
 
+    phase_default_device(torch)
+
     # 3. kernels vs plain
     results = {}
     phase_kernels(torch, dev, results)
@@ -951,8 +1151,9 @@ def main():
         lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 20, 2),
         ("tree_sample", "fused_group_update", "fused_collect"))
     _say(f"headline loop: 131072 envs, 2^20 replay, batch 512, U="
-         f"{cfg.updates_per_iter}: {sps:.1f} env-steps/s, loss {loss:.5g} "
-         f"| {card} | launches {head}")
+         f"{cfg.updates_per_iter}: {sps:.1f} env-steps/s, "
+         f"{1000.0 * cfg.env_steps_per_iter / sps:.4f} ms/iteration, loss "
+         f"{loss:.5g} | {card} | launches {head}")
     (cfg, sps2, loss2), _ = run_path(
         "ungrouped loop", lambda: _loop(torch, dev, 128, 4096, 32, 128, 20, 4),
         ("td_loss", "tree_sample", "fused_collect"))
@@ -996,6 +1197,23 @@ def main():
     # 10. two gloo ranks on the one card vs the same program on the CPU
     phase_two_ranks()
 
+    # 11. the headline loop again, profiled last (a profiler session can
+    # leave per-launch host costs behind it for the loops that follow)
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), head = run_path(
+        "headline loop (profiled)",
+        lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 10, 2, 10),
+        ("tree_sample", "fused_group_update", "fused_collect"))
+    # one grouped call per iteration, so one K3 launch per iteration (the
+    # replaced design launched 2·U)
+    _check(per_iter.get("fu_group_kernel", (0,))[0] == 1.0,
+           f"headline loop: K3 launches per grouped call {per_iter}")
+    _say(f"headline loop, profiled: {sps:.1f} env-steps/s and {ms:.4f} "
+         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
+         f"ms/iteration (each from an idle queue); device busy share "
+         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
+         f"torch.profiler, 10 iterations); per iteration (launches, device "
+         f"ms) by kernel {per_iter} | {card} | launches {head}")
+
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
                     "deepqlearning_tpu/ops/pallas/td_kernel.py:72"),
@@ -1018,8 +1236,19 @@ def main():
             "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
             "deepqlearning_tpu/ops/pallas/fused_drqn.py:773"),
     }
-    kernels = [dict(name=k, route="cuda", source=src[k][0],
-                    replaces=src[k][1], launches=launches[k], **results[k])
+    # no single PyTorch call computes any of these functions (a fused
+    # TD head, a sum-tree descent, whole train phases, env steps)
+    symbols = {"td_loss": "td_loss_kernel",
+               "tree_sample": "tree_sample_kernel",
+               "fused_group_update": "fu_group_kernel (cooperative)",
+               "fused_collect": "fc_kernel",
+               "fused_drqn_group_update": "dr_fwd_bwd_kernel, dr_adam_kernel",
+               "fused_collect_rnn": "fc_rnn_kernel",
+               "fused_grads": "fu_group_kernel (cooperative, U=1)",
+               "fused_drqn_grads": "dr_fwd_bwd_kernel, dq_grad_reduce_kernel"}
+    kernels = [dict(name=k, kernel=symbols[k], route="cuda",
+                    source=src[k][0], replaces=src[k][1],
+                    launches=launches[k], **results[k], library_ms=None)
                for k in wrappers]
     _say(card)
     _say(json.dumps({"kernels": kernels}))

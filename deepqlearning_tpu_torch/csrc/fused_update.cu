@@ -1,287 +1,727 @@
-// K3: the grouped train phase, U sequential DQN sub-updates (replaces
-// fused_group_update of deepqlearning_tpu/ops/pallas/fused_update.py).
-// K7, the grads-emitting sub-update of the data-parallel step, and the
-// gradient reduce it shares with K8 follow at the end of the file.
+// K3: the grouped train phase, U sequential DQN sub-updates, in ONE
+// cooperative launch (replaces fused_group_update of
+// deepqlearning_tpu/ops/pallas/fused_update.py). K7, one sub-update
+// emitting its flat gradient for the data-parallel step, is the same kernel
+// with U = 1 and the reduced gradient written out in place of Adam; the
+// Adam launch that follows the all-reduce and the gradient reduce that K8
+// shares close the file.
 //
-// The host issues two launches per sub-update u on one stream, with no
-// host sync between them:
-//   (a) fu_fwd_bwd_kernel: the batch is cut into tiles of FU_TILE rows, one
-//       block per tile. Each block copies the packed parameters into shared
-//       memory, runs the (dueling) Dense forward on s keeping every
-//       layer's post-activation values for its rows, the forward on s' for
-//       the double-Q argmax, the TD error / priority / Huber terms of its
-//       rows, and the hand-derived backward. Its gradient is a per-block
-//       partial, summed over the tile's rows in a fixed order, written to
-//       a scratch buffer [n_blocks, n_params]; its Huber sum goes to
-//       [n_blocks].
-//   (b) fu_adam_kernel: one block sums the partials over the blocks in a
-//       fixed order, takes the max-abs entry (gnorm), and applies Adam to
-//       params, m and v in place with t = count + u + 1.
-// Every sum has a fixed order, so a run is deterministic. At the loop's
-// shapes (B = 512, a 2->64->64->{1,4} dueling net) a sub-update is ~10
-// MFLOP: the kernel is bound by latency (launches, syncthreads, dependent
-// layer steps), not by bytes or the FP32 units; the tile size trades blocks
-// in flight against the per-block parameter copy.
+// The Pallas kernel kept params and Adam moments in VMEM across a
+// sequential grid over u. Its counterpart here is one persistent launch
+// (cudaLaunchCooperativeKernel) whose blocks loop over u, with two grid
+// barriers per sub-update:
+//   phase A: the batch of B rows is cut into tiles of FU_TILE rows; blocks
+//     stride over the tiles. A block copies the current params from global
+//     memory (L2) into shared memory (for u > 0 a flat float4 copy of the
+//     padded layout phase B staged), runs the (dueling) Dense forward on
+//     the tile's s rows and, for double-Q, its s' rows in the same pass
+//     (the s activations are kept for the backward; both heads' layers of
+//     one depth share a block-wide step), the TD error / priority / Huber
+//     terms, and the hand-derived backward (again both heads per step).
+//     The tile's partial gradient (summed over its rows in order) goes to
+//     part_grad[tile, n_params] and its Huber sum to part_loss[tile]: per
+//     tile, not per block, so no sum depends on the grid size.
+//   grid.sync()
+//   phase B: one thread per parameter, warps interleaved over the blocks,
+//     sums the tile partials in tile order (the arithmetic of
+//     dq_grad_reduce_kernel) and applies Adam at t = count + u + 1 to
+//     params, m and v in place, staging the new params in the padded
+//     layout for the next copy-in. On the
+//     last u the max-abs entry meets in an atomicMax on the float's bits
+//     (a slot zeroed in the kernel) and the loss is the tile-order Huber
+//     sum times 1/B.
+//   grid.sync(), then the next u.
+// Params, m and v are written inside the launch by other blocks, so they
+// are read with __ldcg (L2, never the non-coherent path) after each grid
+// barrier. Every sum has a fixed order, so a run is deterministic whatever
+// the grid. The shared copy of each weight matrix has an odd row stride,
+// so dh = dz·Wᵀ (consecutive threads on the input index i) reads distinct
+// banks; every dot product issues FU_DOT operand loads before its FMAs.
+// Measured (PERF.md, k3_phases.py): per sub-update the tile's steps take
+// ~60% of the time, bound by shared-memory load issue in the 64-wide dot
+// products and (by the layout) 8-way bank conflicts in the 1- and 4-wide
+// output layers;
+// phase B's L2 round trips ~25%; the two barriers ~9%.
+//
+// Arithmetic stays FP32 FMA on the CUDA cores: at the headline shapes
+// (B = 512, a 2->64->64->{1,4} dueling net, U = 32) a grouped call is
+// ~1.1 GFLOP, 17 µs at the card's FP32 peak, and its time is latency
+// (barriers, dependent layer steps, L2 round trips), not FLOPs. TF32
+// tensor cores would change the argmax and the parity held against the
+// JAX package; they are a candidate for a later PR, not this one.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-#define FU_TILE 16
-#define FU_THREADS 256
+namespace cg = cooperative_groups;
 
-// out[r, o] = act(b[o] + sum_i in[r, i] * W[i, o]) for the tile's rows
-__device__ void fu_dense(const float* W, const float* b, int din, int dout,
-                         int act, const float* in, float* out, int nrows) {
-  for (int k = threadIdx.x; k < nrows * dout; k += blockDim.x) {
-    const int r = k / dout, o = k % dout;
-    float z = 0.0f;
-    for (int i = 0; i < din; ++i) z += in[r * din + i] * W[i * dout + o];
-    out[k] = dq_act(z + b[o], act);
+#define FU_TILE 4
+#define FU_THREADS 512
+
+// Shared-memory placement of the padded parameter copy: layer l's weight
+// rows at sw[l] with row stride ldw[l] (odd), its bias at sb[l]; n floats.
+struct FuLayout {
+  int ldw[DQ_MAXL];
+  int sw[DQ_MAXL];
+  int sb[DQ_MAXL];
+  int n;
+  // ceil(2^32 / dout) and ceil(2^32 / din) per layer (fu_div)
+  unsigned long long mdout[DQ_MAXL];
+  unsigned long long mdin[DQ_MAXL];
+};
+
+// Everything one grouped call reads (one by-value kernel argument).
+struct FuArgs {
+  NetDesc d;
+  FuLayout L;
+  TensorPtrs P, M, V;
+  const float* obs;
+  const float* nobs;
+  const int* action;
+  const float* reward;
+  const float* done;
+  const float* weights;
+  const float* q_sp_tgt;
+  const int* count;
+  int U, B, double_q;
+  float gamma, alpha, eps, inv_b, lr, b1, b2, adam_eps;
+  float* td;
+  float* prio;
+  float* part_grad;
+  float* part_loss;
+  float* loss;
+  float* gnorm;
+  float* flat;   // K7: the reduced gradient is written here, no Adam
+  float* stage;  // K3: the updated params in the padded shared layout
+};
+
+#ifdef FU_TRACE
+// Timestamps of block 0 (a diagnostic build, -DFU_TRACE). fu_trace, per u:
+// clock64 at the start, after the param copy, after the tiles, after the
+// first barrier, after phase B and after the second barrier. fu_trace2,
+// per u, inside block 0's tile: the start, after the input copy, after
+// each forward step (2..4), after Q, the TD step and dz (5..7), after each
+// backward step (8..10).
+__device__ long long fu_trace[64 * 6];
+__device__ long long fu_trace2[64 * 16];
+#define FU_MARK(u, j)                                                  \
+  if (blockIdx.x == 0 && threadIdx.x == 0 && (u) < 64)                 \
+    fu_trace[(u) * 6 + (j)] = clock64();
+#define FU_T(tr, j) \
+  if ((tr) != nullptr && threadIdx.x == 0 && (j) < 16) (tr)[j] = clock64();
+DQ_API int dq_fu_trace(void* out, void* out2) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, fu_trace, sizeof(fu_trace));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out2, fu_trace2, sizeof(fu_trace2));
+  return (int)err;
+}
+#else
+#define FU_MARK(u, j)
+#define FU_T(tr, j)
+#endif
+
+static void fu_layout(const NetDesc* d, FuLayout* L) {
+  int n = 0;
+  for (int l = 0; l < d->n_val + d->n_adv; ++l) {
+    L->ldw[l] = (d->dout[l] % 2) ? d->dout[l] : d->dout[l] + 1;
+    L->sw[l] = n;
+    L->sb[l] = n + d->din[l] * L->ldw[l];
+    n = L->sb[l] + d->dout[l];
+    L->mdout[l] = ((1ull << 32) + d->dout[l] - 1) / d->dout[l];
+    L->mdin[l] = ((1ull << 32) + d->din[l] - 1) / d->din[l];
   }
-  __syncthreads();
+  L->n = n;
 }
 
-// Forward through layers [l0, l0 + nl) keeping every output in sH.
-__device__ void fu_chain_keep(const NetDesc& d, const float* sp,
-                              const float* x, float* sH, int l0, int nl,
-                              int nrows) {
-  const float* in = x;
-  for (int l = l0; l < l0 + nl; ++l) {
-    float* out = sH + d.off_h[l] * FU_TILE;
-    fu_dense(sp + d.off_w[l], sp + d.off_b[l], d.din[l], d.dout[l], d.act[l],
-             in, out, nrows);
-    in = out;
-  }
+// Shared-memory bytes of one block (FusedPlan.smem_bytes in
+// ops/cuda/fused_update.py computes the same sum): the padded params, then
+// for 2·TILE forward rows the inputs, every layer's outputs and Q, the
+// tile's target-net Q(s') rows and its reward / done / weight / action,
+// then the TD terms, the value head's dz and four dz buffers of TILE rows
+// (two per head).
+static int fu_smem_bytes(const NetDesc* d, const FuLayout* L) {
+  const int fr = 2 * FU_TILE;
+  int floats = L->n + fr * (d->in_dim + d->h_per_row + d->num_actions) +
+               FU_TILE * d->num_actions + 4 * FU_TILE + 3 * FU_TILE +
+               4 * FU_TILE * d->maxw;
+  if (floats < FU_THREADS) floats = FU_THREADS;  // phase B's block max
+  return floats * (int)sizeof(float);
 }
 
-// Forward through layers [l0, l0 + nl) in two ping-pong buffers; returns
-// the buffer holding the last layer's output.
-__device__ const float* fu_chain_tmp(const NetDesc& d, const float* sp,
-                                     const float* x, float* t0, float* t1,
-                                     int l0, int nl, int nrows) {
-  const float* in = x;
-  float* out = t0;
-  for (int l = l0; l < l0 + nl; ++l) {
-    fu_dense(sp + d.off_w[l], sp + d.off_b[l], d.din[l], d.dout[l], d.act[l],
-             in, out, nrows);
-    in = out;
-    out = (out == t0) ? t1 : t0;
-  }
-  return in;
+// n / d for 0 <= n < 2^16 and 1 <= d <= 2^16, with m = ceil(2^32 / d)
+// (FuLayout, computed on the host): one wide multiply in place of an
+// integer division per work item.
+__device__ __forceinline__ int fu_div(int n, unsigned long long m) {
+  return (int)(((unsigned long long)n * m) >> 32);
 }
 
-// q = V + A - mean(A) (dueling) or q = A, per row; mean over the real
-// actions, summed in order and scaled by 1/A
-__device__ void fu_combine(const NetDesc& d, const float* a_out,
-                           const float* v_out, int v_stride, float* q,
-                           int nrows) {
-  const int A = d.num_actions;
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    if (d.dueling) {
-      float s = 0.0f;
-      for (int c = 0; c < A; ++c) s += a_out[r * A + c];
-      const float mean = s * (1.0f / (float)A);
-      const float v = v_out[r * v_stride];
-      for (int c = 0; c < A; ++c) q[r * A + c] = v + a_out[r * A + c] - mean;
-    } else {
-      for (int c = 0; c < A; ++c) q[r * A + c] = a_out[r * A + c];
+// One Dense layer's constants for a block-wide forward step, read from the
+// kernel argument once per step rather than once per work item.
+struct FuFwd {
+  const float* W;  // shared, row stride ldw
+  const float* b;
+  const float* in;  // [rows, din]
+  float* out;       // [rows, dout]
+  int din, dout, ldw, act, items;
+  unsigned long long mdout;
+};
+
+__device__ __forceinline__ FuFwd fu_fwd_layer(const FuArgs& a, const float* sp,
+                                              const float* sX, float* sH,
+                                              int l, int first, int nrows) {
+  const NetDesc& d = a.d;
+  FuFwd f;
+  f.W = sp + a.L.sw[l];
+  f.b = sp + a.L.sb[l];
+  f.in = (l == first) ? sX : sH + d.off_h[l - 1] * (2 * FU_TILE);
+  f.out = sH + d.off_h[l] * (2 * FU_TILE);
+  f.din = d.din[l];
+  f.dout = d.dout[l];
+  f.ldw = a.L.ldw[l];
+  f.act = d.act[l];
+  f.items = nrows * f.dout;
+  f.mdout = a.L.mdout[l];
+  return f;
+}
+
+#define FU_DOT 8  // shared-memory operand pairs a dot product loads at once
+
+// sum_i x[i] * y[i * ys] over n terms, one accumulator in ascending i; the
+// loads of FU_DOT terms are issued before their FMAs, so a chain waits on
+// shared memory once per FU_DOT terms rather than once per term.
+__device__ __forceinline__ float fu_dot(const float* __restrict__ x,
+                                        const float* __restrict__ y, int ys,
+                                        int n) {
+  float z = 0.0f;
+  int i = 0;
+  for (; i + FU_DOT <= n; i += FU_DOT) {
+    float xs[FU_DOT], ws[FU_DOT];
+#pragma unroll
+    for (int j = 0; j < FU_DOT; ++j) {
+      xs[j] = x[i + j];
+      ws[j] = y[(i + j) * ys];
     }
+#pragma unroll
+    for (int j = 0; j < FU_DOT; ++j) z = fmaf(xs[j], ws[j], z);
   }
-  __syncthreads();
+  for (; i < n; ++i) z = fmaf(x[i], y[i * ys], z);
+  return z;
 }
 
-// Backward through layers [l0, l0 + nl): dh holds dL/d(output of the last
-// layer) on entry; writes the tile's partial dW/db into g (n_params floats).
-__device__ void fu_chain_bwd(const NetDesc& d, const float* sp,
-                             const float* x, const float* sH, float* dh,
-                             float* other, float* g, int l0, int nl,
-                             int nrows) {
-  for (int l = l0 + nl - 1; l >= l0; --l) {
-    const int din = d.din[l], dout = d.dout[l];
-    const float* hpost = sH + d.off_h[l] * FU_TILE;
-    const float* hprev = (l == l0) ? x : sH + d.off_h[l - 1] * FU_TILE;
-    for (int k = threadIdx.x; k < nrows * dout; k += blockDim.x)
-      dh[k] *= dq_act_grad(hpost[k], d.act[l]);
+// Output k (row k / dout, column o) of a forward step: act(b[o] + sum_i
+// in[r, i] * W[i, o]), one accumulator summed over i in ascending order;
+// consecutive k are consecutive o (conflict-free W reads, broadcast inputs).
+__device__ __forceinline__ void fu_fwd_item(const FuFwd& f, int k) {
+  const int r = fu_div(k, f.mdout), o = k - r * f.dout;
+  const float z = fu_dot(f.in + r * f.din, f.W + o, f.ldw, f.din);
+  f.out[k] = dq_act(z + f.b[o], f.act);
+}
+
+// The forward of both heads on nrows rows, one block-wide step per depth:
+// step s runs value layer s and advantage layer n_val + s side by side
+// (a plain chain is the advantage head alone). Every output is kept in sH.
+__device__ void fu_forward(const FuArgs& a, const float* sp, const float* sX,
+                           float* sH, int nrows, long long* tr) {
+  const NetDesc& d = a.d;
+  const int nv = d.n_val, na = d.n_adv;
+  for (int s = 0; s < max(nv, na); ++s) {
+    FuFwd v, w;
+    v.items = w.items = 0;
+    if (s < nv) v = fu_fwd_layer(a, sp, sX, sH, s, 0, nrows);
+    if (s < na) w = fu_fwd_layer(a, sp, sX, sH, nv + s, nv, nrows);
+    for (int k = threadIdx.x; k < v.items + w.items; k += blockDim.x) {
+      if (k < v.items)
+        fu_fwd_item(v, k);
+      else
+        fu_fwd_item(w, k - v.items);
+    }
     __syncthreads();
-    for (int k = threadIdx.x; k < din * dout; k += blockDim.x) {
-      const int i = k / dout, o = k % dout;
-      float s = 0.0f;
-      for (int r = 0; r < nrows; ++r) s += hprev[r * din + i] * dh[r * dout + o];
-      g[d.off_w[l] + k] = s;
-    }
-    for (int o = threadIdx.x; o < dout; o += blockDim.x) {
-      float s = 0.0f;
-      for (int r = 0; r < nrows; ++r) s += dh[r * dout + o];
-      g[d.off_b[l] + o] = s;
-    }
-    if (l > l0) {
-      const float* W = sp + d.off_w[l];
-      for (int k = threadIdx.x; k < nrows * din; k += blockDim.x) {
-        const int r = k / din, i = k % din;
-        float s = 0.0f;
-        for (int o = 0; o < dout; ++o) s += dh[r * dout + o] * W[i * dout + o];
-        other[k] = s;
-      }
-    }
-    __syncthreads();
-    float* tmp = dh;
-    dh = other;
-    other = tmp;
+    FU_T(tr, 2 + s)
   }
 }
 
-__global__ void __launch_bounds__(FU_THREADS) fu_fwd_bwd_kernel(
-    NetDesc d, TensorPtrs params, const float* __restrict__ obs,
-    const float* __restrict__ nobs, const int* __restrict__ action,
-    const float* __restrict__ reward, const float* __restrict__ done,
-    const float* __restrict__ weights, const float* __restrict__ q_sp_tgt,
-    int B, int row0, float gamma, float alpha, float eps, int double_q,
-    float inv_b, float* __restrict__ td_out, float* __restrict__ prio_out,
-    float* __restrict__ part_grad, float* __restrict__ part_loss) {
-  extern __shared__ float smem[];
-  const int A = d.num_actions, D0 = d.in_dim;
-  const int r0 = blockIdx.x * FU_TILE;
-  const int nrows = min(FU_TILE, B - r0);
-  const int g0 = row0 + r0;  // first global row of the tile in [U*B]
+// One Dense layer's constants for a block-wide backward step on the
+// tile's nr rows, from dz = dL/d(pre-activation) in cur. Its work items:
+// dW (din*dout, into the tile's partial), db (dout), then, below the
+// head's first layer, the next dz (nr*din) = (dz · Wᵀ) * act'(h_{l-1})
+// into nxt.
+struct FuBwd {
+  const float* W;      // shared, row stride ldw
+  const float* hprev;  // [nr, din], the layer's input
+  const float* cur;    // [nr, dout]
+  float* nxt;          // [nr, din]
+  float* gw;           // the tile's partial dW, then db
+  float* gb;
+  int din, dout, ldw, act_prev, nr, n_w, n_wb, items;
+  unsigned long long mdout, mdin;
+};
+
+__device__ __forceinline__ FuBwd fu_bwd_layer(const FuArgs& a, const float* sp,
+                                              const float* sX, const float* sH,
+                                              float* g, int l, int first,
+                                              const float* cur, float* nxt,
+                                              int nr) {
+  const NetDesc& d = a.d;
+  FuBwd b;
+  b.W = sp + a.L.sw[l];
+  b.hprev = (l == first) ? sX : sH + d.off_h[l - 1] * (2 * FU_TILE);
+  b.cur = cur;
+  b.nxt = nxt;
+  b.gw = g + d.off_w[l];
+  b.gb = g + d.off_b[l];
+  b.din = d.din[l];
+  b.dout = d.dout[l];
+  b.ldw = a.L.ldw[l];
+  b.act_prev = (l > first) ? d.act[l - 1] : 0;
+  b.nr = nr;
+  b.n_w = b.din * b.dout;
+  b.n_wb = b.n_w + b.dout;
+  b.items = b.n_wb + ((l > first) ? nr * b.din : 0);
+  b.mdout = a.L.mdout[l];
+  b.mdin = a.L.mdin[l];
+  return b;
+}
+
+// Work item k of a backward step (see FuBwd); the odd row stride of the
+// shared W keeps consecutive i on distinct banks in the dz · Wᵀ items.
+__device__ __forceinline__ void fu_bwd_item(const FuBwd& b, int k) {
+  const float* __restrict__ cur = b.cur;
+  if (k < b.n_w) {
+    const int i = fu_div(k, b.mdout), o = k - i * b.dout;
+    const float* __restrict__ h = b.hprev + i;
+    float hs[FU_TILE], cs[FU_TILE];
+#pragma unroll
+    for (int r = 0; r < FU_TILE; ++r) {
+      hs[r] = (r < b.nr) ? h[r * b.din] : 0.0f;
+      cs[r] = (r < b.nr) ? cur[r * b.dout + o] : 0.0f;
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < FU_TILE; ++r)
+      if (r < b.nr) s = fmaf(hs[r], cs[r], s);
+    b.gw[k] = s;
+  } else if (k < b.n_wb) {
+    const int o = k - b.n_w;
+    float s = 0.0f;
+    for (int r = 0; r < b.nr; ++r) s += cur[r * b.dout + o];
+    b.gb[o] = s;
+  } else {
+    k -= b.n_wb;
+    const int r = fu_div(k, b.mdin), i = k - r * b.din;
+    const float s = fu_dot(cur + r * b.dout, b.W + i * b.ldw, 1, b.dout);
+    b.nxt[k] = s * dq_act_grad(b.hprev[k], b.act_prev);
+  }
+}
+
+// The backward of both heads, one block-wide step per depth from the top:
+// step s runs value layer n_val-1-s and advantage layer n_val+n_adv-1-s
+// side by side. Each head's dz starts in dzv / dza and moves down in its
+// own two buffers (bv0/bv1, ba0/ba1); the tile's dW/db go to g.
+__device__ void fu_backward(const FuArgs& a, const float* sp, const float* sX,
+                            const float* sH, float* g, int nr,
+                            const float* dzv, float* bv0, float* bv1,
+                            const float* dza, float* ba0, float* ba1,
+                            long long* tr) {
+  const NetDesc& d = a.d;
+  const int nv = d.n_val, na = d.n_adv;
+  const float* cv = dzv;
+  const float* ca = dza;
+  for (int s = 0; s < max(nv, na); ++s) {
+    float* nv_ = (cv == bv0) ? bv1 : bv0;
+    float* na_ = (ca == ba0) ? ba1 : ba0;
+    FuBwd v, w;
+    v.items = w.items = 0;
+    if (s < nv) v = fu_bwd_layer(a, sp, sX, sH, g, nv - 1 - s, 0, cv, nv_, nr);
+    if (s < na)
+      w = fu_bwd_layer(a, sp, sX, sH, g, nv + na - 1 - s, nv, ca, na_, nr);
+    for (int k = threadIdx.x; k < v.items + w.items; k += blockDim.x) {
+      if (k < v.items)
+        fu_bwd_item(v, k);
+      else
+        fu_bwd_item(w, k - v.items);
+    }
+    __syncthreads();
+    FU_T(tr, 8 + s)
+    cv = nv_;
+    ca = na_;
+  }
+}
+
+// Phase A for one tile of sub-update u; sp already holds the params.
+__device__ void fu_tile(const FuArgs& a, float* smem, int tile, int u) {
+  const NetDesc& d = a.d;
+  const int A = d.num_actions, D0 = d.in_dim, FR = 2 * FU_TILE;
+  const int r0 = tile * FU_TILE;
+  const int nr = min(FU_TILE, a.B - r0);
+  const int g0 = u * a.B + r0;  // first global row of the tile in [U*B]
+  const int nf = a.double_q ? FR : FU_TILE;  // forward rows: s, then s'
+  long long* tr = nullptr;
+#ifdef FU_TRACE
+  if (blockIdx.x == 0 && tile == 0 && u < 64) tr = fu_trace2 + u * 16;
+#endif
+  FU_T(tr, 0)
 
   float* sp = smem;
-  float* sX = sp + d.n_params;
-  float* sX2 = sX + FU_TILE * D0;
-  float* sH = sX2 + FU_TILE * D0;
-  float* sT0 = sH + FU_TILE * d.h_per_row;
-  float* sT1 = sT0 + FU_TILE * d.maxw;
-  float* sQ = sT1 + FU_TILE * d.maxw;
-  float* sQ2 = sQ + FU_TILE * A;
-  float* sV2 = sQ2 + FU_TILE * A;
-  float* sLoss = sV2 + FU_TILE;
-  float* sG = sLoss + FU_TILE;
+  float* sX = sp + a.L.n;              // [FR, D0]: s rows, then s' rows
+  float* sTgt = sX + FR * D0;          // [TILE, A] target-net Q(s')
+  float* sRow = sTgt + FU_TILE * A;    // [4, TILE] reward, done, w, action
+  float* sH = sRow + 4 * FU_TILE;      // [FR, h_per_row], layer-major
+  float* sQ = sH + FR * d.h_per_row;   // [FR, A]
+  float* sG = sQ + FR * A;             // [TILE] dL/dq_sa
+  float* sLoss = sG + FU_TILE;         // [TILE]
+  float* sDv = sLoss + FU_TILE;        // [TILE] value head's dz
+  float* bA = sDv + FU_TILE;           // [4, TILE, maxw] dz buffers,
+  float* bB = bA + FU_TILE * d.maxw;   // two per head
+  float* bC = bB + FU_TILE * d.maxw;
+  float* bD = bC + FU_TILE * d.maxw;
 
-  dq_load_params(d, params, sp);
-  for (int k = threadIdx.x; k < nrows * D0; k += blockDim.x) {
-    sX[k] = obs[(size_t)g0 * D0 + k];
-    if (double_q) sX2[k] = nobs[(size_t)g0 * D0 + k];
+  // every input of the tile in one pass (one memory latency, not one per
+  // array): obs, nobs, Q(s') rows, then the four per-row scalars; actions
+  // as floats (exact below 2^24)
+  const int nx = FU_TILE * D0, nt = FU_TILE * A;
+  for (int k = threadIdx.x; k < 2 * nx + nt + 4 * FU_TILE; k += blockDim.x) {
+    float x = 0.0f;
+    if (k < 2 * nx) {
+      const int j = (k < nx) ? k : k - nx;
+      if (j / D0 < nr && (k < nx || a.double_q))
+        x = ((k < nx) ? a.obs : a.nobs)[(size_t)g0 * D0 + j];
+    } else if (k < 2 * nx + nt) {
+      const int j = k - 2 * nx;
+      if (j / A < nr) x = a.q_sp_tgt[(size_t)g0 * A + j];
+    } else {
+      const int j = k - 2 * nx - nt, f = j / FU_TILE, r = j - f * FU_TILE;
+      if (r < nr) {
+        const int gr = g0 + r;
+        x = (f == 0) ? a.reward[gr]
+            : (f == 1) ? a.done[gr]
+            : (f == 2) ? a.weights[gr] : (float)a.action[gr];
+      }
+    }
+    sX[k] = x;
   }
   __syncthreads();
+  FU_T(tr, 1)
 
-  // online forward on s, activations kept for the backward
+  // online forward on s (kept for the backward) and s' (double-Q argmax)
   const int la = d.n_val + d.n_adv - 1;  // last adv layer
-  if (d.dueling) fu_chain_keep(d, sp, sX, sH, 0, d.n_val, nrows);
-  fu_chain_keep(d, sp, sX, sH, d.n_val, d.n_adv, nrows);
-  fu_combine(d, sH + d.off_h[la] * FU_TILE,
-             d.dueling ? sH + d.off_h[d.n_val - 1] * FU_TILE : nullptr, 1,
-             sQ, nrows);
-
-  // online forward on s' for the double-Q argmax (no gradient)
-  if (double_q) {
-    const float* vout = nullptr;
+  fu_forward(a, sp, sX, sH, nf, tr);
+  const float* aout = sH + d.off_h[la] * FR;
+  const float* vout = d.dueling ? sH + d.off_h[d.n_val - 1] * FR : nullptr;
+  // q = V + A - mean(A) (dueling) or q = A; mean summed in order, times 1/A
+  for (int r = threadIdx.x; r < nf; r += blockDim.x) {
     if (d.dueling) {
-      vout = fu_chain_tmp(d, sp, sX2, sT0, sT1, 0, d.n_val, nrows);
-      for (int r = threadIdx.x; r < nrows; r += blockDim.x) sV2[r] = vout[r];
-      __syncthreads();
+      float s = 0.0f;
+      for (int c = 0; c < A; ++c) s += aout[r * A + c];
+      const float mean = s * (1.0f / (float)A);
+      for (int c = 0; c < A; ++c) sQ[r * A + c] = vout[r] + aout[r * A + c] - mean;
+    } else {
+      for (int c = 0; c < A; ++c) sQ[r * A + c] = aout[r * A + c];
     }
-    const float* aout =
-        fu_chain_tmp(d, sp, sX2, sT0, sT1, d.n_val, d.n_adv, nrows);
-    fu_combine(d, aout, sV2, 1, sQ2, nrows);
   }
+  __syncthreads();
+  FU_T(tr, 5)
 
   // TD error, priority, Huber term and dL/dq_sa per row
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
     const int gr = g0 + r;
-    const float* tgt = q_sp_tgt + (size_t)gr * A;
+    const float* tgt = sTgt + r * A;
     float q_sp_max;
-    if (double_q) {
+    if (a.double_q) {
+      const float* q2 = sQ + (FU_TILE + r) * A;
       int best = 0;
-      float bv = sQ2[r * A];
+      float bv = q2[0];
       for (int c = 1; c < A; ++c)
-        if (sQ2[r * A + c] > bv) { bv = sQ2[r * A + c]; best = c; }
+        if (q2[c] > bv) { bv = q2[c]; best = c; }
       q_sp_max = tgt[best];
     } else {
       q_sp_max = tgt[0];
       for (int c = 1; c < A; ++c) q_sp_max = fmaxf(q_sp_max, tgt[c]);
     }
-    const float target = reward[gr] + (1.0f - done[gr]) * gamma * q_sp_max;
+    const float target =
+        sRow[r] + (1.0f - sRow[FU_TILE + r]) * a.gamma * q_sp_max;
     // an action outside [0, A) selects nothing (Q_sa = 0, no gradient), as
     // the one-hot select of the JAX kernel does
-    const int a = action[gr];
-    const float td = ((a >= 0 && a < A) ? sQ[r * A + a] : 0.0f) - target;
-    const float w = weights[gr];
+    const int act = (int)sRow[3 * FU_TILE + r];
+    const float td = ((act >= 0 && act < A) ? sQ[r * A + act] : 0.0f) - target;
+    const float w = sRow[2 * FU_TILE + r];
     const float x = w * td;
     const float absx = fabsf(x);
     const float quad = fminf(absx, 1.0f);
     sLoss[r] = 0.5f * quad * quad + (absx - quad);
-    sG[r] = w * fminf(fmaxf(x, -1.0f), 1.0f) * inv_b;
-    td_out[gr] = td;
-    prio_out[gr] = powf(fabsf(td) + eps, alpha);
+    sG[r] = w * fminf(fmaxf(x, -1.0f), 1.0f) * a.inv_b;
+    a.td[gr] = td;
+    a.prio[gr] = powf(fabsf(td) + a.eps, a.alpha);
   }
   __syncthreads();
+  FU_T(tr, 6)
+
+  // dL/dq is g_sa at the taken action; through the dueling combination
+  // g_adv = g_q - (sum_c g_q) / A and g_val = sum_c g_q = g_sa; times the
+  // last layers' act'
   if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int r = 0; r < nrows; ++r) s += sLoss[r];
-    part_loss[blockIdx.x] = s;
+    for (int r = 0; r < nr; ++r) s += sLoss[r];
+    a.part_loss[tile] = s;
   }
-
-  // backward. dL/dq is g_sa at the taken action; through the dueling
-  // combination: g_adv = g_q - (sum_c g_q) / A, g_val = sum_c g_q = g_sa
-  float* g = part_grad + (size_t)blockIdx.x * d.n_params;
-  for (int k = threadIdx.x; k < nrows * A; k += blockDim.x) {
-    const int r = k / A, c = k % A;
+  for (int k = threadIdx.x; k < nr * A; k += blockDim.x) {
+    const int r = k / A, c = k - r * A;
     const float gs = sG[r];
-    float gq = (c == action[g0 + r]) ? gs : 0.0f;
+    float gq = (c == (int)sRow[3 * FU_TILE + r]) ? gs : 0.0f;
     if (d.dueling) gq -= gs * (1.0f / (float)A);
-    sT0[k] = gq;
+    bA[k] = gq * dq_act_grad(aout[k], d.act[la]);
   }
+  if (d.dueling)
+    for (int r = threadIdx.x; r < nr; r += blockDim.x)
+      sDv[r] = sG[r] * dq_act_grad(vout[r], d.act[d.n_val - 1]);
   __syncthreads();
-  fu_chain_bwd(d, sp, sX, sH, sT0, sT1, g, d.n_val, d.n_adv, nrows);
-  if (d.dueling) {
-    for (int r = threadIdx.x; r < nrows; r += blockDim.x) sT0[r] = sG[r];
-    __syncthreads();
-    fu_chain_bwd(d, sp, sX, sH, sT0, sT1, g, 0, d.n_val, nrows);
+  float* g = a.part_grad + (size_t)tile * d.n_params;
+  FU_T(tr, 7)
+  fu_backward(a, sp, sX, sH, g, nr, sDv, bC, bD, bA, bA, bB, tr);
+}
+
+// Tensor index (w0, b0, w1, ...) and offset of packed parameter k.
+__device__ __forceinline__ int fu_locate(const NetDesc& d, int k, int& j) {
+  const int nl = d.n_val + d.n_adv;
+  int l = 0;
+  while (l + 1 < nl && k >= d.off_w[l + 1]) ++l;
+  if (k < d.off_b[l]) {
+    j = k - d.off_w[l];
+    return 2 * l;
+  }
+  j = k - d.off_b[l];
+  return 2 * l + 1;
+}
+
+#define FU_BATCH 8       // loads a thread keeps in flight in a copy
+#define FU_SUM_BATCH 32  // and in phase B's tile sum
+#define FU_MAXT (2 * DQ_MAXL)
+
+// What the copy-in and phase B look up per parameter tensor (w0, b0, w1,
+// ...), built once per block in static shared memory: a lookup by packed
+// index then reads shared memory (the same entry across a warp) instead of
+// the kernel argument at a per-thread index.
+struct FuTab {
+  int start[FU_MAXT + 1];  // packed offset of tensor t; start[nt] = n_params
+  int dst[FU_MAXT];        // its offset in the shared copy
+  int ldw[FU_MAXT];        // its padded row stride, 0 for a bias
+  int cols[FU_MAXT];       // its columns (dout)
+  float* p[FU_MAXT];
+  float* m[FU_MAXT];
+  float* v[FU_MAXT];
+};
+
+__device__ void fu_tab_init(const FuArgs& a, FuTab& t) {
+  const NetDesc& d = a.d;
+  const int nl = d.n_val + d.n_adv;
+  for (int l = 0; l < nl; ++l) {
+    t.start[2 * l] = d.off_w[l];
+    t.start[2 * l + 1] = d.off_b[l];
+    t.dst[2 * l] = a.L.sw[l];
+    t.dst[2 * l + 1] = a.L.sb[l];
+    t.ldw[2 * l] = a.L.ldw[l];
+    t.ldw[2 * l + 1] = 0;
+    t.cols[2 * l] = t.cols[2 * l + 1] = d.dout[l];
+  }
+  t.start[2 * nl] = d.n_params;
+  for (int i = 0; i < 2 * nl; ++i) {
+    t.p[i] = a.P.t[i];
+    t.m[i] = a.M.t[i];
+    t.v[i] = a.V.t[i];
   }
 }
 
-#define FU_ADAM_THREADS 1024
+// The tensor holding packed parameter k (k < n_params).
+__device__ __forceinline__ int fu_tab_find(const FuTab& t, int k) {
+  int i = 0;
+  while (k >= t.start[i + 1]) ++i;
+  return i;
+}
 
-__global__ void __launch_bounds__(FU_ADAM_THREADS) fu_adam_kernel(
-    NetDesc d, TensorPtrs p, TensorPtrs m, TensorPtrs v,
-    const float* __restrict__ part_grad, const float* __restrict__ part_loss,
-    int nblk, const int* __restrict__ count, int u, float lr, float b1,
-    float b2, float adam_eps, float inv_b, float* __restrict__ loss_out,
-    float* __restrict__ gnorm_out) {
-  __shared__ float red[FU_ADAM_THREADS];
-  const float t = (float)(count[0] + u + 1);
-  const float c1 = 1.0f / (1.0f - powf(b1, t));
-  const float c2 = 1.0f / (1.0f - powf(b2, t));
-  float gmax = 0.0f;
-  const int nl = d.n_val + d.n_adv;
-  for (int k2 = 0; k2 < 2 * nl; ++k2) {
-    const int l = k2 / 2;
-    const int n = (k2 % 2) ? d.dout[l] : d.din[l] * d.dout[l];
-    const int off = (k2 % 2) ? d.off_b[l] : d.off_w[l];
-    float* pt = p.t[k2];
-    float* mt = m.t[k2];
-    float* vt = v.t[k2];
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      float g = 0.0f;
-      for (int b = 0; b < nblk; ++b) g += part_grad[(size_t)b * d.n_params + off + k];
-      gmax = fmaxf(gmax, fabsf(g));
-      const float mk = b1 * mt[k] + (1.0f - b1) * g;
-      const float vk = b2 * vt[k] + (1.0f - b2) * (g * g);
-      mt[k] = mk;
-      vt[k] = vk;
-      pt[k] -= lr * (mk * c1) / (sqrtf(vk * c2) + adam_eps);
+// Copy the params phase B left in the padded shared layout (stage, L.n
+// floats) into shared memory: a flat copy, FU_BATCH float4 L2 reads in
+// flight per thread.
+__device__ void fu_copy_stage(const float* stage, float* sp, int n) {
+  const float4* src = reinterpret_cast<const float4*>(stage);
+  float4* dst = reinterpret_cast<float4*>(sp);
+  const int n4 = n / 4;
+  for (int k0 = threadIdx.x; k0 < n4; k0 += FU_BATCH * blockDim.x) {
+    float4 x[FU_BATCH];
+#pragma unroll
+    for (int j = 0; j < FU_BATCH; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k < n4) x[j] = __ldcg(src + k);
+    }
+#pragma unroll
+    for (int j = 0; j < FU_BATCH; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k < n4) dst[k] = x[j];
     }
   }
-  red[threadIdx.x] = gmax;
+  for (int k = 4 * n4 + threadIdx.x; k < n; k += blockDim.x)
+    sp[k] = __ldcg(stage + k);
+  __syncthreads();
+}
+
+// Copy the current params into the padded shared layout. They are L2 reads
+// (other blocks of this launch wrote them), issued FU_BATCH at a time per
+// thread over the packed index space, so a block waits for a few L2 round
+// trips rather than one per tensor and element.
+__device__ void fu_load_params(const FuTab& tab, int n, float* sp) {
+  int t = 0;  // a thread's k only grows: its tensor index only moves on
+  for (int k0 = threadIdx.x; k0 < n; k0 += FU_BATCH * blockDim.x) {
+    float x[FU_BATCH];
+    int ti[FU_BATCH];
+#pragma unroll
+    for (int j = 0; j < FU_BATCH; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k < n)
+        while (k >= tab.start[t + 1]) ++t;
+      ti[j] = t;
+      x[j] = (k < n) ? __ldcg(tab.p[t] + (k - tab.start[t])) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < FU_BATCH; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k >= n) continue;
+      const int t = ti[j], off = k - tab.start[t], ldw = tab.ldw[t];
+      if (ldw == 0) {
+        sp[tab.dst[t] + off] = x[j];
+      } else {
+        const int i = off / tab.cols[t];
+        sp[tab.dst[t] + i * ldw + off - i * tab.cols[t]] = x[j];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// 1 / (1 - beta^t), Adam's bias correction
+__device__ __forceinline__ float fu_bias_corr(float beta, float t) {
+  return __fdiv_rn(1.0f, __fsub_rn(1.0f, powf(beta, t)));
+}
+
+// One parameter's Adam step in registers, rounded explicitly so that K3's
+// phase B and the data-parallel Adam launch give the same bits.
+__device__ __forceinline__ void fu_adam(float& p, float& m, float& v, float g,
+                                        float lr, float b1, float b2,
+                                        float adam_eps, float c1, float c2) {
+  m = __fmaf_rn(b1, m, __fmul_rn(1.0f - b1, g));
+  v = __fmaf_rn(b2, v, __fmul_rn(1.0f - b2, __fmul_rn(g, g)));
+  const float step = __fdiv_rn(__fmul_rn(lr, __fmul_rn(m, c1)),
+                               __fadd_rn(__fsqrt_rn(__fmul_rn(v, c2)), adam_eps));
+  p = __fsub_rn(p, step);
+}
+
+// Block max of x (all threads), then one atomicMax on the float bits of
+// *slot: the bits of non-negative floats order as unsigned ints.
+__device__ void fu_block_max(float x, float* red, float* slot) {
+  red[threadIdx.x] = x;
   __syncthreads();
   for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    if (loss_out != nullptr) {  // null when the loss comes from K7
-      float s = 0.0f;
-      for (int b = 0; b < nblk; ++b) s += part_loss[b];
-      loss_out[0] = s * inv_b;
+  if (threadIdx.x == 0) atomicMax((unsigned int*)slot, __float_as_uint(red[0]));
+}
+
+// Phase B of sub-update u over the whole grid.
+__device__ void fu_reduce_adam(const FuArgs& a, const FuTab& tab,
+                               float* smem, int u, int ntiles) {
+  const NetDesc& d = a.d;
+  const int n = d.n_params;
+  float c1 = 0.0f, c2 = 0.0f;
+  if (a.flat == nullptr) {
+    const float t = (float)(a.count[0] + u + 1);
+    c1 = fu_bias_corr(a.b1, t);
+    c2 = fu_bias_corr(a.b2, t);
+  }
+  float gmax = 0.0f;
+  // warp w of the grid (interleaved over the blocks, so that every SM
+  // takes a share of the loads) owns parameters [32w, 32w + 32)
+  const int w0 = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  for (int k = w0 * 32 + (threadIdx.x & 31); k < n;
+       k += gridDim.x * blockDim.x) {
+    // p, m, v in flight while the partials arrive
+    float *pp = nullptr, *mp = nullptr, *vp = nullptr, p = 0.0f, m = 0.0f,
+          v = 0.0f;
+    int ti = 0, j = 0;
+    if (a.flat == nullptr) {
+      ti = fu_tab_find(tab, k);
+      j = k - tab.start[ti];
+      pp = tab.p[ti] + j;
+      mp = tab.m[ti] + j;
+      vp = tab.v[ti] + j;
+      p = __ldcg(pp);
+      m = __ldcg(mp);
+      v = __ldcg(vp);
     }
-    gnorm_out[0] = red[0];
+    // the tile partials in tile order, FU_SUM_BATCH loads in flight
+    float g = 0.0f;
+    for (int s0 = 0; s0 < ntiles; s0 += FU_SUM_BATCH) {
+      float x[FU_SUM_BATCH];
+#pragma unroll
+      for (int j = 0; j < FU_SUM_BATCH; ++j)
+        x[j] = (s0 + j < ntiles)
+                   ? __ldcg(a.part_grad + (size_t)(s0 + j) * n + k) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < FU_SUM_BATCH; ++j)
+        if (s0 + j < ntiles) g += x[j];
+    }
+    gmax = fmaxf(gmax, fabsf(g));
+    if (a.flat != nullptr) {
+      a.flat[k] = g;
+    } else {
+      fu_adam(p, m, v, g, a.lr, a.b1, a.b2, a.adam_eps, c1, c2);
+      *pp = p;
+      *mp = m;
+      *vp = v;
+      // and into the padded layout the next sub-update copies in
+      int dst = tab.dst[ti] + j;
+      if (tab.ldw[ti] != 0) {
+        const int i = j / tab.cols[ti];
+        dst += i * (tab.ldw[ti] - tab.cols[ti]);
+      }
+      a.stage[dst] = p;
+    }
+  }
+  if (u != a.U - 1) return;  // uniform over the grid
+  fu_block_max(gmax, smem, a.gnorm);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < ntiles; ++k) s += __ldcg(a.part_loss + k);
+    a.loss[0] = s * a.inv_b;
+  }
+}
+
+
+__global__ void __launch_bounds__(FU_THREADS)
+    fu_group_kernel(const __grid_constant__ FuArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ FuTab tab;
+  cg::grid_group grid = cg::this_grid();
+  const int ntiles = (a.B + FU_TILE - 1) / FU_TILE;
+  if (threadIdx.x == 0) fu_tab_init(a, tab);
+  // the max-abs slot: zeroed before the first barrier, atomics after it
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.gnorm[0] = 0.0f;
+  __syncthreads();
+  for (int u = 0; u < a.U; ++u) {
+    FU_MARK(u, 0)
+    if (blockIdx.x < ntiles) {
+      if (u == 0)
+        fu_load_params(tab, a.d.n_params, smem);
+      else
+        fu_copy_stage(a.stage, smem, a.L.n);
+    }
+    FU_MARK(u, 1)
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+      fu_tile(a, smem, tile, u);
+    FU_MARK(u, 2)
+    grid.sync();
+    FU_MARK(u, 3)
+    fu_reduce_adam(a, tab, smem, u, ntiles);
+    FU_MARK(u, 4)
+    if (u + 1 < a.U) grid.sync();
+    FU_MARK(u, 5)
   }
 }
 
@@ -289,13 +729,59 @@ static void fu_fill(TensorPtrs* t, const int64_t* ptrs, int n) {
   for (int i = 0; i < n; ++i) t->t[i] = (float*)ptrs[i];
 }
 
-// Shared-memory bytes of one fu_fwd_bwd_kernel block for this network
-// (FusedPlan.smem_bytes in ops/cuda/fused_update.py gates on the same sum).
-static int fu_smem_bytes(const NetDesc* d) {
-  const int floats = d->n_params + 2 * FU_TILE * d->in_dim +
-                     FU_TILE * d->h_per_row + 2 * FU_TILE * d->maxw +
-                     2 * FU_TILE * d->num_actions + 3 * FU_TILE;
-  return floats * (int)sizeof(float);
+// The dynamic shared memory fu_group_kernel is allowed on each device so
+// far: the attribute is only ever raised, when a plan needs more (a host
+// call saved per launch: the data-parallel step launches K7 per sub-update).
+#define FU_MAX_DEVICES 64
+static int fu_smem_allowed[FU_MAX_DEVICES];
+
+static cudaError_t fu_allow_smem(int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < FU_MAX_DEVICES && smem <= fu_smem_allowed[dev]))
+    return err;
+  err = cudaFuncSetAttribute(fu_group_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < FU_MAX_DEVICES) fu_smem_allowed[dev] = smem;
+  return err;
+}
+
+// The most blocks of fu_group_kernel the card holds at once for this
+// network (co-resident blocks per SM times the SM count): the ceiling of a
+// cooperative launch's grid. The wrapper caches it per plan.
+DQ_API int dq_fused_update_max_grid(const NetDesc* d, int* max_grid) {
+  FuLayout L;
+  fu_layout(d, &L);
+  const int smem = fu_smem_bytes(d, &L);
+  int dev, sms, coop, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = fu_allow_smem(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fu_group_kernel,
+                                                        FU_THREADS, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) return (int)err;
+  *max_grid = per_sm * sms;
+  return 0;
+}
+
+static int fu_launch(FuArgs* a, int grid, cudaStream_t s) {
+  fu_layout(&a->d, &a->L);
+  const int smem = fu_smem_bytes(&a->d, &a->L);
+  cudaError_t err = fu_allow_smem(smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {a};
+  // a grid larger than the card holds at once is refused
+  // (cudaErrorCooperativeLaunchTooLarge) and the wrapper raises
+  err = cudaLaunchCooperativeKernel((const void*)fu_group_kernel, dim3(grid),
+                                    dim3(FU_THREADS), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 DQ_API int dq_fused_update(const NetDesc* d, const int64_t* p_ptrs,
@@ -308,61 +794,155 @@ DQ_API int dq_fused_update(const NetDesc* d, const int64_t* p_ptrs,
                            float lr, float b1, float b2, float adam_eps,
                            void* td, void* prio, void* part_grad,
                            void* part_loss, void* loss, void* gnorm,
-                           void* stream) {
+                           void* stage, int grid, void* stream) {
+  FuArgs a;
+  a.d = *d;
+  const int nt = 2 * (d->n_val + d->n_adv);
+  fu_fill(&a.P, p_ptrs, nt);
+  fu_fill(&a.M, m_ptrs, nt);
+  fu_fill(&a.V, v_ptrs, nt);
+  a.obs = (const float*)obs;
+  a.nobs = (const float*)nobs;
+  a.action = (const int*)action;
+  a.reward = (const float*)reward;
+  a.done = (const float*)done;
+  a.weights = (const float*)weights;
+  a.q_sp_tgt = (const float*)q_sp_tgt;
+  a.count = (const int*)count;
+  a.U = U;
+  a.B = B;
+  a.double_q = double_q;
+  a.gamma = gamma;
+  a.alpha = alpha;
+  a.eps = eps;
+  a.inv_b = 1.0f / (float)B;
+  a.lr = lr;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.adam_eps = adam_eps;
+  a.td = (float*)td;
+  a.prio = (float*)prio;
+  a.part_grad = (float*)part_grad;
+  a.part_loss = (float*)part_loss;
+  a.loss = (float*)loss;
+  a.gnorm = (float*)gnorm;
+  a.flat = nullptr;
+  a.stage = (float*)stage;
+  return fu_launch(&a, grid, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// K7: one sub-update's forward, TD loss and backward, emitting its flat
+// gradient (replaces fused_grads of deepqlearning_tpu/ops/pallas/
+// fused_update.py). The data-parallel train step all-reduces that gradient
+// between K7 and the Adam launch, which is why the two cannot be one kernel
+// as in K3. K7 is fu_group_kernel with U = 1 and `flat` set: the same phase
+// A, the same per-tile partials and the same tile-order sum, written to the
+// flat gradient [n_params] in the packed order w0, b0, w1, b1, ... (the
+// plan's names) with the loss and the max-abs entry; so K7, an identity
+// all-reduce and the Adam launch below give K3's update bit for bit. The
+// flat buffer is the vector the all-reduce takes: nothing is concatenated
+// or split.
+
+DQ_API int dq_fused_grads(const NetDesc* d, const int64_t* p_ptrs, int B,
+                          const void* obs, const void* nobs,
+                          const void* action, const void* reward,
+                          const void* done, const void* weights,
+                          const void* q_sp_tgt, float gamma, float alpha,
+                          float eps, int double_q, void* td, void* prio,
+                          void* part_grad, void* part_loss, void* flat,
+                          void* loss, void* gnorm, int grid, void* stream) {
+  FuArgs a;
+  a.d = *d;
+  fu_fill(&a.P, p_ptrs, 2 * (d->n_val + d->n_adv));
+  a.M = a.P;  // unused without Adam
+  a.V = a.P;
+  a.obs = (const float*)obs;
+  a.nobs = (const float*)nobs;
+  a.action = (const int*)action;
+  a.reward = (const float*)reward;
+  a.done = (const float*)done;
+  a.weights = (const float*)weights;
+  a.q_sp_tgt = (const float*)q_sp_tgt;
+  a.count = nullptr;  // no Adam
+  a.U = 1;
+  a.B = B;
+  a.double_q = double_q;
+  a.gamma = gamma;
+  a.alpha = alpha;
+  a.eps = eps;
+  a.inv_b = 1.0f / (float)B;
+  a.lr = a.b1 = a.b2 = a.adam_eps = 0.0f;
+  a.td = (float*)td;
+  a.prio = (float*)prio;
+  a.part_grad = (float*)part_grad;
+  a.part_loss = (float*)part_loss;
+  a.loss = (float*)loss;
+  a.gnorm = (float*)gnorm;
+  a.flat = (float*)flat;
+  a.stage = nullptr;
+  return fu_launch(&a, grid, (cudaStream_t)stream);
+}
+
+// Adam on a flat gradient (the data-parallel step, after the all-reduce):
+// one thread per parameter over ceil(n_params / 256) blocks, K3's phase-B
+// Adam arithmetic (fu_adam_elem) at t = count + u + 1; gnorm is the
+// gradient's max-abs entry, as the JAX data-parallel step logs it.
+
+#define DQ_RED_THREADS 256
+
+__global__ void __launch_bounds__(DQ_RED_THREADS) fu_adam_flat_kernel(
+    NetDesc d, TensorPtrs p, TensorPtrs m, TensorPtrs v,
+    const float* __restrict__ grad, const int* __restrict__ count, int u,
+    float lr, float b1, float b2, float adam_eps, float* gnorm) {
+  __shared__ float red[DQ_RED_THREADS];
+  const float t = (float)(count[0] + u + 1);
+  const float c1 = fu_bias_corr(b1, t), c2 = fu_bias_corr(b2, t);
+  const int k = blockIdx.x * DQ_RED_THREADS + threadIdx.x;
+  float a = 0.0f;
+  if (k < d.n_params) {
+    const float g = grad[k];
+    int j;
+    const int ti = fu_locate(d, k, j);
+    float pk = p.t[ti][j], mk = m.t[ti][j], vk = v.t[ti][j];
+    fu_adam(pk, mk, vk, g, lr, b1, b2, adam_eps, c1, c2);
+    p.t[ti][j] = pk;
+    m.t[ti][j] = mk;
+    v.t[ti][j] = vk;
+    a = fabsf(g);
+  }
+  fu_block_max(a, red, gnorm);
+}
+
+DQ_API int dq_fused_adam(const NetDesc* d, const int64_t* p_ptrs,
+                         const int64_t* m_ptrs, const int64_t* v_ptrs,
+                         const void* count, int u, const void* grad,
+                         float lr, float b1, float b2, float adam_eps,
+                         void* gnorm, void* stream) {
   const int nt = 2 * (d->n_val + d->n_adv);
   TensorPtrs P, M, V;
   fu_fill(&P, p_ptrs, nt);
   fu_fill(&M, m_ptrs, nt);
   fu_fill(&V, v_ptrs, nt);
-  const int smem = fu_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fu_fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (B + FU_TILE - 1) / FU_TILE;
-  const float inv_b = 1.0f / (float)B;
   cudaStream_t s = (cudaStream_t)stream;
-  for (int u = 0; u < U; ++u) {
-    fu_fwd_bwd_kernel<<<nblk, FU_THREADS, smem, s>>>(
-        *d, P, (const float*)obs, (const float*)nobs, (const int*)action,
-        (const float*)reward, (const float*)done, (const float*)weights,
-        (const float*)q_sp_tgt, B, u * B, gamma, alpha, eps, double_q, inv_b,
-        (float*)td, (float*)prio, (float*)part_grad, (float*)part_loss);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    fu_adam_kernel<<<1, FU_ADAM_THREADS, 0, s>>>(
-        *d, P, M, V, (const float*)part_grad, (const float*)part_loss, nblk,
-        (const int*)count, u, lr, b1, b2, adam_eps, inv_b, (float*)loss,
-        (float*)gnorm);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  cudaError_t err = cudaMemsetAsync(gnorm, 0, sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (d->n_params + DQ_RED_THREADS - 1) / DQ_RED_THREADS;
+  fu_adam_flat_kernel<<<grid, DQ_RED_THREADS, 0, s>>>(
+      *d, P, M, V, (const float*)grad, (const int*)count, u, lr, b1, b2,
+      adam_eps, (float*)gnorm);
+  return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K7: one sub-update's forward, TD loss and backward, emitting gradients
-// (replaces fused_grads of deepqlearning_tpu/ops/pallas/fused_update.py).
-// The data-parallel train step all-reduces the flat gradient between K7 and
-// the Adam launch, which is why the two cannot be one kernel as in K3.
-//
-// Two launches on the caller's stream, no host sync: launch (a) of K3 above
-// (fu_fwd_bwd_kernel, per-block partial gradients [n_blocks, n_params]),
-// then dq_grad_reduce_kernel: one thread per parameter sums the n_blocks
-// partials in block order into one contiguous flat gradient [n_params] in
-// the packed order w0, b0, w1, b1, ... (the plan's names), block 0 sums the
-// Huber partials into the loss, and every block's max-abs entry meets in one
-// atomicMax on the float's bits (a max does not depend on the order). The
-// flat buffer is the vector the all-reduce takes, so nothing is
-// concatenated or split. At B = 512 and the headline net (9029 parameters,
-// 32 partials) both launches are bound by launch and synchronisation
-// latency, not by bytes: the reduce reads 1.2 MB.
-
-#define DQ_RED_THREADS 256
+// Fixed-order sum of per-block partial gradients (K8, csrc/fused_drqn.cu):
+// one thread per parameter sums the nblk partials in block order into one
+// flat gradient, block 0 sums the Huber partials into the loss, and every
+// block's max-abs entry meets in one atomicMax on the float's bits.
 
 __global__ void __launch_bounds__(DQ_RED_THREADS) dq_grad_reduce_kernel(
     const float* __restrict__ part_grad, const float* __restrict__ part_loss,
     int nblk, int n, float inv, float* __restrict__ flat,
-    float* __restrict__ loss, unsigned int* __restrict__ gmax_bits) {
+    float* __restrict__ loss, float* gmax) {
   __shared__ float red[DQ_RED_THREADS];
   const int k = blockIdx.x * DQ_RED_THREADS + threadIdx.x;
   float a = 0.0f;
@@ -372,15 +952,7 @@ __global__ void __launch_bounds__(DQ_RED_THREADS) dq_grad_reduce_kernel(
     flat[k] = g;
     a = fabsf(g);
   }
-  red[threadIdx.x] = a;
-  __syncthreads();
-  for (int s = DQ_RED_THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s)
-      red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
-    __syncthreads();
-  }
-  // the bits of non-negative floats order as unsigned ints
-  if (threadIdx.x == 0) atomicMax(gmax_bits, __float_as_uint(red[0]));
+  fu_block_max(a, red, gmax);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float s = 0.0f;
     for (int b = 0; b < nblk; ++b) s += part_loss[b];
@@ -396,55 +968,6 @@ cudaError_t dq_launch_grad_reduce(const void* part_grad, const void* part_loss,
   const int grid = (n + DQ_RED_THREADS - 1) / DQ_RED_THREADS;
   dq_grad_reduce_kernel<<<grid, DQ_RED_THREADS, 0, s>>>(
       (const float*)part_grad, (const float*)part_loss, nblk, n, inv,
-      (float*)flat, (float*)loss, (unsigned int*)gnorm);
+      (float*)flat, (float*)loss, (float*)gnorm);
   return cudaGetLastError();
-}
-
-DQ_API int dq_fused_grads(const NetDesc* d, const int64_t* p_ptrs, int B,
-                          const void* obs, const void* nobs,
-                          const void* action, const void* reward,
-                          const void* done, const void* weights,
-                          const void* q_sp_tgt, float gamma, float alpha,
-                          float eps, int double_q, void* td, void* prio,
-                          void* part_grad, void* part_loss, void* flat,
-                          void* loss, void* gnorm, void* stream) {
-  TensorPtrs P;
-  fu_fill(&P, p_ptrs, 2 * (d->n_val + d->n_adv));
-  const int smem = fu_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fu_fwd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (B + FU_TILE - 1) / FU_TILE;
-  const float inv_b = 1.0f / (float)B;
-  cudaStream_t s = (cudaStream_t)stream;
-  fu_fwd_bwd_kernel<<<nblk, FU_THREADS, smem, s>>>(
-      *d, P, (const float*)obs, (const float*)nobs, (const int*)action,
-      (const float*)reward, (const float*)done, (const float*)weights,
-      (const float*)q_sp_tgt, B, 0, gamma, alpha, eps, double_q, inv_b,
-      (float*)td, (float*)prio, (float*)part_grad, (float*)part_loss);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)dq_launch_grad_reduce(part_grad, part_loss, nblk, d->n_params,
-                                    inv_b, flat, loss, gnorm, s);
-}
-
-// Adam on a flat gradient (the data-parallel step, after the all-reduce):
-// fu_adam_kernel above with the averaged gradient as its only "partial".
-// One block suffices: it reads 9029 floats once at the headline net, and a
-// multi-block Adam would need the same launch; gnorm is the averaged
-// gradient's max-abs entry, as the JAX data-parallel step logs it.
-DQ_API int dq_fused_adam(const NetDesc* d, const int64_t* p_ptrs,
-                         const int64_t* m_ptrs, const int64_t* v_ptrs,
-                         const void* count, int u, const void* grad,
-                         float lr, float b1, float b2, float adam_eps,
-                         void* gnorm, void* stream) {
-  const int nt = 2 * (d->n_val + d->n_adv);
-  TensorPtrs P, M, V;
-  fu_fill(&P, p_ptrs, nt);
-  fu_fill(&M, m_ptrs, nt);
-  fu_fill(&V, v_ptrs, nt);
-  fu_adam_kernel<<<1, FU_ADAM_THREADS, 0, (cudaStream_t)stream>>>(
-      *d, P, M, V, (const float*)grad, nullptr, 1, (const int*)count, u, lr,
-      b1, b2, adam_eps, 1.0f, nullptr, (float*)gnorm);
-  return (int)cudaGetLastError();
 }

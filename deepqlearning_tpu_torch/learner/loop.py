@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..config import DQNConfig
+from ..device import resolve_device
 from .actor import ActorState, init_actor, make_collect_step
 from .train_step import (
     check_axis,
@@ -218,10 +219,23 @@ def populate(populate_step, buffer, carry: LoopCarry, n_steps: int,
 
 def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
                device=None, params=None) -> LoopCarry:
-    """A fresh carry on ``device``: one generator seeded from ``cfg.seed``
-    draws the initial parameters (unless given) and the envs' first states;
-    the target network starts as a copy of the parameters."""
-    device = torch.device("cpu" if device is None else device)
+    """A fresh carry on ``device`` (``None``: the buffer's device): one
+    generator seeded from ``cfg.seed`` draws the initial parameters (unless
+    given) and the envs' first states; the target network starts as a copy
+    of the parameters. Raises ``ValueError`` when the network's parameters
+    (or the given ``params``) lie on another device: nothing is moved."""
+    device = resolve_device(buffer.device if device is None else device)
+    held = list(params.values()) if params is not None else \
+        list(network.parameters())
+    index = lambda d: (torch.cuda.current_device() if d.index is None
+                       else d.index)
+    for p in held:
+        if p.device.type != device.type or (
+                device.type == "cuda" and index(p.device) != index(device)):
+            raise ValueError(
+                f"init_carry: the network's parameters are on {p.device} but "
+                f"the carry is on {device} (the buffer is on "
+                f"{buffer.device}); build or move the network there first")
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     if params is None:

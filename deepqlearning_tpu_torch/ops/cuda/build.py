@@ -118,10 +118,12 @@ def library() -> ctypes.CDLL:
         "dq_tree_sample": [I, I64P, ctypes.POINTER(ctypes.c_int), P, I, P, P,
                            P],
         "dq_fused_update": [NP, I64P, I64P, I64P, P, I, I, P, P, P, P, P, P,
-                            P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P],
+                            P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P,
+                            I, P],
+        "dq_fused_update_max_grid": [NP, ctypes.POINTER(ctypes.c_int)],
         "dq_fused_collect": [NP, I64P, ctypes.POINTER(ctypes.c_float), I, F,
-                             F, F, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
-                             P],
+                             F, F, P, P, P, P, P, I, I, F, I, P, P, P, P, P,
+                             P, P],
         "dq_fused_collect_rnn": [NP, I64P, I, I, P, P, P,
                                  ctypes.POINTER(ctypes.c_float), I, F, F, F,
                                  P, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
@@ -130,7 +132,7 @@ def library() -> ctypes.CDLL:
                           I, I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P,
                           P, P, P],
         "dq_fused_grads": [NP, I64P, I, P, P, P, P, P, P, P, F, F, F, I, P,
-                           P, P, P, P, P, P, P],
+                           P, P, P, P, P, P, I, P],
         "dq_fused_adam": [NP, I64P, I64P, I64P, P, I, P, F, F, F, F, P, P],
         "dq_fused_drqn_grads": [ctypes.POINTER(DrqnDesc), I64P, I, I, P, P,
                                 P, P, P, P, P, F, I, P, P, P, P, P, P],

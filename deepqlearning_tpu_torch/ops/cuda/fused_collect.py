@@ -14,15 +14,19 @@ episode accumulators. Transition fields come out in replay-row order
 Uniforms come in as ``u [6, E]`` — rows: explore, random action, two step
 uniforms, two reset uniforms — the layout of the JAX kernel's host
 uniforms. The kernels serve SimpleGridWorld only; they read the reward
-cells, ``tprob`` and the grid size from the env object. On the card a thread
-per env does the whole step; the per-env forward's FLOPs bound it (see the
-source).
+cells, ``tprob`` and the grid size from the env object. On the card, K4 runs
+a tile of ``CollectPlan.tile`` envs per block, each Dense layer a small
+matrix product in shared memory (register micro-tiles of 4 envs x 4
+outputs), then the env step a thread per env; K6 is a thread per env
+throughout. The forward's FLOPs bound both (see the source).
 
 :func:`collect_plan_for` is the gate. The recurrent plan takes a leading
 LSTM/GRU cell followed by a Dense stack, or a dueling net whose base is
 exactly that cell; unlike the JAX plan it also budgets the cell and the head
 together against this card's shared memory and the kernel's per-thread
-arrays (``MAX_WIDTH`` floats).
+arrays (``MAX_WIDTH`` floats). K4's env tile is the largest of ``K4_TILES``
+whose shared memory (:func:`k4_smem_bytes`) fits the card's per-block
+limit; every net within the gate has one.
 """
 from __future__ import annotations
 
@@ -45,6 +49,10 @@ MAX_WIDTH = 128   # FC_MAXW of csrc/fused_collect.cu
 MAX_CELLS = 16    # FC_MAXCELLS
 THREADS = 256     # FC_THREADS
 N_UNIFORMS = 6
+K4_TILES = (128, 64, 32, 16, 8, 4)   # env tiles, FC_MAX_TE first
+# shared memory a block may use on sm_90 (232448 bytes, opt-in), less 1 KB
+# for fc_kernel's static shared memory
+K4_MAX_SMEM = 232448 - 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +62,39 @@ class CollectPlan:
     no: int   # flat obs dim
     W: int    # env state width
     nf: int   # replay field columns: 2*no + 4 (a, r, done, ended)
+    tile: int = 0  # K4's envs per block (feed-forward plans)
 
     @property
     def state_width(self) -> int:
         """Columns of the cell's state rows ``[E, S]``: h;c or h."""
         return (2 if self.cell.kind == "lstm" else 1) * self.cell.hidden
+
+
+def k4_smem_params(net: FusedPlan) -> int:
+    """Floats of K4's shared parameter copy (``fc_tile_layout``): each
+    layer's W then b, every tensor on a 16-byte boundary."""
+    n = 0
+    for lp in net.layers:
+        n = -(-(n + lp.din * lp.dout) // 4) * 4
+        n = -(-(n + lp.dout) // 4) * 4
+    return n
+
+
+def k4_smem_bytes(net: FusedPlan, tile: int) -> int:
+    """Shared memory of one K4 block (``fc_tile_smem_bytes``): the params,
+    the tile's inputs and two activation buffers feature-major, the value
+    head's output, and the block's accumulator sums."""
+    d = net.desc()
+    return 4 * (k4_smem_params(net) + (d.in_dim + 2 * d.maxw + 1) * tile
+                + 3 * THREADS)
+
+
+def k4_tile(net: FusedPlan) -> Optional[int]:
+    """K4's env tile for this head: the largest of ``K4_TILES`` that fits."""
+    for te in K4_TILES:
+        if k4_smem_bytes(net, te) <= K4_MAX_SMEM:
+            return te
+    return None
 
 
 def _recurrent_plan(network):
@@ -132,11 +168,14 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
         cell_floats = g * (cell.in_dim + cell.hidden + 1)
     if 4 * (net.desc().n_params + cell_floats + 3 * THREADS) > MAX_SMEM:
         return None
+    tile = k4_tile(net) if cell is None else 0
+    if tile is None:
+        return None
     if buffer is not None and getattr(buffer, "obs_dtype", None) != \
             torch.float32:
         return None
     return CollectPlan(net=net, cell=cell, no=no, W=env.lane_state_width,
-                       nf=2 * no + 4)
+                       nf=2 * no + 4, tile=tile)
 
 
 def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
@@ -177,7 +216,7 @@ def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
 def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
                        ep_step, ep_ret, u, eps: float,
                        max_episode_length: int):
-    """Launch K4 on the current stream."""
+    """Launch K4 (``ceil(E / plan.tile)`` blocks) on the current stream."""
     E = obs.shape[0]
     obs = obs.reshape(E, -1).float().contiguous()
     state = state.float().contiguous()
@@ -195,7 +234,7 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
     state_out = torch.empty_like(state)
     ep_step_out = torch.empty_like(ep_step)
     ep_ret_out = torch.empty_like(ep_ret)
-    nblk = -(-E // THREADS)
+    nblk = -(-E // plan.tile)
     partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
     cells = [c for cell in env.reward_cells for c in cell]
     err = build.library().dq_fused_collect(
@@ -203,7 +242,8 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
         (ctypes.c_float * max(1, len(cells)))(*cells),
         len(env.reward_cells), env.tprob, float(env.size[0]),
         float(env.size[1]), obs.data_ptr(), state.data_ptr(),
-        ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(), E, float(eps),
+        ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(), E, plan.tile,
+        float(eps),
         int(max_episode_length), fields.data_ptr(), obs_out.data_ptr(),
         state_out.data_ptr(), ep_step_out.data_ptr(), ep_ret_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))

@@ -9,21 +9,29 @@ Q(s'); the hand-derived backward; Adam with bias correction at
 ``t = count + u + 1``. Params, m and v are updated IN PLACE, and ``count``
 advances by U in place.
 
-On the card: two launches per sub-update on the current stream, with no
-host sync (a batch-tiled forward/TD/backward kernel writing per-block
-partial gradients, then a one-block reduce + Adam kernel); every sum has a
-fixed order. At the loop's shapes the phase is bound by launch and
-synchronisation latency, not by bytes or FLOPs (see the source).
+On the card: ONE cooperative launch per grouped call on the current
+stream, whose blocks loop over the U sub-updates with two grid barriers
+each: (A) tiles of ``TILE`` rows, forward/TD/backward, one partial gradient
+per tile ``[ceil(B/TILE), n_params]``; (B) one thread per parameter sums
+the tile partials in tile order and applies Adam. Every sum has a fixed
+order, so runs are bit-identical whatever the grid. The grid is the card's
+co-resident block count for the plan (cached per plan), capped at the work
+(see the source).
 
 K7 (:func:`fused_grads`) replaces ``fused_grads`` of the same JAX file:
-launch (a) of K3 on one sub-batch of B rows, then a multi-block reduce
-(one thread per parameter, block partials summed in block order) into one
-flat gradient in ``plan.names`` order, with the loss and the local max-abs.
+the same kernel with U = 1 on one sub-batch of B rows, writing the
+tile-order sum as one flat gradient in ``plan.names`` order, with the loss
+and the local max-abs, in place of Adam.
 :func:`fused_dp_group_update` is the data-parallel step's U sub-updates:
 per sub-update K7, a caller's reduce (the all-reduce) of that flat vector
-in place, and K3's one-block Adam kernel with the reduced vector as its
-only partial. One block suffices: it reads 9029 floats once at the
-headline net, where K3's Adam sums 32 partials.
+in place, and one multi-block Adam launch on the reduced vector with K3's
+Adam arithmetic; with a reduce that leaves the vector as it is, that is
+K3's update bit for bit.
+
+:func:`fused_group_update_tiled` is a plain reference with the kernel's
+sum order (per-tile partials summed in tile order), held against the JAX
+kernel on the CPU and against K3 on the card at a tighter tolerance than
+the twin's.
 
 :func:`plan_for` is the gate, as in the JAX package: a dueling or plain
 stack of Dense layers with tanh/relu/identity and bias, a scalar value head,
@@ -33,6 +41,7 @@ every layer at most ``MAX_WIDTH`` wide, at most ``MAX_ACTIONS`` actions and
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
@@ -49,7 +58,8 @@ MAX_WIDTH = 256
 MAX_ACTIONS = 128
 MAX_LAYERS = build.MAXL
 MAX_SMEM = 200 * 1024
-TILE = 16  # FU_TILE of csrc/fused_update.cu
+TILE = 4  # FU_TILE of csrc/fused_update.cu: rows per tile
+THREADS = 512  # FU_THREADS
 _ACTS = {"id": 0, "tanh": 1, "relu": 2}
 
 
@@ -100,11 +110,24 @@ class FusedPlan:
         d.n_params, d.h_per_row, d.maxw = off, off_h, maxw
         return d
 
+    def smem_params(self) -> int:
+        """Floats of the kernel's shared parameter copy: each weight matrix
+        with an odd row stride (``fu_layout``), then its bias."""
+        return sum(lp.din * (lp.dout | 1) + lp.dout for lp in self.layers)
+
     def smem_bytes(self) -> int:
-        """Shared memory of one forward/backward block (fu_smem_bytes)."""
+        """Shared memory of one K3/K7 block (``fu_smem_bytes``): the padded
+        params; for 2·TILE forward rows (s and s') the inputs, every
+        layer's outputs and Q; the tile's target-net Q(s') rows and its
+        four per-row scalars; the TD terms and the value head's dz
+        (3·TILE); four dz buffers of TILE rows (two per head). At least
+        one float per thread (phase B's block max)."""
         d = self.desc()
-        return 4 * (d.n_params + 2 * TILE * d.in_dim + TILE * d.h_per_row
-                    + 2 * TILE * d.maxw + 2 * TILE * d.num_actions + 3 * TILE)
+        floats = (self.smem_params()
+                  + 2 * TILE * (d.in_dim + d.h_per_row + d.num_actions)
+                  + TILE * d.num_actions + 4 * TILE
+                  + 3 * TILE + 4 * TILE * d.maxw)
+        return 4 * max(floats, THREADS)
 
 
 def _act_name(fn) -> Optional[str]:
@@ -210,10 +233,29 @@ def q_values(plan: FusedPlan, params, x):
     return q, adv_hs, val_hs
 
 
+def _by_tile(x, tile: int):
+    """``x [N, ...]`` zero-padded to whole tiles and viewed ``[nt, tile,
+    ...]``."""
+    nt = -(-x.shape[0] // tile)
+    pad = x.new_zeros((nt * tile - x.shape[0],) + tuple(x.shape[1:]))
+    return torch.cat([x, pad]).view((nt, tile) + tuple(x.shape[1:]))
+
+
+def _tile_order_sum(parts):
+    """``parts [nt, ...]`` summed over dim 0 one tile after another, the
+    order of the kernels' reduce."""
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
 def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
-             weights, q_sp_tgt, gamma, double_q, alpha, eps):
+             weights, q_sp_tgt, gamma, double_q, alpha, eps, tile=None):
     """One sub-update's forward, TD loss and hand-derived backward.
-    Returns ``(grads {name: tensor}, td, prio, loss)``."""
+    Returns ``(grads {name: tensor}, td, prio, loss)``. With ``tile``, each
+    gradient is per tile of ``tile`` rows (``[nt, *shape]``, the kernels'
+    partials) and the loss sums the per-tile Huber sums in tile order."""
     B, A = obs_s.shape[0], plan.num_actions
     q_s, adv_hs, val_hs = q_values(plan, params, obs_s)
     if double_q:
@@ -227,7 +269,11 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
     xw = weights * td
     absx = xw.abs()
     quad = absx.clamp(max=1.0)
-    loss = (0.5 * quad * quad + (absx - quad)).sum() * (1.0 / B)
+    huber = 0.5 * quad * quad + (absx - quad)
+    if tile is None:
+        loss = huber.sum() * (1.0 / B)
+    else:
+        loss = _tile_order_sum(_by_tile(huber, tile).sum(dim=1)) * (1.0 / B)
     prio = (td.abs() + eps) ** alpha
 
     g_sa = weights * xw.clamp(-1.0, 1.0) * (1.0 / B)
@@ -238,8 +284,13 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
         for i in reversed(range(len(layers))):
             lp = layers[i]
             dz = dh * _act_grad(hs[i + 1], lp.act)
-            grads[lp.w_name] = hs[i].t() @ dz
-            grads[lp.b_name] = dz.sum(dim=0)
+            if tile is None:
+                grads[lp.w_name] = hs[i].t() @ dz
+                grads[lp.b_name] = dz.sum(dim=0)
+            else:
+                ht, zt = _by_tile(hs[i], tile), _by_tile(dz, tile)
+                grads[lp.w_name] = ht.transpose(1, 2) @ zt
+                grads[lp.b_name] = zt.sum(dim=1)
             if i > 0:
                 dh = dz @ params[lp.w_name].t()
 
@@ -290,11 +341,73 @@ def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
     return torch.stack(tds), torch.stack(prios), loss, gnorm
 
 
+def fused_group_update_tiled(plan: FusedPlan, params, m, v, count, obs,
+                             nobs, action, reward, done, weights, q_sp_tgt,
+                             *, gamma, double_q, lr, alpha, eps, batch_size,
+                             n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """Plain reference in the kernel's sum order; same contract as
+    :func:`fused_group_update`. Per sub-update: each tile of ``TILE`` rows'
+    partial gradient, the partials summed in tile order (``gnorm`` the
+    max-abs entry of that sum), the Huber loss likewise, then Adam."""
+    B, U = batch_size, n_updates
+    tds, prios = [], []
+    loss = gnorm = None
+    t0 = int(count)
+    for u in range(U):
+        sl = slice(u * B, (u + 1) * B)
+        parts, td, prio, loss = _fwd_bwd(
+            plan, params, obs[sl], nobs[sl] if double_q else None,
+            action[sl].long(), reward[sl], done[sl], weights[sl],
+            q_sp_tgt[sl], gamma, double_q, alpha, eps, tile=TILE)
+        nt = parts[plan.names[0]].shape[0]
+        flat = _tile_order_sum(torch.cat(
+            [parts[n].reshape(nt, -1) for n in plan.names], dim=1))
+        tds.append(td)
+        prios.append(prio)
+        gnorm = flat.abs().max()
+        adam_plain(plan.names, params, m, v, unflatten(flat, params,
+                                                       plan.names),
+                   t0 + u + 1, lr, b1, b2, adam_eps)
+    count.add_(U)
+    return torch.stack(tds), torch.stack(prios), loss, gnorm
+
+
+def partials(plan: FusedPlan, B: int, device):
+    """K3's and K7's scratch: one partial gradient and one Huber sum per
+    tile of ``TILE`` rows, ``([ceil(B/TILE), n_params], [ceil(B/TILE)])``,
+    indexed by tile whatever the grid."""
+    nt = -(-B // TILE)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(nt, plan.desc().n_params, **f32),
+            torch.empty(nt, **f32))
+
+
+_MAX_GRID: Dict[Tuple[FusedPlan, int], int] = {}
+
+
+def launch_grid(plan: FusedPlan, B: int, device) -> int:
+    """Blocks of one K3/K7 cooperative launch: the card's co-resident block
+    count for this plan (asked once per plan and device), capped at the
+    work: the tiles of phase A or one thread per parameter in phase B,
+    whichever needs more blocks."""
+    dev = torch.device(device)
+    key = (plan, torch.cuda.current_device() if dev.index is None
+           else dev.index)
+    if key not in _MAX_GRID:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            build.check(build.library().dq_fused_update_max_grid(
+                plan.desc(), ctypes.byref(out)), "fused_update (grid)")
+        _MAX_GRID[key] = out.value
+    need = max(-(-B // TILE), -(-plan.desc().n_params // THREADS))
+    return min(_MAX_GRID[key], need)
+
+
 def fused_group_update_cuda(plan: FusedPlan, params, m, v, count, obs, nobs,
                             action, reward, done, weights, q_sp_tgt, *,
                             gamma, double_q, lr, alpha, eps, batch_size,
                             n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
-    """Launch K3 (2·U kernels on the current stream)."""
+    """Launch K3 (one cooperative kernel on the current stream)."""
     B, U = batch_size, n_updates
     obs = obs.float().contiguous()
     nobs = nobs.float().contiguous()
@@ -314,11 +427,10 @@ def fused_group_update_cuda(plan: FusedPlan, params, m, v, count, obs, nobs,
     build.require_shape(q_sp_tgt, (U * B, plan.num_actions), "q_sp_tgt")
     dev = obs.device
     d = plan.desc()
-    nblk = -(-B // TILE)
     td = torch.empty(U * B, dtype=torch.float32, device=dev)
     prio = torch.empty_like(td)
-    part_grad = torch.empty(nblk, d.n_params, dtype=torch.float32, device=dev)
-    part_loss = torch.empty(nblk, dtype=torch.float32, device=dev)
+    part_grad, part_loss = partials(plan, B, dev)
+    stage = torch.empty(plan.smem_params(), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     gnorm = torch.empty((), dtype=torch.float32, device=dev)
     ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
@@ -329,7 +441,7 @@ def fused_group_update_cuda(plan: FusedPlan, params, m, v, count, obs, nobs,
         q_sp_tgt.data_ptr(), gamma, alpha, eps, int(bool(double_q)), lr, b1,
         b2, adam_eps, td.data_ptr(), prio.data_ptr(), part_grad.data_ptr(),
         part_loss.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
-        build.stream_ptr(dev))
+        stage.data_ptr(), launch_grid(plan, B, dev), build.stream_ptr(dev))
     build.check(err, "fused_group_update")
     fused_group_update_cuda.launches += 1
     count.add_(U)
@@ -406,16 +518,16 @@ def _k7_inputs(plan: FusedPlan, params, n, obs, nobs, action, reward, done,
 def fused_grads_cuda(plan: FusedPlan, params, obs_s, obs_sp, action, reward,
                      done, weights, q_sp_tgt, *, gamma, double_q, alpha,
                      eps):
-    """Launch K7 (two kernels on the current stream); returns what
-    :func:`fused_grads_plain` returns."""
+    """Launch K7 (one cooperative kernel on the current stream); returns
+    what :func:`fused_grads_plain` returns."""
     B = action.shape[0]
     xs, tensors = _k7_inputs(plan, params, B, obs_s, obs_sp, action, reward,
                              done, weights, q_sp_tgt, double_q)
     d = plan.desc()
-    f32 = dict(dtype=torch.float32, device=xs[0].device)
+    dev = xs[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
     td, prio = torch.empty(B, **f32), torch.empty(B, **f32)
-    part_grad = torch.empty(-(-B // TILE), d.n_params, **f32)
-    part_loss = torch.empty(part_grad.shape[0], **f32)
+    part_grad, part_loss = partials(plan, B, dev)
     flat = torch.empty(d.n_params, **f32)
     loss, gnorm = torch.empty((), **f32), torch.empty((), **f32)
     err = build.library().dq_fused_grads(
@@ -423,7 +535,7 @@ def fused_grads_cuda(plan: FusedPlan, params, obs_s, obs_sp, action, reward,
         *(x.data_ptr() for x in xs), gamma, alpha, eps, int(bool(double_q)),
         td.data_ptr(), prio.data_ptr(), part_grad.data_ptr(),
         part_loss.data_ptr(), flat.data_ptr(), loss.data_ptr(),
-        gnorm.data_ptr(), build.stream_ptr(flat.device))
+        gnorm.data_ptr(), launch_grid(plan, B, dev), build.stream_ptr(dev))
     build.check(err, "fused_grads")
     fused_grads_cuda.launches += 1
     return flat, td, prio, loss, gnorm
@@ -500,8 +612,8 @@ def fused_dp_group_update_cuda(plan: FusedPlan, params, m, v, count, obs,
                                *, reduce, gamma, double_q, lr, alpha, eps,
                                batch_size, n_updates, b1=0.9, b2=0.999,
                                adam_eps=1e-8):
-    """Per sub-update on the current stream: K7 (two launches), ``reduce``
-    of its flat gradient, and K3's one-block Adam kernel on that vector.
+    """Per sub-update on the current stream: K7 (one cooperative launch),
+    ``reduce`` of its flat gradient, and the Adam launch on that vector.
     The inputs, parameters and moments are checked, and the outputs and
     scratch allocated, once for all U sub-updates."""
     B, U = batch_size, n_updates
@@ -514,12 +626,10 @@ def fused_dp_group_update_cuda(plan: FusedPlan, params, m, v, count, obs,
     for ts in (mt, vt):
         build.require_plan_params(plan, ts)
     d = plan.desc()
-    nblk = -(-B // TILE)
     dev = xs[0].device
     f32 = dict(dtype=torch.float32, device=dev)
     td, prio = torch.empty(U * B, **f32), torch.empty(U * B, **f32)
-    part_grad = torch.empty(nblk, d.n_params, **f32)
-    part_loss = torch.empty(nblk, **f32)
+    part_grad, part_loss = partials(plan, B, dev)
     flat = torch.empty(U, d.n_params, **f32)
     loss, lgn, gnorm = (torch.empty(U, **f32) for _ in range(3))
     ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
@@ -532,12 +642,13 @@ def fused_dp_group_update_cuda(plan: FusedPlan, params, m, v, count, obs,
     per_u = [(t.data_ptr(), 4 * k) for t, k in ((flat, d.n_params),
                                                  (loss, 1), (lgn, 1))]
     dq, cnt, g_out = int(bool(double_q)), count.data_ptr(), gnorm.data_ptr()
+    grid = launch_grid(plan, B, dev)
     for u in range(U):
         p = [base + u * step for base, step in rows]
         err = lib.dq_fused_grads(d, P, B, *p[:7], gamma, alpha, eps, dq,
                                  *p[7:], *scratch,
                                  *(base + u * step for base, step in per_u),
-                                 stream)
+                                 grid, stream)
         build.check(err, "fused_grads")
         fused_grads_cuda.launches += 1
         reduce(flat[u])

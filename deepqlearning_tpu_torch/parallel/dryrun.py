@@ -59,7 +59,7 @@ def _rank(rank: int, world: int):
     cfg = DQNConfig(num_envs=4, batch_size=8, buffer_size=64, train_freq=2,
                     train_start=8, max_episode_length=6, fused_updates=True)
     buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
-                                  cfg.batch_size)
+                                  cfg.batch_size, device="cpu")
     mesh = make_mesh(world)
     loss = _run(DataParallelRunner(env, net, buf, cfg, sched, env.discount,
                                    mesh=mesh), 0, 2, "feed-forward")
@@ -72,7 +72,7 @@ def _rank(rank: int, world: int):
     rbuf = EpisodeReplayBuffer(renv.obs_shape, rcfg.buffer_size,
                                rcfg.batch_size, rcfg.trace_length,
                                rcfg.max_episode_length,
-                               num_envs=rcfg.num_envs)
+                               num_envs=rcfg.num_envs, device="cpu")
     rloss = _run(DataParallelRunner(renv, rnet, rbuf, rcfg, sched,
                                     renv.discount, mesh=mesh),
                  1, 1, "recurrent")

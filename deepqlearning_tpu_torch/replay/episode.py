@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops import sumtree
 from .transition import TransitionBatch
 
@@ -88,7 +89,7 @@ class EpisodeReplayBuffer:
         self.max_episode_length = int(max_episode_length)
         self.num_envs = int(num_envs)
         self.obs_dtype = obs_dtype
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.no = 1
         for s in self.obs_shape:
             self.no *= s

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops import sumtree
 from .transition import TransitionBatch
 
@@ -32,7 +33,8 @@ class ReplayState(NamedTuple):
 
 
 class PrioritizedReplayBuffer:
-    """Static descriptor + ops for a PER buffer on ``device``."""
+    """Static descriptor + ops for a PER buffer on ``device`` (``None``:
+    ``cuda``, raising without CUDA; the CPU only when asked for)."""
 
     def __init__(self, obs_shape: Tuple[int, ...], max_size: int,
                  batch_size: int, alpha: float = 0.6, beta: float = 0.4,
@@ -59,8 +61,7 @@ class PrioritizedReplayBuffer:
                 f"sample_mode {sample_mode!r}: only 'stratified' is "
                 "supported so far")
         self.sample_mode = sample_mode
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
 
     def init(self) -> ReplayState:
         return ReplayState(

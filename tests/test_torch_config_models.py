@@ -152,7 +152,7 @@ def test_adam_and_replay_state_from_numpy():
     for a, b in zip((rs.rows,) + rs.tree, (js.rows,) + tuple(js.tree)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     # the port's buffer samples from the converted state
-    tb = dt.PrioritizedReplayBuffer((2,), 128, 8)
+    tb = dt.PrioritizedReplayBuffer((2,), 128, 8, device="cpu")
     batch, idx, w = tb.sample(rs, u=torch.rand(8))
     assert (idx < 64).all() and torch.isfinite(w).all()
 

@@ -232,16 +232,17 @@ def test_build_loop_routes_under_axis(world_of_one, monkeypatch, recurrent,
         cfg = dt.DQNConfig(train_freq=64, buffer_size=256, trace_length=4,
                            recurrence=True, **kw)
         buf = dt.EpisodeReplayBuffer(env.obs_shape, 256, 8, 4, 5,
-                                     num_envs=128)
+                                     num_envs=128, device="cpu")
     else:
         net = dt.create_dueling_network(dt.Chain(
             dt.Flatten(), dt.Dense(2, 8, torch.tanh), dt.Dense(8, 4)))
         cfg = dt.DQNConfig(train_freq=64, buffer_size=512, **kw)
-        buf = dt.PrioritizedReplayBuffer(env.obs_shape, 512, 8)
+        buf = dt.PrioritizedReplayBuffer(env.obs_shape, 512, 8, device="cpu")
     it, pop, opt = loop.build_loop(env, net, buf, cfg,
                                    dt.LinearDecaySchedule(), env.discount,
                                    axis_name=world_of_one)
-    c = loop.populate(pop, buf, loop.init_carry(env, net, buf, cfg, opt), 6)
+    c = loop.populate(pop, buf, loop.init_carry(env, net, buf, cfg, opt,
+                                                device="cpu"), 6)
     calls.clear()
     n0 = train_step.pmean_flat.calls
     c = it(c)
@@ -259,7 +260,7 @@ def test_axis_name_must_be_process_groups(world_of_one):
     from deepqlearning_tpu_torch.learner.train_step import pmean_flat
 
     env = dt.SimpleGridWorld()
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 512, 8)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 512, 8, device="cpu")
     cfg = dt.DQNConfig(num_envs=128, train_freq=64, batch_size=8,
                        buffer_size=512)
     net = dt.Chain(dt.Dense(2, 8, torch.sin), dt.Dense(8, 4))

@@ -72,7 +72,8 @@ def _torch_side(jcarry, **kw):
     env = dt.SimpleGridWorld()
     net = dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 4))
     cfg = _cfg(dt, **kw)
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E,
+                                 device="cpu")
     it, pop, opt = build_loop(env, net, buf, cfg,
                               dt.LinearDecaySchedule(1.0, 0.05, 500),
                               gamma=env.discount)
@@ -192,10 +193,11 @@ def test_recurrent_routes(monkeypatch, fused, grouped):
         dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 6, torch.tanh), dt.Dense(6, 4)))
     cfg = _cfg(dt, fused_updates=fused, fused_collect=fused,
                grouped_updates=grouped)
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E,
+                                 device="cpu")
     it, pop, opt = build_loop(env, net, buf, cfg, dt.LinearDecaySchedule(),
                               env.discount)
-    c = dt.init_carry(env, net, buf, cfg, opt)
+    c = dt.init_carry(env, net, buf, cfg, opt, device="cpu")
     p0 = {k: v.clone() for k, v in c.params.items()}
     c = populate(pop, buf, c, MAXLEN + 1)
     assert not c.replay.cur_len.any() and int(c.replay.rec_count.min()) > 0
@@ -212,7 +214,8 @@ def test_recurrent_routes(monkeypatch, fused, grouped):
 
 def test_recurrent_forced_kernels_and_axis_name_raise():
     env = dt.SimpleGridWorld()
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, C, B, T, MAXLEN, num_envs=E,
+                                 device="cpu")
     sched = dt.LinearDecaySchedule()
     # a cell after a Dense layer: K5 takes it, K6 does not
     pre = dt.Chain(dt.Dense(2, 8, torch.tanh), dt.LSTM(8, 8), dt.Dense(8, 4))

@@ -66,7 +66,7 @@ def filled_buffers(seed=0, steps=40):
     """Both episode buffers after the same random lockstep stream (episodes
     end at random), open episodes dropped."""
     jb = JBuf((OBS,), 64, B, T, 16, num_envs=E)
-    tb = dt.EpisodeReplayBuffer((OBS,), 64, B, T, 16, num_envs=E)
+    tb = dt.EpisodeReplayBuffer((OBS,), 64, B, T, 16, num_envs=E, device="cpu")
     js, ts = jb.init(), tb.init()
     jadd = jax.jit(jb.add_step)
     rng = np.random.default_rng(seed)

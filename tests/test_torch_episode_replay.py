@@ -86,7 +86,8 @@ def test_add_step_and_samples_match_jax_exactly(E, max_size, maxlen, T,
     """Ring and shadow rows, record commits, and samples (both env-draw
     branches, stale remaps after the ring wrapped) equal JAX's."""
     jb = JBuf((3,), max_size, 16, T, maxlen, num_envs=E)
-    tb = dt.EpisodeReplayBuffer((3,), max_size, 16, T, maxlen, num_envs=E)
+    tb = dt.EpisodeReplayBuffer((3,), max_size, 16, T, maxlen, num_envs=E,
+                                device="cpu")
     assert (tb.ring, tb.records_per_env, tb.F) == (jb.ring, jb.records_per_env,
                                                    jb.F)
     M, R = tb.records_per_env, tb.ring
@@ -114,7 +115,7 @@ def test_windows_across_the_ring_boundary():
     """Episodes of lengths 3, 3, 4 in a ring of 8: the third spans rows
     6, 7, 0, 1, read through the shadow rows as one contiguous window."""
     T = 4
-    buf = dt.EpisodeReplayBuffer((1,), 2, 256, T, 4, num_envs=1)
+    buf = dt.EpisodeReplayBuffer((1,), 2, 256, T, 4, num_envs=1, device="cpu")
     assert buf.ring == 8
     st, t = buf.init(), 0
     for L in (3, 3, 4):
@@ -141,7 +142,7 @@ def test_windows_across_the_ring_boundary():
 def test_draws_are_uniform_over_stored_episodes():
     """env0 commits 1 episode, env1 commits 4: uniform over episodes gives
     env0 1/5 of the draws (uniform over envs would give 1/2)."""
-    buf = dt.EpisodeReplayBuffer((1,), 8, 4096, 2, 4, num_envs=2)
+    buf = dt.EpisodeReplayBuffer((1,), 8, 4096, 2, 4, num_envs=2, device="cpu")
     st = buf.init()
     for t in range(4):
         st = buf.add_step(st, dt.TransitionBatch(
@@ -157,7 +158,7 @@ def test_draws_are_uniform_over_stored_episodes():
 
 def test_ring_memory_cap_and_storage():
     buf = dt.EpisodeReplayBuffer((84, 84, 4), 1000, 4, 8, 100, num_envs=1,
-                                 max_ring_bytes=256 << 20)
+                                 max_ring_bytes=256 << 20, device="cpu")
     jbuf = JBuf((84, 84, 4), 1000, 4, 8, 100, num_envs=1,
                 max_ring_bytes=256 << 20)
     assert buf.ring == jbuf.ring
@@ -165,6 +166,7 @@ def test_ring_memory_cap_and_storage():
     assert buf.ring >= 2 * buf.max_episode_length
     with pytest.raises(ValueError, match="max_ring_bytes"):
         dt.EpisodeReplayBuffer((84, 84, 4), 1000, 4, 8, 100, num_envs=64,
-                               max_ring_bytes=16 << 20)
+                               max_ring_bytes=16 << 20, device="cpu")
     with pytest.raises(NotImplementedError):
-        dt.EpisodeReplayBuffer((2,), 8, 4, 2, 4, obs_dtype=torch.bfloat16)
+        dt.EpisodeReplayBuffer((2,), 8, 4, 2, 4, obs_dtype=torch.bfloat16,
+                               device="cpu")

@@ -112,7 +112,7 @@ def test_collect_plan_gate():
     env = dt.SimpleGridWorld()
     _, net = _nets(True)
     assert fused_collect.collect_plan_for(env, net, None) is not None
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32, device="cpu")
     assert fused_collect.collect_plan_for(env, net, buf) is not None
     # wider than the kernel's per-thread activations
     assert fused_collect.collect_plan_for(env, _nets(True, 256)[1],
@@ -125,7 +125,7 @@ def test_collect_plan_gate():
 def test_fused_collect_true_that_cannot_be_honoured_raises():
     env = dt.SimpleGridWorld()
     _, net = _nets(True)
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32, device="cpu")
     cfg = dt.DQNConfig(num_envs=128, train_freq=128, batch_size=32,
                        buffer_size=1024, fused_collect=True)
     sel = dt.epsilon_greedy_select(dt.ConstantEpsilon(0.1))
@@ -154,13 +154,13 @@ def test_plain_keyed_collect_loop_runs():
     """The plain keyed collect step (custom select_fn) drives the loop."""
     env = dt.SimpleGridWorld()
     _, net = _nets(True)
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, 1024, 32, device="cpu")
     cfg = dt.DQNConfig(num_envs=128, train_freq=128, batch_size=32,
                        buffer_size=1024, max_episode_length=10)
     sel = dt.epsilon_greedy_select(dt.ConstantEpsilon(0.1))
     it, pop, opt = build_loop(env, net, buf, cfg, dt.LinearDecaySchedule(),
                               0.95, select_fn=sel)
-    c = dt.init_carry(env, net, buf, cfg, opt)
+    c = dt.init_carry(env, net, buf, cfg, opt, device="cpu")
     cc = pop((c.actor, c.replay, c.params), c.generator)
     c = it(c._replace(actor=cc[0], replay=cc[1]))
     assert c.replay.size == 256 and c.actor.t == 256
@@ -210,3 +210,45 @@ def test_avg_recent_matches_jax():
         float(avg_recent(torch.tensor(ret), torch.tensor(cnt))),
         float(javg(jnp.asarray(ret), jnp.asarray(cnt))), rtol=1e-5)
     assert float(avg_recent(torch.zeros(4), torch.zeros(4))) == 0.0
+
+
+def _k4_nets():
+    """The headline head, a plain chain, and a net at the edge of the
+    gates: 128 wide, ~37.7K parameters (``plan_for``'s 200 KB under the
+    replaced K3 design)."""
+    wide = dt.Chain(dt.Flatten(), dt.Dense(2, 128, torch.tanh),
+                    dt.Dense(128, 128, torch.tanh),
+                    dt.Dense(128, 128, torch.tanh),
+                    dt.Dense(128, 32, torch.tanh), dt.Dense(32, 4))
+    return {"headline": (_nets(True, 64)[1], 128),
+            "plain": (_nets(False, 32)[1], 128), "widest": (wide, 64)}
+
+
+@pytest.mark.parametrize("name", ["headline", "plain", "widest"])
+def test_k4_tile_fits_every_net_the_gate_takes(name):
+    net, tile = _k4_nets()[name]
+    plan = fused_collect.collect_plan_for(dt.SimpleGridWorld(), net, None)
+    assert plan is not None and plan.cell is None
+    assert plan.tile == tile == fused_collect.k4_tile(plan.net)
+    assert fused_collect.k4_smem_bytes(plan.net, tile) <= \
+        fused_collect.K4_MAX_SMEM
+    if tile < fused_collect.K4_TILES[0]:
+        bigger = fused_collect.K4_TILES[fused_collect.K4_TILES.index(tile) - 1]
+        assert fused_collect.k4_smem_bytes(plan.net, bigger) > \
+            fused_collect.K4_MAX_SMEM
+
+
+def test_k4_smem_bytes_follows_the_tile_layout():
+    net, _ = _k4_nets()["headline"]
+    plan = fused_collect.collect_plan_for(dt.SimpleGridWorld(), net, None)
+    # W and b of each layer on 16-byte boundaries: the value head's 1-float
+    # bias pads 3 floats
+    assert fused_collect.k4_smem_params(plan.net) == 9029 + 3
+    # params + 128 envs x (2 inputs + two 64-wide buffers + the value) +
+    # 3 accumulators per thread
+    assert fused_collect.k4_smem_bytes(plan.net, 128) == \
+        4 * (9032 + 131 * 128 + 3 * 256) == 106272
+    # the recurrent plan keeps its thread per env: no tile
+    lstm = dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 4))
+    rplan = fused_collect.collect_plan_for(dt.SimpleGridWorld(), lstm, None)
+    assert rplan is not None and rplan.tile == 0

@@ -139,7 +139,8 @@ def test_recurrent_collect_plan_gate():
     ok = [_nets(k)[1] for k in ("lstm", "gru", "dueling_lstm")]
     for net in ok:
         assert fused_collect.collect_plan_for(env, net, None) is not None
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, 64, 8, 4, 10, num_envs=16)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, 64, 8, 4, 10, num_envs=16,
+                                 device="cpu")
     assert fused_collect.collect_plan_for(env, ok[0], buf) is not None
     refused = [
         dt.Chain(dt.Dense(2, 8), dt.LSTM(8, 8), dt.Dense(8, 4)),  # pre-cell
@@ -167,7 +168,8 @@ def test_actor_carries_and_zeroes_the_state(fused):
     gen = torch.Generator().manual_seed(1)
     actor = init_actor(env, net, 64, gen)
     assert [tuple(s.shape) for s in actor.net_state[0]] == [(64, 8)] * 2
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, 64, 8, 4, 5, num_envs=64)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, 64, 8, 4, 5, num_envs=64,
+                                 device="cpu")
     if fused:
         step = make_fused_collect_step(
             env, net, 5, lambda t: 0.5, buf.add_step,

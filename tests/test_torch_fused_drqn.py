@@ -173,7 +173,8 @@ def test_fused_updates_true_that_cannot_be_honoured_raises():
                        buffer_size=32, trace_length=T, max_episode_length=8,
                        recurrence=True, fused_updates=True,
                        fused_collect=False)
-    buf = dt.EpisodeReplayBuffer(env.obs_shape, 32, B, T, 8, num_envs=16)
+    buf = dt.EpisodeReplayBuffer(env.obs_shape, 32, B, T, 8, num_envs=16,
+                                 device="cpu")
     two_cells = dt.Chain(dt.LSTM(2, 8), dt.LSTM(8, 8), dt.Dense(8, 4))
     with pytest.raises(ValueError, match="fused_updates=True"):
         build_loop(env, two_cells, buf, cfg, dt.LinearDecaySchedule(), 0.95)

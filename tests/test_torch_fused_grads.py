@@ -189,3 +189,35 @@ def test_dp_group_update_with_identity_reduce_is_k3(double_q):
         for k in plan.names:
             assert torch.equal(dp[i][k], k3[i][k]), k
     assert int(dp[3]) == int(k3[3]) == 2 + U
+
+
+@pytest.mark.parametrize("B", [16, 18])
+@pytest.mark.parametrize("dueling", [True, False])
+def test_k7_flat_gradient_is_the_tile_order_sum(dueling, B):
+    """K7 and K3 share one scratch layout, ``[ceil(B/TILE), n_params]``
+    indexed by tile, and one reduce: the tile partials summed in tile
+    order. That sum (the tiled reference's gradient) is K7's flat gradient
+    within the f32 reordering tolerance of the module docstring."""
+    _, tnet = _nets(dueling)
+    plan = fused_update.plan_for(tnet)
+    params = tnet.init(torch.Generator().manual_seed(9))
+    x = {k: torch.from_numpy(v) for k, v in _inputs(B, seed=4).items()}
+    pg, pl = fused_update.partials(plan, B, "cpu")
+    nt = -(-B // fused_update.TILE)
+    assert tuple(pg.shape) == (nt, plan.desc().n_params)
+    assert tuple(pl.shape) == (nt,)
+    parts, td, _, loss = fused_update._fwd_bwd(
+        plan, params, x["obs_s"], x["obs_sp"], x["action"].long(),
+        x["reward"], x["done"], x["weights"], x["q_sp_tgt"], 0.9, True, 0.6,
+        1e-3, tile=fused_update.TILE)
+    tiled = fused_update._tile_order_sum(torch.cat(
+        [parts[k].reshape(nt, -1) for k in plan.names], dim=1))
+    assert tiled.shape == pg.shape[1:]
+    flat, td7, _, loss7, gn7 = fused_update.fused_grads_plain(
+        plan, params, **x, gamma=0.9, double_q=True, alpha=0.6, eps=1e-3)
+    np.testing.assert_allclose(tiled.numpy(), flat.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(loss), float(loss7), rtol=1e-5)
+    assert torch.equal(td, td7)
+    np.testing.assert_allclose(float(tiled.abs().max()), float(gn7),
+                               rtol=1e-5)

@@ -39,10 +39,10 @@ SCRIPT = textwrap.dedent("""
             cfg = DQNConfig(num_envs=num_envs, train_freq=train_freq,
                             batch_size=16, buffer_size=512,
                             fused_updates=fused, fused_collect=fused)
-            buf = PrioritizedReplayBuffer(env.obs_shape, 512, 16)
+            buf = PrioritizedReplayBuffer(env.obs_shape, 512, 16, device="cpu")
             it, pop, opt = build_loop(env, net, buf, cfg,
                                       LinearDecaySchedule(), env.discount)
-            c = init_carry(env, net, buf, cfg, opt)
+            c = init_carry(env, net, buf, cfg, opt, device="cpu")
             cc = pop((c.actor, c.replay, c.params), c.generator)
             c = it(c._replace(actor=cc[0], replay=cc[1]))
             assert torch.isfinite(c.loss) and c.replay.size == 256
@@ -51,10 +51,12 @@ SCRIPT = textwrap.dedent("""
                         buffer_size=256, trace_length=4, max_episode_length=5,
                         recurrence=True, fused_updates=fused,
                         fused_collect=fused)
-        buf = EpisodeReplayBuffer(env.obs_shape, 256, 8, 4, 5, num_envs=128)
+        buf = EpisodeReplayBuffer(env.obs_shape, 256, 8, 4, 5, num_envs=128,
+                                  device="cpu")
         it, pop, opt = build_loop(env, net, buf, cfg, LinearDecaySchedule(),
                                   env.discount)
-        c = populate(pop, buf, init_carry(env, net, buf, cfg, opt), 6)
+        c = populate(pop, buf, init_carry(env, net, buf, cfg, opt,
+                                          device="cpu"), 6)
         c = it(c)
         assert torch.isfinite(c.loss) and c.replay.t == 7
     # data parallelism in a one-rank gloo world: the K7 and K8 routes
@@ -70,8 +72,10 @@ SCRIPT = textwrap.dedent("""
         cfg = DQNConfig(num_envs=4, train_freq=2, batch_size=4,
                         buffer_size=32, trace_length=3, max_episode_length=6,
                         recurrence=rec, fused_updates=True)
-        buf = (EpisodeReplayBuffer(mdp.obs_shape, 32, 4, 3, 6, num_envs=4)
-               if rec else PrioritizedReplayBuffer(mdp.obs_shape, 32, 4))
+        buf = (EpisodeReplayBuffer(mdp.obs_shape, 32, 4, 3, 6, num_envs=4,
+                                   device="cpu")
+               if rec else PrioritizedReplayBuffer(mdp.obs_shape, 32, 4,
+                                                   device="cpu"))
         runner = DataParallelRunner(mdp, net, buf, cfg, LinearDecaySchedule(),
                                     mdp.discount)
         c = runner.run_segment(runner.run_populate(runner.init_carry(0), 8), 1)

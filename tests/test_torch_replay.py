@@ -93,7 +93,7 @@ def _compare_state(ts, js):
 def test_insert_aligned_and_wrapping(E):
     """E=128 divides the capacity (contiguous writes); E=96 does not (the
     scatter with wraparound)."""
-    jb, tb = JBuf((2,), 1024, 32), TBuf((2,), 1024, 32)
+    jb, tb = JBuf((2,), 1024, 32), TBuf((2,), 1024, 32, device="cpu")
     js, ts = jb.init(), tb.init()
     for i in range(12):  # 12*96 > 1024: wraps
         js = jb.insert(js, _batch(np.random.default_rng(i), E, "jax"))
@@ -102,7 +102,7 @@ def test_insert_aligned_and_wrapping(E):
 
 
 def _filled(seed=0, n=1024):
-    jb, tb = JBuf((2,), n, 32), TBuf((2,), n, 32)
+    jb, tb = JBuf((2,), n, 32), TBuf((2,), n, 32, device="cpu")
     js = jb.insert(jb.init(), _batch(np.random.default_rng(seed), n, "jax"))
     ts = tb.insert(tb.init(), _batch(np.random.default_rng(seed), n, "torch"))
     return jb, js, tb, ts
@@ -130,7 +130,7 @@ def test_sample_n_u_major_and_is_weights(n_batches):
 
 
 def test_empty_buffer_weights_are_clamped():
-    jb, tb = JBuf((2,), 64, 8), TBuf((2,), 64, 8)
+    jb, tb = JBuf((2,), 64, 8), TBuf((2,), 64, 8, device="cpu")
     _, _, jw = jb.sample(jb.init(), jax.random.PRNGKey(0))
     _, _, tw = tb.sample(tb.init(), u=torch.rand(8))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
@@ -152,7 +152,7 @@ def test_update_priorities_matches():
 
 
 def test_uniform_replay():
-    jb, tb = JUniform((2,), 256, 16), TUniform((2,), 256, 16)
+    jb, tb = JUniform((2,), 256, 16), TUniform((2,), 256, 16, device="cpu")
     js = jb.insert(jb.init(), _batch(np.random.default_rng(0), 256, "jax"))
     ts = tb.insert(tb.init(), _batch(np.random.default_rng(0), 256, "torch"))
     _compare_state(ts, js)
@@ -165,6 +165,7 @@ def test_uniform_replay():
 
 def test_unsupported_storage_raises():
     with pytest.raises(NotImplementedError):
-        TBuf((2,), 64, 8, obs_dtype=torch.bfloat16)
+        TBuf((2,), 64, 8, obs_dtype=torch.bfloat16, device="cpu")
     with pytest.raises(NotImplementedError):
-        TBuf((2,), 64, 8, sample_mode="without_replacement")
+        TBuf((2,), 64, 8, sample_mode="without_replacement",
+             device="cpu")

@@ -66,7 +66,7 @@ def _torch_side(jcarry):
         dt.Flatten(), dt.Dense(2, 16, torch.tanh), dt.Dense(16, 16, torch.tanh),
         dt.Dense(16, 4)))
     cfg = _cfg(dt)
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, C, B)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, C, B, device="cpu")
     it, pop, opt = build_loop(env, net, buf, cfg,
                               dt.LinearDecaySchedule(1.0, 0.05, 500),
                               gamma=env.discount)

@@ -133,7 +133,7 @@ def test_ungrouped_step_through_k1_matches_jax(double_q):
     js = jb.insert(jb.init(), dq.TransitionBatch(
         *(jnp.asarray(d[k]) for k in ("obs", "action", "reward", "next_obs",
                                       "done"))))
-    tb = dt.PrioritizedReplayBuffer((3,), 256, 32)
+    tb = dt.PrioritizedReplayBuffer((3,), 256, 32, device="cpu")
     ts = tb.insert(tb.init(), dt.TransitionBatch(
         torch.tensor(d["obs"]), torch.tensor(d["action"]).long(),
         torch.tensor(d["reward"]), torch.tensor(d["next_obs"]),

@@ -53,14 +53,14 @@ def _setup(kind, route):
         buf = dt.EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size,
                                      cfg.batch_size, cfg.trace_length,
                                      cfg.max_episode_length,
-                                     num_envs=cfg.num_envs)
+                                     num_envs=cfg.num_envs, device="cpu")
     else:
         net = dt.create_dueling_network(dt.Chain(
             dt.Flatten(), dt.Dense(2, 16, torch.tanh),
             dt.Dense(16, 16, torch.tanh), dt.Dense(16, 4)))
         cfg = ff_cfg(dt, route)
         buf = dt.PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
-                                         cfg.batch_size)
+                                         cfg.batch_size, device="cpu")
     return env, net, cfg, buf
 
 
@@ -111,7 +111,7 @@ def _testmdp_runner(mesh, dcn_sync_every=1):
     cfg = dt.DQNConfig(num_envs=2, batch_size=8, buffer_size=64,
                        train_freq=2, train_start=8, max_episode_length=6)
     buf = dt.PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
-                                     cfg.batch_size)
+                                     cfg.batch_size, device="cpu")
     return DataParallelRunner(env, net, buf, cfg,
                               dt.LinearDecaySchedule(1.0, 0.1, 100),
                               env.discount, mesh=mesh,
