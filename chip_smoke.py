@@ -13,10 +13,10 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 3. kernels: each kernel (K1-K8) against its plain PyTorch twin on the
    card, at the main paths' shapes, with stated tolerances, both times and
    the kernel's bound (the least time for the same bytes or FLOPs on the
-   card) and its share of it (K3 also against the tile-order reference and
-   two runs bit for bit; K7/K8 also run the data-parallel update, K7/K8
-   and an Adam launch per sub-update, against K3's/K5's update and its
-   twin);
+   card) and its share of it (K3/K5 also against the tile-order reference
+   and two runs bit for bit, K8 against its tile-order reference; K7/K8
+   also run the data-parallel update, K7/K8 and an Adam launch per
+   sub-update, against K3's/K5's update, bit for bit, and its twin);
 4. slices: the small feed-forward loop and the small DRQN loop on the card
    against the same loops on the CPU (plain twins) with injected uniforms
    and draws;
@@ -33,12 +33,14 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 10. two ranks: a small data-parallel slice in two gloo ranks on the one
     card (NCCL refuses two ranks on one device) against the same two-rank
     program on CPU tensors;
-11. headline profile: the headline loop once more, last, with the host's
-    enqueue per iteration and, under ``torch.profiler``, the device busy
-    share and the kernel launches and device time per iteration (K3
-    exactly once: one cooperative launch per grouped call).
+11. headline profile: the headline loop once more, near the end, with the
+    host's enqueue per iteration and, under ``torch.profiler``, the device
+    busy share and the kernel launches and device time per iteration (K3
+    exactly once: one cooperative launch per grouped call);
+12. DRQN profile: the DRQN loop the same way, last (K5 exactly once per
+    iteration: one cooperative launch per grouped call of U = 4).
 
-Each of the paths 5 to 9 and 11 runs with the launch counters (and
+Each of the paths 5 to 9, 11 and 12 runs with the launch counters (and
 ``pmean_flat.calls``) zeroed just before it and read just after: every
 kernel of the path must have launched there, K3 / K5 not on the
 data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
@@ -124,6 +126,15 @@ def _drqn_update_flops(plan, B, T, U, double_q):
     cp = plan.cell
     macs = _macs(plan.dense) + (cp.in_dim + cp.hidden) * cp.n_gates * cp.hidden
     return 2 * U * B * T * macs * ((2 if double_q else 1) + 2)
+
+
+def _adam_state(torch, params):
+    """A copy of ``params`` with zero Adam moments and an int32 count."""
+    z = {k: torch.zeros_like(v) for k, v in params.items()}
+    return ({k: v.clone() for k, v in params.items()}, z,
+            {k: v.clone() for k, v in z.items()},
+            torch.zeros((), dtype=torch.int32,
+                        device=next(iter(params.values())).device))
 
 
 def _kernel_line(name, ms, plain_ms, bound_ms, bound_by):
@@ -277,11 +288,7 @@ def phase_kernels(torch, dev, results):
         kw = dict(gamma=0.95, double_q=double_q, lr=1e-4, alpha=0.6,
                   eps=1e-3, batch_size=B, n_updates=U)
 
-        def state():
-            p = {k: v.clone() for k, v in params.items()}
-            z = {k: torch.zeros_like(v) for k, v in params.items()}
-            return (p, z, {k: v.clone() for k, v in z.items()},
-                    torch.zeros((), dtype=torch.int32, device=dev))
+        state = lambda: _adam_state(torch, params)
 
         ks, ps, rs, ks2 = state(), state(), state(), state()
         ko = fu.fused_group_update_cuda(plan, *ks, **data, **kw)
@@ -387,15 +394,16 @@ def phase_recurrent_kernels(torch, dev, g, results):
 
     # --- K5: B=512, T=8; LSTM(2,32)+Dense(32,4) with double-Q at U=4 and
     # U=32, and a dueling GRU net with a Dense layer before the cell and
-    # max targets. params/m/v rtol 2e-4 / atol 2e-5, loss rtol 1e-4, gnorm
-    # rtol 1e-3 (the JAX package's fused-vs-XLA tolerances).
+    # max targets; then a trace too long for the tiles' T-step regions in
+    # shared memory (U=2, B=32, T=256: they lie in global scratch,
+    # dr_group_gm_kernel). Each against its twin and the tile-order
+    # reference, two runs bit-identical (_k5_check).
     B, T = 512, 8
     lstm = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
     gru = create_dueling_network(Chain(
         Dense(2, 16, torch.tanh, device=dev), GRU(16, 32, device=dev),
         Dense(32, 32, torch.tanh, device=dev), Dense(32, 4, device=dev)))
     err = 0.0
-    timing = None
     for name, net, double_q, U in (("LSTM32 double-Q", lstm, True, 4),
                                    ("LSTM32 double-Q", lstm, True, 32),
                                    ("dueling GRU max", gru, False, 4)):
@@ -410,39 +418,85 @@ def phase_recurrent_kernels(torch, dev, g, results):
             reward=rnd(n, T), done=(uni(n, T) < 0.1).float(),
             mask=(torch.arange(T, device=dev)[None] < lens[:, None]).float(),
             q_sp_tgt=rnd(n, T, 4))
-        kw = dict(gamma=0.95, double_q=double_q, lr=1e-3, batch_size=B,
-                  n_updates=U)
-
-        def state():
-            p = {k: v.clone() for k, v in params.items()}
-            z = {k: torch.zeros_like(v) for k, v in params.items()}
-            return (p, z, {k: v.clone() for k, v in z.items()},
-                    torch.zeros((), dtype=torch.int32, device=dev))
-
-        ks, ps = state(), state()
-        kl, kg = fd.fused_drqn_group_update_cuda(plan, *ks, **data, **kw)
-        pl, pg = fd.fused_drqn_group_update_plain(plan, *ps, **data, **kw)
-        for k in plan.names:
-            for i, what in ((0, "param"), (1, "m"), (2, "v")):
-                err = max(err, _close(ks[i][k], ps[i][k], 2e-4, 2e-5,
-                                      f"K5 {name} U={U} {what} {k}"))
-        err = max(err, _close(kl, pl, 1e-4, 0.0, "K5 loss"))
-        err = max(err, _close(kg, pg, 1e-3, 1e-7, "K5 gnorm"))
-        _check(int(ks[3]) == int(ps[3]) == U, "K5 count")
-        if timing is None:
+        e, kw = _k5_check(torch, dev, fd, name, plan, params, data, double_q,
+                          U, B, T)
+        err = max(err, e)
+        if U == 4 and double_q:
+            state = lambda: _adam_state(torch, params)
+            # the parent commit's way (a fresh params/m/v/count copy per
+            # call, the copy inside the time), and the kernel alone on one
+            # reused state
+            st = state()
             timing = (
                 _time_ms(lambda: fd.fused_drqn_group_update_cuda(
                     plan, *state(), **data, **kw), 20),
                 _time_ms(lambda: fd.fused_drqn_group_update_plain(
                     plan, *state(), **data, **kw), 3, 1))
+            alone_ms = _time_ms(lambda: fd.fused_drqn_group_update_cuda(
+                plan, *st, **data, **kw), 20)
+            copy_ms = _time_ms(state, 20)
             bound = _bound(_nbytes(data) + 6 * _nbytes(params),
                            _drqn_update_flops(plan, B, T, U, double_q))
-        _say(f"K5 fused_drqn_group_update {name} U={U} B=512 T=8: ok")
+    Tl, Bl, Ul = 256, 32, 2
+    plan = fd.drqn_plan_for(lstm, Tl, Bl, True)
+    _check(plan is not None and plan.desc(Tl).act_global == 1,
+           "K5 long-trace plan")
+    params = lstm.init(g)
+    n = Ul * Bl
+    data = dict(
+        obs=uni(n, Tl, 2) * 10, nobs=uni(n, Tl, 2) * 10,
+        action=torch.randint(0, 4, (n, Tl), generator=g, device=dev),
+        reward=rnd(n, Tl), done=(uni(n, Tl) < 0.1).float(),
+        mask=(torch.arange(Tl, device=dev)[None] < torch.randint(
+            1, Tl + 1, (n, 1), generator=g, device=dev)).float(),
+        q_sp_tgt=rnd(n, Tl, 4))
+    err = max(err, _k5_check(torch, dev, fd, "LSTM32 double-Q, long trace",
+                             plan, params, data, True, Ul, Bl, Tl)[0])
+    # the paths the main ones do not take, from a generator of their own
+    # (the later phases' inputs stay those of the stream above): a ragged
+    # last tile of 3 windows (an odd row count), actions -1 and A (the
+    # kernel's guard selects nothing), and two wide nets whose tiles shrink
+    # to 2 and 1 windows (a dueling LSTM with a 128-wide Dense layer before
+    # it; 128 actions at T = 32). The wide nets' parameters are held to
+    # the tile-order reference through K8's gradient, before Adam: after
+    # it, the f32 reference's own rounding at these widths exceeds atol
+    # 1e-6 (``ops/cuda/k5_phases.py --precision``).
+    g2 = torch.Generator(device=dev).manual_seed(5)
+    wide = create_dueling_network(Chain(
+        Dense(2, 128, torch.relu, device=dev), LSTM(128, 16, device=dev),
+        Dense(16, 128, torch.tanh, device=dev), Dense(128, 4, device=dev)))
+    many = Chain(LSTM(4, 48, device=dev), Dense(48, 128, device=dev))
+    for name, net, double_q, U, Bc, Tc, acts, narrow in (
+            ("dueling GRU max, ragged", gru, False, 2, 511, T, (0, 4), True),
+            ("LSTM32 double-Q, actions in [-1, A]", lstm, True, 2, B, T,
+             (-1, 5), True),
+            ("dueling Dense(2,128)+LSTM(128,16) double-Q", wide, True, 2, 64,
+             T, (0, 4), False),
+            ("LSTM(4,48)+Dense(48,128) max", many, False, 2, 24, 32,
+             (0, 128), False)):
+        plan = fd.drqn_plan_for(net, Tc, Bc, double_q)
+        _check(plan is not None, f"K5 plan {name}")
+        params = net.init(g2)
+        n, A = U * Bc, plan.head.num_actions
+        lens = torch.randint(1, Tc + 1, (n,), generator=g2, device=dev)
+        r = lambda *s: torch.rand(*s, generator=g2, device=dev)
+        data = dict(
+            obs=r(n, Tc, plan.in_dim) * 10, nobs=r(n, Tc, plan.in_dim) * 10,
+            action=torch.randint(*acts, (n, Tc), generator=g2, device=dev),
+            reward=torch.randn(n, Tc, generator=g2, device=dev),
+            done=(r(n, Tc) < 0.1).float(),
+            mask=(torch.arange(Tc, device=dev)[None] < lens[:, None]).float(),
+            q_sp_tgt=torch.randn(n, Tc, A, generator=g2, device=dev))
+        err = max(err, _k5_check(torch, dev, fd, name, plan, params, data,
+                                 double_q, U, Bc, Tc, narrow)[0])
     results["fused_drqn_group_update"] = dict(
         max_abs_err=err, ms=timing[0], plain_ms=timing[1], bound_ms=bound[0],
         bound_by=bound[1])
-    _say(_kernel_line("K5 fused_drqn_group_update LSTM32 U=4 B=512 T=8",
-                      *timing, *bound))
+    _say(_kernel_line("K5 fused_drqn_group_update LSTM32 U=4 B=512 T=8 "
+                      "(one cooperative launch; a fresh params/m/v/count "
+                      "copy per call, as timed before)", *timing, *bound)
+         + f"; the kernel alone on one reused state {alone_ms:.4f} ms; the "
+         f"copy alone {copy_ms:.4f} ms")
 
     # --- K6: E=16384 GridWorld with LSTM32, with GRU16 + Dense(16,32,
     # tanh) + Dense(32,4), and with a dueling net on an LSTM16 base, shared
@@ -515,10 +569,64 @@ def phase_recurrent_kernels(torch, dev, g, results):
     phase_grads_kernels(torch, dev, g, results, lstm, gru)
 
 
+def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
+              params_vs_tiled=True):
+    """K5 on windows ``data`` (``U·B`` of ``T`` steps) against its twin at
+    the JAX package's fused-vs-XLA tolerances (params/m/v rtol 2e-4 / atol
+    2e-5, loss rtol 1e-4, gnorm rtol 1e-3) and against the tile-order
+    reference (the kernel's sum order) at rtol 1e-5: loss and gnorm atol
+    0, params (``params_vs_tiled``) atol 1e-6 (0.1% of lr; the unrolls' dot
+    products still round in another order), and K8's gradient of the
+    first sub-update (the same kernel at U = 1) atol 1e-5 of its largest
+    entry. Two runs must be bit-identical. Prints a line; returns
+    ``(max_abs_err against the twin, the update's keywords)``."""
+    kw = dict(gamma=0.95, double_q=double_q, lr=1e-3, batch_size=B,
+              n_updates=U)
+    ks, ks2, ps, rs = (_adam_state(torch, params) for _ in range(4))
+    kl, kg = fd.fused_drqn_group_update_cuda(plan, *ks, **data, **kw)
+    kl2, kg2 = fd.fused_drqn_group_update_cuda(plan, *ks2, **data, **kw)
+    pl, pg = fd.fused_drqn_group_update_plain(plan, *ps, **data, **kw)
+    rl, rg = fd.fused_drqn_group_update_tiled(plan, *rs, **data, **kw)
+    what = f"K5 {name} U={U} B={B} T={T}"
+    _check(torch.equal(kl, kl2) and torch.equal(kg, kg2) and all(
+        torch.equal(ks[i][k], ks2[i][k]) for i in range(3)
+        for k in plan.names), f"{what}: two runs differ")
+    err = 0.0
+    for k in plan.names:
+        for i, part in ((0, "param"), (1, "m"), (2, "v")):
+            err = max(err, _close(ks[i][k], ps[i][k], 2e-4, 2e-5,
+                                  f"{what} {part} {k}"))
+        if params_vs_tiled:
+            _close(ks[0][k], rs[0][k], 1e-5, 1e-6,
+                   f"{what} vs tile-order {k}")
+    _close(kl, rl, 1e-5, 0.0, f"{what} vs tile-order loss")
+    _close(kg, rg, 1e-5, 0.0, f"{what} vs tile-order gnorm")
+    first = {k: v[:B] for k, v in data.items()}
+    gk = fd.fused_drqn_grads_cuda(plan, params, **first, gamma=0.95,
+                                  double_q=double_q)
+    gr = fd.fused_drqn_grads_tiled(plan, params, **first, gamma=0.95,
+                                   double_q=double_q)
+    _close(gk[0], gr[0], 1e-5, 1e-5 * float(gr[0].abs().max()),
+           f"{what} K8 gradient vs tile-order")
+    err = max(err, _close(kl, pl, 1e-4, 0.0, f"{what} loss"))
+    err = max(err, _close(kg, pg, 1e-3, 1e-7, f"{what} gnorm"))
+    _check(int(ks[3]) == int(ps[3]) == U, f"{what} count")
+    d = plan.desc(T)
+    _say(f"K5 fused_drqn_group_update {name} U={U} B={B} T={T}: ok, "
+         f"matches the tile-order reference at rtol 1e-5 ("
+         f"{'params, ' if params_vs_tiled else ''}loss, gnorm, K8's "
+         f"gradient), two runs bit-identical, grid "
+         f"{fd.launch_grid(plan, T, B, dev)} blocks of {fd.THREADS}, "
+         f"{d.tile} windows per tile, T-step regions in "
+         f"{'global' if d.act_global else 'shared'} memory, "
+         f"{plan.smem_bytes(T)} bytes of shared memory")
+    return err, kw
+
+
 def phase_grads_kernels(torch, dev, g, results, lstm, gru):
     """K7 and K8, the grads-emitting sub-updates of the data-parallel
-    route, against their twins, and the one-block Adam launch that follows
-    them on a flat gradient."""
+    route, against their twins, and the Adam launch that follows them on a
+    flat gradient."""
     from deepqlearning_tpu_torch import Chain, Dense, Flatten, create_dueling_network
     from deepqlearning_tpu_torch.ops.cuda import (
         fused_drqn as fd, fused_update as fu)
@@ -589,9 +697,10 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
     # --- K8: B=512, T=8, LSTM(2,32)+Dense(32,4) with double-Q
     # (drqn_bench) and the dueling GRU net with a Dense layer before the
     # cell and max targets. grads rtol 1e-4 / atol 1e-6 (f32 sums over
-    # 4096 window steps in another order: warp and block partials vs
-    # autograd), loss and gnorm rtol 1e-4; the flat Adam (K5's Adam kernel)
-    # against its twin at rtol 1e-5 / atol 1e-6.
+    # 4096 window steps in another order: tile partials vs autograd), loss
+    # and gnorm rtol 1e-4; against the tile-order reference rtol 1e-5 (grads
+    # atol 1e-7, loss and gnorm atol 0). The data-parallel update with an
+    # identity reduce equals K5's bit for bit.
     T = 8
     err = 0.0
     timing = None
@@ -609,11 +718,15 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
         kw = dict(gamma=0.95, double_q=double_q)
         ko = fd.fused_drqn_grads_cuda(plan, params, **data, **kw)
         po = fd.fused_drqn_grads_plain(plan, params, **data, **kw)
+        ro = fd.fused_drqn_grads_tiled(plan, params, **data, **kw)
         err = max(err, _close(ko[0], po[0], 1e-4, 1e-6, f"K8 {name} grads"))
         err = max(err, _close(ko[1], po[1], 1e-4, 0.0, f"K8 {name} loss"))
         err = max(err, _close(ko[2], po[2], 1e-4, 0.0, f"K8 {name} gnorm"))
+        for k, r, n in zip(ko, ro, ("grads", "loss", "gnorm")):
+            _close(k, r, 1e-5, 1e-7 if n == "grads" else 0.0,
+                   f"K8 {name} vs tile-order {n}")
         # the data-parallel update at U=4 with an identity reduce against
-        # K5's update (rtol 1e-6) and its twin (K5's tolerances)
+        # K5's update (bit for bit) and its twin (K5's tolerances)
         dp_err, same = _dp_group_check(
             torch, fd.fused_drqn_dp_group_update_cuda,
             fd.fused_drqn_dp_group_update_plain,
@@ -626,6 +739,7 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
                       < torch.randint(1, T + 1, (n, 1), generator=g,
                                       device=dev)).float(),
                 q_sp_tgt=rnd(n, T, 4)), "K8")
+        _check(same, f"K8 {name}: the DP update differs from K5's")
         err = max(err, dp_err)
         if timing is None:
             timing = (
@@ -635,13 +749,14 @@ def phase_grads_kernels(torch, dev, g, results, lstm, gru):
                     plan, params, **data, **kw), 3, 1))
             bound = _bound(_nbytes(data, params, ko[0]),
                            _drqn_update_flops(plan, B, T, 1, double_q))
-        _say(f"K8 fused_drqn_grads {name} B=512 T=8: ok; DP update U=4 "
-             f"equals K5's bit for bit: {same}")
+        _say(f"K8 fused_drqn_grads {name} B=512 T=8: ok, matches the "
+             f"tile-order reference at rtol 1e-5; DP update U=4 equals K5's "
+             f"bit for bit")
     results["fused_drqn_grads"] = dict(max_abs_err=err, ms=timing[0],
                                        plain_ms=timing[1], bound_ms=bound[0],
                                        bound_by=bound[1])
-    _say(_kernel_line("K8 fused_drqn_grads LSTM32 B=512 T=8", *timing,
-                      *bound))
+    _say(_kernel_line("K8 fused_drqn_grads LSTM32 B=512 T=8 (one cooperative "
+                      "launch)", *timing, *bound))
 
 
 def _dp_group_check(torch, dp_cuda, dp_plain, whole_cuda, plan, params, kw,
@@ -653,17 +768,10 @@ def _dp_group_check(torch, dp_cuda, dp_plain, whole_cuda, plan, params, kw,
     JAX package's fused-vs-XLA tolerances); prints both kernel routes'
     times. Returns the max abs error against the twin and whether the
     kernels agree bit for bit."""
-    dev = next(iter(params.values())).device
     data = make_data(U * B)
     kw = dict(kw, batch_size=B, n_updates=U)
     keep = lambda flat: None
-
-    def state():
-        p = {k: v.clone() for k, v in params.items()}
-        z = {k: torch.zeros_like(v) for k, v in params.items()}
-        return (p, z, {k: v.clone() for k, v in z.items()},
-                torch.zeros((), dtype=torch.int32, device=dev))
-
+    state = lambda: _adam_state(torch, params)
     ds, ws, ps = state(), state(), state()
     do = dp_cuda(plan, *ds, **data, reduce=keep, **kw)
     wo = whole_cuda(plan, *ws, **data, **kw)
@@ -816,8 +924,10 @@ def phase_drqn_slice(torch, dev):
          f"{frac:.4f}")
 
 
-def _drqn_loop(torch, dev, num_envs, n_iters):
-    """``scripts/drqn_bench.py``'s configuration through ``build_loop``."""
+def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
+    """``scripts/drqn_bench.py``'s configuration through ``build_loop``;
+    with ``profile_iters``, then that many iterations profiled (see
+    ``_profile_iterations``)."""
     from deepqlearning_tpu_torch import (
         LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer,
         LinearDecaySchedule, SimpleGridWorld)
@@ -854,16 +964,22 @@ def _drqn_loop(torch, dev, num_envs, n_iters):
            "loop progress")
     _check(all(bool(torch.isfinite(s).all()) for s in c.actor.net_state[0]),
            "LSTM state finite")
-    return cfg, n_iters * cfg.env_steps_per_iter / dt, loss
+    sps = n_iters * cfg.env_steps_per_iter / dt
+    if not profile_iters:
+        return cfg, sps, loss
+    return (cfg, sps, loss, 1e3 * dt / n_iters,
+            *_profile_iterations(torch, it, c, profile_iters)[1:])
 
 
 def _profile_iterations(torch, it, c, n):
     """``n`` iterations from an idle queue, each timed on the host until
-    ``it`` returns (the enqueue), then ``n`` under ``torch.profiler``:
-    returns ``(carry, enqueue ms per iteration, device busy share of the
-    profiled window, device ms per iteration, {kernel name: (launches, device
-    ms) per iteration})``; ATen's own kernels are summed under "other"."""
-    from torch.profiler import ProfilerActivity, profile
+    ``it`` returns (the enqueue), then ``n`` under ``torch.profiler``
+    (``ops/cuda/drqn_profile.py::device_profile``: the device's own events
+    only): returns ``(carry, enqueue ms per iteration, device busy share of
+    the profiled window, device ms per iteration, {kernel name: (launches,
+    device ms) per iteration})``; ATen's kernels, copies and fills are
+    summed under "other"."""
+    from deepqlearning_tpu_torch.ops.cuda.drqn_profile import device_profile
 
     enq = []
     for _ in range(n):
@@ -871,29 +987,18 @@ def _profile_iterations(torch, it, c, n):
         t0 = time.perf_counter()
         c = it(c)
         enq.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            c = it(c)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us, per_iter, other = 0.0, {}, [0, 0.0]
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        dev_us += us
-        name = e.key.split("(")[0].split(" ")[-1]
-        if us > 0 and name.endswith("kernel") and not name.startswith("void"):
-            per_iter[name] = (e.count / n, round(us * 1e-3 / n, 4))
-        elif us > 0:
-            other[0] += e.count
-            other[1] += us
-    per_iter["other"] = (other[0] / n, round(other[1] * 1e-3 / n, 4))
-    _check(dev_us > 0, "the profiler saw no device time")
-    return (c, 1e3 * sum(enq) / n, dev_us * 1e-6 / wall, dev_us * 1e-3 / n,
+    c, prof = device_profile(torch, it, c, n)
+    per_iter, other = {}, [0.0, 0.0]
+    for key, (count, ms) in prof["by_name"].items():
+        name = key.split("(")[0].split(" ")[-1]
+        if name.endswith("kernel") and not key.startswith("void"):
+            per_iter[name] = (count, ms)
+        else:
+            other[0] += count
+            other[1] += ms
+    per_iter["other"] = (round(other[0], 1), round(other[1], 4))
+    _check(prof["device_ms"] > 0, "the profiler saw no device time")
+    return (c, 1e3 * sum(enq) / n, prof["busy"], prof["device_ms"],
             per_iter)
 
 
@@ -1214,6 +1319,22 @@ def main():
          f"torch.profiler, 10 iterations); per iteration (launches, device "
          f"ms) by kernel {per_iter} | {card} | launches {head}")
 
+    # 12. the DRQN loop again, profiled, beside phase 11: one grouped call
+    # of U sub-updates per iteration, so one K5 launch per iteration (the
+    # replaced design launched 2·U)
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), rec = run_path(
+        "DRQN loop (profiled)", lambda: _drqn_loop(torch, dev, 16384, 10, 10),
+        ("fused_drqn_group_update", "fused_collect_rnn"))
+    _check(per_iter.get("dr_group_kernel", (0,))[0] == 1.0,
+           f"DRQN loop: K5 launches per grouped call {per_iter}")
+    _say(f"DRQN loop, profiled: {sps:.1f} env-steps/s and {ms:.4f} "
+         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
+         f"ms/iteration (each from an idle queue); device busy share "
+         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
+         f"torch.profiler, 10 iterations, U={cfg.updates_per_iter}); per "
+         f"iteration (launches, device ms) by kernel {per_iter} | {card} | "
+         f"launches {rec}")
+
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
                     "deepqlearning_tpu/ops/pallas/td_kernel.py:72"),
@@ -1242,10 +1363,10 @@ def main():
                "tree_sample": "tree_sample_kernel",
                "fused_group_update": "fu_group_kernel (cooperative)",
                "fused_collect": "fc_kernel",
-               "fused_drqn_group_update": "dr_fwd_bwd_kernel, dr_adam_kernel",
+               "fused_drqn_group_update": "dr_group_kernel (cooperative)",
                "fused_collect_rnn": "fc_rnn_kernel",
                "fused_grads": "fu_group_kernel (cooperative, U=1)",
-               "fused_drqn_grads": "dr_fwd_bwd_kernel, dq_grad_reduce_kernel"}
+               "fused_drqn_grads": "dr_group_kernel (cooperative, U=1)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
                     source=src[k][0], replaces=src[k][1],
                     launches=launches[k], **results[k], library_ms=None)

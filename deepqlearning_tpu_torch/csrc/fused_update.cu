@@ -3,8 +3,9 @@
 // deepqlearning_tpu/ops/pallas/fused_update.py). K7, one sub-update
 // emitting its flat gradient for the data-parallel step, is the same kernel
 // with U = 1 and the reduced gradient written out in place of Adam; the
-// Adam launch that follows the all-reduce and the gradient reduce that K8
-// shares close the file.
+// Adam launch that follows the all-reduce (K8's route takes it too) closes
+// the file. Phase B, the padded parameter copy and the dot products are
+// shared with K5 (common.cuh).
 //
 // The Pallas kernel kept params and Adam moments in VMEM across a
 // sequential grid over u. Its counterpart here is one persistent launch
@@ -23,20 +24,18 @@
 //     tile, not per block, so no sum depends on the grid size.
 //   grid.sync()
 //   phase B: one thread per parameter, warps interleaved over the blocks,
-//     sums the tile partials in tile order (the arithmetic of
-//     dq_grad_reduce_kernel) and applies Adam at t = count + u + 1 to
-//     params, m and v in place, staging the new params in the padded
-//     layout for the next copy-in. On the
-//     last u the max-abs entry meets in an atomicMax on the float's bits
-//     (a slot zeroed in the kernel) and the loss is the tile-order Huber
-//     sum times 1/B.
+//     sums the tile partials in tile order and applies Adam at t = count +
+//     u + 1 to params, m and v in place, staging the new params in the
+//     padded layout for the next copy-in. On the last u the max-abs entry
+//     meets in an atomicMax on the float's bits (a slot zeroed in the
+//     kernel) and the loss is the tile-order Huber sum times 1/B.
 //   grid.sync(), then the next u.
 // Params, m and v are written inside the launch by other blocks, so they
 // are read with __ldcg (L2, never the non-coherent path) after each grid
 // barrier. Every sum has a fixed order, so a run is deterministic whatever
 // the grid. The shared copy of each weight matrix has an odd row stride,
 // so dh = dz·Wᵀ (consecutive threads on the input index i) reads distinct
-// banks; every dot product issues FU_DOT operand loads before its FMAs.
+// banks; every dot product issues DQ_DOT operand loads before its FMAs.
 // Measured (PERF.md, k3_phases.py): per sub-update the tile's steps take
 // ~60% of the time, bound by shared-memory load issue in the 64-wide dot
 // products and (by the layout) 8-way bank conflicts in the 1- and 4-wide
@@ -74,7 +73,7 @@ struct FuLayout {
 struct FuArgs {
   NetDesc d;
   FuLayout L;
-  TensorPtrs P, M, V;
+  DqTab tab;  // the params (and m, v) by tensor, placed as in L
   const float* obs;
   const float* nobs;
   const int* action;
@@ -184,36 +183,12 @@ __device__ __forceinline__ FuFwd fu_fwd_layer(const FuArgs& a, const float* sp,
   return f;
 }
 
-#define FU_DOT 8  // shared-memory operand pairs a dot product loads at once
-
-// sum_i x[i] * y[i * ys] over n terms, one accumulator in ascending i; the
-// loads of FU_DOT terms are issued before their FMAs, so a chain waits on
-// shared memory once per FU_DOT terms rather than once per term.
-__device__ __forceinline__ float fu_dot(const float* __restrict__ x,
-                                        const float* __restrict__ y, int ys,
-                                        int n) {
-  float z = 0.0f;
-  int i = 0;
-  for (; i + FU_DOT <= n; i += FU_DOT) {
-    float xs[FU_DOT], ws[FU_DOT];
-#pragma unroll
-    for (int j = 0; j < FU_DOT; ++j) {
-      xs[j] = x[i + j];
-      ws[j] = y[(i + j) * ys];
-    }
-#pragma unroll
-    for (int j = 0; j < FU_DOT; ++j) z = fmaf(xs[j], ws[j], z);
-  }
-  for (; i < n; ++i) z = fmaf(x[i], y[i * ys], z);
-  return z;
-}
-
 // Output k (row k / dout, column o) of a forward step: act(b[o] + sum_i
 // in[r, i] * W[i, o]), one accumulator summed over i in ascending order;
 // consecutive k are consecutive o (conflict-free W reads, broadcast inputs).
 __device__ __forceinline__ void fu_fwd_item(const FuFwd& f, int k) {
   const int r = fu_div(k, f.mdout), o = k - r * f.dout;
-  const float z = fu_dot(f.in + r * f.din, f.W + o, f.ldw, f.din);
+  const float z = dq_dot(f.in + r * f.din, f.W + o, f.ldw, f.din);
   f.out[k] = dq_act(z + f.b[o], f.act);
 }
 
@@ -308,7 +283,7 @@ __device__ __forceinline__ void fu_bwd_item(const FuBwd& b, int k) {
   } else {
     k -= b.n_wb;
     const int r = fu_div(k, b.mdin), i = k - r * b.din;
-    const float s = fu_dot(cur + r * b.dout, b.W + i * b.ldw, 1, b.dout);
+    const float s = dq_dot(cur + r * b.dout, b.W + i * b.ldw, 1, b.dout);
     b.nxt[k] = s * dq_act_grad(b.hprev[k], b.act_prev);
   }
 }
@@ -479,228 +454,13 @@ __device__ void fu_tile(const FuArgs& a, float* smem, int tile, int u) {
   fu_backward(a, sp, sX, sH, g, nr, sDv, bC, bD, bA, bA, bB, tr);
 }
 
-// Tensor index (w0, b0, w1, ...) and offset of packed parameter k.
-__device__ __forceinline__ int fu_locate(const NetDesc& d, int k, int& j) {
-  const int nl = d.n_val + d.n_adv;
-  int l = 0;
-  while (l + 1 < nl && k >= d.off_w[l + 1]) ++l;
-  if (k < d.off_b[l]) {
-    j = k - d.off_w[l];
-    return 2 * l;
-  }
-  j = k - d.off_b[l];
-  return 2 * l + 1;
-}
-
-#define FU_BATCH 8       // loads a thread keeps in flight in a copy
-#define FU_SUM_BATCH 32  // and in phase B's tile sum
-#define FU_MAXT (2 * DQ_MAXL)
-
-// What the copy-in and phase B look up per parameter tensor (w0, b0, w1,
-// ...), built once per block in static shared memory: a lookup by packed
-// index then reads shared memory (the same entry across a warp) instead of
-// the kernel argument at a per-thread index.
-struct FuTab {
-  int start[FU_MAXT + 1];  // packed offset of tensor t; start[nt] = n_params
-  int dst[FU_MAXT];        // its offset in the shared copy
-  int ldw[FU_MAXT];        // its padded row stride, 0 for a bias
-  int cols[FU_MAXT];       // its columns (dout)
-  float* p[FU_MAXT];
-  float* m[FU_MAXT];
-  float* v[FU_MAXT];
-};
-
-__device__ void fu_tab_init(const FuArgs& a, FuTab& t) {
-  const NetDesc& d = a.d;
-  const int nl = d.n_val + d.n_adv;
-  for (int l = 0; l < nl; ++l) {
-    t.start[2 * l] = d.off_w[l];
-    t.start[2 * l + 1] = d.off_b[l];
-    t.dst[2 * l] = a.L.sw[l];
-    t.dst[2 * l + 1] = a.L.sb[l];
-    t.ldw[2 * l] = a.L.ldw[l];
-    t.ldw[2 * l + 1] = 0;
-    t.cols[2 * l] = t.cols[2 * l + 1] = d.dout[l];
-  }
-  t.start[2 * nl] = d.n_params;
-  for (int i = 0; i < 2 * nl; ++i) {
-    t.p[i] = a.P.t[i];
-    t.m[i] = a.M.t[i];
-    t.v[i] = a.V.t[i];
-  }
-}
-
-// The tensor holding packed parameter k (k < n_params).
-__device__ __forceinline__ int fu_tab_find(const FuTab& t, int k) {
-  int i = 0;
-  while (k >= t.start[i + 1]) ++i;
-  return i;
-}
-
-// Copy the params phase B left in the padded shared layout (stage, L.n
-// floats) into shared memory: a flat copy, FU_BATCH float4 L2 reads in
-// flight per thread.
-__device__ void fu_copy_stage(const float* stage, float* sp, int n) {
-  const float4* src = reinterpret_cast<const float4*>(stage);
-  float4* dst = reinterpret_cast<float4*>(sp);
-  const int n4 = n / 4;
-  for (int k0 = threadIdx.x; k0 < n4; k0 += FU_BATCH * blockDim.x) {
-    float4 x[FU_BATCH];
-#pragma unroll
-    for (int j = 0; j < FU_BATCH; ++j) {
-      const int k = k0 + j * blockDim.x;
-      if (k < n4) x[j] = __ldcg(src + k);
-    }
-#pragma unroll
-    for (int j = 0; j < FU_BATCH; ++j) {
-      const int k = k0 + j * blockDim.x;
-      if (k < n4) dst[k] = x[j];
-    }
-  }
-  for (int k = 4 * n4 + threadIdx.x; k < n; k += blockDim.x)
-    sp[k] = __ldcg(stage + k);
-  __syncthreads();
-}
-
-// Copy the current params into the padded shared layout. They are L2 reads
-// (other blocks of this launch wrote them), issued FU_BATCH at a time per
-// thread over the packed index space, so a block waits for a few L2 round
-// trips rather than one per tensor and element.
-__device__ void fu_load_params(const FuTab& tab, int n, float* sp) {
-  int t = 0;  // a thread's k only grows: its tensor index only moves on
-  for (int k0 = threadIdx.x; k0 < n; k0 += FU_BATCH * blockDim.x) {
-    float x[FU_BATCH];
-    int ti[FU_BATCH];
-#pragma unroll
-    for (int j = 0; j < FU_BATCH; ++j) {
-      const int k = k0 + j * blockDim.x;
-      if (k < n)
-        while (k >= tab.start[t + 1]) ++t;
-      ti[j] = t;
-      x[j] = (k < n) ? __ldcg(tab.p[t] + (k - tab.start[t])) : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < FU_BATCH; ++j) {
-      const int k = k0 + j * blockDim.x;
-      if (k >= n) continue;
-      const int t = ti[j], off = k - tab.start[t], ldw = tab.ldw[t];
-      if (ldw == 0) {
-        sp[tab.dst[t] + off] = x[j];
-      } else {
-        const int i = off / tab.cols[t];
-        sp[tab.dst[t] + i * ldw + off - i * tab.cols[t]] = x[j];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// 1 / (1 - beta^t), Adam's bias correction
-__device__ __forceinline__ float fu_bias_corr(float beta, float t) {
-  return __fdiv_rn(1.0f, __fsub_rn(1.0f, powf(beta, t)));
-}
-
-// One parameter's Adam step in registers, rounded explicitly so that K3's
-// phase B and the data-parallel Adam launch give the same bits.
-__device__ __forceinline__ void fu_adam(float& p, float& m, float& v, float g,
-                                        float lr, float b1, float b2,
-                                        float adam_eps, float c1, float c2) {
-  m = __fmaf_rn(b1, m, __fmul_rn(1.0f - b1, g));
-  v = __fmaf_rn(b2, v, __fmul_rn(1.0f - b2, __fmul_rn(g, g)));
-  const float step = __fdiv_rn(__fmul_rn(lr, __fmul_rn(m, c1)),
-                               __fadd_rn(__fsqrt_rn(__fmul_rn(v, c2)), adam_eps));
-  p = __fsub_rn(p, step);
-}
-
-// Block max of x (all threads), then one atomicMax on the float bits of
-// *slot: the bits of non-negative floats order as unsigned ints.
-__device__ void fu_block_max(float x, float* red, float* slot) {
-  red[threadIdx.x] = x;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) atomicMax((unsigned int*)slot, __float_as_uint(red[0]));
-}
-
-// Phase B of sub-update u over the whole grid.
-__device__ void fu_reduce_adam(const FuArgs& a, const FuTab& tab,
-                               float* smem, int u, int ntiles) {
-  const NetDesc& d = a.d;
-  const int n = d.n_params;
-  float c1 = 0.0f, c2 = 0.0f;
-  if (a.flat == nullptr) {
-    const float t = (float)(a.count[0] + u + 1);
-    c1 = fu_bias_corr(a.b1, t);
-    c2 = fu_bias_corr(a.b2, t);
-  }
-  float gmax = 0.0f;
-  // warp w of the grid (interleaved over the blocks, so that every SM
-  // takes a share of the loads) owns parameters [32w, 32w + 32)
-  const int w0 = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  for (int k = w0 * 32 + (threadIdx.x & 31); k < n;
-       k += gridDim.x * blockDim.x) {
-    // p, m, v in flight while the partials arrive
-    float *pp = nullptr, *mp = nullptr, *vp = nullptr, p = 0.0f, m = 0.0f,
-          v = 0.0f;
-    int ti = 0, j = 0;
-    if (a.flat == nullptr) {
-      ti = fu_tab_find(tab, k);
-      j = k - tab.start[ti];
-      pp = tab.p[ti] + j;
-      mp = tab.m[ti] + j;
-      vp = tab.v[ti] + j;
-      p = __ldcg(pp);
-      m = __ldcg(mp);
-      v = __ldcg(vp);
-    }
-    // the tile partials in tile order, FU_SUM_BATCH loads in flight
-    float g = 0.0f;
-    for (int s0 = 0; s0 < ntiles; s0 += FU_SUM_BATCH) {
-      float x[FU_SUM_BATCH];
-#pragma unroll
-      for (int j = 0; j < FU_SUM_BATCH; ++j)
-        x[j] = (s0 + j < ntiles)
-                   ? __ldcg(a.part_grad + (size_t)(s0 + j) * n + k) : 0.0f;
-#pragma unroll
-      for (int j = 0; j < FU_SUM_BATCH; ++j)
-        if (s0 + j < ntiles) g += x[j];
-    }
-    gmax = fmaxf(gmax, fabsf(g));
-    if (a.flat != nullptr) {
-      a.flat[k] = g;
-    } else {
-      fu_adam(p, m, v, g, a.lr, a.b1, a.b2, a.adam_eps, c1, c2);
-      *pp = p;
-      *mp = m;
-      *vp = v;
-      // and into the padded layout the next sub-update copies in
-      int dst = tab.dst[ti] + j;
-      if (tab.ldw[ti] != 0) {
-        const int i = j / tab.cols[ti];
-        dst += i * (tab.ldw[ti] - tab.cols[ti]);
-      }
-      a.stage[dst] = p;
-    }
-  }
-  if (u != a.U - 1) return;  // uniform over the grid
-  fu_block_max(gmax, smem, a.gnorm);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < ntiles; ++k) s += __ldcg(a.part_loss + k);
-    a.loss[0] = s * a.inv_b;
-  }
-}
-
-
 __global__ void __launch_bounds__(FU_THREADS)
     fu_group_kernel(const __grid_constant__ FuArgs a) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ FuTab tab;
+  __shared__ DqTab tab;
   cg::grid_group grid = cg::this_grid();
   const int ntiles = (a.B + FU_TILE - 1) / FU_TILE;
-  if (threadIdx.x == 0) fu_tab_init(a, tab);
+  dq_tab_copy(a.tab, tab);
   // the max-abs slot: zeroed before the first barrier, atomics after it
   if (blockIdx.x == 0 && threadIdx.x == 0) a.gnorm[0] = 0.0f;
   __syncthreads();
@@ -708,9 +468,9 @@ __global__ void __launch_bounds__(FU_THREADS)
     FU_MARK(u, 0)
     if (blockIdx.x < ntiles) {
       if (u == 0)
-        fu_load_params(tab, a.d.n_params, smem);
+        dq_load_padded(tab, a.d.n_params, smem);
       else
-        fu_copy_stage(a.stage, smem, a.L.n);
+        dq_copy_stage(a.stage, smem, a.L.n);
     }
     FU_MARK(u, 1)
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
@@ -718,15 +478,37 @@ __global__ void __launch_bounds__(FU_THREADS)
     FU_MARK(u, 2)
     grid.sync();
     FU_MARK(u, 3)
-    fu_reduce_adam(a, tab, smem, u, ntiles);
+    const DqPhaseB b = {a.part_grad, a.part_loss, a.count, a.d.n_params,
+                        ntiles, a.U, a.lr, a.b1, a.b2, a.adam_eps, a.inv_b,
+                        a.loss, a.gnorm, a.flat, a.stage};
+    dq_reduce_adam(b, tab, u, smem);
     FU_MARK(u, 4)
     if (u + 1 < a.U) grid.sync();
     FU_MARK(u, 5)
   }
 }
 
-static void fu_fill(TensorPtrs* t, const int64_t* ptrs, int n) {
-  for (int i = 0; i < n; ++i) t->t[i] = (float*)ptrs[i];
+// The tensor table of a network (w0, b0, w1, ...), placed as in L (null:
+// no shared copy) with the device pointers of params, m and v (null: no
+// Adam).
+static void fu_tab(const NetDesc* d, const FuLayout* L, const int64_t* p,
+                   const int64_t* m, const int64_t* v, DqTab* t) {
+  const int nl = d->n_val + d->n_adv;
+  for (int l = 0; l < nl; ++l) {
+    t->start[2 * l] = d->off_w[l];
+    t->start[2 * l + 1] = d->off_b[l];
+    t->cols[2 * l] = t->cols[2 * l + 1] = d->dout[l];
+    t->dst[2 * l] = L ? L->sw[l] : 0;
+    t->dst[2 * l + 1] = L ? L->sb[l] : 0;
+    t->ld[2 * l] = L ? L->ldw[l] : 0;
+    t->ld[2 * l + 1] = 0;
+  }
+  t->start[2 * nl] = d->n_params;
+  for (int i = 0; i < 2 * nl; ++i) {
+    t->p[i] = (float*)p[i];
+    t->m[i] = m ? (float*)m[i] : nullptr;
+    t->v[i] = v ? (float*)v[i] : nullptr;
+  }
 }
 
 // The dynamic shared memory fu_group_kernel is allowed on each device so
@@ -770,8 +552,10 @@ DQ_API int dq_fused_update_max_grid(const NetDesc* d, int* max_grid) {
   return 0;
 }
 
-static int fu_launch(FuArgs* a, int grid, cudaStream_t s) {
+static int fu_launch(FuArgs* a, const int64_t* p, const int64_t* m,
+                     const int64_t* v, int grid, cudaStream_t s) {
   fu_layout(&a->d, &a->L);
+  fu_tab(&a->d, &a->L, p, m, v, &a->tab);
   const int smem = fu_smem_bytes(&a->d, &a->L);
   cudaError_t err = fu_allow_smem(smem);
   if (err != cudaSuccess) return (int)err;
@@ -797,10 +581,6 @@ DQ_API int dq_fused_update(const NetDesc* d, const int64_t* p_ptrs,
                            void* stage, int grid, void* stream) {
   FuArgs a;
   a.d = *d;
-  const int nt = 2 * (d->n_val + d->n_adv);
-  fu_fill(&a.P, p_ptrs, nt);
-  fu_fill(&a.M, m_ptrs, nt);
-  fu_fill(&a.V, v_ptrs, nt);
   a.obs = (const float*)obs;
   a.nobs = (const float*)nobs;
   a.action = (const int*)action;
@@ -828,7 +608,7 @@ DQ_API int dq_fused_update(const NetDesc* d, const int64_t* p_ptrs,
   a.gnorm = (float*)gnorm;
   a.flat = nullptr;
   a.stage = (float*)stage;
-  return fu_launch(&a, grid, (cudaStream_t)stream);
+  return fu_launch(&a, p_ptrs, m_ptrs, v_ptrs, grid, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -854,9 +634,6 @@ DQ_API int dq_fused_grads(const NetDesc* d, const int64_t* p_ptrs, int B,
                           void* loss, void* gnorm, int grid, void* stream) {
   FuArgs a;
   a.d = *d;
-  fu_fill(&a.P, p_ptrs, 2 * (d->n_val + d->n_adv));
-  a.M = a.P;  // unused without Adam
-  a.V = a.P;
   a.obs = (const float*)obs;
   a.nobs = (const float*)nobs;
   a.action = (const int*)action;
@@ -881,37 +658,50 @@ DQ_API int dq_fused_grads(const NetDesc* d, const int64_t* p_ptrs, int B,
   a.gnorm = (float*)gnorm;
   a.flat = (float*)flat;
   a.stage = nullptr;
-  return fu_launch(&a, grid, (cudaStream_t)stream);
+  return fu_launch(&a, p_ptrs, nullptr, nullptr, grid, (cudaStream_t)stream);
 }
 
-// Adam on a flat gradient (the data-parallel step, after the all-reduce):
-// one thread per parameter over ceil(n_params / 256) blocks, K3's phase-B
-// Adam arithmetic (fu_adam_elem) at t = count + u + 1; gnorm is the
-// gradient's max-abs entry, as the JAX data-parallel step logs it.
+// Adam on a flat gradient (the data-parallel steps, after the all-reduce):
+// one thread per parameter over ceil(n / 256) blocks, phase B's Adam
+// arithmetic (dq_adam) at t = count + u + 1; gnorm is the gradient's
+// max-abs entry, as the JAX data-parallel step logs it. K7's route (below)
+// and K8's (fused_drqn.cu) launch it.
 
-#define DQ_RED_THREADS 256
+#define DQ_ADAM_THREADS 256
 
-__global__ void __launch_bounds__(DQ_RED_THREADS) fu_adam_flat_kernel(
-    NetDesc d, TensorPtrs p, TensorPtrs m, TensorPtrs v,
-    const float* __restrict__ grad, const int* __restrict__ count, int u,
-    float lr, float b1, float b2, float adam_eps, float* gnorm) {
-  __shared__ float red[DQ_RED_THREADS];
+__global__ void __launch_bounds__(DQ_ADAM_THREADS) dq_adam_flat_kernel(
+    const __grid_constant__ DqTab tab, int n, const int* __restrict__ count,
+    int u, const float* __restrict__ grad, float lr, float b1, float b2,
+    float adam_eps, float* gnorm) {
+  __shared__ float red[DQ_ADAM_THREADS];
   const float t = (float)(count[0] + u + 1);
-  const float c1 = fu_bias_corr(b1, t), c2 = fu_bias_corr(b2, t);
-  const int k = blockIdx.x * DQ_RED_THREADS + threadIdx.x;
+  const float c1 = dq_bias_corr(b1, t), c2 = dq_bias_corr(b2, t);
+  const int k = blockIdx.x * DQ_ADAM_THREADS + threadIdx.x;
   float a = 0.0f;
-  if (k < d.n_params) {
+  if (k < n) {
     const float g = grad[k];
-    int j;
-    const int ti = fu_locate(d, k, j);
-    float pk = p.t[ti][j], mk = m.t[ti][j], vk = v.t[ti][j];
-    fu_adam(pk, mk, vk, g, lr, b1, b2, adam_eps, c1, c2);
-    p.t[ti][j] = pk;
-    m.t[ti][j] = mk;
-    v.t[ti][j] = vk;
+    const int ti = dq_tab_find(tab, k), j = k - tab.start[ti];
+    float pk = tab.p[ti][j], mk = tab.m[ti][j], vk = tab.v[ti][j];
+    dq_adam(pk, mk, vk, g, lr, b1, b2, adam_eps, c1, c2);
+    tab.p[ti][j] = pk;
+    tab.m[ti][j] = mk;
+    tab.v[ti][j] = vk;
     a = fabsf(g);
   }
-  fu_block_max(a, red, gnorm);
+  dq_block_max(a, red, gnorm);
+}
+
+cudaError_t dq_launch_adam_flat(const DqTab& tab, int n, const void* count,
+                                int u, const void* grad, float lr, float b1,
+                                float b2, float adam_eps, void* gnorm,
+                                cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(gnorm, 0, sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  dq_adam_flat_kernel<<<(n + DQ_ADAM_THREADS - 1) / DQ_ADAM_THREADS,
+                        DQ_ADAM_THREADS, 0, s>>>(
+      tab, n, (const int*)count, u, (const float*)grad, lr, b1, b2, adam_eps,
+      (float*)gnorm);
+  return cudaGetLastError();
 }
 
 DQ_API int dq_fused_adam(const NetDesc* d, const int64_t* p_ptrs,
@@ -919,55 +709,8 @@ DQ_API int dq_fused_adam(const NetDesc* d, const int64_t* p_ptrs,
                          const void* count, int u, const void* grad,
                          float lr, float b1, float b2, float adam_eps,
                          void* gnorm, void* stream) {
-  const int nt = 2 * (d->n_val + d->n_adv);
-  TensorPtrs P, M, V;
-  fu_fill(&P, p_ptrs, nt);
-  fu_fill(&M, m_ptrs, nt);
-  fu_fill(&V, v_ptrs, nt);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(gnorm, 0, sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (d->n_params + DQ_RED_THREADS - 1) / DQ_RED_THREADS;
-  fu_adam_flat_kernel<<<grid, DQ_RED_THREADS, 0, s>>>(
-      *d, P, M, V, (const float*)grad, (const int*)count, u, lr, b1, b2,
-      adam_eps, (float*)gnorm);
-  return (int)cudaGetLastError();
-}
-
-// Fixed-order sum of per-block partial gradients (K8, csrc/fused_drqn.cu):
-// one thread per parameter sums the nblk partials in block order into one
-// flat gradient, block 0 sums the Huber partials into the loss, and every
-// block's max-abs entry meets in one atomicMax on the float's bits.
-
-__global__ void __launch_bounds__(DQ_RED_THREADS) dq_grad_reduce_kernel(
-    const float* __restrict__ part_grad, const float* __restrict__ part_loss,
-    int nblk, int n, float inv, float* __restrict__ flat,
-    float* __restrict__ loss, float* gmax) {
-  __shared__ float red[DQ_RED_THREADS];
-  const int k = blockIdx.x * DQ_RED_THREADS + threadIdx.x;
-  float a = 0.0f;
-  if (k < n) {
-    float g = 0.0f;
-    for (int b = 0; b < nblk; ++b) g += part_grad[(size_t)b * n + k];
-    flat[k] = g;
-    a = fabsf(g);
-  }
-  fu_block_max(a, red, gmax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int b = 0; b < nblk; ++b) s += part_loss[b];
-    loss[0] = s * inv;
-  }
-}
-
-cudaError_t dq_launch_grad_reduce(const void* part_grad, const void* part_loss,
-                                  int nblk, int n, float inv, void* flat,
-                                  void* loss, void* gnorm, cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(gnorm, 0, sizeof(float), s);
-  if (err != cudaSuccess) return err;
-  const int grid = (n + DQ_RED_THREADS - 1) / DQ_RED_THREADS;
-  dq_grad_reduce_kernel<<<grid, DQ_RED_THREADS, 0, s>>>(
-      (const float*)part_grad, (const float*)part_loss, nblk, n, inv,
-      (float*)flat, (float*)loss, (float*)gnorm);
-  return cudaGetLastError();
+  DqTab tab;
+  fu_tab(d, nullptr, p_ptrs, m_ptrs, v_ptrs, &tab);
+  return (int)dq_launch_adam_flat(tab, d->n_params, count, u, grad, lr, b1,
+                                  b2, adam_eps, gnorm, (cudaStream_t)stream);
 }

@@ -52,15 +52,21 @@ class DrqnDesc(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in (
             "cell", "n_pre", "n_val", "n_adv", "dueling", "in_dim", "cin",
-            "H", "G", "A", "T", "n_params", "n_tensors")]
+            "H", "G", "A", "T", "n_params", "n_tensors", "n_witems", "tile",
+            "rp", "act_global")]
         + [(n, ctypes.c_int * DR_MAXL) for n in (
-            "din", "dout", "act", "off_w", "off_b", "off_a")]
+            "din", "dout", "act", "off_w", "off_b", "sw", "ldw", "sb",
+            "in_a", "off_a", "off_d")]
         + [(n, ctypes.c_int) for n in (
-            "off_wi", "off_wh", "off_bc", "a_gates", "a_aux", "a_c", "a_h",
-            "step_floats", "s_steps", "s_x", "s_h2", "s_c2", "s_tmp", "s_q", "s_q2",
-            "s_zero", "s_dht", "s_dhc", "s_dcc", "s_dz", "s_dhh", "s_b0",
-            "s_b1", "s_gtd", "s_act", "warp_floats")]
-        + [(n, ctypes.c_int * DR_MAXT) for n in ("t_off", "t_size")]
+            "off_wi", "off_wh", "off_bc", "s_wi", "ld_wi", "s_wh", "ld_wh",
+            "s_bc", "cell_in", "a_gates", "a_aux", "a_c", "a_h",
+            "step_floats", "d_gates", "d_dg", "cot_floats", "r_cot",
+            "r_steps", "r_x", "r_x2", "r_tgt", "r_rew", "r_done", "r_mask",
+            "r_act", "r_hub", "region_floats", "n_sp", "f_sp2",
+            "f_state", "f_ht", "f_xt", "f_region", "smem_floats")]
+        + [(n, ctypes.c_int * DR_MAXT) for n in (
+            "t_off", "t_size", "t_dst", "t_ld", "t_cols")]
+        + [("w_start", ctypes.c_int * (DR_MAXT + 1))]
     )
 
 
@@ -129,13 +135,15 @@ def library() -> ctypes.CDLL:
                                  P, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
                                  P, P],
         "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
-                          I, I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P,
-                          P, P, P],
+                          I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P, P,
+                          P, P, P, I, P],
+        "dq_fused_drqn_max_grid": [ctypes.POINTER(DrqnDesc),
+                                   ctypes.POINTER(ctypes.c_int)],
         "dq_fused_grads": [NP, I64P, I, P, P, P, P, P, P, P, F, F, F, I, P,
                            P, P, P, P, P, P, I, P],
         "dq_fused_adam": [NP, I64P, I64P, I64P, P, I, P, F, F, F, F, P, P],
-        "dq_fused_drqn_grads": [ctypes.POINTER(DrqnDesc), I64P, I, I, P, P,
-                                P, P, P, P, P, F, I, P, P, P, P, P, P],
+        "dq_fused_drqn_grads": [ctypes.POINTER(DrqnDesc), I64P, I, P, P,
+                                P, P, P, P, P, F, I, P, P, P, P, P, P, I, P],
         "dq_drqn_adam": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I, P,
                          F, F, F, F, P, P],
     }

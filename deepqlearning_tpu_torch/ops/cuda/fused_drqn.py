@@ -13,36 +13,44 @@ Adam with bias correction at ``t = count + u + 1``. Params, m and v are
 updated IN PLACE and ``count`` advances by U in place. Returns the last
 sub-update's loss and max-abs gradient.
 
-On the card: two launches per sub-update on the current stream, no host
-sync. (a) ``dr_fwd_bwd_kernel``: one warp per trace window, its lanes split
-every layer's output columns; the parameters, the window's activations and
-the warp's own gradient accumulators live in shared memory, and each block
-sums its warps' gradients in a fixed order into a per-block partial.
-(b) ``dr_adam_kernel``: one block sums the block partials in a fixed order,
-takes the max-abs gnorm and applies Adam. Every sum has a fixed order, so
-runs are deterministic.
+On the card: ONE cooperative launch per grouped call on the current
+stream, whose blocks loop over the U sub-updates with two grid barriers
+each: (A) tiles of ``plan.desc(T).tile`` windows (``TILE``, fewer for wide
+nets) advance together step by step, the s and s' unrolls as rows of one
+block-wide step, then BPTT; one partial gradient per tile ``[ceil(B/tile),
+n_params]``; (B) one thread per parameter sums the tile partials in tile
+order and applies Adam (K3's phase B). Every sum has a fixed order, so runs
+are bit-identical whatever the grid. The grid is the card's co-resident
+block count for the plan (cached per plan and T), capped at the work.
 
 K8 (:func:`fused_drqn_grads`) replaces ``fused_drqn_grads`` of the same
-JAX file: launch (a) on one sub-batch of B windows, then the fixed-order
-multi-block reduce K7 uses, into one flat gradient in ``plan.names``
-order with the loss and the local max-abs.
+JAX file: the same kernel with U = 1 on one sub-batch of B windows, writing
+the tile-order sum as one flat gradient in ``plan.names`` order, with the
+loss and the local max-abs, in place of Adam.
 :func:`fused_drqn_dp_group_update` is the data-parallel step's U
 sub-updates: per sub-update K8, a caller's reduce of the flat vector in
-place, and K5's one-block Adam kernel on it.
+place, and a multi-block Adam launch on it with phase B's arithmetic; with
+a reduce that leaves the vector as it is, that is K5's update bit for bit.
+
+:func:`fused_drqn_group_update_tiled` and :func:`fused_drqn_grads_tiled`
+are plain references in the kernel's sum order (per-tile partials summed in
+tile order), held against the JAX kernel on the CPU and against K5/K8 on
+the card at a tighter tolerance than the autograd twins'.
 
 :func:`drqn_plan_for` is the gate, on the network family of the JAX
 kernel: ``[Flatten]* [Dense]* LSTM|GRU`` and a Dense or dueling head with a
 scalar value head, with this card's limits in place of the TPU's VMEM
 budget: every width at most ``MAX_WIDTH``, at most ``MAX_ACTIONS`` actions
-and ``build.DR_MAXL`` Dense layers, and a block of one warp (the params, a
-window's activations and one gradient copy) within ``MAX_SMEM`` bytes of
-shared memory.
+and ``build.DR_MAXL`` Dense layers, and a block's padded params and
+per-window state of one window within ``MAX_SMEM`` bytes of shared memory
+(the tiles' T-step regions move to global scratch when they do not fit).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,10 +60,12 @@ from ...ops.helpers import flatten, huber_loss, unflatten
 from . import build
 from .fused_update import (
     _ACTS, MAX_ACTIONS, MAX_SMEM, FusedPlan, LayerPlan, _apply_act,
-    adam_flat_plain, adam_plain, dense_plans, q_values)
+    _tile_order_sum, adam_flat_plain, adam_plain, dense_plans, q_values)
 
 MAX_WIDTH = 256
-MAX_WARPS = 8  # warps (trace windows) per block of dr_fwd_bwd_kernel
+_r4 = lambda n: -(-n // 4) * 4  # n rounded up to whole float4s
+TILE = 4  # windows per tile of K5/K8 where they fit (fewer for wide nets)
+THREADS = 512  # DR_THREADS of csrc/fused_drqn.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,29 +124,49 @@ class DRQNPlan:
     @functools.lru_cache(maxsize=None)
     def desc(self, T: int) -> build.DrqnDesc:
         """The kernels' ``DrqnDesc`` for trace length ``T`` (built once per
-        plan and T; callers must not modify it)."""
+        plan and T; callers must not modify it): the packed and the padded
+        shared parameter layouts, the step, cotangent and T-step region
+        layouts, and the tile. ``tile`` is 0 when not even one window's
+        shared part fits ``MAX_SMEM``."""
         cp, hd = self.cell, self.head
-        H, G, A = cp.hidden, cp.n_gates * cp.hidden, hd.num_actions
+        H, G, A, D = cp.hidden, cp.n_gates * cp.hidden, hd.num_actions, \
+            self.in_dim
         d = build.DrqnDesc()
         d.cell = 0 if cp.kind == "lstm" else 1
         d.n_pre, d.n_val, d.n_adv = len(self.pre), len(hd.val), len(hd.adv)
         d.dueling = int(hd.dueling)
-        d.in_dim, d.cin, d.H, d.G, d.A, d.T = self.in_dim, cp.in_dim, H, G, A, T
-        off = 0
-        sizes = []
+        d.in_dim, d.cin, d.H, d.G, d.A, d.T = D, cp.in_dim, H, G, A, T
+        # packed tensors, and their shared copy: each weight matrix 16-byte
+        # aligned with a row stride of 4 (mod 8) floats (float4 reads of
+        # eight consecutive rows hit distinct banks), each bias flat
+        tensors = []
         for lp in self.dense:
-            sizes += [lp.din * lp.dout, lp.dout]
-        sizes += [cp.in_dim * G, H * G, G]
-        for k, n in enumerate(sizes):
-            d.t_off[k], d.t_size[k] = off, n
-            off += n
-        d.n_params, d.n_tensors = off, len(sizes)
+            tensors += [(lp.din, lp.dout, True), (1, lp.dout, False)]
+        tensors += [(cp.in_dim, G, True), (H, G, True), (1, G, False)]
+        off = dst = items = 0
+        for k, (rows, cols, matrix) in enumerate(tensors):
+            ld = cols + (4 - cols) % 8 if matrix else 0
+            dst = _r4(dst) if matrix else dst
+            d.t_off[k], d.t_size[k] = off, rows * cols
+            d.t_dst[k], d.t_ld[k], d.t_cols[k] = dst, ld, cols
+            d.w_start[k] = items  # the gradient pass: 4 x 4 entries each
+            off += rows * cols
+            dst += rows * ld if matrix else cols
+            items += -(-rows // 4) * -(-cols // 4)
+        d.n_params, d.n_tensors = off, len(tensors)
+        d.w_start[len(tensors)] = d.n_witems = items
+        d.n_sp = _r4(dst)  # whole float4s for the staged copy
+        nl = len(self.dense)
         for l, lp in enumerate(self.dense):
             d.din[l], d.dout[l], d.act[l] = lp.din, lp.dout, _ACTS[lp.act]
             d.off_w[l], d.off_b[l] = d.t_off[2 * l], d.t_off[2 * l + 1]
-        nl = len(self.dense)
+            d.sw[l], d.ldw[l] = d.t_dst[2 * l], d.t_ld[2 * l]
+            d.sb[l] = d.t_dst[2 * l + 1]
         d.off_wi, d.off_wh, d.off_bc = (d.t_off[2 * nl], d.t_off[2 * nl + 1],
                                         d.t_off[2 * nl + 2])
+        d.s_wi, d.ld_wi = d.t_dst[2 * nl], d.t_ld[2 * nl]
+        d.s_wh, d.ld_wh = d.t_dst[2 * nl + 1], d.t_ld[2 * nl + 1]
+        d.s_bc = d.t_dst[2 * nl + 2]
         # one step's activations: pre outputs, cell (gates; aux = tanh(c')
         # for LSTM, h·wh of the n gate for GRU; c'; h'), head outputs
         a = 0
@@ -148,35 +178,60 @@ class DRQNPlan:
         d.a_h, a = a, a + H
         for l, lp in enumerate(hd.val + hd.adv, start=len(self.pre)):
             d.off_a[l], a = a, a + lp.dout
-        d.step_floats = a
-        # one warp's region: its gradient accumulators, T step blocks,
-        # then scratch
-        maxw = max([self.in_dim, cp.in_dim, H] + [lp.dout for lp in self.dense])
-        d.s_steps = d.n_params
-        s = d.n_params + T * a
-        for name, n in (("s_x", self.in_dim), ("s_h2", H), ("s_c2", H),
-                        ("s_tmp", a), ("s_q", A), ("s_q2", A), ("s_zero", H),
-                        ("s_dht", H), ("s_dhc", H), ("s_dcc", H),
-                        ("s_dz", G), ("s_dhh", G), ("s_b0", maxw),
-                        ("s_b1", maxw), ("s_gtd", T), ("s_act", T)):
-            setattr(d, name, s)
-            s += n
-        d.warp_floats = s
+        d.step_floats = SF = a
+        # each layer's input in a step block (-1: the observation)
+        npre, nv = len(self.pre), len(hd.val)
+        for l in range(nl):
+            d.in_a[l] = (d.a_h if l in (npre, npre + nv)
+                         else -1 if l == 0 else d.off_a[l - 1])
+        d.cell_in = d.off_a[npre - 1] if npre else -1
+        # one step's cotangents, each 16-byte aligned: each Dense layer's
+        # dz, the gates' dz, the GRU gates' recurrent-side dg
+        c = 0
+        for l, lp in enumerate(self.dense):
+            d.off_d[l], c = c, c + _r4(lp.dout)
+        d.d_gates, c = c, c + _r4(G)
+        if cp.kind == "gru":
+            d.d_dg, c = c, c + _r4(G)
+        else:
+            d.d_dg = d.d_gates
+        d.cot_floats = c
+        # a window's T-step region
+        r = 0
+        for name, n in (("r_cot", T * c), ("r_steps", T * SF),
+                        ("r_x", T * D), ("r_x2", T * D), ("r_tgt", T * A),
+                        ("r_rew", T), ("r_done", T), ("r_mask", T),
+                        ("r_act", T), ("r_hub", T)):
+            setattr(d, name, r)
+            r += n
+        d.region_floats = r = _r4(r)
+        # the tile: the most windows (TILE, TILE/2, ... 1) whose regions fit
+        # beside the params, s' step blocks, state and xT / hT; else the
+        # regions go to global scratch
+        def fixed(w):
+            f_xt = _r4(d.n_sp + 2 * w * SF + 3 * w * H) + 2 * H * _r4(2 * w)
+            return _r4(f_xt + 2 * cp.in_dim * _r4(2 * w))
+        tiles = [TILE >> i for i in range(TILE.bit_length())]
+        limit = MAX_SMEM // 4
+        W, glob = next(((w, 0) for w in tiles if fixed(w) + w * r <= limit),
+                       next(((w, 1) for w in tiles if fixed(w) <= limit),
+                            (0, 1)))
+        d.tile, d.act_global, d.rp = W, glob, _r4(2 * W)
+        d.f_sp2 = d.n_sp
+        d.f_state = d.f_sp2 + 2 * W * SF
+        d.f_ht = _r4(d.f_state + 3 * W * H)
+        d.f_xt = d.f_ht + 2 * H * d.rp  # hT and xT: one per step parity
+        d.f_region = _r4(d.f_xt + 2 * cp.in_dim * d.rp)
+        d.smem_floats = max(d.f_region + (0 if glob else W * r), THREADS)
         return d
 
-    def smem_bytes(self, T: int, warps: int) -> int:
-        """Shared memory of one dr_fwd_bwd_kernel block (dr_smem_bytes)."""
-        d = self.desc(T)
-        return 4 * (d.n_params + warps * (d.warp_floats + 1))
-
-    @functools.lru_cache(maxsize=None)
-    def warps_per_block(self, T: int) -> int:
-        """Most windows per block (<= MAX_WARPS) within MAX_SMEM; 0 if not
-        even one fits."""
-        w = MAX_WARPS
-        while w > 0 and self.smem_bytes(T, w) > MAX_SMEM:
-            w -= 1
-        return w
+    def smem_bytes(self, T: int) -> int:
+        """Shared memory of one K5/K8 block (``smem_floats``): the padded
+        params, two s' step blocks and three H-wide BPTT states per window,
+        the rows' h and cell input feature-major, and, unless in
+        global scratch, the windows' T-step regions; at least one float per
+        thread (phase B's block max)."""
+        return 4 * self.desc(T).smem_floats
 
 
 def _split_base(layers, prefix: str):
@@ -194,8 +249,9 @@ def _split_base(layers, prefix: str):
 
 def drqn_plan_for(network, trace_length: int, batch_size: int,
                   double_q: bool = True) -> Optional[DRQNPlan]:
-    """A kernel plan if the recurrent network is supported and a window's
-    working set fits this card's shared memory, else None."""
+    """A kernel plan if the recurrent network is supported and a block's
+    params and one window's state fit this card's shared memory, else
+    None."""
     if isinstance(network, DuelingNetwork):
         sb = _split_base(list(network.base.layers), "base.")
         if sb is None:
@@ -230,7 +286,7 @@ def drqn_plan_for(network, trace_length: int, batch_size: int,
     widths = [in_dim, cp.in_dim, cp.hidden] + [lp.dout for lp in plan.dense]
     if (len(plan.dense) > build.DR_MAXL or head.num_actions > MAX_ACTIONS
             or max(widths) > MAX_WIDTH
-            or plan.warps_per_block(int(trace_length)) == 0):
+            or plan.desc(int(trace_length)).tile == 0):
         return None
     return plan
 
@@ -254,10 +310,13 @@ def _unroll(plan: DRQNPlan, params, xs):
 
 
 def _drqn_grads(plan: DRQNPlan, params, obs, nobs, action, reward, done,
-                mask, q_sp_tgt, gamma, double_q):
-    """One sub-update's loss and gradients (autograd), windows ``[B, T]``."""
+                mask, q_sp_tgt, gamma, double_q, inv=None):
+    """One sub-update's gradients (autograd) on windows ``[B, T]`` of the
+    loss ``huber_sum · inv`` (``inv`` 1/(B·T) by default); returns them with
+    the windows' Huber sum."""
     B, T = action.shape
     A = plan.head.num_actions
+    inv = 1.0 / (B * T) if inv is None else inv
     tm = lambda x: x.transpose(0, 1)
     with torch.no_grad():
         qsp = tm(q_sp_tgt)
@@ -274,9 +333,30 @@ def _drqn_grads(plan: DRQNPlan, params, obs, nobs, action, reward, done,
         # of the TPU kernel does
         sel = torch.arange(A, device=q.device) == tm(action)[..., None]
         q_sa = torch.where(sel, q, 0.0).sum(dim=-1)
-        loss = huber_loss(tm(mask) * (q_sa - target)).sum() * (1.0 / (B * T))
-        grads = torch.autograd.grad(loss, [p[k] for k in plan.names])
-    return dict(zip(plan.names, grads)), loss.detach()
+        hsum = huber_loss(tm(mask) * (q_sa - target)).sum()
+        grads = torch.autograd.grad(hsum * inv, [p[k] for k in plan.names])
+    return dict(zip(plan.names, grads)), hsum.detach()
+
+
+def _group_update(grads_fn, plan: DRQNPlan, params, m, v, count, obs, nobs,
+                  action, reward, done, mask, q_sp_tgt, *, gamma, double_q,
+                  lr, batch_size, n_updates, b1, b2, adam_eps):
+    """U sub-updates in place: ``grads_fn`` (a plain version of K8) on
+    each sub-update's B windows, then Adam at ``count + u + 1``; returns
+    the last sub-update's loss and gnorm."""
+    B, U = batch_size, n_updates
+    loss = gnorm = None
+    t0 = int(count)
+    for u in range(U):
+        sl = slice(u * B, (u + 1) * B)
+        flat, loss, gnorm = grads_fn(
+            plan, params, obs[sl], nobs[sl], action[sl], reward[sl],
+            done[sl], mask[sl], q_sp_tgt[sl], gamma=gamma, double_q=double_q)
+        adam_plain(plan.names, params, m, v,
+                   unflatten(flat, params, plan.names), t0 + u + 1, lr, b1,
+                   b2, adam_eps)
+    count.add_(U)
+    return loss, gnorm
 
 
 def fused_drqn_group_update_plain(plan: DRQNPlan, params, m, v, count, obs,
@@ -285,68 +365,171 @@ def fused_drqn_group_update_plain(plan: DRQNPlan, params, m, v, count, obs,
                                   n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
     """Plain PyTorch version; same contract as
     :func:`fused_drqn_group_update`."""
-    B, U = batch_size, n_updates
-    loss = gnorm = None
-    t0 = int(count)
-    for u in range(U):
-        sl = slice(u * B, (u + 1) * B)
-        grads, loss = _drqn_grads(plan, params, obs[sl], nobs[sl],
+    return _group_update(
+        fused_drqn_grads_plain, plan, params, m, v, count, obs, nobs, action,
+        reward, done, mask, q_sp_tgt, gamma=gamma, double_q=double_q, lr=lr,
+        batch_size=batch_size, n_updates=n_updates, b1=b1, b2=b2,
+        adam_eps=adam_eps)
+
+
+def tile_partials(plan: DRQNPlan, params, obs, nobs, action, reward, done,
+                  mask, q_sp_tgt, *, gamma, double_q):
+    """K5's and K8's partials in plain PyTorch: each tile of
+    ``plan.desc(T).tile`` windows' flat gradient of the batch's loss (its
+    Huber sum times 1/(B·T)), ``[ceil(B/tile), n_params]``, and its Huber
+    sum ``[ceil(B/tile)]``."""
+    B, T = action.shape
+    tile = plan.desc(T).tile
+    parts, hubs = [], []
+    for w0 in range(0, B, tile):
+        sl = slice(w0, w0 + tile)
+        grads, hsum = _drqn_grads(plan, params, obs[sl], nobs[sl],
                                   action[sl].long(), reward[sl], done[sl],
-                                  mask[sl], q_sp_tgt[sl], gamma, double_q)
-        gnorm = torch.stack([g.abs().max() for g in grads.values()]).max()
-        adam_plain(plan.names, params, m, v, grads, t0 + u + 1, lr, b1, b2,
-                   adam_eps)
-    count.add_(U)
-    return loss, gnorm
+                                  mask[sl], q_sp_tgt[sl], gamma, double_q,
+                                  inv=1.0 / (B * T))
+        parts.append(flatten(grads, plan.names))
+        hubs.append(hsum)
+    return torch.stack(parts), torch.stack(hubs)
+
+
+def fused_drqn_grads_tiled(plan: DRQNPlan, params, obs, nobs, action, reward,
+                           done, mask, q_sp_tgt, *, gamma, double_q):
+    """Plain reference of K8 in the kernel's sum order; returns what
+    :func:`fused_drqn_grads_plain` returns: the tile partials summed in tile
+    order, the tiles' Huber sums likewise times 1/(B·T), and the sum's
+    max-abs entry."""
+    B, T = action.shape
+    parts, hubs = tile_partials(plan, params, obs, nobs, action, reward,
+                                done, mask, q_sp_tgt, gamma=gamma,
+                                double_q=double_q)
+    flat = _tile_order_sum(parts)
+    return flat, _tile_order_sum(hubs) * (1.0 / (B * T)), flat.abs().max()
+
+
+def fused_drqn_group_update_tiled(plan: DRQNPlan, params, m, v, count, obs,
+                                  nobs, action, reward, done, mask, q_sp_tgt,
+                                  *, gamma, double_q, lr, batch_size,
+                                  n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
+    """Plain reference of K5 in the kernel's sum order; same contract as
+    :func:`fused_drqn_group_update`. Per sub-update:
+    :func:`fused_drqn_grads_tiled`, then Adam."""
+    return _group_update(
+        fused_drqn_grads_tiled, plan, params, m, v, count, obs, nobs, action,
+        reward, done, mask, q_sp_tgt, gamma=gamma, double_q=double_q, lr=lr,
+        batch_size=batch_size, n_updates=n_updates, b1=b1, b2=b2,
+        adam_eps=adam_eps)
+
+
+def partials(plan: DRQNPlan, T: int, B: int, device):
+    """K5's and K8's scratch: one partial gradient and one Huber sum per
+    tile, ``([ceil(B/tile), n_params], [ceil(B/tile)])``, indexed by tile
+    whatever the grid."""
+    d = plan.desc(T)
+    nt = -(-B // d.tile)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(nt, d.n_params, **f32), torch.empty(nt, **f32))
+
+
+_MAX_GRID: Dict[Tuple[DRQNPlan, int, int], int] = {}
+
+
+def launch_grid(plan: DRQNPlan, T: int, B: int, device) -> int:
+    """Blocks of one K5/K8 cooperative launch: the card's co-resident block
+    count for this plan and T (asked once per plan, T and device), capped
+    at the work: the tiles of phase A or one thread per parameter in phase
+    B, whichever needs more blocks."""
+    dev = torch.device(device)
+    key = (plan, T, torch.cuda.current_device() if dev.index is None
+           else dev.index)
+    if key not in _MAX_GRID:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            build.check(build.library().dq_fused_drqn_max_grid(
+                plan.desc(T), ctypes.byref(out)), "fused_drqn (grid)")
+        _MAX_GRID[key] = out.value
+    d = plan.desc(T)
+    need = max(-(-B // d.tile), -(-d.n_params // THREADS))
+    return min(_MAX_GRID[key], need)
+
+
+def _act_scratch(plan: DRQNPlan, T: int, grid: int, device):
+    """The blocks' T-step regions in global memory when they do not fit
+    shared memory (``desc.act_global``), else None."""
+    d = plan.desc(T)
+    if not d.act_global:
+        return None
+    return torch.empty(grid * d.tile * d.region_floats, dtype=torch.float32,
+                       device=device)
+
+
+def _k5_inputs(plan: DRQNPlan, params, n, obs, nobs, action, reward, done,
+               mask, q_sp_tgt):
+    """K5's and K8's inputs of ``n`` windows as contiguous f32 (int32
+    actions) CUDA tensors, checked against the plan; the parameter tensors
+    in plan order; and the kernels' descriptor."""
+    T = action.shape[1]
+    obs, nobs, reward, done, mask, q_sp_tgt = (
+        t.float().contiguous()
+        for t in (obs, nobs, reward, done, mask, q_sp_tgt))
+    action = action.to(torch.int32).contiguous()
+    tensors = [params[k] for k in plan.names]
+    build.require_cuda(obs, nobs, action, reward, done, mask, q_sp_tgt,
+                       *tensors)
+    d = plan.desc(T)
+    _require_sizes(plan, d, tensors)
+    for name, t in (("obs", obs), ("nobs", nobs)):
+        build.require_shape(t, (n, T, plan.in_dim), name)
+    for name, t in (("action", action), ("reward", reward), ("done", done),
+                    ("mask", mask)):
+        build.require_shape(t, (n, T), name)
+    build.require_shape(q_sp_tgt, (n, T, plan.head.num_actions), "q_sp_tgt")
+    return (obs, nobs, action, reward, done, mask, q_sp_tgt), tensors, d
+
+
+def _require_sizes(plan: DRQNPlan, d, tensors):
+    for k, t in enumerate(tensors):
+        if t.numel() != d.t_size[k]:
+            raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
+                             f"expected {d.t_size[k]}")
+
+
+def _adam_state(plan: DRQNPlan, d, m, v, count):
+    """The moments in plan order, checked, and the int32 CUDA count."""
+    mt, vt = [m[k] for k in plan.names], [v[k] for k in plan.names]
+    build.require_cuda(count, *mt, *vt)
+    if count.dtype != torch.int32:
+        raise ValueError("the Adam count must be an int32 tensor")
+    _require_sizes(plan, d, mt)
+    _require_sizes(plan, d, vt)
+    return mt, vt
+
+
+_ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
+_ptr = lambda t: None if t is None else t.data_ptr()
 
 
 def fused_drqn_group_update_cuda(plan: DRQNPlan, params, m, v, count, obs,
                                  nobs, action, reward, done, mask, q_sp_tgt,
                                  *, gamma, double_q, lr, batch_size,
                                  n_updates, b1=0.9, b2=0.999, adam_eps=1e-8):
-    """Launch K5 (2·U kernels on the current stream)."""
+    """Launch K5 (one cooperative kernel on the current stream)."""
     B, U = batch_size, n_updates
     T = action.shape[1]
-    A = plan.head.num_actions
-    obs, nobs, reward, done, mask, q_sp_tgt = (
-        t.float().contiguous()
-        for t in (obs, nobs, reward, done, mask, q_sp_tgt))
-    action = action.to(torch.int32).contiguous()
-    tensors = [params[n] for n in plan.names]
-    mt, vt = [m[n] for n in plan.names], [v[n] for n in plan.names]
-    build.require_cuda(obs, nobs, action, reward, done, mask, q_sp_tgt,
-                       count, *tensors, *mt, *vt)
-    if count.dtype != torch.int32:
-        raise ValueError("the Adam count must be an int32 tensor")
-    d = plan.desc(T)
-    for ts in (tensors, mt, vt):
-        for k, t in enumerate(ts):
-            if t.numel() != d.t_size[k]:
-                raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
-                                 f"expected {d.t_size[k]}")
-    for name, t in (("obs", obs), ("nobs", nobs)):
-        build.require_shape(t, (U * B, T, plan.in_dim), name)
-    for name, t in (("action", action), ("reward", reward), ("done", done),
-                    ("mask", mask)):
-        build.require_shape(t, (U * B, T), name)
-    build.require_shape(q_sp_tgt, (U * B, T, A), "q_sp_tgt")
-    wpb = plan.warps_per_block(T)
-    nblk = -(-B // wpb)
-    dev = obs.device
+    xs, tensors, d = _k5_inputs(plan, params, U * B, obs, nobs, action,
+                                reward, done, mask, q_sp_tgt)
+    mt, vt = _adam_state(plan, d, m, v, count)
+    dev = xs[0].device
     f32 = dict(dtype=torch.float32, device=dev)
-    part_grad = torch.empty(nblk, d.n_params, **f32)
-    part_loss = torch.empty(nblk, **f32)
-    loss = torch.empty((), **f32)
-    gnorm = torch.empty((), **f32)
-    ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
+    part_grad, part_loss = partials(plan, T, B, dev)
+    stage = torch.empty(d.n_sp, **f32)
+    loss, gnorm = torch.empty((), **f32), torch.empty((), **f32)
+    grid = launch_grid(plan, T, B, dev)
     err = build.library().dq_fused_drqn(
-        d, ptrs(tensors), ptrs(mt), ptrs(vt), count.data_ptr(), U, B, wpb,
-        obs.data_ptr(), nobs.data_ptr(), action.data_ptr(),
-        reward.data_ptr(), done.data_ptr(), mask.data_ptr(),
-        q_sp_tgt.data_ptr(), gamma, int(bool(double_q)), lr, b1, b2,
-        adam_eps, part_grad.data_ptr(),
-        part_loss.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
-        build.stream_ptr(dev))
+        d, _ptrs(tensors), _ptrs(mt), _ptrs(vt), count.data_ptr(), U, B,
+        *(x.data_ptr() for x in xs), gamma, int(bool(double_q)), lr, b1, b2,
+        adam_eps, part_grad.data_ptr(), part_loss.data_ptr(),
+        loss.data_ptr(), gnorm.data_ptr(), stage.data_ptr(),
+        _ptr(_act_scratch(plan, T, grid, dev)), grid, build.stream_ptr(dev))
     build.check(err, "fused_drqn_group_update")
     fused_drqn_group_update_cuda.launches += 1
     count.add_(U)
@@ -385,57 +568,31 @@ def fused_drqn_grads_plain(plan: DRQNPlan, params, obs, nobs, action, reward,
                            done, mask, q_sp_tgt, *, gamma, double_q):
     """Plain PyTorch version of :func:`fused_drqn_grads`, returning the
     flat gradient ``[n_params]`` in place of the dict."""
-    grads, loss = _drqn_grads(plan, params, obs, nobs, action.long(), reward,
+    B, T = action.shape
+    grads, hsum = _drqn_grads(plan, params, obs, nobs, action.long(), reward,
                               done, mask, q_sp_tgt, gamma, double_q)
     flat = flatten(grads, plan.names)
-    return flat, loss, flat.abs().max()
-
-
-def _k8_inputs(plan: DRQNPlan, params, n, obs, nobs, action, reward, done,
-               mask, q_sp_tgt):
-    """K8's inputs of ``n`` windows as contiguous f32 (int32 actions) CUDA
-    tensors, checked against the plan; the parameter tensors in plan
-    order; and the kernels' descriptor."""
-    T = action.shape[1]
-    obs, nobs, reward, done, mask, q_sp_tgt = (
-        t.float().contiguous()
-        for t in (obs, nobs, reward, done, mask, q_sp_tgt))
-    action = action.to(torch.int32).contiguous()
-    tensors = [params[k] for k in plan.names]
-    build.require_cuda(obs, nobs, action, reward, done, mask, q_sp_tgt,
-                       *tensors)
-    d = plan.desc(T)
-    for k, t in enumerate(tensors):
-        if t.numel() != d.t_size[k]:
-            raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
-                             f"expected {d.t_size[k]}")
-    for name, t in (("obs", obs), ("nobs", nobs)):
-        build.require_shape(t, (n, T, plan.in_dim), name)
-    for name, t in (("action", action), ("reward", reward), ("done", done),
-                    ("mask", mask)):
-        build.require_shape(t, (n, T), name)
-    build.require_shape(q_sp_tgt, (n, T, plan.head.num_actions), "q_sp_tgt")
-    return (obs, nobs, action, reward, done, mask, q_sp_tgt), tensors, d
+    return flat, hsum * (1.0 / (B * T)), flat.abs().max()
 
 
 def fused_drqn_grads_cuda(plan: DRQNPlan, params, obs, nobs, action, reward,
                           done, mask, q_sp_tgt, *, gamma, double_q):
-    """Launch K8 (two kernels on the current stream); returns what
-    :func:`fused_drqn_grads_plain` returns."""
+    """Launch K8 (one cooperative kernel on the current stream); returns
+    what :func:`fused_drqn_grads_plain` returns."""
     B, T = action.shape
-    xs, tensors, d = _k8_inputs(plan, params, B, obs, nobs, action, reward,
+    xs, tensors, d = _k5_inputs(plan, params, B, obs, nobs, action, reward,
                                 done, mask, q_sp_tgt)
-    wpb = plan.warps_per_block(T)
-    f32 = dict(dtype=torch.float32, device=xs[0].device)
-    part_grad = torch.empty(-(-B // wpb), d.n_params, **f32)
-    part_loss = torch.empty(part_grad.shape[0], **f32)
+    dev = xs[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_grad, part_loss = partials(plan, T, B, dev)
     flat = torch.empty(d.n_params, **f32)
     loss, gnorm = torch.empty((), **f32), torch.empty((), **f32)
+    grid = launch_grid(plan, T, B, dev)
     err = build.library().dq_fused_drqn_grads(
-        d, build.int64_array([t.data_ptr() for t in tensors]), B, wpb,
-        *(x.data_ptr() for x in xs), gamma, int(bool(double_q)),
-        part_grad.data_ptr(), part_loss.data_ptr(), flat.data_ptr(),
-        loss.data_ptr(), gnorm.data_ptr(), build.stream_ptr(flat.device))
+        d, _ptrs(tensors), B, *(x.data_ptr() for x in xs), gamma,
+        int(bool(double_q)), part_grad.data_ptr(), part_loss.data_ptr(),
+        flat.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
+        _ptr(_act_scratch(plan, T, grid, dev)), grid, build.stream_ptr(dev))
     build.check(err, "fused_drqn_grads")
     fused_drqn_grads_cuda.launches += 1
     return flat, loss, gnorm
@@ -499,32 +656,23 @@ def fused_drqn_dp_group_update_cuda(plan: DRQNPlan, params, m, v, count,
                                     q_sp_tgt, *, reduce, gamma, double_q, lr,
                                     batch_size, n_updates, b1=0.9, b2=0.999,
                                     adam_eps=1e-8):
-    """Per sub-update on the current stream: K8 (two launches), ``reduce``
-    of its flat gradient, and K5's one-block Adam kernel on that vector;
+    """Per sub-update on the current stream: K8 (one cooperative launch),
+    ``reduce`` of its flat gradient, and the Adam launch on that vector;
     checks and allocations once for all U sub-updates."""
     B, U = batch_size, n_updates
     T = action.shape[1]
-    xs, tensors, d = _k8_inputs(plan, params, U * B, obs, nobs, action,
+    xs, tensors, d = _k5_inputs(plan, params, U * B, obs, nobs, action,
                                 reward, done, mask, q_sp_tgt)
-    mt, vt = [m[k] for k in plan.names], [v[k] for k in plan.names]
-    build.require_cuda(count, *mt, *vt)
-    if count.dtype != torch.int32:
-        raise ValueError("the Adam count must be an int32 tensor")
-    for ts in (mt, vt):
-        for k, t in enumerate(ts):
-            if t.numel() != d.t_size[k]:
-                raise ValueError(f"{plan.names[k]}: {t.numel()} elements, "
-                                 f"expected {d.t_size[k]}")
-    wpb = plan.warps_per_block(T)
+    mt, vt = _adam_state(plan, d, m, v, count)
     dev = xs[0].device
     f32 = dict(dtype=torch.float32, device=dev)
-    part_grad = torch.empty(-(-B // wpb), d.n_params, **f32)
-    part_loss = torch.empty(part_grad.shape[0], **f32)
+    part_grad, part_loss = partials(plan, T, B, dev)
     flat = torch.empty(U, d.n_params, **f32)
     loss, lgn, gnorm = (torch.empty(U, **f32) for _ in range(3))
-    ptrs = lambda ts: build.int64_array([t.data_ptr() for t in ts])
-    P, M, V = ptrs(tensors), ptrs(mt), ptrs(vt)
+    P, M, V = _ptrs(tensors), _ptrs(mt), _ptrs(vt)
     lib, stream = build.library(), build.stream_ptr(dev)
+    grid = launch_grid(plan, T, B, dev)
+    act = _ptr(_act_scratch(plan, T, grid, dev))
     # sub-batch u starts u·B windows into each input; elements are 4 bytes
     rows = [(x.data_ptr(), 4 * B * x[0].numel()) for x in xs]
     scratch = part_grad.data_ptr(), part_loss.data_ptr()
@@ -533,8 +681,9 @@ def fused_drqn_dp_group_update_cuda(plan: DRQNPlan, params, m, v, count,
     dq, cnt, g_out = int(bool(double_q)), count.data_ptr(), gnorm.data_ptr()
     for u in range(U):
         err = lib.dq_fused_drqn_grads(
-            d, P, B, wpb, *(base + u * step for base, step in rows), gamma,
-            dq, *scratch, *(base + u * step for base, step in per_u), stream)
+            d, P, B, *(base + u * step for base, step in rows), gamma, dq,
+            *scratch, *(base + u * step for base, step in per_u), act, grid,
+            stream)
         build.check(err, "fused_drqn_grads")
         fused_drqn_grads_cuda.launches += 1
         reduce(flat[u])

@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 B, T = 12, 5
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, B=B):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     lens = rng.integers(1, T + 1, B)  # ragged valid prefixes
@@ -157,6 +157,63 @@ def test_dp_group_update_with_identity_reduce_is_k5():
     assert len(seen) == U
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    for i in range(3):
+        for k in plan.names:
+            assert torch.equal(dp[i][k], k5[i][k]), k
+    assert int(dp[3]) == int(k5[3]) == U
+
+
+@pytest.mark.parametrize("kind,double_q,Bt", [("plain", True, 10),
+                                              ("gru_dueling", False, 12)])
+def test_tiled_reference_matches_jax_fused_drqn_grads(kind, double_q, Bt):
+    """K8's tile-order reference (the kernel's sum order; the last tile
+    ragged at B = 10) against the JAX ``fused_drqn_grads`` in interpret
+    mode, at the twin's tolerances."""
+    jnet, tnet = nets(kind)
+    jparams = jnet.init(jax.random.PRNGKey(2))
+    x = _inputs(6, Bt)
+    jg, jloss, jgn = j_fused_drqn_grads(
+        jnet, j_drqn_plan_for(jnet, T, Bt, double_q), jparams,
+        *(jnp.asarray(v) for v in x.values()), gamma=0.95,
+        double_q=double_q, interpret=True)
+    params = convert.params_from_numpy(tnet, np_(jparams))
+    plan = fused_drqn.drqn_plan_for(tnet, T, Bt, double_q)
+    flat, loss, gn = fused_drqn.fused_drqn_grads_tiled(
+        plan, params, *(torch.from_numpy(v) for v in x.values()),
+        gamma=0.95, double_q=double_q)
+    ref = flatten(convert._as_dict(tnet, np_(jg), "cpu"), plan.names)
+    np.testing.assert_allclose(flat.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(gn), float(jgn), rtol=1e-5)
+
+
+def test_dp_update_on_tiled_grads_is_tiled_k5():
+    """The data-parallel update's arithmetic on the tile-order references:
+    K8's reference, an identity reduce and the flat Adam make exactly the
+    U sub-updates of K5's reference, bit for bit, as K8, the reduce and the
+    Adam launch do K5's on the card."""
+    _, tnet = nets("plain")
+    params = tnet.init()
+    plan = fused_drqn.drqn_plan_for(tnet, T, 10, True)
+    U, Bt = 2, 10
+    a, b = _inputs(3, Bt), _inputs(4, Bt)
+    x = {k: torch.from_numpy(np.concatenate([a[k], b[k]])) for k in a}
+    kw = dict(gamma=0.9, double_q=True)
+    state = lambda: ({k: t.clone() for k, t in params.items()},
+                     {k: torch.zeros_like(t) for k, t in params.items()},
+                     {k: torch.zeros_like(t) for k, t in params.items()},
+                     torch.tensor(0, dtype=torch.int32))
+    dp, k5 = state(), state()
+    for u in range(U):
+        sl = slice(u * Bt, (u + 1) * Bt)
+        flat, loss, _ = fused_drqn.fused_drqn_grads_tiled(
+            plan, dp[0], *(v[sl] for v in x.values()), **kw)
+        gn = fused_drqn.adam_flat_plain(plan.names, *dp, flat, u=u, lr=1e-2)
+    dp[3].add_(U)
+    rl, rg = fused_drqn.fused_drqn_group_update_tiled(
+        plan, *k5, *x.values(), lr=1e-2, batch_size=Bt, n_updates=U, **kw)
+    assert torch.equal(loss, rl) and torch.equal(gn, rg)
     for i in range(3):
         for k in plan.names:
             assert torch.equal(dp[i][k], k5[i][k]), k
