@@ -23,6 +23,22 @@
 // no local-memory stack. The env step and accumulators stay one thread
 // per env. At E = 131072 the step does ~17.5K FLOP per env and moves ~112
 // bytes per env: the FP32 units bound it, not device memory.
+//
+// K6 (fc_rnn_kernel) takes tiles the same way (TE envs per block, from the
+// plan; 32 for LSTM(2, 32), so E = 16384 gives 512 blocks) and adds one
+// LSTM or GRU cell step before the head, with the cell's wi, wh (rows of
+// [cin + H, G], G = 4H or 3H) and b in shared memory and the tile's obs
+// and state rows there feature-major. A work item is 4 envs x one hidden
+// unit j: it keeps the unit's gate sums for the 4 envs in registers (16
+// accumulators), reading a float4 of the input feature and the unit's gate
+// weights per row (each sum over the rows in ascending order: x, then h),
+// and runs the cell on them in place: LSTM i, f, g, o; GRU r, z and the
+// n gate's x . W_in and h . W_hn kept apart, so r * (h . W_hn) is exact.
+// It writes h' and c' feature-major; the head (fc_chain_tile) reads h'.
+// Then a thread per env takes the action and steps the env, and the new
+// state rows [E, S], zeroed where the episode ended, are written with
+// neighbouring threads on neighbouring floats. No per-thread arrays. At
+// E = 16384 and LSTM(2, 32) a step is ~4.5K FMA and ~0.6 KB per env.
 #include "common.cuh"
 
 #define FC_MAXW 128
@@ -39,51 +55,6 @@ struct GridDesc {
   float size_x;
   float size_y;
 };
-
-// Forward through layers [l0, l0 + nl); returns the buffer with the output.
-__device__ const float* fc_chain(const NetDesc& d, const float* sp,
-                                 const float* x, float* b0, float* b1, int l0,
-                                 int nl) {
-  const float* in = x;
-  float* out = b0;
-  for (int l = l0; l < l0 + nl; ++l) {
-    const float* W = sp + d.off_w[l];
-    const float* bias = sp + d.off_b[l];
-    const int din = d.din[l], dout = d.dout[l];
-    for (int o = 0; o < dout; ++o) {
-      float z = 0.0f;
-      for (int i = 0; i < din; ++i) z += in[i] * W[i * dout + o];
-      out[o] = dq_act(z + bias[o], d.act[l]);
-    }
-    in = out;
-    out = (out == b0) ? b1 : b0;
-  }
-  return in;
-}
-
-// Q of one env's input x through the (dueling) Dense stack with the
-// parameters sp in shared memory; returns the greedy action (first max).
-__device__ __forceinline__ int fc_greedy(const NetDesc& d, const float* sp,
-                                         const float* x, float* b0,
-                                         float* b1) {
-  const int A = d.num_actions;
-  float q[FC_MAXW];
-  // Q(s): dueling V + A - mean(A), or the chain's output
-  float v = 0.0f;
-  if (d.dueling) v = fc_chain(d, sp, x, b0, b1, 0, d.n_val)[0];
-  const float* a_out = fc_chain(d, sp, x, b0, b1, d.n_val, d.n_adv);
-  float mean = 0.0f;
-  if (d.dueling) {
-    for (int c = 0; c < A; ++c) mean += a_out[c];
-    mean *= 1.0f / (float)A;
-  }
-  for (int c = 0; c < A; ++c)
-    q[c] = d.dueling ? v + a_out[c] - mean : a_out[c];
-  int greedy = 0;
-  for (int c = 1; c < A; ++c)
-    if (q[c] > q[greedy]) greedy = c;
-  return greedy;
-}
 
 // SimpleGridWorld.step_cols for env e from obs (x0, x1) and the action,
 // truncation, auto-reset (reset_cols) and the episode accumulators; writes
@@ -192,13 +163,14 @@ static int fc_tile_smem_bytes(const NetDesc& d, int TE) {
 }
 
 // out[o][e] = act(b[o] + sum_i in[i][e] * W[i][o]) for the tile's TE envs
-// (feature-major in/out). A work item is 4 envs x 4 outputs (4 x 1 when
-// dout is not a multiple of 4); consecutive threads take consecutive output
-// groups of the same 4 envs, so the input float4 is a broadcast and the W
-// float4s are consecutive.
+// (feature-major in/out; input rows ldi floats apart, output rows TE). A
+// work item is 4 envs x 4 outputs (4 x 1 when dout is not a multiple of
+// 4); consecutive threads take consecutive output groups of the same 4
+// envs, so the input float4 is a broadcast and the W float4s are
+// consecutive.
 __device__ void fc_dense_tile(const float* W, const float* b, int din,
-                              int dout, int act, const float* in, float* out,
-                              int TE) {
+                              int dout, int act, const float* in, int ldi,
+                              float* out, int TE) {
   const int n4 = TE / 4;
   if ((dout & 3) == 0) {
     const int ng = dout / 4;
@@ -211,7 +183,7 @@ __device__ void fc_dense_tile(const float* W, const float* b, int din,
         for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
       for (int i = 0; i < din; ++i) {
         const float4 w = *reinterpret_cast<const float4*>(W + i * dout + 4 * og);
-        const float4 x = *reinterpret_cast<const float4*>(in + i * TE + 4 * e4);
+        const float4 x = *reinterpret_cast<const float4*>(in + i * ldi + 4 * e4);
         const float xs[4] = {x.x, x.y, x.z, x.w};
         const float ws[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -233,7 +205,7 @@ __device__ void fc_dense_tile(const float* W, const float* b, int din,
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int i = 0; i < din; ++i) {
         const float w = W[i * dout + o];
-        const float4 x = *reinterpret_cast<const float4*>(in + i * TE + 4 * e4);
+        const float4 x = *reinterpret_cast<const float4*>(in + i * ldi + 4 * e4);
         acc[0] = fmaf(x.x, w, acc[0]);
         acc[1] = fmaf(x.y, w, acc[1]);
         acc[2] = fmaf(x.z, w, acc[2]);
@@ -247,22 +219,64 @@ __device__ void fc_dense_tile(const float* W, const float* b, int din,
   __syncthreads();
 }
 
-// Forward through layers [l0, l0 + nl) from in, ping-ponging b0/b1; the
-// last layer writes to last (or the free buffer when last is null).
-// Returns the last layer's output.
+// Forward through layers [l0, l0 + nl) from in (rows ldi floats apart),
+// ping-ponging b0/b1; the last layer writes to last (or the free buffer
+// when last is null). Returns the last layer's output.
 __device__ const float* fc_chain_tile(const NetDesc& d, const float* sp,
                                       const int* ow, const int* ob,
-                                      const float* in, float* b0, float* b1,
-                                      float* last, int l0, int nl, int TE) {
+                                      const float* in, int ldi, float* b0,
+                                      float* b1, float* last, int l0, int nl,
+                                      int TE) {
   float* out = b0;
   for (int l = l0; l < l0 + nl; ++l) {
     float* dst = (l == l0 + nl - 1 && last != nullptr) ? last : out;
     fc_dense_tile(sp + ow[l], sp + ob[l], d.din[l], d.dout[l], d.act[l], in,
-                  dst, TE);
+                  ldi, dst, TE);
     in = dst;
+    ldi = TE;
     out = (out == b0) ? b1 : b0;
   }
   return in;
+}
+
+// The shared parameter copy, each layer's W then b (fc_tile_layout), by
+// all threads of the block.
+__device__ __forceinline__ void fc_load_tile_params(const NetDesc& d,
+                                                    const TensorPtrs& params,
+                                                    const int* ow,
+                                                    const int* ob, float* sp) {
+  for (int l = 0; l < d.n_val + d.n_adv; ++l) {
+    for (int k = threadIdx.x; k < d.din[l] * d.dout[l]; k += blockDim.x)
+      sp[ow[l] + k] = params.t[2 * l][k];
+    for (int k = threadIdx.x; k < d.dout[l]; k += blockDim.x)
+      sp[ob[l] + k] = params.t[2 * l + 1][k];
+  }
+}
+
+// The greedy action of env el of the tile (first-max argmax of q_c = v +
+// a_c - mean(a), or a_c), from the head's outputs aout [A][TE] and the
+// value head's sv [TE].
+__device__ __forceinline__ int fc_tile_greedy(const NetDesc& d,
+                                              const float* aout,
+                                              const float* sv, int el,
+                                              int TE) {
+  const int A = d.num_actions;
+  float mean = 0.0f, v = 0.0f;
+  if (d.dueling) {
+    v = sv[el];
+    for (int c = 0; c < A; ++c) mean += aout[c * TE + el];
+    mean *= 1.0f / (float)A;
+  }
+  int greedy = 0;
+  float best = d.dueling ? v + aout[el] - mean : aout[el];
+  for (int c = 1; c < A; ++c) {
+    const float q = d.dueling ? v + aout[c * TE + el] - mean : aout[c * TE + el];
+    if (q > best) {
+      best = q;
+      greedy = c;
+    }
+  }
+  return greedy;
 }
 
 __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
@@ -284,12 +298,7 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
   float* b1 = b0 + d.maxw * TE;     // [maxw][TE]
   float* sv = b1 + d.maxw * TE;     // [TE] the value head's output
   float* red = sv + TE;             // [3, blockDim]
-  for (int l = 0; l < d.n_val + d.n_adv; ++l) {
-    for (int k = threadIdx.x; k < d.din[l] * d.dout[l]; k += blockDim.x)
-      sp[ow[l] + k] = params.t[2 * l][k];
-    for (int k = threadIdx.x; k < d.dout[l]; k += blockDim.x)
-      sp[ob[l] + k] = params.t[2 * l + 1][k];
-  }
+  fc_load_tile_params(d, params, ow, ob, sp);
   const int e0 = blockIdx.x * TE;
   const int ne = min(TE, E - e0);
   for (int k = threadIdx.x; k < no * TE; k += blockDim.x) {
@@ -299,30 +308,16 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
   __syncthreads();
 
   // Q(s): dueling V + A - mean(A), or the chain's output
-  if (d.dueling) fc_chain_tile(d, sp, ow, ob, sx, b0, b1, sv, 0, d.n_val, TE);
-  const float* aout =
-      fc_chain_tile(d, sp, ow, ob, sx, b0, b1, nullptr, d.n_val, d.n_adv, TE);
+  if (d.dueling)
+    fc_chain_tile(d, sp, ow, ob, sx, TE, b0, b1, sv, 0, d.n_val, TE);
+  const float* aout = fc_chain_tile(d, sp, ow, ob, sx, TE, b0, b1, nullptr,
+                                    d.n_val, d.n_adv, TE);
 
   float s_ret = 0.0f, s_len = 0.0f, s_end = 0.0f;
   const int el = threadIdx.x;
   if (el < ne) {
     const int e = e0 + el;
-    float mean = 0.0f, v = 0.0f;
-    if (d.dueling) {
-      v = sv[el];
-      for (int c = 0; c < A; ++c) mean += aout[c * TE + el];
-      mean *= 1.0f / (float)A;
-    }
-    // first-max argmax of q_c = v + a_c - mean (or a_c)
-    int greedy = 0;
-    float best = d.dueling ? v + aout[el] - mean : aout[el];
-    for (int c = 1; c < A; ++c) {
-      const float q = d.dueling ? v + aout[c * TE + el] - mean : aout[c * TE + el];
-      if (q > best) {
-        best = q;
-        greedy = c;
-      }
-    }
+    const int greedy = fc_tile_greedy(d, aout, sv, el, TE);
     const float u0 = u[e], u1 = u[(size_t)E + e];
     const float action = (u0 < eps) ? floorf(u1 * (float)A) : (float)greedy;
     fc_env_step(g, sx[el], sx[TE + el], action, e, E, state, ep_step, ep_ret,
@@ -332,83 +327,199 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
   fc_block_totals(red, s_ret, s_len, s_end, partials);
 }
 
-// K6: the same step for a recurrent net (replaces fused_collect's recurrent
-// plan, _cell_cols + _collect_block): one LSTM or GRU cell step on the
-// env's obs and its state row nstate[e] = h (;c), the Dense or dueling head
-// on h', epsilon-greedy, the env step and bookkeeping as above, and the new
-// state row, zeroed where the episode ended. One thread per env; the cell
-// and head parameters sit in shared memory (the plan gates their size) and
-// the thread's h, h', c' in local arrays of FC_MAXW floats (the plan gates
-// H <= FC_MAXW). At E = 16384 and LSTM(2, 32) a step is ~4.5K FMA per env:
-// the per-thread dependent dot products bound it, not device memory.
+// K6's shared layout for a tile of TE envs, in floats from the start of
+// dynamic shared memory (k6_smem_bytes in ops/cuda/fused_collect.py gates
+// on the same sum): the head's params (fc_tile_layout), the cell's [wi; wh]
+// as rows of G and its bias (padded to 4), the tile's obs and h rows and c
+// rows (c' in place), h', the head's two buffers and value output, the
+// envs' end flags and the accumulator sums. The cell's rows are TP = TE +
+// 4 floats apart: the stores of consecutive units' float4s then fall in
+// different banks.
+struct RnnLayout {
+  int np, w, b, x, c, hn, b0, b1, sv, end, red, total;
+};
+
+__host__ __device__ inline RnnLayout fc_rnn_layout(const NetDesc& d, int np,
+                                                   int kind, int cin, int H,
+                                                   int TE) {
+  RnnLayout L;
+  const int G = (kind == 0 ? 4 : 3) * H, TP = TE + 4;
+  L.np = np;
+  L.w = np;
+  L.b = L.w + ((cin + H) * G + 3) / 4 * 4;
+  L.x = L.b + (G + 3) / 4 * 4;
+  L.c = L.x + (cin + H) * TP;
+  L.hn = L.c + (kind == 0 ? H : 0) * TP;
+  L.b0 = L.hn + H * TP;
+  L.b1 = L.b0 + d.maxw * TE;
+  L.sv = L.b1 + d.maxw * TE;
+  L.end = L.sv + TE;
+  L.red = L.end + TE;
+  L.total = L.red + 3 * FC_THREADS;
+  return L;
+}
+
+// The cell step on the tile: a work item is 4 envs x unit j. Gate sums in
+// registers, each over the rows in ascending order (x rows, then h rows):
+// LSTM a[e][q] for gates i, f, g, o; GRU a[e][0..1] for r, z, a[e][2] =
+// x . W_in and a[e][3] = h . W_hn. Writes h' (hn) and, for the LSTM, c' in
+// place of c. sx holds the x rows then the h rows, TP floats apart.
+template <int KIND>
+__device__ __forceinline__ void fc_cell_tile(const float* __restrict__ sw,
+                                             const float* __restrict__ sb,
+                                             const float* sx, float* sc,
+                                             float* shn, int cin, int H,
+                                             int TE, int TP) {
+  constexpr int NG = KIND == 0 ? 4 : 3;
+  const int G = NG * H;
+  for (int k = threadIdx.x; k < (TE / 4) * H; k += blockDim.x) {
+    const int j = k % H, e4 = k / H;
+    float a[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[e][q] = 0.0f;
+    for (int i = 0; i < cin + H; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(sx + i * TP + 4 * e4);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      float ws[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) ws[q] = sw[i * G + q * H + j];
+      // LSTM: slot q is gate q; GRU: the n gate's x rows go to slot 2, its
+      // h rows to slot 3
+      const bool hn_row = KIND == 1 && i >= cin;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e][0] = fmaf(xs[e], ws[0], a[e][0]);
+        a[e][1] = fmaf(xs[e], ws[1], a[e][1]);
+        if (KIND == 0 || !hn_row) a[e][2] = fmaf(xs[e], ws[2], a[e][2]);
+        if (KIND == 0)
+          a[e][3] = fmaf(xs[e], ws[NG - 1], a[e][3]);
+        else if (hn_row)
+          a[e][3] = fmaf(xs[e], ws[2], a[e][3]);
+      }
+    }
+    float hn[4];
+    if (KIND == 0) {
+      const float4 c4 = *reinterpret_cast<const float4*>(sc + j * TP + 4 * e4);
+      const float cs[4] = {c4.x, c4.y, c4.z, c4.w};
+      float cn[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ig = 1.0f / (1.0f + expf(-(a[e][0] + sb[j])));
+        const float fg = 1.0f / (1.0f + expf(-(a[e][1] + sb[H + j])));
+        const float gg = tanhf(a[e][2] + sb[2 * H + j]);
+        const float og = 1.0f / (1.0f + expf(-(a[e][3] + sb[3 * H + j])));
+        cn[e] = fg * cs[e] + ig * gg;
+        hn[e] = og * tanhf(cn[e]);
+      }
+      *reinterpret_cast<float4*>(sc + j * TP + 4 * e4) =
+          make_float4(cn[0], cn[1], cn[2], cn[3]);
+    } else {
+      const float4 h4 =
+          *reinterpret_cast<const float4*>(sx + (cin + j) * TP + 4 * e4);
+      const float hs[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = 1.0f / (1.0f + expf(-(a[e][0] + sb[j])));
+        const float z = 1.0f / (1.0f + expf(-(a[e][1] + sb[H + j])));
+        const float n = tanhf(a[e][2] + r * a[e][3] + sb[2 * H + j]);
+        hn[e] = (1.0f - z) * n + z * hs[e];
+      }
+    }
+    *reinterpret_cast<float4*>(shn + j * TP + 4 * e4) =
+        make_float4(hn[0], hn[1], hn[2], hn[3]);
+  }
+}
+
+// K6: the collect step for a recurrent net (replaces fused_collect's
+// recurrent plan, _cell_cols + _collect_block): per tile of TE envs the
+// cell step on the obs and the state rows nstate [E, S] = h (;c)
+// (fc_cell_tile), the Dense or dueling head on h' (fc_chain_tile), then a
+// thread per env for epsilon-greedy, the env step and its bookkeeping, and
+// the new state rows, zeroed where the episode ended.
 __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
     NetDesc d, TensorPtrs params, int kind, int H,
     const float* __restrict__ wi, const float* __restrict__ wh,
     const float* __restrict__ bc, GridDesc g, const float* __restrict__ obs,
     const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u,
-    const float* __restrict__ nstate, int E, float eps, int max_len,
+    const float* __restrict__ nstate, int E, int TE, float eps, int max_len,
     float* __restrict__ fields, float* __restrict__ obs_out,
     float* __restrict__ state_out, int* __restrict__ ep_step_out,
     float* __restrict__ ep_ret_out, float* __restrict__ nstate_out,
     float* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const int G = (kind == 0 ? 4 : 3) * H, cin = 2;
-  float* sp = smem;               // head, NetDesc packing
-  float* swi = sp + d.n_params;   // [cin, G]
-  float* swh = swi + cin * G;     // [H, G]
-  float* sbc = swh + H * G;       // [G]
-  float* red = sbc + G;           // [3, blockDim]
-  dq_load_params(d, params, sp);
-  for (int k = threadIdx.x; k < cin * G; k += blockDim.x) swi[k] = wi[k];
-  for (int k = threadIdx.x; k < H * G; k += blockDim.x) swh[k] = wh[k];
-  for (int k = threadIdx.x; k < G; k += blockDim.x) sbc[k] = bc[k];
+  extern __shared__ __align__(16) float k6_smem[];
+  __shared__ int ow[DQ_MAXL], ob[DQ_MAXL];
+  __shared__ RnnLayout L;
+  const int cin = 2, G = (kind == 0 ? 4 : 3) * H, TP = TE + 4;
+  const int S = (kind == 0 ? 2 : 1) * H;
+  if (threadIdx.x == 0)
+    L = fc_rnn_layout(d, fc_tile_layout(d, ow, ob), kind, cin, H, TE);
+  __syncthreads();
+  float* sp = k6_smem;
+  float* sw = k6_smem + L.w;    // [cin + H][G]: wi rows, then wh rows
+  float* sb = k6_smem + L.b;    // [G]
+  float* sx = k6_smem + L.x;    // [cin + H][TP]: obs rows, then h rows
+  float* sc = k6_smem + L.c;    // [H][TP] (LSTM): c, then c'
+  float* shn = k6_smem + L.hn;  // [H][TP]: h'
+  float* b0 = k6_smem + L.b0;   // [maxw][TE]
+  float* b1 = k6_smem + L.b1;   // [maxw][TE]
+  float* sv = k6_smem + L.sv;   // [TE] the value head's output
+  float* send = k6_smem + L.end;  // [TE] 1 where the env's episode ended
+  float* red = k6_smem + L.red;   // [3, blockDim]
+  fc_load_tile_params(d, params, ow, ob, sp);
+  for (int k = threadIdx.x; k < cin * G; k += blockDim.x) sw[k] = wi[k];
+  for (int k = threadIdx.x; k < H * G; k += blockDim.x) sw[cin * G + k] = wh[k];
+  for (int k = threadIdx.x; k < G; k += blockDim.x) sb[k] = bc[k];
+  const int e0 = blockIdx.x * TE;
+  const int ne = min(TE, E - e0);
+  for (int k = threadIdx.x; k < cin * TE; k += blockDim.x) {
+    const int i = k / TE, el = k - i * TE;
+    sx[i * TP + el] = (el < ne) ? obs[(size_t)(e0 + el) * cin + i] : 0.0f;
+  }
+  // the tile's state rows are contiguous in nstate: a coalesced read
+  for (int k = threadIdx.x; k < TE * S; k += blockDim.x) {
+    const int el = k / S, col = k - el * S;
+    const float v = (el < ne) ? nstate[(size_t)e0 * S + k] : 0.0f;
+    if (col < H)
+      sx[(cin + col) * TP + el] = v;
+    else
+      sc[(col - H) * TP + el] = v;
+  }
   __syncthreads();
 
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kind == 0)
+    fc_cell_tile<0>(sw, sb, sx, sc, shn, cin, H, TE, TP);
+  else
+    fc_cell_tile<1>(sw, sb, sx, sc, shn, cin, H, TE, TP);
+  __syncthreads();
+
+  if (d.dueling)
+    fc_chain_tile(d, sp, ow, ob, shn, TP, b0, b1, sv, 0, d.n_val, TE);
+  const float* aout = fc_chain_tile(d, sp, ow, ob, shn, TP, b0, b1, nullptr,
+                                    d.n_val, d.n_adv, TE);
+
   float s_ret = 0.0f, s_len = 0.0f, s_end = 0.0f;
-  if (e < E) {
-    const int S = (kind == 0 ? 2 : 1) * H;
-    const float* ns = nstate + (size_t)e * S;
-    const float x0 = obs[(size_t)e * 2], x1 = obs[(size_t)e * 2 + 1];
-    float hp[FC_MAXW], hn[FC_MAXW], cn[FC_MAXW], b0[FC_MAXW], b1[FC_MAXW];
-    for (int k = 0; k < H; ++k) hp[k] = ns[k];
-    for (int j = 0; j < H; ++j) {
-      // per gate k: xi = x . wi[:, kH + j], hh = h . wh[:, kH + j]
-      float xi[4], hh[4];
-      for (int k = 0; k < G / H; ++k) {
-        const int col = k * H + j;
-        xi[k] = x0 * swi[col] + x1 * swi[G + col];
-        float s = 0.0f;
-        for (int i = 0; i < H; ++i) s += hp[i] * swh[i * G + col];
-        hh[k] = s;
-      }
-      if (kind == 0) {
-        const float ig = 1.0f / (1.0f + expf(-(xi[0] + hh[0] + sbc[j])));
-        const float fg = 1.0f / (1.0f + expf(-(xi[1] + hh[1] + sbc[H + j])));
-        const float gg = tanhf(xi[2] + hh[2] + sbc[2 * H + j]);
-        const float og = 1.0f / (1.0f + expf(-(xi[3] + hh[3] + sbc[3 * H + j])));
-        cn[j] = fg * ns[H + j] + ig * gg;
-        hn[j] = og * tanhf(cn[j]);
-      } else {
-        const float r = 1.0f / (1.0f + expf(-(xi[0] + hh[0] + sbc[j])));
-        const float z = 1.0f / (1.0f + expf(-(xi[1] + hh[1] + sbc[H + j])));
-        const float n = tanhf(xi[2] + r * hh[2] + sbc[2 * H + j]);
-        hn[j] = (1.0f - z) * n + z * hp[j];
-      }
-    }
-    const int greedy = fc_greedy(d, sp, hn, b0, b1);
+  const int el = threadIdx.x;
+  if (el < ne) {
+    const int e = e0 + el;
+    const int greedy = fc_tile_greedy(d, aout, sv, el, TE);
     const float u0 = u[e], u1 = u[(size_t)E + e];
     const float action =
         (u0 < eps) ? floorf(u1 * (float)d.num_actions) : (float)greedy;
-    const bool end = fc_env_step(g, x0, x1, action, e, E, state, ep_step,
-                                 ep_ret, u, max_len, fields, obs_out,
+    const bool end = fc_env_step(g, sx[el], sx[TP + el], action, e, E, state,
+                                 ep_step, ep_ret, u, max_len, fields, obs_out,
                                  state_out, ep_step_out, ep_ret_out, s_ret,
                                  s_len, s_end);
-    float* nso = nstate_out + (size_t)e * S;
-    for (int j = 0; j < H; ++j) nso[j] = end ? 0.0f : hn[j];
-    if (kind == 0)
-      for (int j = 0; j < H; ++j) nso[H + j] = end ? 0.0f : cn[j];
+    send[el] = end ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < ne * S; k += blockDim.x) {
+    const int el2 = k / S, col = k - el2 * S;
+    const float v =
+        (col < H) ? shn[col * TP + el2] : sc[(col - H) * TP + el2];
+    nstate_out[(size_t)e0 * S + k] = (send[el2] != 0.0f) ? 0.0f : v;
   }
   fc_block_totals(red, s_ret, s_len, s_end, partials);
 }
@@ -464,30 +575,31 @@ DQ_API int dq_fused_collect_rnn(const NetDesc* d, const int64_t* p_ptrs,
                                 float size_x, float size_y, const void* obs,
                                 const void* state, const void* ep_step,
                                 const void* ep_ret, const void* u,
-                                const void* nstate, int E, float eps,
+                                const void* nstate, int E, int TE, float eps,
                                 int max_len, void* fields, void* obs_out,
                                 void* state_out, void* ep_step_out,
                                 void* ep_ret_out, void* nstate_out,
                                 void* partials, void* stream) {
-  if (n_cells > FC_MAXCELLS || d->in_dim != H || d->maxw > FC_MAXW ||
-      H > FC_MAXW || (kind != 0 && kind != 1))
+  if (n_cells > FC_MAXCELLS || d->in_dim != H || (kind != 0 && kind != 1) ||
+      TE < 4 || TE > FC_MAX_TE || TE % 4 != 0)
     return (int)cudaErrorInvalidValue;
   TensorPtrs P;
   for (int i = 0; i < 2 * (d->n_val + d->n_adv); ++i)
     P.t[i] = (float*)p_ptrs[i];
   GridDesc g;
   fc_grid(&g, cells, n_cells, tprob, size_x, size_y);
-  const int G = (kind == 0 ? 4 : 3) * H;
+  int ow[DQ_MAXL], ob[DQ_MAXL];
+  const int np = fc_tile_layout(*d, ow, ob);
   const int smem =
-      (d->n_params + 2 * G + H * G + G + 3 * FC_THREADS) * (int)sizeof(float);
+      fc_rnn_layout(*d, np, kind, 2, H, TE).total * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fc_rnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + FC_THREADS - 1) / FC_THREADS;
+  const int blocks = (E + TE - 1) / TE;
   fc_rnn_kernel<<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
       *d, P, kind, H, (const float*)wi, (const float*)wh, (const float*)bc, g,
       (const float*)obs, (const float*)state, (const int*)ep_step,
-      (const float*)ep_ret, (const float*)u, (const float*)nstate, E, eps,
+      (const float*)ep_ret, (const float*)u, (const float*)nstate, E, TE, eps,
       max_len, (float*)fields, (float*)obs_out, (float*)state_out,
       (int*)ep_step_out, (float*)ep_ret_out, (float*)nstate_out,
       (float*)partials);

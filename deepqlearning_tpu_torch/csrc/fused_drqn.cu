@@ -456,8 +456,8 @@ __device__ __forceinline__ void dr_forward_step(const DrArgs& a,
     }
     const float target =
         reg[d.r_rew + t] + (1.0f - reg[d.r_done + t]) * a.gamma * qmax;
-    // an action outside [0, A) selects nothing, as the one-hot select of
-    // the TPU kernel does
+    // an action outside [0, A) selects nothing: the port's rule on every
+    // route (ops/helpers.py::action_mask)
     const int act = (int)reg[d.r_act + t];
     const float* st = reg + d.r_steps + t * d.step_floats;
     const float q_sa =

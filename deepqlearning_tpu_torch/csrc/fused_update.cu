@@ -414,8 +414,8 @@ __device__ void fu_tile(const FuArgs& a, float* smem, int tile, int u) {
     }
     const float target =
         sRow[r] + (1.0f - sRow[FU_TILE + r]) * a.gamma * q_sp_max;
-    // an action outside [0, A) selects nothing (Q_sa = 0, no gradient), as
-    // the one-hot select of the JAX kernel does
+    // an action outside [0, A) selects nothing (Q_sa = 0, no gradient): the
+    // port's rule on every route (ops/helpers.py::action_mask)
     const int act = (int)sRow[3 * FU_TILE + r];
     const float td = ((act >= 0 && act < A) ? sQ[r * A + act] : 0.0f) - target;
     const float w = sRow[2 * FU_TILE + r];

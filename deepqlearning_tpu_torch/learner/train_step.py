@@ -43,7 +43,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops.helpers import flatten, globalnorm, huber_loss, unflatten
+from ..ops.helpers import (
+    flatten, globalnorm, huber_loss, select_action, unflatten)
 
 
 class TrainResult(NamedTuple):
@@ -188,7 +189,7 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
             else:
                 q_sp_max = q_sp_tgt.max(dim=-1).values
             q_targets = batch.reward + (1.0 - batch.done) * gamma * q_sp_max
-            q_sa = torch.gather(q, 1, batch.action.long()[:, None])[:, 0]
+            q_sa = select_action(q, batch.action)
             td = q_sa - q_targets
             loss = huber_loss(weights * td).sum() / B
             prio = None
@@ -371,7 +372,7 @@ def _make_drqn_update(network, gamma, double_q, optimizer, axis_name=None):
         p = {k: t.detach().requires_grad_() for k, t in params.items()}
         q_seq, _ = network.apply_sequence(
             p, obs_t, network.init_state(B, obs_t.device))     # [T, B, A]
-        q_sa = torch.gather(q_seq, -1, a_t.long()[..., None])[..., 0]
+        q_sa = select_action(q_seq, a_t)
         loss = huber_loss(m_t * (q_sa - q_targets)).sum() / B / T
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
         if axis_name is not None:

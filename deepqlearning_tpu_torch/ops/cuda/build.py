@@ -25,11 +25,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 MAXL = 16  # DQ_MAXL of csrc/common.cuh
 DR_MAXL = 16  # DR_MAXL of csrc/fused_drqn.cu
 DR_MAXT = 2 * DR_MAXL + 3
+TS_MAXL = 8  # TS_MAXL of csrc/tree_sample.cu
 
 
 class NetDesc(ctypes.Structure):
@@ -44,6 +45,14 @@ class NetDesc(ctypes.Structure):
         ("act", ctypes.c_int * MAXL), ("off_w", ctypes.c_int * MAXL),
         ("off_b", ctypes.c_int * MAXL), ("off_h", ctypes.c_int * MAXL),
     ]
+
+
+class TreeLevels(ctypes.Structure):
+    """Mirror of ``struct TreeLevels`` in ``csrc/tree_sample.cu``."""
+
+    _fields_ = [("lv", ctypes.c_void_p * TS_MAXL),
+                ("size", ctypes.c_int * TS_MAXL),
+                ("bf", ctypes.c_int * TS_MAXL), ("n", ctypes.c_int)]
 
 
 class DrqnDesc(ctypes.Structure):
@@ -95,21 +104,56 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libdq_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands at once; raise on the first that fails. Returns
+    their stderr, in order."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p, *p.communicate()) for cmd, p in procs]
+    for cmd, p, out, err in outs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    return [err for _, _, _, err in outs]
+
+
 def build() -> Path:
-    """Compile the library if this source hash has not been built yet."""
+    """Compile the library if this source hash has not been built yet: one
+    ``nvcc`` per source, all started together, then one link. ptxas's
+    report (registers, stack, spills per kernel) is kept beside it."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o"
+            for src in sources() if src.suffix == ".cu"}
+    logs = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in objs.items()])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    _run([[_nvcc(), "-shared", "-o", str(tmp),
+           *[str(o) for o in objs.values()]]])
+    for obj in objs.values():
+        obj.unlink()
+    out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(kernels):
+    """``{kernel: ptxas's line}`` (stack frame, spills, registers) for the
+    named kernels of the built library."""
+    lines = build().with_suffix(".ptxas.txt").read_text().splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        for k in kernels:
+            if "Compiling entry" in line and f"{len(k)}{k}" in line:
+                found[k] = " | ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                    if "Function properties" not in x
+                    and "Compiling entry" not in x)
+    return found
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,8 +165,7 @@ def library() -> ctypes.CDLL:
     I64P = ctypes.POINTER(ctypes.c_int64)
     sig = {
         "dq_td_loss": [P, P, P, P, P, P, P, I, I, F, F, F, I, P, P, P, P, P],
-        "dq_tree_sample": [I, I64P, ctypes.POINTER(ctypes.c_int), P, I, P, P,
-                           P],
+        "dq_tree_sample": [ctypes.POINTER(TreeLevels), P, I, I, P, P, P],
         "dq_fused_update": [NP, I64P, I64P, I64P, P, I, I, P, P, P, P, P, P,
                             P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P,
                             I, P],
@@ -132,8 +175,8 @@ def library() -> ctypes.CDLL:
                              P, P],
         "dq_fused_collect_rnn": [NP, I64P, I, I, P, P, P,
                                  ctypes.POINTER(ctypes.c_float), I, F, F, F,
-                                 P, P, P, P, P, P, I, F, I, P, P, P, P, P, P,
-                                 P, P],
+                                 P, P, P, P, P, P, I, I, F, I, P, P, P, P, P,
+                                 P, P, P],
         "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
                           I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P, P,
                           P, P, P, I, P],

@@ -8,25 +8,27 @@ and the env's state row, the state zeroed where the episode ended) the
 ``floor(u1·A)`` when ``u0 < ε``, SimpleGridWorld's ``step_cols`` and
 ``reset_cols``, truncation at ``max_episode_length``, auto-reset and the
 episode accumulators. Transition fields come out in replay-row order
-``[E, 2·no + 4]`` = (obs, obs', action, reward, done, ended); the per-block
+``[E, 2·no + 4]`` = (obs, obs', action, reward, done, ended); the per-tile
 (Σ ret·ended, Σ len·ended, Σ ended) partials are summed by plain torch.
 
 Uniforms come in as ``u [6, E]`` — rows: explore, random action, two step
 uniforms, two reset uniforms — the layout of the JAX kernel's host
 uniforms. The kernels serve SimpleGridWorld only; they read the reward
-cells, ``tprob`` and the grid size from the env object. On the card, K4 runs
-a tile of ``CollectPlan.tile`` envs per block, each Dense layer a small
+cells, ``tprob`` and the grid size from the env object. On the card, both
+run a tile of ``CollectPlan.tile`` envs per block, each Dense layer a small
 matrix product in shared memory (register micro-tiles of 4 envs x 4
-outputs), then the env step a thread per env; K6 is a thread per env
-throughout. The forward's FLOPs bound both (see the source).
+outputs), then the env step a thread per env; K6 first steps the cell on the
+tile, 4 envs x one hidden unit (all its gates) per work item. The forward's
+FLOPs bound both (see the source). :func:`fused_collect_rnn_tiled` is K6's
+arithmetic in its order, a plain reference.
 
 :func:`collect_plan_for` is the gate. The recurrent plan takes a leading
 LSTM/GRU cell followed by a Dense stack, or a dueling net whose base is
 exactly that cell; unlike the JAX plan it also budgets the cell and the head
-together against this card's shared memory and the kernel's per-thread
-arrays (``MAX_WIDTH`` floats). K4's env tile is the largest of ``K4_TILES``
-whose shared memory (:func:`k4_smem_bytes`) fits the card's per-block
-limit; every net within the gate has one.
+together against this card's shared memory. K4's env tile is the largest of
+``K4_TILES`` whose shared memory (:func:`k4_smem_bytes`) fits the card's
+per-block limit, K6's the largest of ``K6_TILES`` (:func:`k6_smem_bytes`);
+every net within the gate has one.
 """
 from __future__ import annotations
 
@@ -42,14 +44,18 @@ from ...models.dueling import DuelingNetwork
 from . import build
 from .fused_drqn import CellPlan, cell_plan, cell_step
 from .fused_update import (
-    MAX_LAYERS, FusedPlan, MAX_SMEM, _chain_layers, dense_plans, plan_for,
-    q_values)
+    MAX_LAYERS, FusedPlan, MAX_SMEM, _apply_act, _by_tile, _chain_layers,
+    _tile_order_sum, dense_plans, plan_for, q_values)
 
 MAX_WIDTH = 128   # FC_MAXW of csrc/fused_collect.cu
 MAX_CELLS = 16    # FC_MAXCELLS
 THREADS = 256     # FC_THREADS
 N_UNIFORMS = 6
 K4_TILES = (128, 64, 32, 16, 8, 4)   # env tiles, FC_MAX_TE first
+# K6's env tiles: at most 32, so the DRQN loop's 16384 envs make 512 blocks,
+# several per SM (LSTM32 on an H100 at 700 W, by kernel_events' device
+# events: 0.0206 ms at 32 against 0.0224 at 64 and 0.0294 at 128)
+K6_TILES = (32, 16, 8, 4)
 # shared memory a block may use on sm_90 (232448 bytes, opt-in), less 1 KB
 # for fc_kernel's static shared memory
 K4_MAX_SMEM = 232448 - 1024
@@ -62,7 +68,7 @@ class CollectPlan:
     no: int   # flat obs dim
     W: int    # env state width
     nf: int   # replay field columns: 2*no + 4 (a, r, done, ended)
-    tile: int = 0  # K4's envs per block (feed-forward plans)
+    tile: int  # envs per block of K4 or K6
 
     @property
     def state_width(self) -> int:
@@ -93,6 +99,28 @@ def k4_tile(net: FusedPlan) -> Optional[int]:
     """K4's env tile for this head: the largest of ``K4_TILES`` that fits."""
     for te in K4_TILES:
         if k4_smem_bytes(net, te) <= K4_MAX_SMEM:
+            return te
+    return None
+
+
+def k6_smem_bytes(net: FusedPlan, cell: CellPlan, tile: int) -> int:
+    """Shared memory of one K6 block (``fc_rnn_layout``): the head's params
+    as K4 packs them, the cell's ``[wi; wh]`` and bias (each padded to 4
+    floats), the tile's obs and h rows, c rows (LSTM) and h' rows at a
+    stride of ``tile + 4``, the head's two buffers, the value output, the
+    end flags and the block's accumulator sums."""
+    H, g = cell.hidden, cell.n_gates * cell.hidden
+    rows = cell.in_dim + H + (H if cell.kind == "lstm" else 0) + H
+    pad = lambda n: -(-n // 4) * 4
+    return 4 * (k4_smem_params(net) + pad((cell.in_dim + H) * g) + pad(g)
+                + rows * (tile + 4) + 2 * net.desc().maxw * tile + 2 * tile
+                + 3 * THREADS)
+
+
+def k6_tile(net: FusedPlan, cell: CellPlan) -> Optional[int]:
+    """K6's env tile: the largest of ``K6_TILES`` that fits."""
+    for te in K6_TILES:
+        if k6_smem_bytes(net, cell, te) <= K4_MAX_SMEM:
             return te
     return None
 
@@ -162,13 +190,11 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
         return None
     cell_floats = 0
     if cell is not None:
-        if cell.hidden > MAX_WIDTH:
-            return None
         g = cell.n_gates * cell.hidden
         cell_floats = g * (cell.in_dim + cell.hidden + 1)
     if 4 * (net.desc().n_params + cell_floats + 3 * THREADS) > MAX_SMEM:
         return None
-    tile = k4_tile(net) if cell is None else 0
+    tile = k4_tile(net) if cell is None else k6_tile(net, cell)
     if tile is None:
         return None
     if buffer is not None and getattr(buffer, "obs_dtype", None) != \
@@ -178,19 +204,14 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
                        nf=2 * no + 4, tile=tile)
 
 
-def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
-                        ep_step, ep_ret, u, eps: float,
-                        max_episode_length: int, nstate=None):
-    """Plain PyTorch version; same contract as :func:`fused_collect`."""
+def _collect_rest(env, plan: CollectPlan, q, nstate, *, obs, state,
+                  ep_step, ep_ret, u, eps: float, max_episode_length: int,
+                  tile=None):
+    """Everything after Q(s): epsilon-greedy, the env step and its
+    bookkeeping, and (``nstate`` given) the new state rows zeroed where the
+    episode ended; with ``tile``, the totals summed per tile of envs and
+    then in tile order."""
     A = plan.net.num_actions
-    x = obs.reshape(obs.shape[0], -1)
-    if plan.cell is not None:
-        H = plan.cell.hidden
-        h, c = cell_step(plan.cell, params, x, nstate[:, :H],
-                         nstate[:, H:] if plan.cell.kind == "lstm" else None)
-        nstate = h if c is None else torch.cat([h, c], dim=1)
-        x = h
-    q, _, _ = q_values(plan.net, params, x)
     greedy = torch.argmax(q, dim=1).float()
     rand_a = torch.floor(u[1] * float(A))
     action = torch.where(u[0] < eps, rand_a, greedy)
@@ -202,15 +223,94 @@ def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
     end = ended[:, None] > 0.5
     fields = torch.cat([obs.reshape(obs.shape[0], -1), nobs, action[:, None],
                         rew[:, None], done[:, None], ended[:, None]], dim=1)
-    totals = torch.stack([(ret1 * ended).sum(), (ep1 * ended).sum(),
-                          ended.sum()])
+    terms = torch.stack([ret1 * ended, ep1 * ended, ended], dim=1)
+    totals = (terms.sum(dim=0) if tile is None
+              else _tile_order_sum(_by_tile(terms, tile).sum(dim=1)))
     out = (fields, torch.where(end, r_obs, nobs),
            torch.where(end, r_state, new_state),
            torch.where(ended > 0.5, 0.0, ep1).to(torch.int32),
            torch.where(ended > 0.5, 0.0, ret1), totals)
-    if plan.cell is not None:
+    if nstate is not None:
         out += (torch.where(end, 0.0, nstate),)
     return out
+
+
+def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
+                        ep_step, ep_ret, u, eps: float,
+                        max_episode_length: int, nstate=None):
+    """Plain PyTorch version; same contract as :func:`fused_collect`."""
+    x = obs.reshape(obs.shape[0], -1)
+    if plan.cell is not None:
+        H = plan.cell.hidden
+        h, c = cell_step(plan.cell, params, x, nstate[:, :H],
+                         nstate[:, H:] if plan.cell.kind == "lstm" else None)
+        nstate = h if c is None else torch.cat([h, c], dim=1)
+        x = h
+    q, _, _ = q_values(plan.net, params, x)
+    return _collect_rest(env, plan, q, nstate, obs=obs, state=state,
+                         ep_step=ep_step, ep_ret=ep_ret, u=u, eps=eps,
+                         max_episode_length=max_episode_length)
+
+
+def _ordered_matmul(x, w):
+    """``x [N, din] @ w [din, dout]``, each sum over ``din`` in ascending
+    order (K6's order)."""
+    acc = x.new_zeros(x.shape[0], w.shape[1])
+    for i in range(w.shape[0]):
+        acc = acc + x[:, i:i + 1] * w[i]
+    return acc
+
+
+def fused_collect_rnn_tiled(env, plan: CollectPlan, params, *, obs, state,
+                            ep_step, ep_ret, u, eps: float,
+                            max_episode_length: int, nstate):
+    """Plain reference of K6 in its order: each gate sum over the rows x
+    then h in ascending order (the GRU's n gate as x . W_in and h . W_hn
+    apart), the cell, the head's sums likewise, the dueling mean summed
+    over the actions in order, and the totals per tile of ``plan.tile``
+    envs then in tile order. Same contract as the recurrent
+    :func:`fused_collect`; the twin's matmuls round in other orders."""
+    cp, hp = plan.cell, plan.net
+    H, x = cp.hidden, obs.reshape(obs.shape[0], -1)
+    wi, wh, b = (params[n] for n in cp.names)
+    h = nstate[:, :H]
+    xh, w = torch.cat([x, h], dim=1), torch.cat([wi, wh], dim=0)
+    sig = torch.sigmoid
+    if cp.kind == "lstm":
+        a = _ordered_matmul(xh, w)
+        i, f, g, o = (a[:, k * H:(k + 1) * H] + b[k * H:(k + 1) * H]
+                      for k in range(4))
+        c = sig(f) * nstate[:, H:] + sig(i) * torch.tanh(g)
+        h = sig(o) * torch.tanh(c)
+        new = torch.cat([h, c], dim=1)
+    else:
+        a = _ordered_matmul(xh, w[:, :2 * H])
+        xn = _ordered_matmul(x, wi[:, 2 * H:])
+        hn = _ordered_matmul(h, wh[:, 2 * H:])
+        r = sig(a[:, :H] + b[:H])
+        z = sig(a[:, H:] + b[H:2 * H])
+        n = torch.tanh(xn + r * hn + b[2 * H:])
+        h = (1.0 - z) * n + z * h
+        new = h
+
+    def chain(layers, y):
+        for lp in layers:
+            y = _apply_act(_ordered_matmul(y, params[lp.w_name])
+                           + params[lp.b_name], lp.act)
+        return y
+
+    adv = chain(hp.adv, h)
+    if hp.dueling:
+        mean = adv.new_zeros(adv.shape[0])
+        for k in range(hp.num_actions):
+            mean = mean + adv[:, k]
+        q = chain(hp.val, h) + adv - (mean * (1.0 / hp.num_actions))[:, None]
+    else:
+        q = adv
+    return _collect_rest(env, plan, q, new, obs=obs, state=state,
+                         ep_step=ep_step, ep_ret=ep_ret, u=u, eps=eps,
+                         max_episode_length=max_episode_length,
+                         tile=plan.tile)
 
 
 def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
@@ -259,7 +359,7 @@ fused_collect_cuda.launches = 0
 def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
                            ep_step, ep_ret, u, eps: float,
                            max_episode_length: int, nstate):
-    """Launch K6 on the current stream."""
+    """Launch K6 (``ceil(E / plan.tile)`` blocks) on the current stream."""
     E = obs.shape[0]
     obs = obs.reshape(E, -1).float().contiguous()
     state = state.float().contiguous()
@@ -287,7 +387,7 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
     ep_step_out = torch.empty_like(ep_step)
     ep_ret_out = torch.empty_like(ep_ret)
     nstate_out = torch.empty_like(nstate)
-    nblk = -(-E // THREADS)
+    nblk = -(-E // plan.tile)
     partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
     cells = [c for cell in env.reward_cells for c in cell]
     err = build.library().dq_fused_collect_rnn(
@@ -298,7 +398,7 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
         len(env.reward_cells), env.tprob, float(env.size[0]),
         float(env.size[1]), obs.data_ptr(), state.data_ptr(),
         ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(),
-        nstate.data_ptr(), E, float(eps), int(max_episode_length),
+        nstate.data_ptr(), E, plan.tile, float(eps), int(max_episode_length),
         fields.data_ptr(), obs_out.data_ptr(), state_out.data_ptr(),
         ep_step_out.data_ptr(), ep_ret_out.data_ptr(), nstate_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))

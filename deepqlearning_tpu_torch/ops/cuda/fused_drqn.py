@@ -56,7 +56,7 @@ import torch
 
 from ...models.chain import GRU, LSTM, Chain, Flatten, gru_cell, lstm_cell
 from ...models.dueling import DuelingNetwork
-from ...ops.helpers import flatten, huber_loss, unflatten
+from ...ops.helpers import flatten, huber_loss, select_action, unflatten
 from . import build
 from .fused_update import (
     _ACTS, MAX_ACTIONS, MAX_SMEM, FusedPlan, LayerPlan, _apply_act,
@@ -315,7 +315,6 @@ def _drqn_grads(plan: DRQNPlan, params, obs, nobs, action, reward, done,
     loss ``huber_sum · inv`` (``inv`` 1/(B·T) by default); returns them with
     the windows' Huber sum."""
     B, T = action.shape
-    A = plan.head.num_actions
     inv = 1.0 / (B * T) if inv is None else inv
     tm = lambda x: x.transpose(0, 1)
     with torch.no_grad():
@@ -329,10 +328,7 @@ def _drqn_grads(plan: DRQNPlan, params, obs, nobs, action, reward, done,
     p = {k: params[k].detach().requires_grad_() for k in plan.names}
     with torch.enable_grad():
         q = _unroll(plan, p, tm(obs))
-        # an action outside [0, A) selects nothing, as the one-hot select
-        # of the TPU kernel does
-        sel = torch.arange(A, device=q.device) == tm(action)[..., None]
-        q_sa = torch.where(sel, q, 0.0).sum(dim=-1)
+        q_sa = select_action(q, tm(action))
         hsum = huber_loss(tm(mask) * (q_sa - target)).sum()
         grads = torch.autograd.grad(hsum * inv, [p[k] for k in plan.names])
     return dict(zip(plan.names, grads)), hsum.detach()

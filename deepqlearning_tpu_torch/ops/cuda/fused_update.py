@@ -51,7 +51,7 @@ import torch.nn.functional as F
 
 from ...models.chain import Chain, Dense, Flatten
 from ...models.dueling import DuelingNetwork
-from ..helpers import flatten, unflatten
+from ..helpers import action_mask, flatten, select_action, unflatten
 from . import build
 
 MAX_WIDTH = 256
@@ -264,7 +264,7 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
     else:
         q_sp_max = q_sp_tgt.max(dim=1).values
     target = reward + (1.0 - done) * gamma * q_sp_max
-    q_sa = torch.gather(q_s, 1, action[:, None])[:, 0]
+    q_sa = select_action(q_s, action)
     td = q_sa - target
     xw = weights * td
     absx = xw.abs()
@@ -277,7 +277,7 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
     prio = (td.abs() + eps) ** alpha
 
     g_sa = weights * xw.clamp(-1.0, 1.0) * (1.0 / B)
-    g_q = torch.zeros_like(q_s).scatter_(1, action[:, None], g_sa[:, None])
+    g_q = torch.where(action_mask(q_s, action), g_sa[:, None], 0.0)
     grads: Dict[str, torch.Tensor] = {}
 
     def bwd(layers, hs, dh):

@@ -32,18 +32,8 @@ STEPS = ("input copy", "forward 0", "forward 1", "forward 2", "Q", "TD",
 
 
 def _ptxas(kernels=("fu_group_kernel", "fc_kernel")) -> None:
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-           str(build.BUILD_DIR / "ptxas_probe.so"),
-           *[str(s) for s in build.sources() if s.suffix == ".cu"]]
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    lines = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and any(k in line for k in kernels):
-            name = next(k for k in kernels if k in line)
-            print(f"ptxas {name}: " + " | ".join(
-                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                if "Function properties" not in x))
+    for name, line in build.ptxas_report(kernels).items():
+        print(f"ptxas {name}: {line}")
 
 
 def _case(dev, dueling, double_q):

@@ -1,0 +1,137 @@
+"""The small kernels' times on one CUDA GPU, by their device events.
+
+    python3 -m deepqlearning_tpu_torch.ops.cuda.kernel_events [--calls N]
+
+A wrapper timed with CUDA events around back-to-back calls measures the
+kernel only when the device is slower than the host's enqueue of the next
+call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``) and K6
+(``fc_rnn_kernel``) are short, so this times each by the device's own
+events under ``torch.profiler`` (the kernel's launches alone, matched by
+name) beside the CUDA-event time of its wrapper, at the main paths'
+shapes: K1 at B = 512 and at the ungrouped loop's B = 32 (A = 4), K2 on
+2^20 leaves with 16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32),
+Dense(32, 4))``. Prints the card's name and power limit, then one JSON line.
+
+It uses only the wrappers' call signatures of the parent commits, so the
+file can be copied into another checkout of the port (the same path) to
+time that checkout's kernels the same way, in the same call.
+"""
+import argparse
+import json
+import subprocess
+import sys
+
+
+def device_event_ms(torch, fn, symbol, calls=50):
+    """``(device ms per launch, launches per call)`` of the kernel named
+    ``symbol`` over ``calls`` calls of ``fn`` under ``torch.profiler``;
+    only the device's events of that name count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.events():
+        name = e.name.split("(")[0].split(" ")[-1]
+        if e.device_type == DeviceType.CUDA and name == symbol:
+            us += e.time_range.elapsed_us()
+            n += 1
+    if n == 0:
+        raise RuntimeError(f"the profiler saw no launch of {symbol}")
+    return 1e-3 * us / n, n / calls
+
+
+def wrapper_ms(torch, fn, calls=200):
+    """Mean time of ``fn`` by CUDA events around ``calls`` back-to-back
+    calls, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def cases(torch, dev):
+    """``{name: (kernel symbol, call)}`` at the main paths' shapes, inputs
+    from fixed seeds."""
+    from deepqlearning_tpu_torch import LSTM, Chain, Dense
+    from deepqlearning_tpu_torch.envs.gridworld import SimpleGridWorld
+    from deepqlearning_tpu_torch.ops import sumtree
+    from deepqlearning_tpu_torch.ops.cuda import (
+        fused_collect as fc, td_kernel as tk, tree_sample as ts)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    uni = lambda *s: torch.rand(*s, generator=g, device=dev)
+    out = {}
+    for B in (512, 32):
+        args = (rnd(B, 4), rnd(B, 4), rnd(B, 4),
+                torch.randint(0, 4, (B,), generator=g, device=dev), rnd(B),
+                (uni(B) < 0.1).float(), uni(B) + 0.5, 0.95, 0.6, 1e-3, True)
+        out[f"K1 td_loss B={B}"] = (
+            "td_loss_kernel", lambda args=args: tk.td_loss_cuda(*args))
+    tree = sumtree.init_tree(1 << 20, dev)
+    sumtree.set_priorities_slice(tree, 0, uni(1 << 20) + 0.01)
+    mass = sumtree.stratified_mass(tree, uni(16384))
+    out["K2 tree_sample 2^20/16384"] = (
+        "tree_sample_kernel", lambda: ts.tree_sample_cuda(tree, mass))
+    env, E = SimpleGridWorld(), 16384
+    net = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
+    plan = fc.collect_plan_for(env, net, None)
+    params = net.init(g)
+    st, obs = env.reset_batch(E, torch.Generator(device=dev).manual_seed(2))
+    ins = dict(obs=obs, state=st,
+               ep_step=torch.randint(0, 100, (E,), generator=g, device=dev,
+                                     dtype=torch.int32),
+               ep_ret=rnd(E), u=uni(6, E), eps=0.3, max_episode_length=100,
+               nstate=rnd(E, plan.state_width) * 0.5)
+    out["K6 fused_collect (recurrent) LSTM32 E=16384"] = (
+        "fc_rnn_kernel",
+        lambda: fc.fused_collect_rnn_cuda(env, plan, params, **ins))
+    return out
+
+
+def measure(torch, dev, calls=50):
+    """``{case: {device_ms, launches_per_call, wrapper_ms}}`` for every
+    case of :func:`cases`."""
+    res = {}
+    for name, (symbol, fn) in cases(torch, dev).items():
+        ms, per_call = device_event_ms(torch, fn, symbol, calls)
+        res[name] = dict(kernel=symbol, device_ms=ms,
+                         launches_per_call=per_call,
+                         wrapper_ms=wrapper_ms(torch, fn))
+    return res
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls", type=int, default=50)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_events: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    print(json.dumps(measure(torch, torch.device("cuda:0"), args.calls)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

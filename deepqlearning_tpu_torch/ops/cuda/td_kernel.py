@@ -16,22 +16,24 @@ from __future__ import annotations
 
 import torch
 
+from ..helpers import action_mask, select_action
 from . import build
 
 
 def td_loss_plain(q_s, q_sp_online, q_sp_target, action, reward, done,
                   weights, gamma: float, alpha: float, eps: float,
                   double_q: bool):
-    """Plain PyTorch version: ``(loss, td [B], prio [B], grad [B, A])``."""
-    B, A = q_s.shape
-    action = action.long()
+    """Plain PyTorch version: ``(loss, td [B], prio [B], grad [B, A])``.
+    An action outside ``[0, A)`` selects nothing (``ops/helpers.py::
+    action_mask``), as the kernel's range test does."""
+    B = q_s.shape[0]
     if double_q:
         best = torch.argmax(q_sp_online, dim=1)
         q_sp_max = torch.gather(q_sp_target, 1, best[:, None])[:, 0]
     else:
         q_sp_max = q_sp_target.max(dim=1).values
     target = reward + (1.0 - done) * gamma * q_sp_max
-    q_sa = torch.gather(q_s, 1, action[:, None])[:, 0]
+    q_sa = select_action(q_s, action)
     td = q_sa - target
     x = weights * td
     absx = x.abs()
@@ -39,8 +41,7 @@ def td_loss_plain(q_s, q_sp_online, q_sp_target, action, reward, done,
     loss = (0.5 * quad * quad + (absx - quad)).sum() * (1.0 / B)
     prio = (td.abs() + eps) ** alpha
     g = weights * x.clamp(-1.0, 1.0) * (1.0 / B)
-    grad = torch.zeros_like(q_s)
-    grad.scatter_(1, action[:, None], g[:, None])
+    grad = torch.where(action_mask(q_s, action), g[:, None], 0.0)
     return loss, td, prio, grad
 
 

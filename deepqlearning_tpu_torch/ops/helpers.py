@@ -18,6 +18,23 @@ def huber_loss(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * quadratic * quadratic + linear
 
 
+def action_mask(q: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """``[..., A]`` booleans, true at each row's taken action. An action
+    outside ``[0, A)`` is true nowhere: it selects nothing, so Q(s, a) is 0
+    and no gradient flows, on every route of the port (its kernels test
+    the same range). The JAX package's routes disagree there (its plain
+    ``take_along_axis`` wraps -1 and gives NaN at A; its fused DRQN kernel
+    reads a padded head row), so the port holds to this rule instead."""
+    return torch.arange(q.shape[-1], device=q.device) == action[..., None]
+
+
+def select_action(q: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """``Q(s, a)`` of each row of ``q [..., A]`` at ``action [...]``, 0
+    where the action lies outside ``[0, A)`` (:func:`action_mask`); exact
+    for actions in range."""
+    return torch.where(action_mask(q, action), q, 0.0).sum(dim=-1)
+
+
 def globalnorm(grads) -> torch.Tensor:
     """Max absolute entry over all gradient tensors (the reference's
     ``globalnorm`` is a max-abs, not a norm)."""

@@ -126,11 +126,7 @@ class PrioritizedReplayBuffer:
         if u is None:
             u = torch.rand(D, generator=generator, device=state.rows.device)
         mass = sumtree.stratified_mass(state.tree, u)
-        idx, prio = tree_sample(state.tree, mass)
-        if n_batches > 1:
-            um = lambda x: x.reshape(B, n_batches).t().reshape(-1)
-            idx, prio = um(idx), um(prio)
-        idx = idx.long()
+        idx, prio = tree_sample(state.tree, mass, n_batches)
         rows = state.rows[idx]
         oshape = (D,) + self.obs_shape
         batch = TransitionBatch(

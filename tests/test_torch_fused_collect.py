@@ -248,7 +248,8 @@ def test_k4_smem_bytes_follows_the_tile_layout():
     # 3 accumulators per thread
     assert fused_collect.k4_smem_bytes(plan.net, 128) == \
         4 * (9032 + 131 * 128 + 3 * 256) == 106272
-    # the recurrent plan keeps its thread per env: no tile
+    # the recurrent plan takes K6's tile (K6_TILES, its own layout)
     lstm = dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 4))
     rplan = fused_collect.collect_plan_for(dt.SimpleGridWorld(), lstm, None)
-    assert rplan is not None and rplan.tile == 0
+    assert rplan is not None and rplan.tile == 32 == fused_collect.k6_tile(
+        rplan.net, rplan.cell)

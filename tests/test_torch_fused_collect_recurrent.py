@@ -24,7 +24,10 @@ from deepqlearning_tpu.ops.pallas.fused_collect import (  # noqa: E402
 from deepqlearning_tpu_torch import convert  # noqa: E402
 from deepqlearning_tpu_torch.learner.actor import (  # noqa: E402
     init_actor, make_collect_step, make_fused_collect_step)
-from deepqlearning_tpu_torch.ops.cuda import fused_collect  # noqa: E402
+from deepqlearning_tpu_torch.ops.cuda import (  # noqa: E402
+    fused_collect, fused_drqn)
+from deepqlearning_tpu_torch.ops.cuda.fused_update import (  # noqa: E402
+    q_values)
 
 torch.set_num_threads(2)
 E, MAXLEN = 256, 50
@@ -108,6 +111,19 @@ def test_twin_matches_pallas_kernel_and_block(kind, eps):
     for jn in (jns, ref["nstate_new"]):
         np.testing.assert_allclose(ns_n, np.asarray(jn).T, rtol=1e-5,
                                    atol=1e-5)
+    # K6's tile-order reference against the same JAX outputs
+    tiled = fused_collect.fused_collect_rnn_tiled(
+        tenv, tplan, params, obs=torch.tensor(np.array(obs)),
+        state=convert.gridworld_state_from_numpy(st.pos, st.terminal),
+        ep_step=torch.tensor(ep_step).to(torch.int32),
+        ep_ret=torch.tensor(ep_ret), u=torch.tensor(np.array(u[:6])),
+        eps=eps, max_episode_length=MAXLEN, nstate=torch.tensor(ns0.T.copy()))
+    np.testing.assert_allclose(tiled[0].numpy(), np.asarray(jf).T,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tiled[5].numpy(), np.asarray(jtot), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tiled[6].numpy(), np.asarray(jns).T,
+                               rtol=1e-5, atol=1e-5)
     # the state is zeroed exactly where the episode ended, and only there
     ended = fields[:, 7] > 0.5
     assert ended.any() and (ns_n[ended] == 0).all()
@@ -146,7 +162,7 @@ def test_recurrent_collect_plan_gate():
         dt.Chain(dt.Dense(2, 8), dt.LSTM(8, 8), dt.Dense(8, 4)),  # pre-cell
         dt.Chain(dt.LSTM(2, 8), dt.LSTM(8, 8), dt.Dense(8, 4)),   # two cells
         dt.Chain(dt.LSTM(2, 8)),                                  # no head
-        dt.Chain(dt.LSTM(2, 200), dt.Dense(200, 4)),      # per-thread width
+        dt.Chain(dt.LSTM(2, 200), dt.Dense(200, 4)),      # shared memory
         dt.Chain(dt.LSTM(3, 8), dt.Dense(8, 4)),                  # obs width
         # the cell's and the head's parameters together overflow shared
         # memory (the JAX plan has no such budget)
@@ -189,3 +205,126 @@ def test_actor_carries_and_zeroes_the_state(fused):
         np.testing.assert_allclose(h[~ended].numpy(), cell[0][~ended].numpy(),
                                    rtol=1e-6, atol=1e-7)
     assert cc[1].t == 6 and int(cc[1].rec_count.sum()) > 0
+
+
+# ------------------------------------------- the tiled K6 (its plan and order)
+
+def _old_gate(net):
+    """The recurrent gate before K6 took tiles: the cell's hidden width
+    within the per-thread arrays (``MAX_WIDTH``) and the cell, the head and
+    the block's sums within ``MAX_SMEM``."""
+    rp = fused_collect._recurrent_plan(net)
+    if rp is None:
+        return False
+    head, cell = rp
+    if any(lp.dout > fused_collect.MAX_WIDTH for lp in head.layers) or \
+            cell.hidden > fused_collect.MAX_WIDTH:
+        return False
+    g = cell.n_gates * cell.hidden
+    return 4 * (head.desc().n_params + g * (cell.in_dim + cell.hidden + 1)
+                + 3 * fused_collect.THREADS) <= fused_collect.MAX_SMEM
+
+
+def _sweep():
+    """LSTM and GRU cells from 8 to ``MAX_WIDTH`` wide under a one-layer,
+    a two-layer, a 128-wide and a dueling head."""
+    for cell in (dt.LSTM, dt.GRU):
+        for H in (8, 16, 32, 48, 64, 96, 104, 110, 111, 120, 126, 127, 128):
+            yield dt.Chain(cell(2, H), dt.Dense(H, 4))
+            yield dt.Chain(cell(2, H), dt.Dense(H, 32, torch.tanh),
+                           dt.Dense(32, 4))
+            yield dt.Chain(cell(2, H), dt.Dense(H, 128, torch.relu),
+                           dt.Dense(128, 4))
+            yield dt.DuelingNetwork(
+                dt.Chain(cell(2, H)),
+                dt.Chain(dt.Dense(H, 32, torch.tanh), dt.Dense(32, 1)),
+                dt.Chain(dt.Dense(H, 32, torch.tanh), dt.Dense(32, 4)))
+
+
+def test_k6_tile_for_every_net_the_old_gate_took():
+    """No net that ran K6 before its tiles loses its plan: each gets the
+    largest tile of ``K6_TILES`` within the card's per-block shared memory,
+    and the gate takes no net the old one refused."""
+    env = dt.SimpleGridWorld()
+    taken, tiles = 0, set()
+    for net in _sweep():
+        plan = fused_collect.collect_plan_for(env, net, None)
+        assert (plan is not None) == _old_gate(net), net
+        if plan is None:
+            continue
+        taken += 1
+        te = plan.tile
+        tiles.add(te)
+        assert te == fused_collect.k6_tile(plan.net, plan.cell)
+        assert fused_collect.k6_smem_bytes(plan.net, plan.cell, te) <= \
+            fused_collect.K4_MAX_SMEM
+        if te < fused_collect.K6_TILES[0]:
+            bigger = fused_collect.K6_TILES[
+                fused_collect.K6_TILES.index(te) - 1]
+            assert fused_collect.k6_smem_bytes(
+                plan.net, plan.cell, bigger) > fused_collect.K4_MAX_SMEM
+    assert taken == 64 and tiles == {8, 16, 32}
+
+
+def test_k6_smem_bytes_follows_its_layout():
+    """LSTM(2, 32) + Dense(32, 4) at a tile of 32: the head's 132 floats,
+    the cell's 34 x 128 weights and 128 biases, 34 + 32 + 32 cell rows of
+    36 floats, two 32-wide head buffers, the value output, the end flags
+    and 3 sums per thread; 512 blocks at 16384 envs."""
+    env = dt.SimpleGridWorld()
+    plan = fused_collect.collect_plan_for(
+        env, dt.Chain(dt.LSTM(2, 32), dt.Dense(32, 4)), None)
+    assert plan.tile == 32 and -(-16384 // plan.tile) == 512
+    assert fused_collect.k6_smem_bytes(plan.net, plan.cell, 32) == 4 * (
+        132 + 34 * 128 + 128 + 98 * 36 + 2 * 32 * 32 + 2 * 32 + 3 * 256)
+    gru = fused_collect.collect_plan_for(
+        env, dt.Chain(dt.GRU(2, 30), dt.Dense(30, 4)), None)
+    # 3H = 90 gate columns: the weights and bias pad to 4 floats; no c rows
+    assert fused_collect.k6_smem_bytes(gru.net, gru.cell, 64) == 4 * (
+        124 + 2880 + 92 + 62 * 68 + 2 * 30 * 64 + 2 * 64 + 3 * 256)
+
+
+@pytest.mark.parametrize("kind,n_envs", [("lstm", 256), ("gru", 250),
+                                         ("dueling_lstm", 200)])
+def test_tile_order_reference_matches_twin(kind, n_envs):
+    """``fused_collect_rnn_tiled`` (K6's sum order; totals per tile of
+    ``plan.tile`` envs, the last one ragged for 250 and 200 envs) against
+    the twin at this file's tolerances; actions equal where the top two Q
+    values are not within 1e-5."""
+    env = dt.SimpleGridWorld()
+    _, net = _nets(kind)
+    plan = fused_collect.collect_plan_for(env, net, None)
+    params = net.init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    g = torch.Generator().manual_seed(5)
+    st, obs = env.reset_batch(n_envs, g)
+    st[:, 2] = torch.from_numpy((rng.random(n_envs) < 0.1)
+                                .astype(np.float32))
+    ins = dict(obs=obs, state=st,
+               ep_step=torch.from_numpy(rng.integers(0, MAXLEN, n_envs)
+                                        .astype(np.int32)),
+               ep_ret=torch.from_numpy(rng.normal(size=n_envs)
+                                       .astype(np.float32)),
+               u=torch.rand(6, n_envs, generator=g), eps=0.3,
+               max_episode_length=MAXLEN,
+               nstate=torch.from_numpy((rng.normal(size=(
+                   n_envs, plan.state_width)) * 0.5).astype(np.float32)))
+    ref = fused_collect.fused_collect_rnn_tiled(env, plan, params, **ins)
+    twin = fused_collect.fused_collect_plain(env, plan, params, **ins)
+    agree = ref[0][:, 4] == twin[0][:, 4]
+    if not bool(agree.all()):
+        H = plan.cell.hidden
+        ns = ins["nstate"][~agree]
+        h, _ = fused_drqn.cell_step(
+            plan.cell, params, obs[~agree], ns[:, :H],
+            ns[:, H:] if plan.cell.kind == "lstm" else None)
+        top2 = q_values(plan.net, params, h)[0].topk(2, dim=1).values
+        assert bool(((top2[:, 0] - top2[:, 1]) <= 1e-5).all())
+    for r, t, tol in zip(ref[:5], twin[:5], (1e-6,) * 5):
+        np.testing.assert_allclose(r[agree].numpy(), t[agree].numpy(),
+                                   rtol=tol, atol=tol)
+    np.testing.assert_allclose(ref[6][agree].numpy(), twin[6][agree].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    if bool(agree.all()):
+        np.testing.assert_allclose(ref[5].numpy(), twin[5].numpy(),
+                                   rtol=1e-5, atol=1e-5)
