@@ -19,8 +19,9 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    sub-update, against K3's/K5's update, bit for bit, and its twin; K2
    equal to its scan-order reference bit for bit, K2 and K6 two runs bit
    for bit; the double-Q checks allow for near ties of the s' argmax
-   and print how many they found); then K1, K2 and K6 timed by their
-   device events alone, beside their wrappers' CUDA-event times;
+   and print how many they found); then K1, K2, K6, K7 and K8 timed by
+   their device events alone, beside their wrappers' CUDA-event times, and
+   an empty kernel with K1's one block, K1's launch floor;
 4. slices: the small feed-forward loop and the small DRQN loop on the card
    against the same loops on the CPU (plain twins) with injected uniforms
    and draws;
@@ -37,21 +38,30 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 10. two ranks: a small data-parallel slice in two gloo ranks on the one
     card (NCCL refuses two ranks on one device) against the same two-rank
     program on CPU tensors;
-11. headline profile: the headline loop once more, near the end, with the
+11. solve: ``DeepQLearningSolver.solve`` with ``device=None`` (the card):
+    (a) SimpleGridWorld with the headline's dueling net at U = 1 (4096
+    envs, batch 512, 2^18 PER, 100 iterations, eval, log and save in a
+    temporary logdir; K1, K2 and K4 at least once per iteration, K3
+    never), then ``restore_best_model`` and ``resume=True`` for 5 more
+    iterations, which continue the saved counters; (b) the DRQN solve
+    (LSTM(2, 32), dueling, 1024 envs, U = 1; K5 and K6 at least once per
+    iteration); (c) ``tests/test_learning.py::test_prioritized_ddqn``'s
+    configuration on TestMDP, greedy return >= 1.5;
+12. headline profile: the headline loop once more, near the end, with the
     host's enqueue per iteration and, under ``torch.profiler``, the device
     busy share and the kernel launches and device time per iteration (K3
     exactly once: one cooperative launch per grouped call);
-12. DRQN profile: the DRQN loop the same way, last (K5 exactly once per
+13. DRQN profile: the DRQN loop the same way, last (K5 exactly once per
     iteration: one cooperative launch per grouped call of U = 4).
 
-Each of the paths 5 to 9, 11 and 12 runs with the launch counters (and
-``pmean_flat.calls``) zeroed just before it and read just after: every
-kernel of the path must have launched there, K3 / K5 not on the
-data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
+Each of the paths 5 to 9 and each part of 11 to 13 runs with the launch
+counters (and ``pmean_flat.calls``) zeroed just before it and read just
+after: every kernel of the path must have launched there, K3 / K5 not on
+the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 2-3 minutes on an H100, the kernels' build included.
+result. About 3-4 minutes on an H100, the kernels' build included.
 """
 import json
 import os
@@ -725,14 +735,16 @@ def phase_recurrent_kernels(torch, dev, g, results):
 
 
 def phase_device_events(results):
-    """K1 (B = 512 and the ungrouped loop's B = 32), K2 and K6 timed by
-    their device events alone (``ops/cuda/kernel_events.py``: the kernel's
-    launches under ``torch.profiler``, matched by name) beside their
-    wrappers' CUDA-event times: for a kernel this short the wrapper's time
-    is the host's enqueue of the next call, not the kernel. The share is
-    the bound over the device time. It runs in a process of its own: after
-    a profiler session in this process, the profiles of phases 11 and 12
-    missed the first device events of their windows."""
+    """K1 (B = 512 and the ungrouped loop's B = 32), K2, K6, K7 and K8
+    timed by their device events alone (``ops/cuda/kernel_events.py``: the
+    kernel's launches under ``torch.profiler``, matched by name) beside
+    their wrappers' CUDA-event times: for a kernel this short the wrapper's
+    time is the host's enqueue of the next call, not the kernel. The share
+    is the bound over the device time. Beside K1 an empty kernel with K1's
+    one block gives the launch floor (``floor_ms``, ``floor_ms_b32`` in
+    K1's JSON entry). It runs in a process of its own: after a profiler
+    session in this process, the profiles of phases 12 and 13 missed the
+    first device events of their windows."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "deepqlearning_tpu_torch.ops.cuda.kernel_events"],
@@ -747,19 +759,38 @@ def phase_device_events(results):
     rows = {"K1 td_loss B=512": ("td_loss", "device_ms",
                                  results["td_loss"]["bound_ms"]),
             "K1 td_loss B=32": ("td_loss", "device_ms_b32", b32),
+            "K1 floor: empty kernel, K1's block B=512": (
+                "td_loss", "floor_ms", None),
+            "K1 floor: empty kernel, K1's block B=32": (
+                "td_loss", "floor_ms_b32", None),
             "K2 tree_sample 2^20/16384": (
                 "tree_sample", "device_ms",
                 results["tree_sample"]["bound_ms"]),
             "K6 fused_collect (recurrent) LSTM32 E=16384": (
                 "fused_collect_rnn", "device_ms",
-                results["fused_collect_rnn"]["bound_ms"])}
+                results["fused_collect_rnn"]["bound_ms"]),
+            "K7 fused_grads U=1 DP headline B=512": (
+                "fused_grads", "device_ms",
+                results["fused_grads"]["bound_ms"]),
+            "K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8": (
+                "fused_drqn_grads", "device_ms",
+                results["fused_drqn_grads"]["bound_ms"])}
+    _check(set(measured) == set(rows),
+           f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
         key, field, bound = rows[name]
         results[key][field] = r["device_ms"]
+        tail = ("the launch floor" if bound is None else
+                f"bound {bound:.6f} ms, share of the device time "
+                f"{bound / r['device_ms']:.4f}")
         _say(f"{name}: device events {r['device_ms']:.6f} ms per launch "
              f"({r['launches_per_call']:g} launch per call), wrapper by CUDA "
-             f"events {r['wrapper_ms']:.4f} ms, bound {bound:.6f} ms, share "
-             f"of the device time {bound / r['device_ms']:.4f}")
+             f"events {r['wrapper_ms']:.4f} ms, {tail}")
+    for sfx in ("", "_b32"):
+        k1, floor = (results["td_loss"][f"device_ms{sfx}"],
+                     results["td_loss"][f"floor_ms{sfx}"])
+        _say(f"K1 B={512 if not sfx else 32}: {k1:.6f} ms against the empty "
+             f"kernel's {floor:.6f} ms, {k1 / floor:.3f}x the launch floor")
 
 
 def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
@@ -1262,6 +1293,174 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
             *_profile_iterations(torch, it, c, profile_iters)[1:])
 
 
+def _train_state_counters(torch, logdir):
+    """``(iters, actor t)`` of the train state a solve saved in ``logdir``
+    (``solver/checkpoint.py``'s archive: NamedTuples by field name)."""
+    from deepqlearning_tpu_torch.solver import checkpoint
+
+    raw = torch.load(os.path.join(logdir, checkpoint.TRAIN_STATE_NAME),
+                     weights_only=True)["__fields__"]
+    return raw["iters"], raw["actor"]["__fields__"]["t"]
+
+
+def _solve_ff(torch, dev, logdir, n_iters, resume=False):
+    """``DeepQLearningSolver.solve`` on SimpleGridWorld with the headline's
+    dueling 2-64-64-4 net at U = 1 (num_envs = train_freq = 4096), PER,
+    double-Q, batch 512, a 2^18 replay, eval, log and save inside the run,
+    on the card (``device=None``). Returns ``(solver, policy, env-steps/s
+    over the whole solve)``."""
+    from deepqlearning_tpu_torch import (
+        Chain, DeepQLearningSolver, Dense, Flatten, SimpleGridWorld)
+
+    E = 4096
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(Flatten(), Dense(2, 64, torch.tanh),
+                       Dense(64, 64, torch.tanh), Dense(64, 4)),
+        num_envs=E, train_freq=E, batch_size=512, buffer_size=1 << 18,
+        max_steps=n_iters * E, train_start=4 * E, learning_rate=1e-4,
+        double_q=True, dueling=True, prioritized_replay=True,
+        max_episode_length=100, target_update_freq=8 * E,
+        eval_freq=25 * E, log_freq=25 * E, save_freq=50 * E,
+        num_ep_eval=100, logdir=logdir, verbose=True)
+    _check(solver.device is None, "the solve phase runs with device=None")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy = solver.solve(SimpleGridWorld(), resume=resume)
+    dt = time.perf_counter() - t0
+    _check(all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in policy.params.values()), "solve: params on the card")
+    _check(solver.metrics["t"] == [25 * E * k for k in
+                                   range(1, n_iters // 25 + 1)],
+           f"solve: log steps {solver.metrics['t']}")
+    _check(all(np.isfinite(v) for v in solver.metrics["loss"]),
+           "solve: loss finite")
+    return solver, policy, n_iters * E / dt
+
+
+def _solve_drqn(torch, logdir, n_iters):
+    """``solve`` with ``Chain(LSTM(2, 32), Dense(32, 4))``, dueling, episode
+    replay (batch 512, trace 8), num_envs = train_freq = 1024 (U = 1)."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, DeepQLearningSolver, Dense, SimpleGridWorld)
+
+    E = 1024
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(LSTM(2, 32), Dense(32, 4)), num_envs=E, train_freq=E,
+        batch_size=512, buffer_size=4096, trace_length=8,
+        max_episode_length=100, recurrence=True, dueling=True, double_q=True,
+        prioritized_replay=False, learning_rate=1e-3, max_steps=n_iters * E,
+        target_update_freq=8 * E, eval_freq=10 * E, log_freq=10 * E,
+        save_freq=10 * E, num_ep_eval=100, logdir=logdir, verbose=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy = solver.solve(SimpleGridWorld())
+    dt = time.perf_counter() - t0
+    _check(all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in policy.params.values()), "DRQN solve: params")
+    _check(len(solver.metrics["eval"]) == n_iters // 10,
+           "DRQN solve: evaluations")
+    av = policy.actionvalues(np.zeros(2, np.float32))
+    _check(av.shape == (4,) and np.isfinite(av).all(), "DRQN policy")
+    return solver, n_iters * E / dt
+
+
+def _solve_learning(torch):
+    """``tests/test_learning.py::test_prioritized_ddqn``'s configuration on
+    the card: TestMDP((5, 5), 4, 6), 10000 steps, greedy return of 100
+    episodes from a generator seeded 7, threshold 1.5 (optimum 2.1)."""
+    from deepqlearning_tpu_torch import (
+        Chain, DeepQLearningSolver, Dense, EpsGreedyPolicy, Flatten,
+        LinearDecaySchedule, TestMDP, basic_evaluation)
+
+    mdp = TestMDP((5, 5), 4, 6)
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(Flatten(), Dense(100, 8, torch.tanh),
+                       Dense(8, mdp.num_actions)),
+        max_steps=10000, learning_rate=0.005, eval_freq=2000,
+        num_ep_eval=100, log_freq=2000, logdir=None, verbose=False,
+        exploration_policy=EpsGreedyPolicy(
+            LinearDecaySchedule(1.0, 0.01, 5000)),
+        double_q=True, dueling=True, prioritized_replay=True)
+    t0 = time.perf_counter()
+    policy = solver.solve(mdp)
+    dt = time.perf_counter() - t0
+    r, steps, _ = basic_evaluation(policy.network, policy.params, mdp, 100,
+                                   100, 7)
+    _check(r >= 1.5, f"learning on the card: greedy return {r} < 1.5")
+    return r, steps, dt
+
+
+def phase_solve(torch, dev, card, run_path):
+    """``DeepQLearningSolver.solve``, the users' front door, on the card:
+    (a) the feed-forward solve, ``restore_best_model`` and a resumed solve
+    (K1, K2 and K4 launched at least once per iteration, K3 never: U = 1);
+    (b) the DRQN solve (K5 at U = 1 and K6 at least once per iteration);
+    (c) a learning threshold of the JAX package's tests."""
+    import tempfile
+
+    from deepqlearning_tpu_torch.solver import checkpoint
+
+    n = 100
+    with tempfile.TemporaryDirectory() as logdir:
+        (solver, policy, sps), ff = run_path(
+            "solve (feed-forward)", lambda: _solve_ff(torch, dev, logdir, n),
+            ("td_loss", "tree_sample", "fused_collect"),
+            ("fused_group_update",))
+        for k in ("td_loss", "tree_sample", "fused_collect"):
+            _check(ff[k] >= n, f"solve: {k} launched {ff[k]} < {n} times")
+        _check(_train_state_counters(torch, logdir) == (n, n * 4096),
+               "solve: saved train state")
+        for f in (checkpoint.CKPT_NAME, checkpoint.TRAIN_STATE_NAME):
+            _check(os.path.exists(os.path.join(logdir, f)), f"solve: {f}")
+        _check(any("tfevents" in f for f in os.listdir(logdir)),
+               "solve: no TensorBoard events")
+        env = policy.problem
+        restored = solver.restore_best_model(env)
+        _check(all(torch.equal(restored.params[k], policy.params[k])
+                   for k in policy.params), "restore_best_model differs")
+        _check(restored.action(np.asarray([1.0, 1.0], np.float32))
+               in env.action_map, "restored policy action")
+        evals = solver.metrics["eval"]
+        _say(f"solve (a) feed-forward: SimpleGridWorld, 4096 envs, U=1, "
+             f"batch 512, 2^18 PER, {n} iterations: {sps:.1f} env-steps/s "
+             f"over the whole solve (populate, {len(evals)} evaluations and "
+             f"saves included), eval returns {[round(r, 3) for _, r in evals]}"
+             f"; restore_best_model equals the returned policy | {card} | "
+             f"launches {ff}")
+        m = 5
+        (_, _, sps_r), rs = run_path(
+            "solve (resume)",
+            lambda: _solve_ff(torch, dev, logdir, m, resume=True),
+            ("td_loss", "tree_sample", "fused_collect"),
+            ("fused_group_update",))
+        for k in ("td_loss", "tree_sample", "fused_collect"):
+            _check(rs[k] >= m, f"resume: {k} launched {rs[k]} times")
+        _check(_train_state_counters(torch, logdir) == (n + m,
+                                                        (n + m) * 4096),
+               "resume did not continue the counters")
+        _say(f"solve (a) resume=True: {m} more iterations continue the "
+             f"saved counters (iters {n} -> {n + m}): {sps_r:.1f} env-steps/s "
+             f"| {card} | launches {rs}")
+    with tempfile.TemporaryDirectory() as logdir:
+        nd = 30
+        (solver, sps_d), rec = run_path(
+            "solve (DRQN)", lambda: _solve_drqn(torch, logdir, nd),
+            ("fused_drqn_group_update", "fused_collect_rnn"))
+        for k in ("fused_drqn_group_update", "fused_collect_rnn"):
+            _check(rec[k] >= nd, f"DRQN solve: {k} launched {rec[k]} times")
+        _say(f"solve (b) DRQN: LSTM(2,32), dueling, episode replay, 1024 "
+             f"envs, U=1, batch 512, trace 8, {nd} iterations: {sps_d:.1f} "
+             f"env-steps/s over the whole solve, eval returns "
+             f"{[round(r, 3) for _, r in solver.metrics['eval']]} | {card} | "
+             f"launches {rec}")
+    (r, steps, dt), lrn = run_path(
+        "solve (learning)", lambda: _solve_learning(torch),
+        ("td_loss", "tree_sample"))
+    _say(f"solve (c) learning: test_prioritized_ddqn's config on TestMDP, "
+         f"10000 steps in {dt:.2f} s: greedy return {r:.4f} (>= 1.5, "
+         f"optimum 2.1), {steps:.2f} steps | {card} | launches {lrn}")
+
+
 def _dp_loop(torch, dev, recurrent, n_iters):
     """The headline (or, ``recurrent``, the DRQN) configuration through
     ``DataParallelRunner`` over the one-rank NCCL mesh: the data-parallel
@@ -1520,7 +1719,10 @@ def main():
     # 10. two gloo ranks on the one card vs the same program on the CPU
     phase_two_ranks()
 
-    # 11. the headline loop again, profiled last (a profiler session can
+    # 11. solve, the users' entry point, each part with the counters from 0
+    phase_solve(torch, dev, card, run_path)
+
+    # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
     (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), head = run_path(
         "headline loop (profiled)",
@@ -1537,7 +1739,7 @@ def main():
          f"torch.profiler, 10 iterations); per iteration (launches, device "
          f"ms) by kernel {per_iter} | {card} | launches {head}")
 
-    # 12. the DRQN loop again, profiled, beside phase 11: one grouped call
+    # 13. the DRQN loop again, profiled, beside phase 12: one grouped call
     # of U sub-updates per iteration, so one K5 launch per iteration (the
     # replaced design launched 2·U)
     (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), rec = run_path(

@@ -1,8 +1,10 @@
 """deepqlearning_tpu_torch — the PyTorch + CUDA port of deepqlearning_tpu.
 
-The feed-forward, prioritized-replay, dueling double-DQN actor-learner loop
-and the recurrent (DRQN) loop over episode replay
-(``learner/loop.py::build_loop``) on NVIDIA Hopper GPUs, on one card or
+``DeepQLearningSolver.solve`` (the solver layer: policy, evaluation,
+checkpoints, problem adapters and the host-env path) over the feed-forward,
+prioritized-replay, dueling double-DQN actor-learner loop and the recurrent
+(DRQN) loop over episode replay (``learner/loop.py::build_loop``) on NVIDIA
+Hopper GPUs, on one card or
 data-parallel over ``torch.distributed`` ranks (``parallel/``), with the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels
 (``csrc/``, bound in ``ops/cuda/``). Module paths and public names mirror
@@ -10,9 +12,12 @@ package's Pallas kernels rewritten as hand-written CUDA kernels
 """
 
 from .config import DQNConfig
+from .envs.adapters import MDPEnv, POMDPEnv
 from .envs.base import Env
+from .envs.compat import HostEnv
 from .envs.gridworld import SimpleGridWorld
 from .envs.test_mdp import TestMDP
+from .envs.tiger import TigerPOMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .models.chain import (
     GRU, LSTM, Activation, Chain, Dense, Flatten, isrecurrent)
@@ -24,14 +29,25 @@ from .replay.episode import (
     EpisodeBatch, EpisodeDraws, EpisodeReplayBuffer, EpisodeReplayState)
 from .replay.prioritized import PrioritizedReplayBuffer, ReplayBuffer, ReplayState
 from .replay.transition import DQExperience, TransitionBatch
+from .solver.evaluation import basic_evaluation, evaluation
 from .solver.exploration import (
     ConstantEpsilon,
+    EpsGreedyPolicy,
     LinearDecaySchedule,
+    VectorizedStrategy,
     epsilon_greedy_select,
+    exploration,
+    linear_epsilon_greedy,
 )
+from .solver.policy import AbstractNNPolicy, NNPolicy, getnetwork, resetstate
+from .solver.solver import DeepQLearningSolver, restore_best_model, solve
 
 __all__ = [
-    "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "LoopCarry",
+    "DeepQLearningSolver", "solve", "restore_best_model", "AbstractNNPolicy",
+    "NNPolicy", "getnetwork", "resetstate", "EpsGreedyPolicy",
+    "VectorizedStrategy", "exploration", "linear_epsilon_greedy",
+    "basic_evaluation", "evaluation", "TigerPOMDP", "HostEnv", "MDPEnv",
+    "POMDPEnv", "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "LoopCarry",
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
     "init_carry", "populate", "Activation", "Chain", "Dense", "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",

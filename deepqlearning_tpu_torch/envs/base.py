@@ -8,7 +8,8 @@ passes in):
     env.reset_batch(num, generator)              -> (state, obs)
     env.step_batch(state, action, generator)     -> (state, obs, reward, done)
 
-``state`` is a tensor with a leading batch axis ``[E, ...]``, ``obs`` is
+``state`` is a tensor with a leading batch axis ``[E, ...]`` (or a tuple
+of such tensors, as the problem adapters' states are), ``obs`` is
 ``[E, *obs_shape]`` f32, ``action`` ``[E]`` int, ``reward``/``done`` ``[E]``
 f32.
 """
@@ -47,6 +48,8 @@ def auto_reset(env: Env, state, obs, done, truncate, generator):
     fresh_state, fresh_obs = env.reset_batch(done.shape[0], generator)
 
     def pick(a, b):
+        if isinstance(a, tuple):
+            return tuple(pick(x, y) for x, y in zip(a, b))
         return torch.where(ended.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
     return pick(fresh_state, state), pick(fresh_obs, obs), ended

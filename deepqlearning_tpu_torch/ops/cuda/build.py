@@ -165,6 +165,7 @@ def library() -> ctypes.CDLL:
     I64P = ctypes.POINTER(ctypes.c_int64)
     sig = {
         "dq_td_loss": [P, P, P, P, P, P, P, I, I, F, F, F, I, P, P, P, P, P],
+        "dq_empty": [I, P],
         "dq_tree_sample": [ctypes.POINTER(TreeLevels), P, I, I, P, P, P],
         "dq_fused_update": [NP, I64P, I64P, I64P, P, I, I, P, P, P, P, P, P,
                             P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P,

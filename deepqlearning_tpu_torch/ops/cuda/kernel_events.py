@@ -4,17 +4,24 @@
 
 A wrapper timed with CUDA events around back-to-back calls measures the
 kernel only when the device is slower than the host's enqueue of the next
-call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``) and K6
-(``fc_rnn_kernel``) are short, so this times each by the device's own
+call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``), K6
+(``fc_rnn_kernel``), K7 and K8 (the grads-emitting sub-updates of the
+data-parallel routes) are short, so this times each by the device's own
 events under ``torch.profiler`` (the kernel's launches alone, matched by
 name) beside the CUDA-event time of its wrapper, at the main paths'
 shapes: K1 at B = 512 and at the ungrouped loop's B = 32 (A = 4), K2 on
 2^20 leaves with 16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32),
-Dense(32, 4))``. Prints the card's name and power limit, then one JSON line.
+Dense(32, 4))``, K7 (``fu_group_kernel`` at U = 1) at the DP headline's
+B = 512 with the dueling 2-64-64-4 net and double-Q, K8
+(``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
+LSTM32 net and double-Q. Beside K1 it times an empty kernel with K1's
+one block (``td_kernel.cu::empty_kernel``): the launch floor under K1.
+Prints the card's name and power limit, then one JSON line.
 
-It uses only the wrappers' call signatures of the parent commits, so the
-file can be copied into another checkout of the port (the same path) to
-time that checkout's kernels the same way, in the same call.
+It uses only the wrappers' call signatures of the parent commits (and
+skips the empty kernel where a checkout lacks it), so the file can be
+copied into another checkout of the port (the same path) to time that
+checkout's kernels the same way, in the same call.
 """
 import argparse
 import json
@@ -66,11 +73,13 @@ def wrapper_ms(torch, fn, calls=200):
 def cases(torch, dev):
     """``{name: (kernel symbol, call)}`` at the main paths' shapes, inputs
     from fixed seeds."""
-    from deepqlearning_tpu_torch import LSTM, Chain, Dense
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, Dense, Flatten, create_dueling_network)
     from deepqlearning_tpu_torch.envs.gridworld import SimpleGridWorld
     from deepqlearning_tpu_torch.ops import sumtree
     from deepqlearning_tpu_torch.ops.cuda import (
-        fused_collect as fc, td_kernel as tk, tree_sample as ts)
+        fused_collect as fc, fused_drqn as fd, fused_update as fu,
+        td_kernel as tk, tree_sample as ts)
 
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -82,6 +91,9 @@ def cases(torch, dev):
                 (uni(B) < 0.1).float(), uni(B) + 0.5, 0.95, 0.6, 1e-3, True)
         out[f"K1 td_loss B={B}"] = (
             "td_loss_kernel", lambda args=args: tk.td_loss_cuda(*args))
+        if hasattr(tk, "empty_cuda"):
+            out[f"K1 floor: empty kernel, K1's block B={B}"] = (
+                "empty_kernel", lambda B=B: tk.empty_cuda(dev, B))
     tree = sumtree.init_tree(1 << 20, dev)
     sumtree.set_priorities_slice(tree, 0, uni(1 << 20) + 0.01)
     mass = sumtree.stratified_mass(tree, uni(16384))
@@ -100,6 +112,32 @@ def cases(torch, dev):
     out["K6 fused_collect (recurrent) LSTM32 E=16384"] = (
         "fc_rnn_kernel",
         lambda: fc.fused_collect_rnn_cuda(env, plan, params, **ins))
+    B = 512
+    net = create_dueling_network(Chain(
+        Flatten(), Dense(2, 64, torch.tanh, device=dev),
+        Dense(64, 64, torch.tanh, device=dev), Dense(64, 4, device=dev)))
+    k7_plan, k7_params = fu.plan_for(net), net.init(g)
+    k7_data = dict(obs_s=uni(B, 2) * 10, obs_sp=uni(B, 2) * 10,
+                   action=torch.randint(0, 4, (B,), generator=g, device=dev),
+                   reward=rnd(B), done=(uni(B) < 0.05).float(),
+                   weights=uni(B) + 0.5, q_sp_tgt=rnd(B, 4))
+    out["K7 fused_grads U=1 DP headline B=512"] = (
+        "fu_group_kernel", lambda: fu.fused_grads_cuda(
+            k7_plan, k7_params, **k7_data, gamma=0.95, double_q=True,
+            alpha=0.6, eps=1e-3))
+    T = 8
+    lstm = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
+    k8_plan, k8_params = fd.drqn_plan_for(lstm, T, B, True), lstm.init(g)
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev)
+    k8_data = dict(
+        obs=uni(B, T, 2) * 10, nobs=uni(B, T, 2) * 10,
+        action=torch.randint(0, 4, (B, T), generator=g, device=dev),
+        reward=rnd(B, T), done=(uni(B, T) < 0.1).float(),
+        mask=(torch.arange(T, device=dev)[None] < lens[:, None]).float(),
+        q_sp_tgt=rnd(B, T, 4))
+    out["K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8"] = (
+        "dr_group_kernel", lambda: fd.fused_drqn_grads_cuda(
+            k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
     return out
 
 

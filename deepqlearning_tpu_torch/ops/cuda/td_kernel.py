@@ -81,6 +81,21 @@ def td_loss_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
 td_loss_cuda.launches = 0
 
 
+def empty_cuda(device, B: int) -> None:
+    """Launch the empty kernel with K1's block for ``B`` rows (and its
+    shared memory) on ``device``'s current stream: the launch floor under
+    K1, for timing only."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel runs on CUDA, not {device}")
+    err = build.library().dq_empty(B, build.stream_ptr(device))
+    build.check(err, "empty")
+    empty_cuda.launches += 1
+
+
+empty_cuda.launches = 0
+
+
 class _TDLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_s, q_sp_online, q_sp_target, action, reward, done,

@@ -3,8 +3,9 @@
 A subprocess blocks ``jax`` and ``deepqlearning_tpu`` (an import of either
 raises), imports every module of ``deepqlearning_tpu_torch`` and runs one
 CPU loop iteration through each route (kernel twins and plain paths), for
-the feed-forward and the recurrent (DRQN) loop, and one data-parallel
-iteration of each through ``DataParallelRunner`` in a one-rank gloo world.
+the feed-forward and the recurrent (DRQN) loop, one data-parallel
+iteration of each through ``DataParallelRunner`` in a one-rank gloo world,
+and a tiny ``DeepQLearningSolver.solve``.
 """
 import os
 import subprocess
@@ -81,6 +82,13 @@ SCRIPT = textwrap.dedent("""
         c = runner.run_segment(runner.run_populate(runner.init_carry(0), 8), 1)
         assert torch.isfinite(c.loss) and int(c.opt_state.count) == 2
     dist.destroy_process_group()
+    # the solver's front door: a tiny solve through build_loop
+    pol = DeepQLearningSolver(
+        qnetwork=Chain(Dense(2, 8), Dense(8, 4)), max_steps=64, num_envs=8,
+        train_freq=8, buffer_size=64, train_start=16, batch_size=4,
+        eval_freq=32, num_ep_eval=4, logdir=None, verbose=False,
+        device="cpu").solve(SimpleGridWorld())
+    assert pol.action(torch.zeros(2)) in SimpleGridWorld().action_map
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
     assert not bad, bad
