@@ -19,9 +19,12 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    sub-update, against K3's/K5's update, bit for bit, and its twin; K2
    equal to its scan-order reference bit for bit, K2 and K6 two runs bit
    for bit; the double-Q checks allow for near ties of the s' argmax
-   and print how many they found); then K1, K2, K6, K7 and K8 timed by
-   their device events alone, beside their wrappers' CUDA-event times, and
-   an empty kernel with K1's one block, K1's launch floor;
+   and print how many they found; K1 at B = 1 to 10000, A = 4 and 5,
+   int64 and int32 actions, out-of-range actions, contiguous and strided
+   inputs, two runs bit for bit); then K1 (B = 32, 512, 4096), K2, K6, K7
+   and K8 timed by their device events alone, beside their wrappers'
+   CUDA-event times, and an empty kernel launched as K1 is, K1's launch
+   floor;
 4. slices: the small feed-forward loop and the small DRQN loop on the card
    against the same loops on the CPU (plain twins) with injected uniforms
    and draws;
@@ -29,6 +32,10 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    batch 512, train_freq 4096) through ``build_loop``, env-steps/s and
    ms/iteration;
 6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
+   then the grouped plain loop: 2048 envs, U = 4, batch 512, 2^15 PER and
+   the 512-wide dueling net of ``examples/image_conv_dqn.py``, which the
+   K3 and K4 plans refuse (K1 exactly U times per iteration, K2, the plain
+   collect step; K3, K4 and K7 never);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s;
 8. DP headline loop: the headline configuration through
@@ -51,18 +58,24 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     host's enqueue per iteration and, under ``torch.profiler``, the device
     busy share and the kernel launches and device time per iteration (K3
     exactly once: one cooperative launch per grouped call);
-13. DRQN profile: the DRQN loop the same way, last (K5 exactly once per
-    iteration: one cooperative launch per grouped call of U = 4).
+13. DRQN profile: the DRQN loop the same way (K5 exactly once per
+    iteration: one cooperative launch per grouped call of U = 4);
+14. U = 1 profile: ``solve``'s iteration at U = 1 (phase 11 (a)'s
+    configuration, as ``ops/cuda/loop_profile.py::u1_loop`` also builds
+    it) the same way (K1, K2 and K4 exactly once per iteration);
+15. grouped plain profile: phase 6's grouped plain loop the same way, last
+    (K1 exactly U = 4 times and K2 once per iteration).
 
-Each of the paths 5 to 9 and each part of 11 to 13 runs with the launch
+Each of the paths 5 to 9 and each part of 11 to 15 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
 the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 3-4 minutes on an H100, the kernels' build included.
+result. About 3 minutes on an H100, the kernels' build included.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -321,6 +334,85 @@ def phase_default_device(torch):
          f"device argument hold {len(got)} tensors, all on cuda")
 
 
+def _k1_layouts(torch, data):
+    """K1's inputs as given (contiguous), and laid out as the replay hands
+    them over: reward, done and weights as columns of one matrix (strided,
+    as the replay's reward and done are) and the Q matrices one float past
+    a 16-byte boundary (the kernel's scalar path even at A % 4 == 0); the
+    caller strides the actions once it has cast them."""
+    q3, (a, r, d, w) = data[:3], data[3:]
+
+    def shifted(q):
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+        out = flat[1:].view(q.shape)
+        out.copy_(q)
+        return out
+
+    cols = torch.stack([r, d, w], dim=1)
+    return {"contiguous": data,
+            "strided": (*(shifted(q) for q in q3), a, cols[:, 0],
+                        cols[:, 1], cols[:, 2])}
+
+
+def _k1_check(torch, dev, tk, g, results):
+    """K1 against its twin at B in {1, 32, 33, 512, 4096, 10000} (one row,
+    the ungrouped loop's batch, a ragged warp, the main paths' batch, a
+    cluster of 8 blocks, and a cluster whose threads loop over chunks of
+    rows with a ragged tail), A in {4, 5} (float4 rows, and the scalar path
+    that also takes A = 4 when misaligned), double-Q and max, int64 and
+    int32 actions, actions -1 and A in some rows (they select nothing), and
+    contiguous or strided inputs (``_k1_layouts``): every instantiation of
+    the kernel.
+    loss rtol 1e-5; td/prio/grad atol 1e-6 (the same f32 elementwise math;
+    only the loss sum's order differs). Two runs equal bit for bit on all
+    four outputs. Times and bound at B = 512, A = 4."""
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    uni = lambda *s: torch.rand(*s, generator=g, device=dev)
+    err, n = 0.0, 0
+    for B in (1, 32, 33, 512, 4096, 10000):
+        for A in (4, 5):
+            action = torch.randint(0, A, (B,), generator=g, device=dev)
+            action[1::5], action[3::5] = -1, A
+            data = (rnd(B, A), rnd(B, A), rnd(B, A), action, rnd(B),
+                    (uni(B) < 0.1).float(), uni(B) + 0.5)
+            for act, (layout, lin) in itertools.product(
+                    (torch.int64, torch.int32),
+                    _k1_layouts(torch, data).items()):
+                args = lin[:3] + (lin[3].to(act),) + lin[4:]
+                if layout == "strided":
+                    args = args[:3] + (torch.stack([args[3]] * 2, 1)[:, 1],
+                                       *args[4:])
+                for dq in (True, False):
+                    ko = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, dq)
+                    again = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, dq)
+                    po = tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, dq)
+                    what = f"K1 B={B} A={A} {act} {layout} double_q={dq}"
+                    _check(all(torch.equal(a, b) for a, b in zip(ko, again)),
+                           f"{what}: two runs differ")
+                    err = max(err, _close(ko[0], po[0], 1e-5, 1e-6,
+                                          f"{what} loss"))
+                    for k, p, name in zip(ko[1:], po[1:],
+                                          ("td", "prio", "grad")):
+                        err = max(err, _close(k, p, 1e-5, 1e-6,
+                                              f"{what} {name}"))
+                    n += 1
+    B, A = 512, 4
+    args = (rnd(B, A), rnd(B, A), rnd(B, A),
+            torch.randint(0, A, (B,), generator=g, device=dev),
+            rnd(B), (uni(B) < 0.1).float(), uni(B) + 0.5)
+    ko = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, True)
+    ms = _time_ms(lambda: tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, True), 200)
+    pms = _time_ms(lambda: tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, True), 200)
+    bms, by = _bound(_nbytes(args, ko), 12 * B * A)
+    results["td_loss"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                              bound_ms=bms, bound_by=by)
+    _say(f"K1 td_loss: ok in {n} cases (B 1/32/33/512/4096/10000, A 4/5, "
+         f"int64 and int32 actions with -1 and A in some rows, contiguous "
+         f"and strided inputs, double-Q and max), two runs equal bit for "
+         f"bit, max_abs_err {err:.3g} | B=512 A=4: "
+         + _kernel_line("K1", ms, pms, bms, by))
+
+
 def phase_kernels(torch, dev, results):
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
@@ -334,27 +426,7 @@ def phase_kernels(torch, dev, results):
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
     uni = lambda *s: torch.rand(*s, generator=g, device=dev)
 
-    # --- K1: B=512, A=4, double-Q and max. loss rtol 1e-5; td/prio/grad
-    # atol 1e-6 (the same f32 elementwise math; only the loss sum's order
-    # differs)
-    B, A = 512, 4
-    args = (rnd(B, A), rnd(B, A), rnd(B, A),
-            torch.randint(0, A, (B,), generator=g, device=dev),
-            rnd(B), (uni(B) < 0.1).float(), uni(B) + 0.5)
-    err = 0.0
-    for dq in (True, False):
-        ko = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, dq)
-        po = tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, dq)
-        err = max(err, _close(ko[0], po[0], 1e-5, 1e-6, "K1 loss"))
-        for k, p, n in zip(ko[1:], po[1:], ("td", "prio", "grad")):
-            err = max(err, _close(k, p, 1e-5, 1e-6, f"K1 {n}"))
-    ms = _time_ms(lambda: tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, True), 200)
-    pms = _time_ms(lambda: tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, True), 200)
-    bms, by = _bound(_nbytes(args, ko), 12 * B * A)
-    results["td_loss"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                              bound_ms=bms, bound_by=by)
-    _say(f"K1 td_loss B=512 A=4: ok, max_abs_err {err:.3g} | "
-         + _kernel_line("K1", ms, pms, bms, by))
+    _k1_check(torch, dev, tk, g, results)
 
     # --- K2: 2^20 leaves / 16384 draws in 32 sub-batches of 512 (the
     # headline's sample_n) and 4096 / 600 in one. Equal bit for bit to
@@ -735,46 +807,45 @@ def phase_recurrent_kernels(torch, dev, g, results):
 
 
 def phase_device_events(results):
-    """K1 (B = 512 and the ungrouped loop's B = 32), K2, K6, K7 and K8
-    timed by their device events alone (``ops/cuda/kernel_events.py``: the
-    kernel's launches under ``torch.profiler``, matched by name) beside
+    """K1 (B = 512, the ungrouped loop's B = 32, and 4096), K2, K6, K7 and
+    K8 timed by their device events alone (``ops/cuda/kernel_events.py``:
+    the kernel's launches under ``torch.profiler``, matched by name) beside
     their wrappers' CUDA-event times: for a kernel this short the wrapper's
     time is the host's enqueue of the next call, not the kernel. The share
-    is the bound over the device time. Beside K1 an empty kernel with K1's
-    one block gives the launch floor (``floor_ms``, ``floor_ms_b32`` in
-    K1's JSON entry). It runs in a process of its own: after a profiler
-    session in this process, the profiles of phases 12 and 13 missed the
-    first device events of their windows."""
+    is the bound over the device time. Beside K1 an empty kernel launched
+    as K1 is (its block, or its cluster past 512 rows) gives the launch
+    floor (``floor_ms``, ``floor_ms_b32``, ``floor_ms_b4096`` in K1's JSON
+    entry). It runs in a process of its
+    own: after a profiler session in this process, the profiles of phases
+    12 and 13 missed the first device events of their windows."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "deepqlearning_tpu_torch.ops.cuda.kernel_events"],
         cwd=root, capture_output=True, text=True, check=True)
     measured = json.loads(out.stdout.strip().splitlines()[-1])
-    B, A = 32, 4
-    # K1 at B = 32 as phase_kernels bounds it at 512: q_s, q_sp_online,
-    # q_sp_target, int64 actions, reward, done, weights in; loss, td, prio,
-    # grad out; 12 operations per Q value
-    b32 = _bound(4 * (3 * B * A + 3 * B + 1 + 2 * B + B * A) + 8 * B,
-                 12 * B * A)[0]
-    rows = {"K1 td_loss B=512": ("td_loss", "device_ms",
-                                 results["td_loss"]["bound_ms"]),
-            "K1 td_loss B=32": ("td_loss", "device_ms_b32", b32),
-            "K1 floor: empty kernel, K1's block B=512": (
-                "td_loss", "floor_ms", None),
-            "K1 floor: empty kernel, K1's block B=32": (
-                "td_loss", "floor_ms_b32", None),
-            "K2 tree_sample 2^20/16384": (
-                "tree_sample", "device_ms",
-                results["tree_sample"]["bound_ms"]),
-            "K6 fused_collect (recurrent) LSTM32 E=16384": (
-                "fused_collect_rnn", "device_ms",
-                results["fused_collect_rnn"]["bound_ms"]),
-            "K7 fused_grads U=1 DP headline B=512": (
-                "fused_grads", "device_ms",
-                results["fused_grads"]["bound_ms"]),
-            "K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8": (
-                "fused_drqn_grads", "device_ms",
-                results["fused_drqn_grads"]["bound_ms"])}
+    # K1 as _k1_check bounds it at 512: q_s, q_sp_online, q_sp_target,
+    # int64 actions, reward, done, weights in; loss, td, prio, grad out; 12
+    # operations per Q value
+    k1_bound = lambda B, A=4: _bound(
+        4 * (3 * B * A + 3 * B + 1 + 2 * B + B * A) + 8 * B, 12 * B * A)[0]
+    rows = {}
+    for B in (512, 32, 4096):
+        sfx = "" if B == 512 else f"_b{B}"
+        rows[f"K1 td_loss B={B}"] = ("td_loss", f"device_ms{sfx}",
+                                     k1_bound(B))
+        rows[f"K1 floor: empty kernel, K1's block B={B}"] = (
+            "td_loss", f"floor_ms{sfx}", None)
+    rows.update({
+        "K2 tree_sample 2^20/16384": (
+            "tree_sample", "device_ms", results["tree_sample"]["bound_ms"]),
+        "K6 fused_collect (recurrent) LSTM32 E=16384": (
+            "fused_collect_rnn", "device_ms",
+            results["fused_collect_rnn"]["bound_ms"]),
+        "K7 fused_grads U=1 DP headline B=512": (
+            "fused_grads", "device_ms", results["fused_grads"]["bound_ms"]),
+        "K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8": (
+            "fused_drqn_grads", "device_ms",
+            results["fused_drqn_grads"]["bound_ms"])})
     _check(set(measured) == set(rows),
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
@@ -786,11 +857,12 @@ def phase_device_events(results):
         _say(f"{name}: device events {r['device_ms']:.6f} ms per launch "
              f"({r['launches_per_call']:g} launch per call), wrapper by CUDA "
              f"events {r['wrapper_ms']:.4f} ms, {tail}")
-    for sfx in ("", "_b32"):
+    for B in (512, 32, 4096):
+        sfx = "" if B == 512 else f"_b{B}"
         k1, floor = (results["td_loss"][f"device_ms{sfx}"],
                      results["td_loss"][f"floor_ms{sfx}"])
-        _say(f"K1 B={512 if not sfx else 32}: {k1:.6f} ms against the empty "
-             f"kernel's {floor:.6f} ms, {k1 / floor:.3f}x the launch floor")
+        _say(f"K1 B={B}: {k1:.6f} ms against the empty kernel's "
+             f"{floor:.6f} ms, {k1 / floor:.3f}x the launch floor")
 
 
 def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
@@ -1222,51 +1294,50 @@ def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
 def _profile_iterations(torch, it, c, n):
     """``n`` iterations from an idle queue, each timed on the host until
     ``it`` returns (the enqueue), then ``n`` under ``torch.profiler``
-    (``ops/cuda/drqn_profile.py::device_profile``: the device's own events
+    (``ops/cuda/loop_profile.py::device_profile``: the device's own events
     only): returns ``(carry, enqueue ms per iteration, device busy share of
-    the profiled window, device ms per iteration, {kernel name: (launches,
+    the profiled window, device ms per iteration, {kernel symbol: (launches,
     device ms) per iteration})``; ATen's kernels, copies and fills are
     summed under "other"."""
-    from deepqlearning_tpu_torch.ops.cuda.drqn_profile import device_profile
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
+        device_profile, enqueue_ms)
 
-    enq = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        c = it(c)
-        enq.append(time.perf_counter() - t0)
+    c, enq = enqueue_ms(torch, it, c, n)
     c, prof = device_profile(torch, it, c, n)
-    per_iter, other = {}, [0.0, 0.0]
-    for key, (count, ms) in prof["by_name"].items():
-        name = key.split("(")[0].split(" ")[-1]
-        if name.endswith("kernel") and not key.startswith("void"):
-            per_iter[name] = (count, ms)
-        else:
-            other[0] += count
-            other[1] += ms
-    per_iter["other"] = (round(other[0], 1), round(other[1], 4))
     _check(prof["device_ms"] > 0, "the profiler saw no device time")
-    return (c, 1e3 * sum(enq) / n, prof["busy"], prof["device_ms"],
-            per_iter)
+    per_iter = {k: tuple(v) for k, v in prof["by_kernel"].items()}
+    return c, enq, prof["busy"], prof["device_ms"], per_iter
+
+
+def _dueling_net(torch, dev, width, act):
+    """The dueling ``Chain(Flatten(), Dense(2, w, act), Dense(w, w, act),
+    Dense(w, 4))`` over SimpleGridWorld's 2-d observation."""
+    from deepqlearning_tpu_torch import (
+        Chain, Dense, Flatten, create_dueling_network)
+
+    return create_dueling_network(Chain(
+        Flatten(), Dense(2, width, act, device=dev),
+        Dense(width, width, act, device=dev), Dense(width, 4, device=dev)))
 
 
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
-          n_iters, n_pop, profile_iters=0):
+          n_iters, n_pop, profile_iters=0, net=None, **cfg_kw):
+    """A feed-forward PER loop on SimpleGridWorld through ``build_loop``,
+    with the headline's dueling 2-64-64-4 tanh net unless ``net`` is
+    given; ``cfg_kw`` go to ``DQNConfig``."""
     from deepqlearning_tpu_torch import (
-        Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
-        PrioritizedReplayBuffer, SimpleGridWorld, create_dueling_network)
+        DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
+        SimpleGridWorld)
     from deepqlearning_tpu_torch.learner.loop import (
         build_loop, init_carry, populate)
 
     env = SimpleGridWorld()
-    net = create_dueling_network(Chain(
-        Flatten(), Dense(2, 64, torch.tanh, device=dev),
-        Dense(64, 64, torch.tanh, device=dev),
-        Dense(64, env.num_actions, device=dev)))
+    if net is None:
+        net = _dueling_net(torch, dev, 64, torch.tanh)
     cfg = DQNConfig(num_envs=num_envs, batch_size=batch_size,
                     buffer_size=buffer_size, train_freq=train_freq,
                     max_episode_length=100, double_q=True, dueling=True,
-                    prioritized_replay=True)
+                    prioritized_replay=True, **cfg_kw)
     buf = PrioritizedReplayBuffer(
         env.obs_shape, cfg.buffer_size, cfg.batch_size,
         alpha=cfg.prioritized_replay_alpha, beta=cfg.prioritized_replay_beta,
@@ -1291,6 +1362,20 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
         return cfg, sps, loss
     return (cfg, sps, loss, 1e3 * dt / n_iters,
             *_profile_iterations(torch, it, c, profile_iters)[1:])
+
+
+def _wide_loop(torch, dev, n_iters, profile_iters=0):
+    """The grouped plain route at full width: SimpleGridWorld, 2048 envs,
+    train_freq 512 (U = 4), batch 512, 2^15-slot PER (α 0.6, β 0.4, ε
+    1e-3), double-Q, lr 1e-4, γ 0.95, a target sync every 32768 env steps
+    (``examples/image_conv_dqn.py``'s loop shape) with that example's
+    512-wide dueling Dense head over the grid's 2-d observation. The K3
+    plan (layers at most 256 wide) and the K4 plan (128) refuse the net:
+    per iteration the plain collect step, one K2 draw of U·B rows and U
+    sub-updates with the K1 loss head."""
+    return _loop(torch, dev, 2048, 1 << 15, 512, 512, n_iters, 2,
+                 profile_iters, net=_dueling_net(torch, dev, 512, torch.relu),
+                 target_update_freq=512 * 64)
 
 
 def _train_state_counters(torch, logdir):
@@ -1681,6 +1766,20 @@ def main():
         ("td_loss", "tree_sample", "fused_collect"))
     _say(f"ungrouped loop: 128 envs, batch 32, U={cfg.updates_per_iter}: "
          f"{sps2:.1f} env-steps/s, loss {loss2:.5g} | {card}")
+    n_wide = 20
+    (cfg, sps_w, loss_w), wide = run_path(
+        "grouped plain loop", lambda: _wide_loop(torch, dev, n_wide),
+        ("td_loss", "tree_sample"),
+        ("fused_group_update", "fused_grads", "fused_collect"))
+    U = cfg.updates_per_iter
+    # one warm-up iteration and n_wide timed ones, U loss heads each
+    _check(wide["td_loss"] == U * (n_wide + 1),
+           f"grouped plain loop: K1 launched {wide['td_loss']} times, not "
+           f"U x iterations = {U * (n_wide + 1)}")
+    _say(f"grouped plain loop: 2048 envs, dueling 2-512-512-4 relu (the K3 "
+         f"and K4 plans refuse it), 2^15 PER, batch 512, U={U}: {sps_w:.1f} "
+         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_w:.4f} "
+         f"ms/iteration, loss {loss_w:.5g} | {card} | launches {wide}")
     (cfg, sps3, loss3), rec = run_path(
         "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
         ("fused_drqn_group_update", "fused_collect_rnn"))
@@ -1754,6 +1853,40 @@ def main():
          f"torch.profiler, 10 iterations, U={cfg.updates_per_iter}); per "
          f"iteration (launches, device ms) by kernel {per_iter} | {card} | "
          f"launches {rec}")
+
+    # 14. solve's U = 1 iteration (phase 11 (a)'s configuration), profiled
+    # beside phases 12 and 13: one K4, one K2 and one K1 per iteration
+    (cfg, sps, loss, it_ms, enq, busy, dev_ms, per_iter), u1 = run_path(
+        "U=1 loop (profiled)",
+        lambda: _loop(torch, dev, 4096, 1 << 18, 512, 4096, 10, 4, 10,
+                      target_update_freq=8 * 4096),
+        ("td_loss", "tree_sample", "fused_collect"), ("fused_group_update",))
+    for k in ("td_loss_kernel", "tree_sample_kernel", "fc_kernel"):
+        _check(per_iter.get(k, (0,))[0] == 1.0,
+               f"U=1 loop: {k} launches per iteration {per_iter}")
+    _say(f"U=1 loop (solve (a)'s iteration), profiled: {it_ms:.4f} "
+         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
+         f"ms/iteration (each from an idle queue); device busy share "
+         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
+         f"torch.profiler, 10 iterations); per iteration (launches, device "
+         f"ms) by kernel {per_iter} | {card} | launches {u1}")
+
+    # 15. the grouped plain loop (path of phase 6) profiled the same way:
+    # U = 4 K1 launches and one K2 launch per iteration
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), wide = run_path(
+        "grouped plain loop (profiled)",
+        lambda: _wide_loop(torch, dev, 10, 10), ("td_loss", "tree_sample"),
+        ("fused_group_update", "fused_grads", "fused_collect"))
+    _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
+           and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
+           f"grouped plain loop: launches per iteration {per_iter}")
+    _say(f"grouped plain loop, profiled: {sps:.1f} env-steps/s and "
+         f"{ms:.4f} ms/iteration over 10 iterations; host enqueue "
+         f"{enq:.4f} ms/iteration (each from an idle queue); device busy "
+         f"share {busy:.4f} and device time {dev_ms:.4f} ms/iteration "
+         f"(under torch.profiler, 10 iterations, U={cfg.updates_per_iter}); "
+         f"per iteration (launches, device ms) by kernel {per_iter} | "
+         f"{card} | launches {wide}")
 
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",

@@ -7,8 +7,10 @@ then a hard target sync on crossing a ``target_update_freq`` boundary.
 
 Routing, feed-forward networks:
 * grouped (``updates_per_iter > 1``): kernel K3 when ``plan_for`` supports
-  the network (``fused_updates`` None or True), else the plain grouped step;
-  ``fused_updates=True`` on an unsupported network raises.
+  the network (``fused_updates`` None or True), else the plain grouped step,
+  its U loss heads kernel K1 unless ``fused_updates=False`` (as the JAX
+  package runs its TD kernel there); ``fused_updates=True`` on an
+  unsupported network raises.
 * ungrouped: ``make_dqn_train_step``, its loss head kernel K1 unless
   ``fused_updates=False``.
 Recurrent networks (``cfg.recurrence``, an ``EpisodeReplayBuffer``):
@@ -135,8 +137,8 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
         elif fused:
             train_step, optimizer = make_fused_grouped_train_step(*args, U)
         elif grouped:
-            train_step, optimizer = make_grouped_dqn_train_step(*args, U,
-                                                                **ax)
+            train_step, optimizer = make_grouped_dqn_train_step(
+                *args, U, use_kernel=kernels, **ax)
         else:
             train_step, optimizer = make_dqn_train_step(
                 *args, use_kernel=kernels, **ax)

@@ -16,8 +16,9 @@ Paths:
 * ``make_dqn_train_step``: one update per call; its loss head is kernel K1
   (``ops/cuda/td_kernel.py``) unless ``use_kernel=False``.
 * ``make_grouped_dqn_train_step``: U updates sharing one sample and one
-  merged priority update, composed of plain torch ops (the CPU reference and
-  the ``fused_updates=False`` path).
+  merged priority update, plain torch ops around a loss head that is kernel
+  K1 per sub-update unless ``use_kernel=False`` (the route of networks the
+  K3 plan refuses, and of ``fused_updates=False`` without K1).
 * ``make_fused_grouped_train_step``: the same U updates through kernel K3
   (``ops/cuda/fused_update.py``).
 * ``make_drqn_train_step`` / ``make_grouped_drqn_train_step``: one / U
@@ -231,16 +232,19 @@ def make_dqn_train_step(network, buffer, gamma: float, double_q: bool,
 def make_grouped_dqn_train_step(network, buffer, gamma: float,
                                 double_q: bool, learning_rate: float,
                                 n_updates: int,
-                                axis_name=None):
+                                axis_name=None,
+                                use_kernel: Optional[bool] = None):
     """``n_updates`` sequential Adam updates sharing ONE stratified sample
     (u-major: sub-batch u is rows ``[u·B, (u+1)·B)``) and one merged
-    priority update; the target net runs once on all U·B rows. Plain torch
-    ops throughout."""
+    priority update; the target net runs once on all U·B rows.
+    ``use_kernel`` (default on) takes kernel K1 for each sub-update's loss
+    head, whose priorities, in u-major order, go to the merged update."""
     check_axis(axis_name)
     optimizer = make_optimizer(learning_rate)
     B, U = buffer.batch_size, int(n_updates)
+    use_kernel = use_kernel is not False
     update = _make_batch_update(network, buffer, gamma, double_q, optimizer,
-                                use_kernel=False, axis_name=axis_name)
+                                use_kernel, axis_name)
 
     def step(params, target_params, opt_state, replay_state, u=None,
              generator=None):
@@ -248,17 +252,19 @@ def make_grouped_dqn_train_step(network, buffer, gamma: float,
                                               generator=generator)
         with torch.no_grad():
             q_sp_tgt_all, _ = network.apply(target_params, batch.next_obs)
-        tds = []
+        tds, prios = [], []
         loss = grad_norm = None
         for k in range(U):
             sl = slice(k * B, (k + 1) * B)
             sub = type(batch)(*(x[sl] for x in batch))
-            params, opt_state, td, _, loss, grad_norm = update(
+            params, opt_state, td, prio, loss, grad_norm = update(
                 params, target_params, opt_state, sub, weights[sl],
                 q_sp_tgt=q_sp_tgt_all[sl])
             tds.append(td)
-        replay_state = buffer.update_priorities(replay_state, idx,
-                                                torch.cat(tds))
+            prios.append(prio)
+        replay_state = buffer.update_priorities(
+            replay_state, idx, torch.cat(tds),
+            priorities=torch.cat(prios) if use_kernel else None)
         return TrainResult(params, opt_state, replay_state, loss, grad_norm)
 
     return step, optimizer

@@ -161,10 +161,12 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its signatures."""
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
     NP = ctypes.POINTER(NetDesc)
     I64P = ctypes.POINTER(ctypes.c_int64)
     sig = {
-        "dq_td_loss": [P, P, P, P, P, P, P, I, I, F, F, F, I, P, P, P, P, P],
+        "dq_td_loss": [P, P, P, P, I, L, P, L, P, L, P, L, I, I, F, F, F, I,
+                       P, P, P, P, P],
         "dq_empty": [I, P],
         "dq_tree_sample": [ctypes.POINTER(TreeLevels), P, I, I, P, P, P],
         "dq_fused_update": [NP, I64P, I64P, I64P, P, I, I, P, P, P, P, P, P,

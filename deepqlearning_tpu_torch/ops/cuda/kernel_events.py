@@ -9,13 +9,15 @@ call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``), K6
 data-parallel routes) are short, so this times each by the device's own
 events under ``torch.profiler`` (the kernel's launches alone, matched by
 name) beside the CUDA-event time of its wrapper, at the main paths'
-shapes: K1 at B = 512 and at the ungrouped loop's B = 32 (A = 4), K2 on
+shapes: K1 at B = 512, at the ungrouped loop's B = 32 and at B = 4096
+(A = 4, double-Q, int64 actions as the replay gives them), K2 on
 2^20 leaves with 16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32),
 Dense(32, 4))``, K7 (``fu_group_kernel`` at U = 1) at the DP headline's
 B = 512 with the dueling 2-64-64-4 net and double-Q, K8
 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
-LSTM32 net and double-Q. Beside K1 it times an empty kernel with K1's
-one block (``td_kernel.cu::empty_kernel``): the launch floor under K1.
+LSTM32 net and double-Q. Beside K1 it times an empty kernel launched as K1
+is (``td_kernel.cu::empty_kernel``, K1's block, or its cluster of blocks
+past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
 
 It uses only the wrappers' call signatures of the parent commits (and
@@ -27,6 +29,15 @@ import argparse
 import json
 import subprocess
 import sys
+
+
+def kernel_symbol(name):
+    """A device event's kernel name without return type, template
+    arguments and parameters: ``void td_loss_kernel<4, 4, long long>(float
+    const*, ...)`` and ``td_loss_kernel(float const*, ...)`` are both
+    ``td_loss_kernel``."""
+    cut = [i for i in (name.find("("), name.find("<")) if i >= 0]
+    return name[:min(cut, default=len(name))].split(" ")[-1]
 
 
 def device_event_ms(torch, fn, symbol, calls=50):
@@ -45,8 +56,8 @@ def device_event_ms(torch, fn, symbol, calls=50):
         torch.cuda.synchronize()
     us, n = 0.0, 0
     for e in prof.events():
-        name = e.name.split("(")[0].split(" ")[-1]
-        if e.device_type == DeviceType.CUDA and name == symbol:
+        if (e.device_type == DeviceType.CUDA
+                and kernel_symbol(e.name) == symbol):
             us += e.time_range.elapsed_us()
             n += 1
     if n == 0:
@@ -85,7 +96,7 @@ def cases(torch, dev):
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
     uni = lambda *s: torch.rand(*s, generator=g, device=dev)
     out = {}
-    for B in (512, 32):
+    for B in (512, 32, 4096):
         args = (rnd(B, 4), rnd(B, 4), rnd(B, 4),
                 torch.randint(0, 4, (B,), generator=g, device=dev), rnd(B),
                 (uni(B) < 0.1).float(), uni(B) + 0.5, 0.95, 0.6, 1e-3, True)

@@ -6,8 +6,13 @@ target ``r + (1-d)·γ·Q_tgt(s', a*)``, ``td = Q(s,a) - target``,
 ``loss = Σ huber(w·td) / B``, priorities ``(|td| + ε)^α`` and
 ``dL/dq_s = w·clip(w·td, ±1)/B`` at the taken action.
 
-On the card the kernel is bound by launch latency (one block, a thread per
-row; see the source). :func:`td_loss` is a ``torch.autograd.Function``:
+On the card the kernel is bound by its launch and one thread's chain of
+loads and instructions (a row per thread, float4 rows at A = 4, one
+barrier; past 512 rows a cluster of blocks; see the source).
+The wrapper hands the kernel int32 or int64 actions as they are and the
+row vectors at their strides (the replay's reward and done are columns of
+its row matrix), so it launches nothing but K1.
+:func:`td_loss` is a ``torch.autograd.Function``:
 its forward runs the kernel for CUDA tensors and :func:`td_loss_plain` for
 CPU tensors; its backward is ``grad · g_loss``, plain, as the TPU's custom
 VJP was. The gradient flows into ``q_s`` only.
@@ -51,17 +56,18 @@ def td_loss_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
     """Launch K1 on the current stream; same outputs as the plain version."""
     q_s, q_sp_online, q_sp_target = (
         t.float().contiguous() for t in (q_s, q_sp_online, q_sp_target))
-    action = action.to(torch.int32).contiguous()
-    reward, done, weights = (t.float().contiguous()
-                             for t in (reward, done, weights))
-    build.require_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
-                       weights)
+    if action.dtype not in (torch.int32, torch.int64):
+        action = action.long()
+    reward, done, weights = (t.float() for t in (reward, done, weights))
+    build.require_cuda(q_s, q_sp_online, q_sp_target)
     B, A = q_s.shape
     for name, t in (("q_sp_online", q_sp_online), ("q_sp_target", q_sp_target)):
         build.require_shape(t, (B, A), name)
     for name, t in (("action", action), ("reward", reward), ("done", done),
                     ("weights", weights)):
         build.require_shape(t, (B,), name)
+        if t.device != q_s.device:
+            raise ValueError(f"{name}: expected {q_s.device}, got {t.device}")
     loss = torch.empty((), dtype=torch.float32, device=q_s.device)
     td = torch.empty(B, dtype=torch.float32, device=q_s.device)
     prio = torch.empty_like(td)
@@ -69,10 +75,11 @@ def td_loss_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
     lib = build.library()
     err = lib.dq_td_loss(
         q_s.data_ptr(), q_sp_online.data_ptr(), q_sp_target.data_ptr(),
-        action.data_ptr(), reward.data_ptr(), done.data_ptr(),
-        weights.data_ptr(), B, A, gamma, alpha, eps, int(bool(double_q)),
-        loss.data_ptr(), td.data_ptr(), prio.data_ptr(), grad.data_ptr(),
-        build.stream_ptr(q_s.device))
+        action.data_ptr(), action.element_size(), action.stride(0),
+        reward.data_ptr(), reward.stride(0), done.data_ptr(), done.stride(0),
+        weights.data_ptr(), weights.stride(0), B, A, gamma, alpha, eps,
+        int(bool(double_q)), loss.data_ptr(), td.data_ptr(), prio.data_ptr(),
+        grad.data_ptr(), build.stream_ptr(q_s.device))
     build.check(err, "td_loss")
     td_loss_cuda.launches += 1
     return loss, td, prio, grad
@@ -82,9 +89,9 @@ td_loss_cuda.launches = 0
 
 
 def empty_cuda(device, B: int) -> None:
-    """Launch the empty kernel with K1's block for ``B`` rows (and its
-    shared memory) on ``device``'s current stream: the launch floor under
-    K1, for timing only."""
+    """Launch the empty kernel as K1 is launched for ``B`` rows (its
+    blocks, one cluster, and threads) on ``device``'s current stream: the
+    launch floor under K1, for timing only."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the empty kernel runs on CUDA, not {device}")

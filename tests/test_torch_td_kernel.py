@@ -14,22 +14,38 @@ torch.set_num_threads(2)
 GAMMA, ALPHA, EPS = 0.95, 0.6, 1e-3
 
 
-def _inputs(B, A, seed):
+def _inputs(B, A, seed, act_dtype=np.int32, out_of_range=False):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     q_s, q_onl, q_tgt = f(B, A) * 2, f(B, A), f(B, A)
-    a = rng.integers(0, A, B).astype(np.int32)
+    a = rng.integers(0, A, B).astype(act_dtype)
+    if out_of_range:  # these rows select nothing
+        a[1::5], a[3::5] = -1, A
     r = f(B)
     d = (rng.random(B) < 0.2).astype(np.float32)
     w = (rng.random(B) + 0.5).astype(np.float32)
     return q_s, q_onl, q_tgt, a, r, d, w
 
 
+# the first three are the original cases (int32, actions in range); then
+# the shapes K1's kernel cuts differently (one row, A = 5 without float4
+# rows, past one block's rows, the largest), with int32 and int64 actions
+# and actions -1 and A in some rows
+TWIN_CASES = [pytest.param(B, A, np.int32, False, id=f"{B}-{A}")
+              for B, A in ((32, 4), (512, 4), (37, 6))] + [
+    pytest.param(B, A, dt, True, id=f"{B}-{A}-{np.dtype(dt).name}-range")
+    for B, A in ((1, 4), (33, 5), (1025, 4), (4096, 4))
+    for dt in (np.int32, np.int64)]
+
+
 @pytest.mark.parametrize("double_q", [True, False])
-@pytest.mark.parametrize("B,A", [(32, 4), (512, 4), (37, 6)])
-def test_twin_matches_pallas_kernel(B, A, double_q):
-    q_s, q_onl, q_tgt, a, r, d, w = _inputs(B, A, B + A)
-    jx = [jnp.asarray(x) for x in (q_s, q_onl, q_tgt, a, r, d, w)]
+@pytest.mark.parametrize("B,A,act_dtype,out_of_range", TWIN_CASES)
+def test_twin_matches_pallas_kernel(B, A, act_dtype, out_of_range, double_q):
+    q_s, q_onl, q_tgt, a, r, d, w = _inputs(B, A, B + A, act_dtype,
+                                            out_of_range)
+    # JAX runs without x64: its kernel takes the actions as int32
+    jx = [jnp.asarray(x) for x in (q_s, q_onl, q_tgt, a.astype(np.int32),
+                                   r, d, w)]
 
     def f_kernel(q):
         return td_loss_fused(q, *jx[1:], GAMMA, ALPHA, EPS, double_q, True)
@@ -39,6 +55,8 @@ def test_twin_matches_pallas_kernel(B, A, double_q):
 
     tq = torch.from_numpy(q_s).requires_grad_()
     tx = [torch.from_numpy(x) for x in (q_onl, q_tgt, a, r, d, w)]
+    assert tx[2].dtype == {np.int32: torch.int32,
+                           np.int64: torch.int64}[act_dtype]
     tl, ttd, tprio = td_kernel.td_loss(tq, *tx, GAMMA, ALPHA, EPS, double_q)
     (tgrad,) = torch.autograd.grad(tl, tq)
     # same f32 elementwise math; the loss sums B terms in another order
@@ -51,8 +69,12 @@ def test_twin_matches_pallas_kernel(B, A, double_q):
     np.testing.assert_allclose(tprio.numpy(), np.asarray(jprio), rtol=1e-5)
     np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), rtol=1e-6,
                                atol=1e-9)
-    # the gradient is non-zero only at the taken action
+    # the gradient is non-zero only at the taken action, and nowhere in a
+    # row whose action lies outside [0, A)
     assert (tgrad.numpy() != 0).sum(axis=1).max() <= 1
+    bad = (a < 0) | (a >= A)
+    assert bad.any() == (out_of_range and B > 1)
+    assert not tgrad.numpy()[bad].any()
 
 
 def test_gradient_scales_with_upstream_and_skips_targets():
