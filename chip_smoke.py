@@ -21,13 +21,16 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    for bit; the double-Q checks allow for near ties of the s' argmax
    and print how many they found; K1 at B = 1 to 10000, A = 4 and 5,
    int64 and int32 actions, out-of-range actions, contiguous and strided
-   inputs, two runs bit for bit); then K1 (B = 32, 512, 4096), K2, K6, K7
-   and K8 timed by their device events alone, beside their wrappers'
-   CUDA-event times, and an empty kernel launched as K1 is, K1's launch
-   floor;
-4. slices: the small feed-forward loop and the small DRQN loop on the card
-   against the same loops on the CPU (plain twins) with injected uniforms
-   and draws;
+   inputs, two runs bit for bit; K4 and K6 also on CartPole and
+   MountainCar at ε = 0.3 and 1, two runs bit for bit, done flags allowed
+   to flip only within a few ulps of a threshold, counted; K2 and K3 also
+   at the CartPole solve's shapes, 2^16 leaves / 4096 draws in 16 and U =
+   16, B = 256 with its dueling 4-64-64-2 net); then K1 (B = 32, 512, 4096), K2, K4 and K6 (each env), K7 and K8 timed by their
+   device events alone, beside their wrappers' CUDA-event times, and an
+   empty kernel launched as K1 is, K1's launch floor;
+4. slices: the small feed-forward loop (on SimpleGridWorld and on
+   CartPole) and the small DRQN loop on the card against the same loops on
+   the CPU (plain twins) with injected uniforms and draws;
 5. headline loop: the headline configuration (131072 envs, 2^20 replay,
    batch 512, train_freq 4096) through ``build_loop``, env-steps/s and
    ms/iteration;
@@ -38,6 +41,9 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    collect step; K3, K4 and K7 never);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s;
+   then MountainCar at the headline's shape (131072 envs, 2^20 PER, batch
+   512, U = 32, dueling 2-64-64-3; episodes cut at 4 steps): K4 on a
+   second env inside a loop;
 8. DP headline loop: the headline configuration through
    ``DataParallelRunner`` in a one-rank NCCL world (K7, ``pmean_flat``
    and one Adam launch per sub-update), env-steps/s and ms/iteration;
@@ -53,7 +59,11 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     iterations, which continue the saved counters; (b) the DRQN solve
     (LSTM(2, 32), dueling, 1024 envs, U = 1; K5 and K6 at least once per
     iteration); (c) ``tests/test_learning.py::test_prioritized_ddqn``'s
-    configuration on TestMDP, greedy return >= 1.5;
+    configuration on TestMDP, greedy return >= 1.5; (d) the CartPole solve
+    at ``examples/cartpole_dqn.py``'s configuration (256 envs, U = 16,
+    batch 256, 2^16 PER, 400,000 steps): K4 (CartPole), K2 and K3 exactly
+    once per iteration, K1 never, and a greedy return >= 150 of 200 over
+    64 episodes;
 12. headline profile: the headline loop once more, near the end, with the
     host's enqueue per iteration and, under ``torch.profiler``, the device
     busy share and the kernel launches and device time per iteration (K3
@@ -63,17 +73,19 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 14. U = 1 profile: ``solve``'s iteration at U = 1 (phase 11 (a)'s
     configuration, as ``ops/cuda/loop_profile.py::u1_loop`` also builds
     it) the same way (K1, K2 and K4 exactly once per iteration);
-15. grouped plain profile: phase 6's grouped plain loop the same way, last
-    (K1 exactly U = 4 times and K2 once per iteration).
+15. grouped plain profile: phase 6's grouped plain loop the same way
+    (K1 exactly U = 4 times and K2 once per iteration);
+16. CartPole profile: the CartPole solve's loop the same way, last (K4, K2
+    and K3 exactly once per iteration).
 
-Each of the paths 5 to 9 and each part of 11 to 15 runs with the launch
+Each of the paths 5 to 9 and each part of 11 to 16 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
 the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 3 minutes on an H100, the kernels' build included.
+result. About 3.5 minutes on an H100, the kernels' build included.
 """
 import itertools
 import json
@@ -297,6 +309,141 @@ def _tie_aware(pairs_fn, ties):
     return err, len(ties), len(taken)
 
 
+# A done flag of CartPole or MountainCar compares a next-state value with a
+# threshold (|x| > 2.4, |theta| > 12 deg, position >= 0.5): where the
+# kernel's transcendentals and its twin's differ by an ulp, a value within
+# an ulp or two of the threshold may end the episode in one and not the
+# other. Such a flip is allowed within FLIP_ULPS ulps of a threshold,
+# counted and printed; a flip anywhere else fails.
+FLIP_ULPS = 4
+
+
+def _env_states(torch, env, E, gen):
+    """Batched states spread so that many steps end their episode:
+    CartPole x in [-2.5, 2.5], theta in [-0.22, 0.22], velocities N(0, 1);
+    MountainCar position in [-1.2, 0.55], velocity in [-0.07, 0.07]."""
+    dev = gen.device
+    r = lambda lo, hi: lo + (hi - lo) * torch.rand(E, generator=gen,
+                                                  device=dev)
+    n = lambda: torch.randn(E, generator=gen, device=dev)
+    from deepqlearning_tpu_torch import CartPole
+
+    if isinstance(env, CartPole):
+        return torch.stack([r(-2.5, 2.5), n(), r(-0.22, 0.22), n()], dim=1)
+    return torch.stack([r(-1.2, 0.55), r(-0.07, 0.07)], dim=1)
+
+
+def _done_flips(env, ko, po, keep):
+    """Envs among ``keep`` whose done flag the kernel (``ko``) and its twin
+    (``po``) set differently; fails unless each lies within FLIP_ULPS ulps
+    of a threshold, read from the twin's next state."""
+    no = env.obs_shape[0]
+    flip = (ko[0][:, 2 * no + 2] != po[0][:, 2 * no + 2]) & keep
+    if bool(flip.any()):
+        ns = po[0][flip][:, no:2 * no].cpu().numpy()
+        from deepqlearning_tpu_torch import CartPole
+
+        tests = ([(np.abs(ns[:, 0]), env.x_threshold),
+                  (np.abs(ns[:, 2]), env.theta_threshold)]
+                 if isinstance(env, CartPole)
+                 else [(ns[:, 0], env.goal_position)])
+        near = np.zeros(len(ns), bool)
+        for v, thr in tests:
+            t = np.float32(thr)
+            near |= np.abs(v - t) <= FLIP_ULPS * np.spacing(t)
+        _check(bool(near.all()), f"{type(env).__name__}: done flags differ "
+               f"away from the thresholds at {ns[~near][:4]}")
+    return flip
+
+
+def _collect_env_check(torch, dev, fc, fu, fd, name, env, net, E, gen):
+    """K4 (or K6, for a recurrent net) on ``env`` against its twin on the
+    card at ε = 0.3 and ε = 1, each run twice and equal bit for bit.
+    Actions equal for >= 99.99% of envs, a differing env's top-two Q
+    within 1e-5; done flags equal but for the flips ``_done_flips``
+    allows; on the envs where both agree the fields, obs, env state,
+    counters and returns at rtol/atol 1e-6 (the same f32 env math; the
+    transcendentals may differ by an ulp), the new h/c at 1e-5 (gate sums
+    in other orders), the totals at rtol 1e-5 when every env agrees.
+    Returns the kernel's JSON fields for this env."""
+    plan = fc.collect_plan_for(env, net, None)
+    rec = plan is not None and plan.cell is not None
+    _check(plan is not None and rec == getattr(net, "recurrent", False),
+           f"{name}: plan")
+    params = net.init(gen)
+    st = _env_states(torch, env, E, gen)
+    ins = dict(obs=st.clone(), state=st,
+               ep_step=torch.randint(0, 100, (E,), generator=gen, device=dev,
+                                     dtype=torch.int32),
+               ep_ret=torch.randn(E, generator=gen, device=dev),
+               u=torch.rand(plan.n_uniforms, E, generator=gen, device=dev),
+               max_episode_length=100)
+    if rec:
+        ins["nstate"] = torch.randn(E, plan.state_width, generator=gen,
+                                    device=dev) * 0.5
+    cuda = fc.fused_collect_rnn_cuda if rec else fc.fused_collect_cuda
+    err, n_flips, fracs = 0.0, 0, []
+    for eps in (0.3, 1.0):
+        ko = cuda(env, plan, params, eps=eps, **ins)
+        ko2 = cuda(env, plan, params, eps=eps, **ins)
+        _check(all(torch.equal(a, b) for a, b in zip(ko, ko2)),
+               f"{name} eps={eps}: two runs differ")
+        po = fc.fused_collect_plain(env, plan, params, eps=eps, **ins)
+        no = plan.no
+        agree = ko[0][:, 2 * no] == po[0][:, 2 * no]
+        frac = agree.float().mean().item()
+        fracs.append(frac)
+        _check(frac >= 0.9999, f"{name} eps={eps}: actions agree on only "
+               f"{frac:.6f}")
+        if not bool(agree.all()):
+            x = ins["obs"][~agree]
+            if rec:
+                H = plan.cell.hidden
+                ns = ins["nstate"][~agree]
+                x, _ = fd.cell_step(plan.cell, params, x, ns[:, :H],
+                                    ns[:, H:] if plan.cell.kind == "lstm"
+                                    else None)
+            top2 = fu.q_values(plan.net, params, x)[0].topk(2, dim=1).values
+            _check(bool(((top2[:, 0] - top2[:, 1]) <= 1e-5).all()),
+                   f"{name}: differing action without a near tie")
+        flips = _done_flips(env, ko, po, agree)
+        n_flips += int(flips.sum())
+        keep = agree & ~flips
+        names = ("fields", "obs", "state", "ep_step", "ep_ret")
+        for k, p, n in zip(ko[:5], po[:5], names):
+            err = max(err, _close(k[keep], p[keep], 1e-6, 1e-6,
+                                  f"{name} eps={eps} {n}"))
+        if rec:
+            err = max(err, _close(ko[6][keep], po[6][keep], 1e-5, 1e-5,
+                                  f"{name} eps={eps} h/c"))
+        if bool(keep.all()):
+            err = max(err, _close(ko[5], po[5], 1e-5, 1e-3,
+                                  f"{name} eps={eps} totals"))
+        ended = po[0][:, 2 * no + 3]
+        _check(bool((ended > 0).any()), f"{name}: no episode ended")
+    run = lambda: cuda(env, plan, params, eps=0.3, **ins)
+    ms = _time_ms(run, 50)
+    pms = _time_ms(lambda: fc.fused_collect_plain(env, plan, params, eps=0.3,
+                                                  **ins), 20)
+    ko = run()
+    flops = 2 * E * _macs(plan.net.layers)
+    out_bytes = _nbytes(ko[:5])
+    if rec:
+        cp = plan.cell
+        flops += 2 * E * (cp.in_dim + cp.hidden) * cp.n_gates * cp.hidden
+        out_bytes += _nbytes(ko[6])
+    bms, by = _bound(_nbytes(ins, params) + out_bytes
+                     + 12 * -(-E // plan.tile), flops)
+    _say(f"{'K6' if rec else 'K4'} {name} E={E}: ok at eps 0.3 and 1, "
+         f"actions agree {min(fracs):.6f}, done flips within {FLIP_ULPS} "
+         f"ulps of a threshold: {n_flips}, max_abs_err {err:.3g}, two runs "
+         f"bit-identical, {plan.tile} envs per block, {plan.n_uniforms} "
+         f"uniform rows | " + _kernel_line("kernel", ms, pms, bms, by))
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, done_flips=n_flips)
+
+
+
 def phase_default_device(torch):
     """The entry points with no ``device`` argument put their tensors on
     the card."""
@@ -429,17 +576,21 @@ def phase_kernels(torch, dev, results):
     _k1_check(torch, dev, tk, g, results)
 
     # --- K2: 2^20 leaves / 16384 draws in 32 sub-batches of 512 (the
-    # headline's sample_n) and 4096 / 600 in one. Equal bit for bit to
-    # the scan-order reference (the kernel's sum order, int64 u-major);
-    # against the twin (sumtree.descend, cumsum in another order) indices
-    # >= 99% exact and the rest adjacent; priorities equal to the
-    # returned leaf's value.
+    # headline's sample_n), 4096 / 600 in one, and 2^16 / 4096 in 16 (the
+    # CartPole solve's, from a generator of its own: the later phases'
+    # inputs stay those of g). Equal bit for bit to the scan-order
+    # reference (the kernel's sum order, int64 u-major); against the twin
+    # (sumtree.descend, cumsum in another order) indices >= 99% exact and
+    # the rest adjacent; priorities equal to the returned leaf's value.
     err = 0.0
-    timing = None
-    for cap, D, n in ((1 << 20, 16384, 32), (4096, 600, 1)):
+    timing, solve_shape = None, None
+    g_cp = torch.Generator(device=dev).manual_seed(10)
+    for cap, D, n, gk in ((1 << 20, 16384, 32, g), (4096, 600, 1, g),
+                          (1 << 16, 4096, 16, g_cp)):
+        u = lambda *s: torch.rand(*s, generator=gk, device=dev)
         tree = sumtree.init_tree(cap, dev)
-        sumtree.set_priorities_slice(tree, 0, uni(cap) + 0.01)
-        mass = sumtree.stratified_mass(tree, uni(D))
+        sumtree.set_priorities_slice(tree, 0, u(cap) + 0.01)
+        mass = sumtree.stratified_mass(tree, u(D))
         ik, pk = ts.tree_sample_cuda(tree, mass, n)
         ik2, pk2 = ts.tree_sample_cuda(tree, mass, n)
         ip, pp = ts.tree_sample_plain(tree, mass, n)
@@ -453,51 +604,81 @@ def phase_kernels(torch, dev, results):
         _check((ik - ip).abs().max().item() <= 1, f"K2 {cap}/{D}: not adjacent")
         _check(torch.equal(pk, tree[0][ik]), f"K2 {cap}/{D}: prio != leaf")
         err = max(err, (ik - ip).abs().max().item())
-        if timing is None:
-            timing = (_time_ms(lambda: ts.tree_sample_cuda(tree, mass, n),
-                               100),
-                      _time_ms(lambda: ts.tree_sample_plain(tree, mass, n),
-                               100))
+        if timing is None or gk is g_cp:
+            t = (_time_ms(lambda: ts.tree_sample_cuda(tree, mass, n), 100),
+                 _time_ms(lambda: ts.tree_sample_plain(tree, mass, n), 100))
             # each draw reads one 64-wide node per level, the tree at most
             # once; a compare-add per child read
             reads = min(_nbytes(tree), D * len(tree) * 64 * 4)
-            bound = _bound(reads + _nbytes(mass, pk, ik),
-                           D * len(tree) * 64 * 2)
+            b = _bound(reads + _nbytes(mass, pk, ik), D * len(tree) * 64 * 2)
+            if timing is None:
+                timing, bound = t, b
+            else:
+                solve_shape = dict(ms=t[0], plain_ms=t[1], bound_ms=b[0],
+                                   bound_by=b[1])
+                _say(_kernel_line(f"K2 tree_sample 2^16/4096 in 16 (the "
+                                  f"CartPole solve's)", *t, *b))
         _say(f"K2 tree_sample {cap} leaves / {D} draws in {n} sub-batches: "
              f"ok, equal to the scan-order reference bit for bit, two runs "
              f"bit-identical, exact vs the twin {exact:.5f}, "
              f"{-(-D // 16)} blocks of 256")
     results["tree_sample"] = dict(max_abs_err=float(err), ms=timing[0],
                                   plain_ms=timing[1], bound_ms=bound[0],
-                                  bound_by=bound[1])
+                                  bound_by=bound[1],
+                                  cartpole_solve_shape=solve_shape)
     _say(_kernel_line("K2 tree_sample 2^20/16384", *timing, *bound))
 
     # --- K3: U=32, B=512, dueling 2->64->64->4 double-Q lr 1e-4, and a
-    # plain chain with max. params rtol 2e-4 / atol 2e-5 and loss rtol
+    # plain chain with max; then the CartPole solve's shape (U=16, B=256,
+    # dueling 4->64->64->2 double-Q, lr 1e-3, gamma 0.99, from a generator
+    # of its own). params rtol 2e-4 / atol 2e-5 and loss rtol
     # 1e-4, gnorm rtol 1e-3 (the JAX package's fused-vs-XLA tolerances);
     # td/prio rtol 1e-4 / atol 1e-5. Against the tile-order reference
     # (the kernel's sum order) rtol 1e-5: params atol 1e-6 (1% of lr; the
     # forward's dot products still round in another order), td/prio atol
     # 1e-5 (the twin's: (|td| + 1e-3)^0.6 multiplies a td error by up to
     # ~10 near td = 0), loss and gnorm atol 0. Two runs bit-identical.
-    U, B = 32, 512
+    from deepqlearning_tpu_torch import CartPole
+
     err = 0.0
     timing = None
-    for dueling, double_q in ((True, True), (False, False)):
-        chain = Chain(Flatten(), Dense(2, 64, torch.tanh, device=dev),
-                      Dense(64, 64, torch.tanh, device=dev),
-                      Dense(64, 4, device=dev))
-        net = create_dueling_network(chain) if dueling else chain
+    for dueling, double_q, cartpole in ((True, True, False),
+                                        (False, False, False),
+                                        (True, True, True)):
+        gk = g_cp if cartpole else g
+        u = lambda *s: torch.rand(*s, generator=gk, device=dev)
+        if cartpole:
+            U, B, no, A, lr, gamma = 16, 256, 4, 2, 1e-3, 0.99
+            net = _cartpole_net(torch, dev)
+        else:
+            U, B, no, A, lr, gamma = 32, 512, 2, 4, 1e-4, 0.95
+            chain = Chain(Flatten(), Dense(2, 64, torch.tanh, device=dev),
+                          Dense(64, 64, torch.tanh, device=dev),
+                          Dense(64, 4, device=dev))
+            net = create_dueling_network(chain) if dueling else chain
         plan = fu.plan_for(net)
         _check(plan is not None, "K3 plan")
-        params = net.init(g)
+        params = net.init(gk)
         n = U * B
-        data = dict(obs=uni(n, 2) * 10, nobs=uni(n, 2) * 10,
-                    action=torch.randint(0, 4, (n,), generator=g, device=dev),
-                    reward=rnd(n), done=(uni(n) < 0.05).float(),
-                    weights=uni(n) + 0.5, q_sp_tgt=rnd(n, 4))
-        kw = dict(gamma=0.95, double_q=double_q, lr=1e-4, alpha=0.6,
+        if cartpole:
+            # CartPole's states and its unit reward
+            data = dict(obs=_env_states(torch, CartPole(), n, gk),
+                        nobs=_env_states(torch, CartPole(), n, gk),
+                        action=torch.randint(0, A, (n,), generator=gk,
+                                             device=dev),
+                        reward=torch.ones(n, device=dev),
+                        done=(u(n) < 0.05).float(), weights=u(n) + 0.5,
+                        q_sp_tgt=torch.randn(n, A, generator=gk, device=dev))
+        else:
+            data = dict(obs=u(n, 2) * 10, nobs=u(n, 2) * 10,
+                        action=torch.randint(0, 4, (n,), generator=g,
+                                             device=dev),
+                        reward=rnd(n), done=(u(n) < 0.05).float(),
+                        weights=u(n) + 0.5, q_sp_tgt=rnd(n, 4))
+        kw = dict(gamma=gamma, double_q=double_q, lr=lr, alpha=0.6,
                   eps=1e-3, batch_size=B, n_updates=U)
+        shape = (f"dueling={dueling} double_q={double_q} U={U} B={B} "
+                 f"{no}->64->64->{A} lr {lr:g}")
 
         state = lambda: _adam_state(torch, params)
 
@@ -506,7 +687,7 @@ def phase_kernels(torch, dev, results):
         ko2 = fu.fused_group_update_cuda(plan, *ks2, **data, **kw)
         _check(all(torch.equal(a, b) for a, b in zip(ko, ko2)) and all(
             torch.equal(ks[i][k], ks2[i][k]) for i in range(3)
-            for k in plan.names), "K3 two runs differ")
+            for k in plan.names), f"K3 {shape}: two runs differ")
 
         def pairs(swaps):
             d = dict(data, q_sp_tgt=_swap_ties(data["q_sp_tgt"], swaps))
@@ -533,29 +714,33 @@ def phase_kernels(torch, dev, results):
         ties = _ff_ties(torch, fu, plan, params, data, kw) if double_q else []
         e, n_ties, n_other = _tie_aware(pairs, ties)
         err = max(err, e)
-        if timing is None:
+        if timing is None or cartpole:
             # one state for all timed calls: the state's copies stay out
             # of the kernel's time
             st = state()
-            timing = (
-                _time_ms(lambda: fu.fused_group_update_cuda(
+            t = (_time_ms(lambda: fu.fused_group_update_cuda(
                     plan, *st, **data, **kw), 20),
-                _time_ms(lambda: fu.fused_group_update_plain(
+                 _time_ms(lambda: fu.fused_group_update_plain(
                     plan, *st, **data, **kw), 3, 1))
-            copy_ms = _time_ms(state, 20)
             # inputs read once, params/m/v read and written, td/prio out
-            bound = _bound(_nbytes(data) + 6 * _nbytes(params)
-                           + _nbytes(ko[:2]),
-                           _dense_update_flops(plan, B, U, double_q))
-        _say(f"K3 fused_group_update dueling={dueling} double_q={double_q} "
-             f"U=32 B=512: ok, matches the tile-order reference at rtol "
-             f"1e-5, two runs bit-identical, grid "
+            b = _bound(_nbytes(data) + 6 * _nbytes(params) + _nbytes(ko[:2]),
+                       _dense_update_flops(plan, B, U, double_q))
+            if timing is None:
+                timing, bound = t, b
+                copy_ms = _time_ms(state, 20)
+            else:
+                solve_shape = dict(max_abs_err=e, ms=t[0], plain_ms=t[1],
+                                   bound_ms=b[0], bound_by=b[1])
+                _say(_kernel_line(f"K3 fused_group_update {shape} (the "
+                                  f"CartPole solve's)", *t, *b))
+        _say(f"K3 fused_group_update {shape}: ok, matches the tile-order "
+             f"reference at rtol 1e-5, two runs bit-identical, grid "
              f"{fu.launch_grid(plan, B, dev)} blocks of {fu.THREADS}; "
              f"{n_ties} near ties of the s' argmax, {n_other} taken the "
              f"other way by the kernel")
     results["fused_group_update"] = dict(
         max_abs_err=err, ms=timing[0], plain_ms=timing[1], bound_ms=bound[0],
-        bound_by=bound[1])
+        bound_by=bound[1], cartpole_solve_shape=solve_shape)
     _say(_kernel_line("K3 fused_group_update U=32 B=512 (dueling, double-Q; "
                       "one cooperative launch)", *timing, *bound)
          + f"; a fresh params/m/v/count copy takes {copy_ms:.4f} ms")
@@ -604,6 +789,23 @@ def phase_kernels(torch, dev, results):
     _say(f"K4 fused_collect E=131072: ok, actions agree {frac:.6f}, "
          f"{plan.tile} envs per block | "
          + _kernel_line("K4", ms, pms, bms, by))
+    # --- K4 on CartPole (the CartPole solve's dueling 4-64-64-2 tanh net)
+    # and MountainCar (dueling 2-64-64-3 tanh) at E=131072, from a
+    # generator of their own (the later phases' inputs stay those of g)
+    from deepqlearning_tpu_torch import CartPole, MountainCar
+    from deepqlearning_tpu_torch.ops.cuda import fused_drqn as fd
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    by_env = {}
+    for name, env, net in (
+            ("CartPole", CartPole(), _cartpole_net(torch, dev)),
+            ("MountainCar", MountainCar(),
+             _dueling_net(torch, dev, 64, torch.tanh, 2, 3))):
+        by_env[name] = _collect_env_check(torch, dev, fc, fu, fd, name, env,
+                                          net, E, gen)
+    results["fused_collect"]["by_env"] = by_env
+    results["fused_collect"]["max_abs_err"] = max(
+        err, *(r["max_abs_err"] for r in by_env.values()))
     phase_recurrent_kernels(torch, dev, g, results)
 
 
@@ -730,11 +932,19 @@ def phase_recurrent_kernels(torch, dev, g, results):
     # fields, obs and env state at 1e-6 (the same f32 env math) and the new
     # h/c at rtol/atol 1e-5 (gate sums in other orders). Two runs
     # bit-identical; at least one block per SM; ptxas: no stack.
-    ptx = build.ptxas_report(("fc_rnn_kernel", "tree_sample_kernel"))
-    for k, line in ptx.items():
+    ptx = build.ptxas_report(("fc_kernel", "fc_rnn_kernel",
+                              "tree_sample_kernel"))
+    for k, line in sorted(ptx.items()):
         _say(f"ptxas {k}: {line}")
-    _check(" 0 bytes stack frame" in " " + ptx["fc_rnn_kernel"],
+    # one instantiation per env the kernels step (FcEnv<ENV>): the
+    # SimpleGridWorld one, K6 as the DRQN loop runs it, has no stack; the
+    # CartPole and MountainCar ones keep the 32-byte frame of sinf/cosf's
+    # argument reduction for |x| > 105615 (a local array, not touched
+    # otherwise)
+    _check(" 0 bytes stack frame" in " " + ptx["fc_rnn_kernel<0>"],
            "K6 uses a local-memory stack")
+    _check(all(f"{k}<{n}>" in ptx for k in ("fc_kernel", "fc_rnn_kernel")
+               for n in range(3)), f"instantiations {sorted(ptx)}")
     env = SimpleGridWorld()
     E = 16384
     err = 0.0
@@ -798,17 +1008,35 @@ def phase_recurrent_kernels(torch, dev, g, results):
         _say(f"K6 fused_collect (recurrent) {name} E=16384: ok, actions "
              f"agree {frac:.6f}, max_abs_err {err:.3g}, two runs "
              f"bit-identical, {blocks} blocks of {plan.tile} envs")
-    results["fused_collect_rnn"] = dict(max_abs_err=err, ms=timing[0],
-                                        plain_ms=timing[1], bound_ms=bound[0],
-                                        bound_by=bound[1])
+    # --- K6 on CartPole (LSTM(4,32) + Dense(32,2)) and MountainCar (a
+    # dueling GRU16 head) at E=16384, from a generator of their own
+    from deepqlearning_tpu_torch import CartPole, MountainCar
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    by_env = {}
+    for name, env, net in (
+            ("CartPole", CartPole(),
+             Chain(LSTM(4, 32, device=dev), Dense(32, 2, device=dev))),
+            ("MountainCar", MountainCar(), DuelingNetwork(
+                Chain(GRU(2, 16, device=dev)),
+                Chain(Dense(16, 32, torch.tanh, device=dev),
+                      Dense(32, 1, device=dev)),
+                Chain(Dense(16, 32, torch.tanh, device=dev),
+                      Dense(32, 3, device=dev))))):
+        by_env[name] = _collect_env_check(torch, dev, fc, fu, fd, name, env,
+                                          net, E, gen)
+    results["fused_collect_rnn"] = dict(
+        max_abs_err=max(err, *(r["max_abs_err"] for r in by_env.values())),
+        ms=timing[0], plain_ms=timing[1], bound_ms=bound[0],
+        bound_by=bound[1], by_env=by_env)
     _say(_kernel_line("K6 fused_collect (recurrent) LSTM32 E=16384", *timing,
                       *bound))
     phase_grads_kernels(torch, dev, g, results, lstm, gru)
 
 
 def phase_device_events(results):
-    """K1 (B = 512, the ungrouped loop's B = 32, and 4096), K2, K6, K7 and
-    K8 timed by their device events alone (``ops/cuda/kernel_events.py``:
+    """K1 (B = 512, the ungrouped loop's B = 32, and 4096), K2, K4 and K6
+    (on each env they step), K7 and K8 timed by their device events alone (``ops/cuda/kernel_events.py``:
     the kernel's launches under ``torch.profiler``, matched by name) beside
     their wrappers' CUDA-event times: for a kernel this short the wrapper's
     time is the host's enqueue of the next call, not the kernel. The share
@@ -841,16 +1069,29 @@ def phase_device_events(results):
         "K6 fused_collect (recurrent) LSTM32 E=16384": (
             "fused_collect_rnn", "device_ms",
             results["fused_collect_rnn"]["bound_ms"]),
+        "K4 fused_collect SimpleGridWorld E=131072": (
+            "fused_collect", "device_ms",
+            results["fused_collect"]["bound_ms"]),
         "K7 fused_grads U=1 DP headline B=512": (
             "fused_grads", "device_ms", results["fused_grads"]["bound_ms"]),
         "K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8": (
             "fused_drqn_grads", "device_ms",
             results["fused_drqn_grads"]["bound_ms"])})
+    # K4 and K6 on the other envs they step: in the kernels' by_env entries
+    for env, cell in (("CartPole", "LSTM32"), ("MountainCar", "dueling GRU16")):
+        rows[f"K4 fused_collect {env} E=131072"] = (
+            ("fused_collect", env), "device_ms",
+            results["fused_collect"]["by_env"][env]["bound_ms"])
+        rows[f"K6 fused_collect (recurrent) {env} {cell} E=16384"] = (
+            ("fused_collect_rnn", env), "device_ms",
+            results["fused_collect_rnn"]["by_env"][env]["bound_ms"])
     _check(set(measured) == set(rows),
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
         key, field, bound = rows[name]
-        results[key][field] = r["device_ms"]
+        entry = (results[key] if isinstance(key, str)
+                 else results[key[0]]["by_env"][key[1]])
+        entry[field] = r["device_ms"]
         tail = ("the launch floor" if bound is None else
                 f"bound {bound:.6f} ms, share of the device time "
                 f"{bound / r['device_ms']:.4f}")
@@ -1115,17 +1356,21 @@ def _dp_group_check(torch, dp_cuda, dp_plain, whole_cuda, plan, params, kw,
     return err, same
 
 
-def _small_loop(torch, dev, sample_u, collect_u):
+def _small_loop(torch, dev, sample_u, collect_u, cartpole=False):
+    """128 envs, U = 4, B = 32 on SimpleGridWorld (or CartPole) with a
+    dueling 16-16 tanh net: populate 2 steps, then 2 iterations, every
+    draw injected."""
     from deepqlearning_tpu_torch import (
-        Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
+        CartPole, Chain, Dense, DQNConfig, Flatten, LinearDecaySchedule,
         PrioritizedReplayBuffer, SimpleGridWorld, create_dueling_network)
     from deepqlearning_tpu_torch.learner.loop import build_loop, init_carry
     from deepqlearning_tpu_torch.models.chain import params_of
 
-    env = SimpleGridWorld()
+    env = CartPole() if cartpole else SimpleGridWorld()
+    no, A = env.obs_shape[0], env.num_actions
     net = create_dueling_network(Chain(
-        Flatten(), Dense(2, 16, torch.tanh), Dense(16, 16, torch.tanh),
-        Dense(16, 4)))
+        Flatten(), Dense(no, 16, torch.tanh), Dense(16, 16, torch.tanh),
+        Dense(16, A)))
     net.init(torch.Generator().manual_seed(0))  # same weights on both devices
     net.to(dev)
     cfg = DQNConfig(num_envs=128, batch_size=32, buffer_size=1024,
@@ -1136,7 +1381,8 @@ def _small_loop(torch, dev, sample_u, collect_u):
     it, pop, opt = build_loop(env, net, buf, cfg,
                               LinearDecaySchedule(1.0, 0.05, 500), 0.95)
     c = init_carry(env, net, buf, cfg, opt, dev, params=params_of(net))
-    st, obs = env.reset_cols(collect_u[0][:2].to(dev))
+    reset_rows = slice(2, 6) if cartpole else slice(0, 2)
+    st, obs = env.reset_cols(collect_u[0][reset_rows].to(dev))
     cc = (c.actor._replace(env_state=st, obs=obs), c.replay, c.params)
     for i in range(2):
         cc = pop(cc, None, collect_u[i].to(dev))
@@ -1149,8 +1395,9 @@ def _small_loop(torch, dev, sample_u, collect_u):
 
 def phase_slice(torch, dev):
     """The small loop (128 envs, U=4, B=32) on the card vs on the CPU from
-    the same seed and uniforms. Params rtol 1e-3 / atol 1e-4 and replay rows
-    exact on envs whose actions agree: the card sums in other orders."""
+    the same seed and uniforms, on SimpleGridWorld and on CartPole. Params
+    rtol 1e-3 / atol 1e-4 and replay actions >= 99% equal: the card sums in
+    other orders."""
     rng = np.random.default_rng(0)
     collect_u = [torch.from_numpy(rng.random((6, 128), np.float32))
                  for _ in range(4)]
@@ -1169,6 +1416,29 @@ def phase_slice(torch, dev):
     _check(agree >= 0.99, f"slice replay actions agree on only {agree}")
     _say(f"slice GPU vs CPU (128 envs, U=4, B=32, 2 iterations): ok, "
          f"params max_abs_err {err:.3g}, replay actions agree {agree:.4f}")
+    # the same small loop on CartPole (its six uniform rows: explore,
+    # random action, four reset values), and the same tolerances
+    rng = np.random.default_rng(2)
+    collect_u = [torch.from_numpy(rng.random((6, 128), np.float32))
+                 for _ in range(4)]
+    sample_u = [torch.from_numpy(rng.random(128, np.float32))
+                for _ in range(2)]
+    cg = _small_loop(torch, dev, sample_u, collect_u, cartpole=True)
+    torch.cuda.synchronize()
+    cc = _small_loop(torch, torch.device("cpu"), sample_u, collect_u,
+                     cartpole=True)
+    err = 0.0
+    for k in cc.params:
+        err = max(err, _close(cg.params[k], cc.params[k], 1e-3, 1e-4,
+                              f"CartPole slice {k}"))
+    _close(cg.loss, cc.loss, 1e-3, 1e-5, "CartPole slice loss")
+    rows_g, rows_c = cg.replay.rows.cpu(), cc.replay.rows
+    agree = (rows_g[:, 8] == rows_c[:, 8]).float().mean().item()
+    _check(agree >= 0.99, f"CartPole slice actions agree on only {agree}")
+    _check(cg.replay.size == cc.replay.size == 512, "CartPole slice size")
+    _say(f"CartPole slice GPU vs CPU (128 envs, U=4, B=32, 2 iterations): "
+         f"ok, params max_abs_err {err:.3g}, replay actions agree "
+         f"{agree:.4f}")
 
 
 def _small_drqn_loop(torch, dev, collect_u, draws):
@@ -1309,35 +1579,53 @@ def _profile_iterations(torch, it, c, n):
     return c, enq, prof["busy"], prof["device_ms"], per_iter
 
 
-def _dueling_net(torch, dev, width, act):
-    """The dueling ``Chain(Flatten(), Dense(2, w, act), Dense(w, w, act),
-    Dense(w, 4))`` over SimpleGridWorld's 2-d observation."""
+def _dueling_net(torch, dev, width, act, no=2, A=4):
+    """The dueling ``Chain(Flatten(), Dense(no, w, act), Dense(w, w, act),
+    Dense(w, A))``: by default over SimpleGridWorld's 2-d observation."""
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
 
     return create_dueling_network(Chain(
-        Flatten(), Dense(2, width, act, device=dev),
-        Dense(width, width, act, device=dev), Dense(width, 4, device=dev)))
+        Flatten(), Dense(no, width, act, device=dev),
+        Dense(width, width, act, device=dev), Dense(width, A, device=dev)))
+
+
+def _cartpole_model(torch, dev=None):
+    """``examples/cartpole_dqn.py``'s model: ``Chain(Dense(4, 64, tanh),
+    Dense(64, 64, tanh), Dense(64, 2))`` (the solver makes it dueling)."""
+    from deepqlearning_tpu_torch import Chain, Dense
+
+    return Chain(Dense(4, 64, torch.tanh, device=dev),
+                 Dense(64, 64, torch.tanh, device=dev),
+                 Dense(64, 2, device=dev))
+
+
+def _cartpole_net(torch, dev):
+    """The CartPole solve's network: the example's model, dueling."""
+    from deepqlearning_tpu_torch import create_dueling_network
+
+    return create_dueling_network(_cartpole_model(torch, dev))
 
 
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
-          n_iters, n_pop, profile_iters=0, net=None, **cfg_kw):
-    """A feed-forward PER loop on SimpleGridWorld through ``build_loop``,
-    with the headline's dueling 2-64-64-4 tanh net unless ``net`` is
-    given; ``cfg_kw`` go to ``DQNConfig``."""
+          n_iters, n_pop, profile_iters=0, net=None, env=None, **cfg_kw):
+    """A feed-forward PER loop through ``build_loop`` on SimpleGridWorld
+    (or ``env``), with the headline's dueling 2-64-64-4 tanh net unless
+    ``net`` is given; ``cfg_kw`` go to ``DQNConfig``."""
     from deepqlearning_tpu_torch import (
         DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         SimpleGridWorld)
     from deepqlearning_tpu_torch.learner.loop import (
         build_loop, init_carry, populate)
 
-    env = SimpleGridWorld()
+    env = SimpleGridWorld() if env is None else env
     if net is None:
         net = _dueling_net(torch, dev, 64, torch.tanh)
+    cfg_kw.setdefault("max_episode_length", 100)
     cfg = DQNConfig(num_envs=num_envs, batch_size=batch_size,
                     buffer_size=buffer_size, train_freq=train_freq,
-                    max_episode_length=100, double_q=True, dueling=True,
-                    prioritized_replay=True, **cfg_kw)
+                    double_q=True, dueling=True, prioritized_replay=True,
+                    **cfg_kw)
     buf = PrioritizedReplayBuffer(
         env.obs_shape, cfg.buffer_size, cfg.batch_size,
         alpha=cfg.prioritized_replay_alpha, beta=cfg.prioritized_replay_beta,
@@ -1544,6 +1832,101 @@ def phase_solve(torch, dev, card, run_path):
     _say(f"solve (c) learning: test_prioritized_ddqn's config on TestMDP, "
          f"10000 steps in {dt:.2f} s: greedy return {r:.4f} (>= 1.5, "
          f"optimum 2.1), {steps:.2f} steps | {card} | launches {lrn}")
+
+
+# examples/cartpole_dqn.py's configuration (its model: _cartpole_model)
+CARTPOLE_CFG = dict(
+    max_steps=400_000, num_envs=256, train_freq=16, batch_size=256,
+    buffer_size=1 << 16, learning_rate=1e-3, target_update_freq=2_000,
+    eval_freq=100_000, log_freq=50_000, num_ep_eval=64,
+    max_episode_length=200, double_q=True, dueling=True,
+    prioritized_replay=True)
+CARTPOLE_EPS = (1.0, 0.05, 150_000)  # LinearDecaySchedule
+
+
+def _solve_cartpole(torch, logdir):
+    """``DeepQLearningSolver.solve`` on CartPole at ``examples/
+    cartpole_dqn.py``'s configuration (dueling 4-64-64-2 tanh, double-Q,
+    2^16 PER, batch 256, 256 envs, train_freq 16: U = 16 updates per
+    iteration of 256 env steps, 400,000 steps, 4 evaluations of 64
+    episodes) on the card (``device=None``). Returns ``(solver, policy,
+    iterations, env-steps/s over the whole solve)``."""
+    from deepqlearning_tpu_torch import (
+        CartPole, DeepQLearningSolver, EpsGreedyPolicy, LinearDecaySchedule)
+
+    solver = DeepQLearningSolver(
+        qnetwork=_cartpole_model(torch), logdir=logdir, verbose=True,
+        exploration_policy=EpsGreedyPolicy(LinearDecaySchedule(
+            *CARTPOLE_EPS)), **CARTPOLE_CFG)
+    _check(solver.device is None, "the CartPole solve runs with device=None")
+    cfg = solver.config
+    iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy = solver.solve(CartPole())
+    dt = time.perf_counter() - t0
+    _check(all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in policy.params.values()), "CartPole solve: params")
+    _check(len(solver.metrics["eval"]) == 4, "CartPole solve: evaluations")
+    return solver, policy, iters, iters * cfg.env_steps_per_iter / dt
+
+
+def phase_cartpole_solve(torch, dev, card, run_path):
+    """The slice's path: the CartPole solve, with the counters from zero.
+    Every iteration launches K4 (on CartPole), K2 and K3 once (U = 16, B =
+    256): K4 exactly iterations + the populate step, K2 and K3 exactly once
+    per iteration, K1 never. The returned policy's greedy return over 64
+    episodes (a generator seeded 7) must reach 150 of 200, the example's
+    full-episode balance (``docs/PARITY.md``)."""
+    import tempfile
+
+    from deepqlearning_tpu_torch import CartPole, basic_evaluation
+
+    with tempfile.TemporaryDirectory() as logdir:
+        (solver, policy, iters, sps), cnt = run_path(
+            "CartPole solve", lambda: _solve_cartpole(torch, logdir),
+            ("fused_collect", "tree_sample", "fused_group_update"),
+            ("td_loss", "fused_collect_rnn", "fused_grads"))
+    n_pop = -(-solver.config.train_start // solver.config.num_envs)
+    _check(cnt["fused_collect"] == iters + n_pop
+           and cnt["tree_sample"] == cnt["fused_group_update"] == iters,
+           f"CartPole solve: {iters} iterations, launches {cnt}")
+    r, steps, _ = basic_evaluation(policy.network, policy.params,
+                                   CartPole(), 64, 200, 7)
+    evals = [(t, round(v, 3)) for t, v in solver.metrics["eval"]]
+    _say(f"CartPole solve (examples/cartpole_dqn.py): 256 envs, U=16, "
+         f"batch 256, 2^16 PER, {iters} iterations: {sps:.1f} env-steps/s "
+         f"over the whole solve (populate, 4 evaluations of 64 episodes and "
+         f"saves included; the verbose lines above give each segment's "
+         f"loop rate), eval returns {evals}; greedy return of the returned "
+         f"policy {r:.4f} over 64 episodes ({steps:.2f} steps) | {card} | "
+         f"launches {cnt}")
+    _check(r >= 150.0, f"CartPole solve: greedy return {r} < 150")
+
+
+def _cartpole_loop(torch, dev, n_iters):
+    """The CartPole solve's loop, built as ``solve`` builds it (stock
+    ε-greedy, so K4), populated, ``n_iters`` iterations to warm up and
+    fill the replay, then 20 iterations profiled (``_profile_iterations``)."""
+    from deepqlearning_tpu_torch import (
+        CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
+        create_dueling_network)
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
+
+    env = CartPole()
+    net = create_dueling_network(_cartpole_model(torch, dev))
+    cfg = DQNConfig(**CARTPOLE_CFG, logdir=None)
+    buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                  cfg.batch_size, device=dev)
+    it, pop, opt = build_loop(env, net, buf, cfg,
+                              LinearDecaySchedule(*CARTPOLE_EPS),
+                              env.discount)
+    c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
+    for _ in range(n_iters):
+        c = it(c)
+    torch.cuda.synchronize()
+    return _profile_iterations(torch, it, c, 20)[1:]
 
 
 def _dp_loop(torch, dev, recurrent, n_iters):
@@ -1786,6 +2169,26 @@ def main():
     _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
          f"512, trace 8, U={cfg.updates_per_iter}: {sps3:.1f} env-steps/s, "
          f"loss {loss3:.5g} | {card} | launches {rec}")
+    # K4 on a second env at full width inside a loop: MountainCar at the
+    # headline's shape (2 populate steps, a warm-up and 5 iterations), with
+    # episodes cut at 4 steps so that K4 resets envs within those 8 steps
+    # (the car needs ~100 steps to reach the goal)
+    from deepqlearning_tpu_torch import MountainCar
+
+    (cfg, sps_m, loss_m), mc = run_path(
+        "MountainCar loop",
+        lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 5, 2,
+                      net=_dueling_net(torch, dev, 64, torch.tanh, 2, 3),
+                      env=MountainCar(), max_episode_length=4),
+        ("tree_sample", "fused_group_update", "fused_collect"),
+        ("td_loss",))
+    _check(mc["fused_collect"] == 2 + 6 and mc["tree_sample"] == 6
+           and mc["fused_group_update"] == 6,
+           f"MountainCar loop: launches {mc}")
+    _say(f"MountainCar loop: 131072 envs, 2^20 replay, batch 512, U="
+         f"{cfg.updates_per_iter}, dueling 2-64-64-3 tanh: {sps_m:.1f} "
+         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_m:.4f} "
+         f"ms/iteration, loss {loss_m:.5g} | {card} | launches {mc}")
 
     # 8. - 9. the data-parallel routes in a one-rank NCCL world
     torch.cuda.set_device(dev)
@@ -1820,6 +2223,8 @@ def main():
 
     # 11. solve, the users' entry point, each part with the counters from 0
     phase_solve(torch, dev, card, run_path)
+    # 11 (d). the CartPole solve (examples/cartpole_dqn.py)
+    phase_cartpole_solve(torch, dev, card, run_path)
 
     # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
@@ -1888,6 +2293,21 @@ def main():
          f"per iteration (launches, device ms) by kernel {per_iter} | "
          f"{card} | launches {wide}")
 
+    # 16. the CartPole solve's loop profiled the same way: K4 (CartPole),
+    # K2 and K3 exactly once per iteration
+    (enq, busy, dev_ms, per_iter), cp = run_path(
+        "CartPole loop (profiled)", lambda: _cartpole_loop(torch, dev, 40),
+        ("fused_collect", "tree_sample", "fused_group_update"), ("td_loss",))
+    for k in ("fc_kernel", "tree_sample_kernel", "fu_group_kernel"):
+        _check(per_iter.get(k, (0,))[0] == 1.0,
+               f"CartPole loop: {k} launches per iteration {per_iter}")
+    _say(f"CartPole loop (the CartPole solve's iteration: 256 envs, U=16, "
+         f"B=256), profiled: host enqueue {enq:.4f} ms/iteration (each from "
+         f"an idle queue); device busy share {busy:.4f} and device time "
+         f"{dev_ms:.4f} ms/iteration (under torch.profiler, 20 iterations); "
+         f"per iteration (launches, device ms) by kernel {per_iter} | "
+         f"{card} | launches {cp}")
+
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
                     "deepqlearning_tpu/ops/pallas/td_kernel.py:72"),
@@ -1915,9 +2335,12 @@ def main():
     symbols = {"td_loss": "td_loss_kernel",
                "tree_sample": "tree_sample_kernel (16 lanes per draw)",
                "fused_group_update": "fu_group_kernel (cooperative)",
-               "fused_collect": "fc_kernel",
+               "fused_collect": "fc_kernel (SimpleGridWorld, CartPole, "
+                                "MountainCar)",
                "fused_drqn_group_update": "dr_group_kernel (cooperative)",
-               "fused_collect_rnn": "fc_rnn_kernel (tiles of envs)",
+               "fused_collect_rnn": "fc_rnn_kernel (tiles of envs; "
+                                    "SimpleGridWorld, CartPole, "
+                                    "MountainCar)",
                "fused_grads": "fu_group_kernel (cooperative, U=1)",
                "fused_drqn_grads": "dr_group_kernel (cooperative, U=1)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",

@@ -12,10 +12,13 @@ package's Pallas kernels rewritten as hand-written CUDA kernels
 """
 
 from .config import DQNConfig
+from .envs.acrobot import Acrobot
 from .envs.adapters import MDPEnv, POMDPEnv
 from .envs.base import Env
+from .envs.cartpole import CartPole
 from .envs.compat import HostEnv
 from .envs.gridworld import SimpleGridWorld
+from .envs.mountain_car import MountainCar
 from .envs.test_mdp import TestMDP
 from .envs.tiger import TigerPOMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
@@ -47,7 +50,8 @@ __all__ = [
     "NNPolicy", "getnetwork", "resetstate", "EpsGreedyPolicy",
     "VectorizedStrategy", "exploration", "linear_epsilon_greedy",
     "basic_evaluation", "evaluation", "TigerPOMDP", "HostEnv", "MDPEnv",
-    "POMDPEnv", "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "LoopCarry",
+    "POMDPEnv", "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "CartPole",
+    "MountainCar", "Acrobot", "LoopCarry",
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
     "init_carry", "populate", "Activation", "Chain", "Dense", "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",

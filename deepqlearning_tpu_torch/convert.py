@@ -107,6 +107,19 @@ def gridworld_state_from_numpy(pos, terminal, device=None) -> torch.Tensor:
     return torch.tensor(np.concatenate([pos, term], axis=1), device=device)
 
 
+def env_state_from_numpy(state, device=None) -> torch.Tensor:
+    """A JAX env state NamedTuple whose leaves were copied to numpy (one
+    array ``[E]`` per field, or ``[E, 2]`` for the grid's ``pos``) -> the
+    port's batched ``[E, W]`` f32 block: ``GridWorldState`` as
+    :func:`gridworld_state_from_numpy`; ``CartPoleState``,
+    ``MountainCarState`` and ``AcrobotState`` as their fields in order, the
+    JAX cols rows transposed."""
+    if hasattr(state, "pos") and hasattr(state, "terminal"):
+        return gridworld_state_from_numpy(state.pos, state.terminal, device)
+    cols = [np.asarray(x, np.float32) for x in state]
+    return torch.tensor(np.stack(cols, axis=1), device=device)
+
+
 def net_state_from_numpy(tree, device=None):
     """A network state (nested tuples of numpy arrays, one entry per layer)
     as the same tuples of f32 tensors; ``()`` when it holds no array (a
@@ -125,12 +138,12 @@ def net_state_from_numpy(tree, device=None):
 
 def actor_from_numpy(actor, device=None) -> ActorState:
     """The port's ``ActorState`` from a JAX ``ActorState`` whose leaves were
-    copied to numpy (SimpleGridWorld env state, any network state)."""
+    copied to numpy (the env states of :func:`env_state_from_numpy`, any
+    network state)."""
     t = lambda x, dt=torch.float32: torch.tensor(np.asarray(x),
                                                  device=device).to(dt)
     return ActorState(
-        env_state=gridworld_state_from_numpy(actor.env_state.pos,
-                                             actor.env_state.terminal, device),
+        env_state=env_state_from_numpy(actor.env_state, device),
         obs=t(actor.obs), net_state=net_state_from_numpy(actor.net_state,
                                                          device),
         ep_step=t(actor.ep_step, torch.int32), ep_ret=t(actor.ep_ret),
@@ -217,7 +230,8 @@ def loop_carry_from_numpy(network, carry, index=None, device=None,
     """One rank's ``LoopCarry`` from a JAX ``LoopCarry`` whose leaves were
     copied to numpy: shard ``index`` (``d`` on a 1-D mesh, ``(i, j)`` on a
     2-D one) of a ``DataParallelRunner`` carry, or the whole carry when
-    ``index`` is None. SimpleGridWorld actors; PER or episode replay; the
+    ``index`` is None. The actors of
+    :func:`actor_from_numpy`; PER or episode replay; the
     ``optax.flatten`` Adam state. The JAX keys have no counterpart: the
     rank's ``generator`` (default: a fresh one seeded 0) takes their
     place."""

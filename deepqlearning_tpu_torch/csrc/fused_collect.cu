@@ -4,13 +4,16 @@
 //
 // Both do the (dueling) Dense forward with the parameters in shared
 // memory, the epsilon-greedy action (first-max argmax over the real
-// actions; a random action floor(u1 * A) when u0 < eps), SimpleGridWorld's
-// step_cols and reset_cols as device code, truncation at
+// actions; a random action floor(u1 * A) when u0 < eps), the env's
+// step_cols and reset_cols as device code (SimpleGridWorld, CartPole or
+// MountainCar: a template parameter, FcEnv<ENV>), truncation at
 // max_episode_length, auto-reset and the episode accumulators. Transition
 // fields are written straight in replay-row order [E, 2*no + 4] = (obs,
 // obs', action, reward, done, ended); each block writes its (sum
 // ret*ended, sum len*ended, sum ended) partial, reduced in a fixed order.
-// Uniforms come in as u [6, E].
+// Uniforms come in as u [2 + ns + nr, E]: explore, random action, the
+// env's ns step and nr reset uniforms (6 rows for SimpleGridWorld and
+// CartPole, 3 for MountainCar).
 //
 // K4 (fc_kernel): a block takes a tile of TE envs (TE from the plan, 128
 // for the headline net) and runs each Dense layer as a small matrix
@@ -43,78 +46,213 @@
 
 #define FC_MAXW 128
 #define FC_MAXCELLS 16
+#define FC_MAXK 16
 #define FC_THREADS 256
 #define FC_MAX_TE 128
 
-struct GridDesc {
+// The envs whose step_cols / reset_cols the kernels run (EnvDesc::kind,
+// and the template parameter that selects the device code).
+#define FC_GRID 0
+#define FC_CARTPOLE 1
+#define FC_MOUNTAINCAR 2
+
+// The env's constants, read from the Python object
+// (ops/cuda/fused_collect.py::ENVS): SimpleGridWorld's reward cells, and k
+// in the order each FcEnv<ENV>::step below names them.
+struct EnvDesc {
+  int kind;
   int n_cells;
   float cell_x[FC_MAXCELLS];
   float cell_y[FC_MAXCELLS];
   float cell_r[FC_MAXCELLS];
-  float tprob;
-  float size_x;
-  float size_y;
+  float k[FC_MAXK];
 };
 
-// SimpleGridWorld.step_cols for env e from obs (x0, x1) and the action,
+// One env's step_cols and reset_cols for env e: NO obs columns, a state of
+// W floats, NS step uniforms and NR reset uniforms (u rows 2.. and 2 + NS..
+// of the kernel's u, passed here as the first row, rows E floats apart).
+// step writes the next state ns, obs nobs, reward and done; reset the
+// fresh state rs and obs robs. The arithmetic is the JAX cols functions'
+// op for op, each product and sum rounded on its own (__fmul_rn and
+// __fadd_rn keep nvcc from contracting them into FMAs, which round once),
+// so the plain PyTorch versions give the same bits where their
+// transcendentals do.
+template <int ENV>
+struct FcEnv;
+
+template <>
+struct FcEnv<FC_GRID> {
+  static constexpr int NO = 2, W = 3, NS = 2, NR = 2;
+  __device__ static __forceinline__ void step(const EnvDesc& g,
+                                              const float* s, float action,
+                                              const float* __restrict__ u,
+                                              size_t E, int e, float* ns,
+                                              float* nobs, float& rew,
+                                              float& done) {
+    const float tprob = g.k[0], size_x = g.k[1], size_y = g.k[2];
+    const float px = s[0], py = s[1], term = s[2];
+    float cell_r = 0.0f;
+    for (int k = 0; k < g.n_cells; ++k)
+      cell_r += (px == g.cell_x[k] && py == g.cell_y[k]) ? g.cell_r[k] : 0.0f;
+    rew = (term > 0.5f) ? 0.0f : cell_r;
+    const float in_cell = (cell_r != 0.0f) ? 1.0f : 0.0f;
+    float other = floorf(u[E + e] * 3.0f);
+    if (other >= action) other += 1.0f;
+    const float dir = (u[e] < tprob) ? action : other;
+    float dx = 0.0f, dy = 0.0f;
+    if (dir == 0.0f) dy = 1.0f;
+    if (dir == 1.0f) dy = -1.0f;
+    if (dir == 2.0f) dx = -1.0f;
+    if (dir == 3.0f) dx = 1.0f;
+    float npx = fminf(fmaxf(px + dx, 1.0f), size_x);
+    float npy = fminf(fmaxf(py + dy, 1.0f), size_y);
+    const float bt = fmaxf(term, in_cell);
+    if (bt > 0.5f) { npx = px; npy = py; }
+    ns[0] = npx;
+    ns[1] = npy;
+    ns[2] = bt;
+    nobs[0] = (bt > 0.5f) ? -1.0f : npx;
+    nobs[1] = (bt > 0.5f) ? -1.0f : npy;
+    done = bt;
+  }
+  __device__ static __forceinline__ void reset(const EnvDesc& g,
+                                               const float* __restrict__ u,
+                                               size_t E, int e, float* rs,
+                                               float* robs) {
+    // k = (tprob, size_x, size_y)
+    rs[0] = robs[0] = 1.0f + floorf(u[e] * g.k[1]);
+    rs[1] = robs[1] = 1.0f + floorf(u[E + e] * g.k[2]);
+    rs[2] = 0.0f;
+  }
+};
+
+template <>
+struct FcEnv<FC_CARTPOLE> {
+  static constexpr int NO = 4, W = 4, NS = 0, NR = 4;
+  __device__ static __forceinline__ void step(const EnvDesc& g,
+                                              const float* s, float action,
+                                              const float* __restrict__ u,
+                                              size_t E, int e, float* ns,
+                                              float* nobs, float& rew,
+                                              float& done) {
+    const float gravity = g.k[0], masspole = g.k[1], total_mass = g.k[2];
+    const float length = g.k[3], pml = g.k[4], force_mag = g.k[5];
+    const float tau = g.k[6], theta_thr = g.k[7], x_thr = g.k[8];
+    const float four_thirds = g.k[9];
+    const float x = s[0], x_dot = s[1], theta = s[2], theta_dot = s[3];
+    const float force = (action == 1.0f) ? force_mag : -force_mag;
+    const float costh = cosf(theta), sinth = sinf(theta);
+    const float temp = __fdiv_rn(
+        __fadd_rn(force, __fmul_rn(__fmul_rn(pml, __fmul_rn(theta_dot,
+                                                           theta_dot)),
+                                   sinth)),
+        total_mass);
+    const float theta_acc = __fdiv_rn(
+        __fsub_rn(__fmul_rn(gravity, sinth), __fmul_rn(costh, temp)),
+        __fmul_rn(length,
+                  __fsub_rn(four_thirds,
+                            __fdiv_rn(__fmul_rn(masspole,
+                                                __fmul_rn(costh, costh)),
+                                      total_mass))));
+    const float x_acc = __fsub_rn(
+        temp, __fdiv_rn(__fmul_rn(__fmul_rn(pml, theta_acc), costh),
+                        total_mass));
+    ns[0] = __fadd_rn(x, __fmul_rn(tau, x_dot));
+    ns[1] = __fadd_rn(x_dot, __fmul_rn(tau, x_acc));
+    ns[2] = __fadd_rn(theta, __fmul_rn(tau, theta_dot));
+    ns[3] = __fadd_rn(theta_dot, __fmul_rn(tau, theta_acc));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nobs[i] = ns[i];
+    done = (fabsf(ns[0]) > x_thr || fabsf(ns[2]) > theta_thr) ? 1.0f : 0.0f;
+    rew = 1.0f;
+  }
+  __device__ static __forceinline__ void reset(const EnvDesc& g,
+                                               const float* __restrict__ u,
+                                               size_t E, int e, float* rs,
+                                               float* robs) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rs[i] = robs[i] = __fsub_rn(__fmul_rn(u[i * E + e], 0.1f), 0.05f);
+  }
+};
+
+template <>
+struct FcEnv<FC_MOUNTAINCAR> {
+  static constexpr int NO = 2, W = 2, NS = 0, NR = 1;
+  __device__ static __forceinline__ void step(const EnvDesc& g,
+                                              const float* s, float action,
+                                              const float* __restrict__ u,
+                                              size_t E, int e, float* ns,
+                                              float* nobs, float& rew,
+                                              float& done) {
+    const float min_pos = g.k[0], max_pos = g.k[1], max_speed = g.k[2];
+    const float goal = g.k[3], force = g.k[4], gravity = g.k[5];
+    const float pos = s[0];
+    float vel = __fsub_rn(
+        __fadd_rn(s[1], __fmul_rn(__fsub_rn(action, 1.0f), force)),
+        __fmul_rn(cosf(__fmul_rn(3.0f, pos)), gravity));
+    vel = fminf(fmaxf(vel, -max_speed), max_speed);
+    const float npos = fminf(fmaxf(__fadd_rn(pos, vel), min_pos), max_pos);
+    if (npos <= min_pos && vel < 0.0f) vel = 0.0f;
+    ns[0] = nobs[0] = npos;
+    ns[1] = nobs[1] = vel;
+    done = (npos >= goal) ? 1.0f : 0.0f;
+    rew = -1.0f;
+  }
+  __device__ static __forceinline__ void reset(const EnvDesc& g,
+                                               const float* __restrict__ u,
+                                               size_t E, int e, float* rs,
+                                               float* robs) {
+    rs[0] = robs[0] = __fadd_rn(-0.6f, __fmul_rn(u[e], 0.2f));
+    rs[1] = robs[1] = 0.0f;
+  }
+};
+
+// The env step of env e (the tile's env el) from its obs rows in shared
+// memory (sx, rows ldx floats apart) and the action: step_cols,
 // truncation, auto-reset (reset_cols) and the episode accumulators; writes
-// the transition fields and the env's next obs/state/counters, adds the
-// env's (ret, len, ended) terms to s_ret/s_len/s_end. Returns whether the
+// the transition fields and the env's next obs/state/counters, sets the
+// env's (ret, len, ended) terms s_ret/s_len/s_end. Returns whether the
 // episode ended.
+template <int ENV>
 __device__ __forceinline__ bool fc_env_step(
-    const GridDesc& g, float x0, float x1, float action, int e, int E,
-    const float* __restrict__ state, const int* __restrict__ ep_step,
+    const EnvDesc& g, const float* sx, int ldx, int el, float action, int e,
+    int E, const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u,
     int max_len, float* __restrict__ fields, float* __restrict__ obs_out,
     float* __restrict__ state_out, int* __restrict__ ep_step_out,
     float* __restrict__ ep_ret_out, float& s_ret, float& s_len,
     float& s_end) {
-  const int no = 2;
-  const float px = state[(size_t)e * 3], py = state[(size_t)e * 3 + 1];
-  const float term = state[(size_t)e * 3 + 2];
-  float cell_r = 0.0f;
-  for (int k = 0; k < g.n_cells; ++k)
-    cell_r += (px == g.cell_x[k] && py == g.cell_y[k]) ? g.cell_r[k] : 0.0f;
-  const float rew = (term > 0.5f) ? 0.0f : cell_r;
-  const float in_cell = (cell_r != 0.0f) ? 1.0f : 0.0f;
-  float other = floorf(u[3 * (size_t)E + e] * 3.0f);
-  if (other >= action) other += 1.0f;
-  const float dir = (u[2 * (size_t)E + e] < g.tprob) ? action : other;
-  float dx = 0.0f, dy = 0.0f;
-  if (dir == 0.0f) dy = 1.0f;
-  if (dir == 1.0f) dy = -1.0f;
-  if (dir == 2.0f) dx = -1.0f;
-  if (dir == 3.0f) dx = 1.0f;
-  float npx = fminf(fmaxf(px + dx, 1.0f), g.size_x);
-  float npy = fminf(fmaxf(py + dy, 1.0f), g.size_y);
-  const float bt = fmaxf(term, in_cell);
-  if (bt > 0.5f) { npx = px; npy = py; }
-  const float nox = (bt > 0.5f) ? -1.0f : npx;
-  const float noy = (bt > 0.5f) ? -1.0f : npy;
+  using Env = FcEnv<ENV>;
+  constexpr int NO = Env::NO, W = Env::W;
+  float s[W], ns[W], rs[W], nobs[NO], robs[NO], rew, done;
+#pragma unroll
+  for (int k = 0; k < W; ++k) s[k] = state[(size_t)e * W + k];
+  Env::step(g, s, action, u + 2 * (size_t)E, (size_t)E, e, ns, nobs, rew,
+            done);
 
   // truncation, auto-reset (reset_cols), accumulators
   const float ep1 = (float)ep_step[e] + 1.0f;
   const float trunc = (ep1 >= (float)max_len) ? 1.0f : 0.0f;
-  const float ended = fmaxf(bt, trunc);
+  const float ended = fmaxf(done, trunc);
   const float ret1 = ep_ret[e] + rew;
-  const float rx = 1.0f + floorf(u[4 * (size_t)E + e] * g.size_x);
-  const float ry = 1.0f + floorf(u[5 * (size_t)E + e] * g.size_y);
+  Env::reset(g, u + (size_t)(2 + Env::NS) * E, (size_t)E, e, rs, robs);
   const bool end = ended > 0.5f;
 
-  float* f = fields + (size_t)e * (2 * no + 4);
-  f[0] = x0;
-  f[1] = x1;
-  f[2] = nox;
-  f[3] = noy;
-  f[4] = action;
-  f[5] = rew;
-  f[6] = bt;
-  f[7] = ended;
-  obs_out[(size_t)e * 2] = end ? rx : nox;
-  obs_out[(size_t)e * 2 + 1] = end ? ry : noy;
-  state_out[(size_t)e * 3] = end ? rx : npx;
-  state_out[(size_t)e * 3 + 1] = end ? ry : npy;
-  state_out[(size_t)e * 3 + 2] = end ? 0.0f : bt;
+  float* f = fields + (size_t)e * (2 * NO + 4);
+#pragma unroll
+  for (int i = 0; i < NO; ++i) {
+    f[i] = sx[i * ldx + el];
+    f[NO + i] = nobs[i];
+    obs_out[(size_t)e * NO + i] = end ? robs[i] : nobs[i];
+  }
+  f[2 * NO] = action;
+  f[2 * NO + 1] = rew;
+  f[2 * NO + 2] = done;
+  f[2 * NO + 3] = ended;
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    state_out[(size_t)e * W + k] = end ? rs[k] : ns[k];
   ep_step_out[e] = end ? 0 : (int)ep1;
   ep_ret_out[e] = end ? 0.0f : ret1;
   s_ret = ret1 * ended;
@@ -279,8 +417,9 @@ __device__ __forceinline__ int fc_tile_greedy(const NetDesc& d,
   return greedy;
 }
 
+template <int ENV>
 __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
-    NetDesc d, TensorPtrs params, GridDesc g, const float* __restrict__ obs,
+    NetDesc d, TensorPtrs params, EnvDesc g, const float* __restrict__ obs,
     const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u, int E,
     int TE, float eps, int max_len, float* __restrict__ fields,
@@ -320,9 +459,9 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
     const int greedy = fc_tile_greedy(d, aout, sv, el, TE);
     const float u0 = u[e], u1 = u[(size_t)E + e];
     const float action = (u0 < eps) ? floorf(u1 * (float)A) : (float)greedy;
-    fc_env_step(g, sx[el], sx[TE + el], action, e, E, state, ep_step, ep_ret,
-                u, max_len, fields, obs_out, state_out, ep_step_out,
-                ep_ret_out, s_ret, s_len, s_end);
+    fc_env_step<ENV>(g, sx, TE, el, action, e, E, state, ep_step, ep_ret, u,
+                     max_len, fields, obs_out, state_out, ep_step_out,
+                     ep_ret_out, s_ret, s_len, s_end);
   }
   fc_block_totals(red, s_ret, s_len, s_end, partials);
 }
@@ -438,10 +577,11 @@ __device__ __forceinline__ void fc_cell_tile(const float* __restrict__ sw,
 // (fc_cell_tile), the Dense or dueling head on h' (fc_chain_tile), then a
 // thread per env for epsilon-greedy, the env step and its bookkeeping, and
 // the new state rows, zeroed where the episode ended.
+template <int ENV>
 __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
     NetDesc d, TensorPtrs params, int kind, int H,
     const float* __restrict__ wi, const float* __restrict__ wh,
-    const float* __restrict__ bc, GridDesc g, const float* __restrict__ obs,
+    const float* __restrict__ bc, EnvDesc g, const float* __restrict__ obs,
     const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u,
     const float* __restrict__ nstate, int E, int TE, float eps, int max_len,
@@ -452,7 +592,7 @@ __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
   extern __shared__ __align__(16) float k6_smem[];
   __shared__ int ow[DQ_MAXL], ob[DQ_MAXL];
   __shared__ RnnLayout L;
-  const int cin = 2, G = (kind == 0 ? 4 : 3) * H, TP = TE + 4;
+  const int cin = FcEnv<ENV>::NO, G = (kind == 0 ? 4 : 3) * H, TP = TE + 4;
   const int S = (kind == 0 ? 2 : 1) * H;
   if (threadIdx.x == 0)
     L = fc_rnn_layout(d, fc_tile_layout(d, ow, ob), kind, cin, H, TE);
@@ -508,10 +648,10 @@ __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
     const float u0 = u[e], u1 = u[(size_t)E + e];
     const float action =
         (u0 < eps) ? floorf(u1 * (float)d.num_actions) : (float)greedy;
-    const bool end = fc_env_step(g, sx[el], sx[TP + el], action, e, E, state,
-                                 ep_step, ep_ret, u, max_len, fields, obs_out,
-                                 state_out, ep_step_out, ep_ret_out, s_ret,
-                                 s_len, s_end);
+    const bool end = fc_env_step<ENV>(g, sx, TP, el, action, e, E, state,
+                                      ep_step, ep_ret, u, max_len, fields,
+                                      obs_out, state_out, ep_step_out,
+                                      ep_ret_out, s_ret, s_len, s_end);
     send[el] = end ? 1.0f : 0.0f;
   }
   __syncthreads();
@@ -524,79 +664,77 @@ __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
   fc_block_totals(red, s_ret, s_len, s_end, partials);
 }
 
-static void fc_grid(GridDesc* g, const float* cells, int n_cells,
-                    float tprob, float size_x, float size_y) {
-  g->n_cells = n_cells;
-  for (int k = 0; k < n_cells; ++k) {
-    g->cell_x[k] = cells[3 * k];
-    g->cell_y[k] = cells[3 * k + 1];
-    g->cell_r[k] = cells[3 * k + 2];
-  }
-  g->tprob = tprob;
-  g->size_x = size_x;
-  g->size_y = size_y;
+// K4's launch for env ENV (the obs width must be the env's).
+template <int ENV>
+static int fc_launch(const NetDesc* d, const TensorPtrs& P,
+                     const EnvDesc& g, const void* obs, const void* state,
+                     const void* ep_step, const void* ep_ret, const void* u,
+                     int E, int TE, float eps, int max_len, void* fields,
+                     void* obs_out, void* state_out, void* ep_step_out,
+                     void* ep_ret_out, void* partials, void* stream) {
+  if (d->in_dim != FcEnv<ENV>::NO) return (int)cudaErrorInvalidValue;
+  const int smem = fc_tile_smem_bytes(*d, TE);
+  cudaError_t err = cudaFuncSetAttribute(
+      fc_kernel<ENV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (E + TE - 1) / TE;
+  fc_kernel<ENV><<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
+      *d, P, g, (const float*)obs, (const float*)state, (const int*)ep_step,
+      (const float*)ep_ret, (const float*)u, E, TE, eps, max_len,
+      (float*)fields, (float*)obs_out, (float*)state_out,
+      (int*)ep_step_out, (float*)ep_ret_out, (float*)partials);
+  return (int)cudaGetLastError();
 }
 
 DQ_API int dq_fused_collect(const NetDesc* d, const int64_t* p_ptrs,
-                            const float* cells, int n_cells, float tprob,
-                            float size_x, float size_y, const void* obs,
+                            const EnvDesc* env, const void* obs,
                             const void* state, const void* ep_step,
                             const void* ep_ret, const void* u, int E, int TE,
                             float eps, int max_len, void* fields,
                             void* obs_out, void* state_out,
                             void* ep_step_out, void* ep_ret_out,
                             void* partials, void* stream) {
-  if (n_cells > FC_MAXCELLS || d->in_dim != 2 || d->maxw > FC_MAXW ||
-      TE < 4 || TE > FC_MAX_TE || TE % 4 != 0)
+  if (env->n_cells > FC_MAXCELLS || d->maxw > FC_MAXW || TE < 4 ||
+      TE > FC_MAX_TE || TE % 4 != 0)
     return (int)cudaErrorInvalidValue;
   TensorPtrs P;
   for (int i = 0; i < 2 * (d->n_val + d->n_adv); ++i)
     P.t[i] = (float*)p_ptrs[i];
-  GridDesc g;
-  fc_grid(&g, cells, n_cells, tprob, size_x, size_y);
-  const int smem = fc_tile_smem_bytes(*d, TE);
-  cudaError_t err = cudaFuncSetAttribute(
-      fc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + TE - 1) / TE;
-  fc_kernel<<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
-      *d, P, g, (const float*)obs, (const float*)state, (const int*)ep_step,
-      (const float*)ep_ret, (const float*)u, E, TE, eps, max_len,
-      (float*)fields,
-      (float*)obs_out, (float*)state_out, (int*)ep_step_out,
-      (float*)ep_ret_out, (float*)partials);
-  return (int)cudaGetLastError();
+#define FC_LAUNCH(ENV)                                                     \
+  fc_launch<ENV>(d, P, *env, obs, state, ep_step, ep_ret, u, E, TE, eps,   \
+                 max_len, fields, obs_out, state_out, ep_step_out,          \
+                 ep_ret_out, partials, stream)
+  switch (env->kind) {
+    case FC_GRID: return FC_LAUNCH(FC_GRID);
+    case FC_CARTPOLE: return FC_LAUNCH(FC_CARTPOLE);
+    case FC_MOUNTAINCAR: return FC_LAUNCH(FC_MOUNTAINCAR);
+  }
+#undef FC_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-DQ_API int dq_fused_collect_rnn(const NetDesc* d, const int64_t* p_ptrs,
-                                int kind, int H, const void* wi,
-                                const void* wh, const void* bc,
-                                const float* cells, int n_cells, float tprob,
-                                float size_x, float size_y, const void* obs,
-                                const void* state, const void* ep_step,
-                                const void* ep_ret, const void* u,
-                                const void* nstate, int E, int TE, float eps,
-                                int max_len, void* fields, void* obs_out,
-                                void* state_out, void* ep_step_out,
-                                void* ep_ret_out, void* nstate_out,
-                                void* partials, void* stream) {
-  if (n_cells > FC_MAXCELLS || d->in_dim != H || (kind != 0 && kind != 1) ||
-      TE < 4 || TE > FC_MAX_TE || TE % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  TensorPtrs P;
-  for (int i = 0; i < 2 * (d->n_val + d->n_adv); ++i)
-    P.t[i] = (float*)p_ptrs[i];
-  GridDesc g;
-  fc_grid(&g, cells, n_cells, tprob, size_x, size_y);
+// K6's launch for env ENV (the cell's input width must be the env's obs).
+template <int ENV>
+static int fc_rnn_launch(const NetDesc* d, const TensorPtrs& P, int kind,
+                         int H, int cin, const void* wi, const void* wh,
+                         const void* bc, const EnvDesc& g, const void* obs,
+                         const void* state, const void* ep_step,
+                         const void* ep_ret, const void* u,
+                         const void* nstate, int E, int TE, float eps,
+                         int max_len, void* fields, void* obs_out,
+                         void* state_out, void* ep_step_out,
+                         void* ep_ret_out, void* nstate_out, void* partials,
+                         void* stream) {
+  if (cin != FcEnv<ENV>::NO) return (int)cudaErrorInvalidValue;
   int ow[DQ_MAXL], ob[DQ_MAXL];
   const int np = fc_tile_layout(*d, ow, ob);
   const int smem =
-      fc_rnn_layout(*d, np, kind, 2, H, TE).total * (int)sizeof(float);
+      fc_rnn_layout(*d, np, kind, cin, H, TE).total * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fc_rnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fc_rnn_kernel<ENV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (E + TE - 1) / TE;
-  fc_rnn_kernel<<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
+  fc_rnn_kernel<ENV><<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
       *d, P, kind, H, (const float*)wi, (const float*)wh, (const float*)bc, g,
       (const float*)obs, (const float*)state, (const int*)ep_step,
       (const float*)ep_ret, (const float*)u, (const float*)nstate, E, TE, eps,
@@ -604,4 +742,35 @@ DQ_API int dq_fused_collect_rnn(const NetDesc* d, const int64_t* p_ptrs,
       (int*)ep_step_out, (float*)ep_ret_out, (float*)nstate_out,
       (float*)partials);
   return (int)cudaGetLastError();
+}
+
+DQ_API int dq_fused_collect_rnn(const NetDesc* d, const int64_t* p_ptrs,
+                                int kind, int H, int cin, const void* wi,
+                                const void* wh, const void* bc,
+                                const EnvDesc* env, const void* obs,
+                                const void* state, const void* ep_step,
+                                const void* ep_ret, const void* u,
+                                const void* nstate, int E, int TE, float eps,
+                                int max_len, void* fields, void* obs_out,
+                                void* state_out, void* ep_step_out,
+                                void* ep_ret_out, void* nstate_out,
+                                void* partials, void* stream) {
+  if (env->n_cells > FC_MAXCELLS || d->in_dim != H ||
+      (kind != 0 && kind != 1) || TE < 4 || TE > FC_MAX_TE || TE % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  TensorPtrs P;
+  for (int i = 0; i < 2 * (d->n_val + d->n_adv); ++i)
+    P.t[i] = (float*)p_ptrs[i];
+#define FC_RNN_LAUNCH(ENV)                                                  \
+  fc_rnn_launch<ENV>(d, P, kind, H, cin, wi, wh, bc, *env, obs, state,      \
+                     ep_step, ep_ret, u, nstate, E, TE, eps, max_len, fields,\
+                     obs_out, state_out, ep_step_out, ep_ret_out, nstate_out,\
+                     partials, stream)
+  switch (env->kind) {
+    case FC_GRID: return FC_RNN_LAUNCH(FC_GRID);
+    case FC_CARTPOLE: return FC_RNN_LAUNCH(FC_CARTPOLE);
+    case FC_MOUNTAINCAR: return FC_RNN_LAUNCH(FC_MOUNTAINCAR);
+  }
+#undef FC_RNN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

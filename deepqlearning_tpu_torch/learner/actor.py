@@ -23,7 +23,7 @@ T_MAX = 1 << 30  # saturation of the aggregate step counter
 
 
 class ActorState(NamedTuple):
-    env_state: torch.Tensor  # env's batched state, e.g. [E, 3]
+    env_state: torch.Tensor  # env's batched state, e.g. [E, W]
     obs: torch.Tensor        # [E, *obs_shape]
     net_state: tuple         # network.init_state(E); () if feed-forward
     ep_step: torch.Tensor    # [E] int32 — steps in the current episode
@@ -131,11 +131,13 @@ def avg_recent(ret_ring: torch.Tensor, cnt_ring: torch.Tensor):
 def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
                             insert_fn, plan):
     """Collect step through kernel K4, or K6 for a recurrent plan
-    (``ops/cuda/fused_collect.py``); same step contract. ``u [6, E]``
-    injects the uniforms; otherwise they are drawn with ``torch.rand`` from
-    ``generator`` on the envs' device. The cell's state entry of
-    ``net_state`` goes through the kernel as one ``[E, S]`` block."""
-    from ..ops.cuda.fused_collect import N_UNIFORMS, fused_collect
+    (``ops/cuda/fused_collect.py``); same step contract. ``u
+    [plan.n_uniforms, E]`` (2 + the env's step and reset uniforms: 6 for
+    SimpleGridWorld and CartPole, 3 for MountainCar) injects the uniforms;
+    otherwise they are drawn with ``torch.rand`` from ``generator`` on the
+    envs' device. The cell's state entry of ``net_state`` goes through the
+    kernel as one ``[E, S]`` block."""
+    from ..ops.cuda.fused_collect import fused_collect
 
     no = plan.no
     cell = plan.cell
@@ -144,7 +146,7 @@ def make_fused_collect_step(env, network, max_episode_length: int, eps_fn,
         actor, replay, params = carry
         E = actor.obs.shape[0]
         if u is None:
-            u = torch.rand(N_UNIFORMS, E, generator=generator,
+            u = torch.rand(plan.n_uniforms, E, generator=generator,
                            device=actor.obs.device)
         net_state = actor.net_state
         kw = {}

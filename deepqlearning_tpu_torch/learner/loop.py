@@ -36,8 +36,10 @@ twins for CPU tensors; nothing here moves work between devices.
 
 The random state is one ``torch.Generator`` on the loop's device, in the
 carry. Every draw can be replaced by injected uniforms: ``iteration(carry,
-collect_u=[u [6, E] per collect step], sample_u=[per train call: u [U·B]
-for PER, an ``EpisodeDraws`` for episode replay])``.
+collect_u=[u [2 + ns + nr, E] per collect step (the collect plan's
+``n_uniforms``)], sample_u=[per train call: u [U·B] for stratified PER, the
+Gumbel noise ``[U, leaves]`` for PER without replacement, an
+``EpisodeDraws`` for episode replay])``.
 """
 from __future__ import annotations
 
@@ -153,9 +155,9 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
         if cfg.fused_collect is True and cplan is None:
             raise ValueError(
                 "fused_collect=True cannot be honoured: the collect kernel "
-                "needs the default ε-greedy strategy (no select_fn), a "
-                "SimpleGridWorld env, a supported network (see "
-                "collect_plan_for) and f32 replay")
+                "needs the default ε-greedy strategy (no select_fn), an env "
+                "it steps (SimpleGridWorld, CartPole or MountainCar), a "
+                "supported network (see collect_plan_for) and f32 replay")
     if cplan is not None:
         from .actor import make_fused_collect_step
 

@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,6 +45,22 @@ class NetDesc(ctypes.Structure):
         ("din", ctypes.c_int * MAXL), ("dout", ctypes.c_int * MAXL),
         ("act", ctypes.c_int * MAXL), ("off_w", ctypes.c_int * MAXL),
         ("off_b", ctypes.c_int * MAXL), ("off_h", ctypes.c_int * MAXL),
+    ]
+
+
+FC_MAXCELLS = 16  # FC_MAXCELLS of csrc/fused_collect.cu
+FC_MAXK = 16  # FC_MAXK
+
+
+class EnvDesc(ctypes.Structure):
+    """Mirror of ``struct EnvDesc`` in ``csrc/fused_collect.cu``."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int), ("n_cells", ctypes.c_int),
+        ("cell_x", ctypes.c_float * FC_MAXCELLS),
+        ("cell_y", ctypes.c_float * FC_MAXCELLS),
+        ("cell_r", ctypes.c_float * FC_MAXCELLS),
+        ("k", ctypes.c_float * FC_MAXK),
     ]
 
 
@@ -143,16 +160,23 @@ def build() -> Path:
 
 def ptxas_report(kernels):
     """``{kernel: ptxas's line}`` (stack frame, spills, registers) for the
-    named kernels of the built library."""
+    named kernels of the built library. A template on ints has a line per
+    instantiation, keyed ``kernel<n>`` (``fc_kernel<1>``)."""
     lines = build().with_suffix(".ptxas.txt").read_text().splitlines()
     found = {}
     for i, line in enumerate(lines):
         for k in kernels:
-            if "Compiling entry" in line and f"{len(k)}{k}" in line:
-                found[k] = " | ".join(
-                    x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                    if "Function properties" not in x
-                    and "Compiling entry" not in x)
+            tag = f"{len(k)}{k}"
+            if "Compiling entry" not in line or tag not in line:
+                continue
+            key = k
+            ints = re.match(r"I((?:Li\d+E)+)E", line.split(tag, 1)[1])
+            if ints:
+                key = f"{k}<{','.join(re.findall(r'Li(\d+)E', ints[1]))}>"
+            found[key] = " | ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "Function properties" not in x
+                and "Compiling entry" not in x)
     return found
 
 
@@ -173,13 +197,11 @@ def library() -> ctypes.CDLL:
                             P, F, F, F, I, F, F, F, F, P, P, P, P, P, P, P,
                             I, P],
         "dq_fused_update_max_grid": [NP, ctypes.POINTER(ctypes.c_int)],
-        "dq_fused_collect": [NP, I64P, ctypes.POINTER(ctypes.c_float), I, F,
-                             F, F, P, P, P, P, P, I, I, F, I, P, P, P, P, P,
-                             P, P],
-        "dq_fused_collect_rnn": [NP, I64P, I, I, P, P, P,
-                                 ctypes.POINTER(ctypes.c_float), I, F, F, F,
-                                 P, P, P, P, P, P, I, I, F, I, P, P, P, P, P,
-                                 P, P, P],
+        "dq_fused_collect": [NP, I64P, ctypes.POINTER(EnvDesc), P, P, P,
+                             P, P, I, I, F, I, P, P, P, P, P, P, P],
+        "dq_fused_collect_rnn": [NP, I64P, I, I, I, P, P, P,
+                                 ctypes.POINTER(EnvDesc), P, P, P, P, P, P,
+                                 I, I, F, I, P, P, P, P, P, P, P, P],
         "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
                           I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P, P,
                           P, P, P, I, P],

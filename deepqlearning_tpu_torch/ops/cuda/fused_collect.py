@@ -5,16 +5,19 @@ Replaces ``fused_collect`` (body ``_collect_block``) of
 and K6 its recurrent plan: (K6 only: one LSTM or GRU cell step on the obs
 and the env's state row, the state zeroed where the episode ended) the
 (dueling) Dense forward, ε-greedy with the first-max argmax and a random action
-``floor(u1·A)`` when ``u0 < ε``, SimpleGridWorld's ``step_cols`` and
+``floor(u1·A)`` when ``u0 < ε``, the env's ``step_cols`` and
 ``reset_cols``, truncation at ``max_episode_length``, auto-reset and the
 episode accumulators. Transition fields come out in replay-row order
 ``[E, 2·no + 4]`` = (obs, obs', action, reward, done, ended); the per-tile
 (Σ ret·ended, Σ len·ended, Σ ended) partials are summed by plain torch.
 
-Uniforms come in as ``u [6, E]`` — rows: explore, random action, two step
-uniforms, two reset uniforms — the layout of the JAX kernel's host
-uniforms. The kernels serve SimpleGridWorld only; they read the reward
-cells, ``tprob`` and the grid size from the env object. On the card, both
+Uniforms come in as ``u [2 + ns + nr, E]`` (``CollectPlan.n_uniforms``) —
+rows: explore, random action, the env's ``ns`` step uniforms, its ``nr``
+reset uniforms — the layout of the JAX kernel's host uniforms: 6 rows for
+SimpleGridWorld and CartPole, 3 for MountainCar. The kernels serve the
+port's envs that speak the JAX cols protocol — SimpleGridWorld, CartPole and
+MountainCar — each by its own device code (a template parameter), with its
+constants read from the env object (:func:`env_desc`). On the card, both
 run a tile of ``CollectPlan.tile`` envs per block, each Dense layer a small
 matrix product in shared memory (register micro-tiles of 4 envs x 4
 outputs), then the env step a thread per env; K6 first steps the cell on the
@@ -22,23 +25,25 @@ tile, 4 envs x one hidden unit (all its gates) per work item. The forward's
 FLOPs bound both (see the source). :func:`fused_collect_rnn_tiled` is K6's
 arithmetic in its order, a plain reference.
 
-:func:`collect_plan_for` is the gate. The recurrent plan takes a leading
-LSTM/GRU cell followed by a Dense stack, or a dueling net whose base is
-exactly that cell; unlike the JAX plan it also budgets the cell and the head
-together against this card's shared memory. K4's env tile is the largest of
-``K4_TILES`` whose shared memory (:func:`k4_smem_bytes`) fits the card's
-per-block limit, K6's the largest of ``K6_TILES`` (:func:`k6_smem_bytes`);
-every net within the gate has one.
+:func:`collect_plan_for` is the gate. It takes the envs above within the
+JAX gate's limits (obs <= 64, state width <= 32, 2 + ns + nr <= 32). The
+recurrent plan takes a leading LSTM/GRU cell followed by a Dense stack, or
+a dueling net whose base is exactly that cell; unlike the JAX plan it also
+budgets the cell and the head together against this card's shared memory.
+K4's env tile is the largest of ``K4_TILES`` whose shared memory
+(:func:`k4_smem_bytes`) fits the card's per-block limit, K6's the largest of
+``K6_TILES`` (:func:`k6_smem_bytes`); every net within the gate has one.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
 import torch
 
+from ...envs.cartpole import CartPole
 from ...envs.gridworld import SimpleGridWorld
+from ...envs.mountain_car import MountainCar
 from ...models.chain import Chain, Flatten
 from ...models.dueling import DuelingNetwork
 from . import build
@@ -48,9 +53,21 @@ from .fused_update import (
     _tile_order_sum, dense_plans, plan_for, q_values)
 
 MAX_WIDTH = 128   # FC_MAXW of csrc/fused_collect.cu
-MAX_CELLS = 16    # FC_MAXCELLS
 THREADS = 256     # FC_THREADS
-N_UNIFORMS = 6
+# The envs with device code in the kernels, by exact type (a subclass may
+# override step_cols/reset_cols, which the device code would not follow):
+# FcEnv<kind> of the source, and EnvDesc.k, the constants in the order the
+# source reads them.
+ENVS = {
+    SimpleGridWorld: (0, lambda e: (e.tprob, e.size[0], e.size[1])),
+    CartPole: (1, lambda e: (
+        e.gravity, e.masspole, e.masscart + e.masspole, e.length,
+        e.masspole * e.length, e.force_mag, e.tau, e.theta_threshold,
+        e.x_threshold, 4.0 / 3.0)),
+    MountainCar: (2, lambda e: (
+        e.min_position, e.max_position, e.max_speed, e.goal_position,
+        e.force, e.gravity)),
+}
 K4_TILES = (128, 64, 32, 16, 8, 4)   # env tiles, FC_MAX_TE first
 # K6's env tiles: at most 32, so the DRQN loop's 16384 envs make 512 blocks,
 # several per SM (LSTM32 on an H100 at 700 W, by kernel_events' device
@@ -67,8 +84,15 @@ class CollectPlan:
     cell: Optional[CellPlan]   # the leading recurrent cell (K6), or None
     no: int   # flat obs dim
     W: int    # env state width
+    ns: int   # the env's step uniforms
+    nr: int   # the env's reset uniforms
     nf: int   # replay field columns: 2*no + 4 (a, r, done, ended)
     tile: int  # envs per block of K4 or K6
+
+    @property
+    def n_uniforms(self) -> int:
+        """Rows of ``u``: explore, random action, step, reset."""
+        return 2 + self.ns + self.nr
 
     @property
     def state_width(self) -> int:
@@ -160,14 +184,35 @@ def _recurrent_plan(network):
     return head, cp
 
 
+def env_kind(env) -> Optional[int]:
+    """The kernels' device code for ``env`` (``FcEnv<kind>``), or None."""
+    spec = ENVS.get(type(env))
+    return None if spec is None else spec[0]
+
+
+def env_desc(env) -> build.EnvDesc:
+    """``struct EnvDesc`` for the kernels: the env's kind and constants,
+    read from the object (``ENVS``)."""
+    d = build.EnvDesc()
+    d.kind, consts = ENVS[type(env)]
+    if d.kind == 0:
+        d.n_cells = len(env.reward_cells)
+        for i, (x, y, r) in enumerate(env.reward_cells):
+            d.cell_x[i], d.cell_y[i], d.cell_r[i] = x, y, r
+    for i, v in enumerate(consts(env)):
+        d.k[i] = v
+    return d
+
+
 def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
-    """Static gate: a SimpleGridWorld env, a kernel-supported network on the
-    flat obs — a (dueling) Dense stack (K4), or a leading LSTM/GRU cell
+    """Static gate: an env the kernels step (SimpleGridWorld, CartPole,
+    MountainCar; of exactly that type) within the JAX gate's limits, a kernel-supported network on
+    the flat obs — a (dueling) Dense stack (K4), or a leading LSTM/GRU cell
     before one (K6) — within the kernel's widths and shared memory, and f32
     replay storage. None means the plain keyed collect step."""
-    if not isinstance(env, SimpleGridWorld):
+    if env_kind(env) is None:
         return None
-    if len(env.reward_cells) > MAX_CELLS:
+    if len(getattr(env, "reward_cells", ())) > build.FC_MAXCELLS:
         return None
     cell = None
     if getattr(network, "recurrent", False):
@@ -182,6 +227,10 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
     no = 1
     for s in env.obs_shape:
         no *= int(s)
+    W, ns, nr = (int(env.lane_state_width), int(env.n_uniform_step),
+                 int(env.n_uniform_reset))
+    if no > 64 or W > 32 or 2 + ns + nr > 32:
+        return None
     if (cell.in_dim if cell is not None else net.in_dim) != no:
         return None
     if any(lp.dout > MAX_WIDTH for lp in net.layers):
@@ -200,7 +249,7 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
     if buffer is not None and getattr(buffer, "obs_dtype", None) != \
             torch.float32:
         return None
-    return CollectPlan(net=net, cell=cell, no=no, W=env.lane_state_width,
+    return CollectPlan(net=net, cell=cell, no=no, W=W, ns=ns, nr=nr,
                        nf=2 * no + 4, tile=tile)
 
 
@@ -215,11 +264,12 @@ def _collect_rest(env, plan: CollectPlan, q, nstate, *, obs, state,
     greedy = torch.argmax(q, dim=1).float()
     rand_a = torch.floor(u[1] * float(A))
     action = torch.where(u[0] < eps, rand_a, greedy)
-    new_state, nobs, rew, done = env.step_cols(state, action, u[2:4])
+    s0, s1 = 2 + plan.ns, 2 + plan.ns + plan.nr
+    new_state, nobs, rew, done = env.step_cols(state, action, u[2:s0])
     ep1 = ep_step.float() + 1.0
     ended = torch.maximum(done, (ep1 >= float(max_episode_length)).float())
     ret1 = ep_ret + rew
-    r_state, r_obs = env.reset_cols(u[4:6])
+    r_state, r_obs = env.reset_cols(u[s0:s1])
     end = ended[:, None] > 0.5
     fields = torch.cat([obs.reshape(obs.shape[0], -1), nobs, action[:, None],
                         rew[:, None], done[:, None], ended[:, None]], dim=1)
@@ -322,7 +372,7 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
     state = state.float().contiguous()
     ep_step = ep_step.to(torch.int32).contiguous()
     ep_ret = ep_ret.float().contiguous()
-    u = u[:N_UNIFORMS].float().contiguous()
+    u = u[:plan.n_uniforms].float().contiguous()
     tensors = [params[n] for n in plan.net.names]
     build.require_cuda(obs, state, ep_step, ep_ret, u, *tensors)
     build.require_plan_params(plan.net, tensors)
@@ -336,12 +386,9 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
     ep_ret_out = torch.empty_like(ep_ret)
     nblk = -(-E // plan.tile)
     partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
-    cells = [c for cell in env.reward_cells for c in cell]
     err = build.library().dq_fused_collect(
         plan.net.desc(), build.int64_array([t.data_ptr() for t in tensors]),
-        (ctypes.c_float * max(1, len(cells)))(*cells),
-        len(env.reward_cells), env.tprob, float(env.size[0]),
-        float(env.size[1]), obs.data_ptr(), state.data_ptr(),
+        env_desc(env), obs.data_ptr(), state.data_ptr(),
         ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(), E, plan.tile,
         float(eps),
         int(max_episode_length), fields.data_ptr(), obs_out.data_ptr(),
@@ -365,7 +412,7 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
     state = state.float().contiguous()
     ep_step = ep_step.to(torch.int32).contiguous()
     ep_ret = ep_ret.float().contiguous()
-    u = u[:N_UNIFORMS].float().contiguous()
+    u = u[:plan.n_uniforms].float().contiguous()
     nstate = nstate.float().contiguous()
     tensors = [params[n] for n in plan.net.names]
     wi, wh, b = (params[n] for n in plan.cell.names)
@@ -389,14 +436,11 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
     nstate_out = torch.empty_like(nstate)
     nblk = -(-E // plan.tile)
     partials = torch.empty(nblk, 3, dtype=torch.float32, device=dev)
-    cells = [c for cell in env.reward_cells for c in cell]
     err = build.library().dq_fused_collect_rnn(
         plan.net.desc(), build.int64_array([t.data_ptr() for t in tensors]),
-        0 if cp.kind == "lstm" else 1, cp.hidden, wi.data_ptr(),
-        wh.data_ptr(), b.data_ptr(),
-        (ctypes.c_float * max(1, len(cells)))(*cells),
-        len(env.reward_cells), env.tprob, float(env.size[0]),
-        float(env.size[1]), obs.data_ptr(), state.data_ptr(),
+        0 if cp.kind == "lstm" else 1, cp.hidden, cp.in_dim, wi.data_ptr(),
+        wh.data_ptr(), b.data_ptr(), env_desc(env), obs.data_ptr(),
+        state.data_ptr(),
         ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(),
         nstate.data_ptr(), E, plan.tile, float(eps), int(max_episode_length),
         fields.data_ptr(), obs_out.data_ptr(), state_out.data_ptr(),
@@ -416,16 +460,18 @@ def fused_collect(env, plan: CollectPlan, params, *, obs, state, ep_step,
                   nstate=None):
     """One collect step over all E envs.
 
-    ``obs [E, no]``, ``state [E, 3]`` (the env's batched state), ``ep_step
-    [E]`` int32, ``ep_ret [E]`` f32, ``u [6, E]`` uniforms, ``eps`` float;
-    a recurrent plan also takes the cell's state rows ``nstate [E, S]`` (h;c
-    for LSTM, h for GRU). Returns ``(fields [E, 2no+4], obs' [E, no], state'
-    [E, 3], ep_step' [E] int32, ep_ret' [E], totals [3])`` with totals =
-    (ended return sum, ended length sum, ended count), and for a recurrent
-    plan a trailing ``nstate' [E, S]``, zero where the episode ended."""
+    ``obs [E, no]``, ``state [E, W]`` (the env's batched state), ``ep_step
+    [E]`` int32, ``ep_ret [E]`` f32, ``u [plan.n_uniforms, E]`` uniforms,
+    ``eps`` float; a recurrent plan also takes the cell's state rows
+    ``nstate [E, S]`` (h;c for LSTM, h for GRU). Returns ``(fields [E,
+    2no+4], obs' [E, no], state' [E, W], ep_step' [E] int32, ep_ret' [E],
+    totals [3])`` with totals = (ended return sum, ended length sum, ended
+    count), and for a recurrent plan a trailing ``nstate' [E, S]``, zero
+    where the episode ended."""
     E = obs.shape[0]
-    if u.dim() != 2 or u.shape[0] < N_UNIFORMS or u.shape[1] != E:
-        raise ValueError(f"u must be [{N_UNIFORMS}, E={E}] uniforms, got "
+    nu = plan.n_uniforms
+    if u.dim() != 2 or u.shape[0] < nu or u.shape[1] != E:
+        raise ValueError(f"u must be [{nu}, E={E}] uniforms, got "
                          f"{tuple(u.shape)}")
     if state.shape[0] != E or ep_step.shape[0] != E or ep_ret.shape[0] != E:
         raise ValueError("obs, state, ep_step and ep_ret must share E")

@@ -4,26 +4,27 @@
 
 A wrapper timed with CUDA events around back-to-back calls measures the
 kernel only when the device is slower than the host's enqueue of the next
-call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``), K6
-(``fc_rnn_kernel``), K7 and K8 (the grads-emitting sub-updates of the
-data-parallel routes) are short, so this times each by the device's own
-events under ``torch.profiler`` (the kernel's launches alone, matched by
-name) beside the CUDA-event time of its wrapper, at the main paths'
-shapes: K1 at B = 512, at the ungrouped loop's B = 32 and at B = 4096
-(A = 4, double-Q, int64 actions as the replay gives them), K2 on
+call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``), K4
+(``fc_kernel``), K6 (``fc_rnn_kernel``), K7 and K8 (the grads-emitting
+sub-updates of the data-parallel routes) are short, so this times each by
+the device's own events under ``torch.profiler`` (the kernel's launches
+alone, matched by name) beside the CUDA-event time of its wrapper, at the
+main paths' shapes: K1 at B = 512, at the ungrouped loop's B = 32 and at
+B = 4096 (A = 4, double-Q, int64 actions as the replay gives them), K2 on
 2^20 leaves with 16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32),
-Dense(32, 4))``, K7 (``fu_group_kernel`` at U = 1) at the DP headline's
-B = 512 with the dueling 2-64-64-4 net and double-Q, K8
-(``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
-LSTM32 net and double-Q. Beside K1 it times an empty kernel launched as K1
-is (``td_kernel.cu::empty_kernel``, K1's block, or its cluster of blocks
-past 512 rows): the launch floor under K1.
+Dense(32, 4))`` (and on CartPole and MountainCar), K4 at 131072 envs on
+each env it steps (:func:`collect_cases`), K7 (``fu_group_kernel`` at U =
+1) at the DP headline's B = 512 with the dueling 2-64-64-4 net and
+double-Q, K8 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T =
+8 with the LSTM32 net and double-Q. Beside K1 it times an empty kernel
+launched as K1 is (``td_kernel.cu::empty_kernel``, K1's block, or its
+cluster of blocks past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
 
 It uses only the wrappers' call signatures of the parent commits (and
-skips the empty kernel where a checkout lacks it), so the file can be
-copied into another checkout of the port (the same path) to time that
-checkout's kernels the same way, in the same call.
+skips the empty kernel and the envs where a checkout lacks them), so the
+file can be copied into another checkout of the port (the same path) to
+time that checkout's kernels the same way, in the same call.
 """
 import argparse
 import json
@@ -123,6 +124,7 @@ def cases(torch, dev):
     out["K6 fused_collect (recurrent) LSTM32 E=16384"] = (
         "fc_rnn_kernel",
         lambda: fc.fused_collect_rnn_cuda(env, plan, params, **ins))
+    out.update(collect_cases(torch, dev, g))
     B = 512
     net = create_dueling_network(Chain(
         Flatten(), Dense(2, 64, torch.tanh, device=dev),
@@ -149,6 +151,79 @@ def cases(torch, dev):
     out["K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8"] = (
         "dr_group_kernel", lambda: fd.fused_drqn_grads_cuda(
             k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
+    return out
+
+
+def _collect_nets(torch, dev, no, A):
+    """The dueling 64-64 tanh head K4 serves in the loops on an env with
+    ``no`` inputs and ``A`` actions."""
+    from deepqlearning_tpu_torch import (
+        Chain, Dense, Flatten, create_dueling_network)
+
+    return create_dueling_network(Chain(
+        Flatten(), Dense(no, 64, torch.tanh, device=dev),
+        Dense(64, 64, torch.tanh, device=dev), Dense(64, A, device=dev)))
+
+
+def collect_cases(torch, dev, g):
+    """K4 at E = 131072 on each env it steps, with the dueling 64-64 tanh
+    head on the env's obs (SimpleGridWorld: the headline's), and K6 at
+    16384 envs on CartPole (``LSTM(4, 32) + Dense(32, 2)``) and MountainCar
+    (a dueling GRU16 head); states from each env's reset. Only the envs of
+    this checkout."""
+    import deepqlearning_tpu_torch as pkg
+    from deepqlearning_tpu_torch.ops.cuda import fused_collect as fc
+
+    out = {}
+    for name in ("SimpleGridWorld", "CartPole", "MountainCar"):
+        if not hasattr(pkg, name):
+            continue
+        env = getattr(pkg, name)()
+        E = 131072
+        net = _collect_nets(torch, dev, env.obs_shape[0], env.num_actions)
+        plan = fc.collect_plan_for(env, net, None)
+        rows = getattr(plan, "n_uniforms", 6)
+        st, obs = env.reset_batch(E, torch.Generator(device=dev)
+                                  .manual_seed(2))
+        ins = dict(obs=obs, state=st,
+                   ep_step=torch.randint(0, 100, (E,), generator=g,
+                                         device=dev, dtype=torch.int32),
+                   ep_ret=torch.randn(E, generator=g, device=dev),
+                   u=torch.rand(rows, E, generator=g, device=dev), eps=0.3,
+                   max_episode_length=100)
+        params = net.init(g)
+        out[f"K4 fused_collect {name} E=131072"] = (
+            "fc_kernel", lambda env=env, plan=plan, params=params, ins=ins:
+            fc.fused_collect_cuda(env, plan, params, **ins))
+        if name == "SimpleGridWorld":
+            continue
+        from deepqlearning_tpu_torch import (
+            GRU, LSTM, Chain, Dense, DuelingNetwork)
+
+        no, A, E = env.obs_shape[0], env.num_actions, 16384
+        net = (Chain(LSTM(no, 32, device=dev), Dense(32, A, device=dev))
+               if name == "CartPole" else DuelingNetwork(
+                   Chain(GRU(no, 16, device=dev)),
+                   Chain(Dense(16, 32, torch.tanh, device=dev),
+                         Dense(32, 1, device=dev)),
+                   Chain(Dense(16, 32, torch.tanh, device=dev),
+                         Dense(32, A, device=dev))))
+        plan = fc.collect_plan_for(env, net, None)
+        st, obs = env.reset_batch(E, torch.Generator(device=dev)
+                                  .manual_seed(2))
+        ins = dict(obs=obs, state=st,
+                   ep_step=torch.randint(0, 100, (E,), generator=g,
+                                         device=dev, dtype=torch.int32),
+                   ep_ret=torch.randn(E, generator=g, device=dev),
+                   u=torch.rand(plan.n_uniforms, E, generator=g, device=dev),
+                   eps=0.3, max_episode_length=100,
+                   nstate=torch.randn(E, plan.state_width, generator=g,
+                                      device=dev) * 0.5)
+        params = net.init(g)
+        cell = "LSTM32" if name == "CartPole" else "dueling GRU16"
+        out[f"K6 fused_collect (recurrent) {name} {cell} E=16384"] = (
+            "fc_rnn_kernel", lambda env=env, plan=plan, params=params,
+            ins=ins: fc.fused_collect_rnn_cuda(env, plan, params, **ins))
     return out
 
 

@@ -131,3 +131,33 @@ def sample(tree: Tree, batch_size: int, stratified: bool = True,
                        device=tree[0].device)
     idx, _ = descend(tree, stratified_mass(tree, u, stratified))
     return idx, tree[0][idx]
+
+
+def gumbel(shape, generator: Optional[torch.Generator] = None,
+           device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform in
+    ``[tiny, 1)`` (``jax.random.gumbel``'s construction)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def sample_without_replacement(tree: Tree, batch_size: int,
+                               noise: Optional[torch.Tensor] = None,
+                               generator: Optional[torch.Generator] = None):
+    """Weighted sampling without replacement (the reference's draw,
+    ``src/prioritized_experience_replay.jl:85``) by Gumbel-top-k:
+    ``argtop_k(log p_i + G_i)`` draws like successive proportional draws
+    without replacement. ``noise`` is the Gumbel noise ``G [..., leaves]``,
+    one independent pass per leading index (``[leaves]``, drawn from
+    ``generator``, if not given). Empty slots (priority 0) score ``-inf``
+    and come last. A ``[..., N]``-wide pass and a top-k over its last axis,
+    no tree descent. Returns ``(indices [..., B] int64, priorities [..., B]
+    f32)``."""
+    leaves = tree[0]
+    if noise is None:
+        noise = gumbel(leaves.shape, generator, leaves.device)
+    scores = torch.where(leaves > 0, torch.log(leaves) + noise,
+                         torch.full_like(noise, -torch.inf))
+    idx = torch.topk(scores, batch_size, dim=-1).indices
+    return idx, leaves[idx]

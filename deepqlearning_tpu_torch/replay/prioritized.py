@@ -7,7 +7,12 @@ Counterpart of ``deepqlearning_tpu.replay.prioritized`` for f32 storage:
 * priority at insert ``(|r| + eps)^alpha``, at update ``(|td| + eps)^alpha``;
 * IS weights ``(N·p/total)^(-beta)``, not max-normalized, with the
   empty-buffer clamp to unit weight;
-* uniform replay = constant priorities, no updates, unit weights.
+* uniform replay = constant priorities, no updates, unit weights;
+* ``sample_mode="without_replacement"``: the reference's draw without
+  replacement within a sub-batch (Gumbel-top-k over the leaves, one
+  independent pass per sub-batch, ``ops/sumtree.py``), bypassing the
+  stratified descent and kernel K2, as the JAX package bypasses its Pallas
+  sampler; a draw that lands on an unfilled slot gets IS weight 0.
 
 The rows and the sum-tree levels are updated IN PLACE; ``insert`` and
 ``update_priorities`` return a ``ReplayState`` over the same tensors, with
@@ -56,10 +61,16 @@ class PrioritizedReplayBuffer:
                 f"obs_dtype {obs_dtype}: only float32 replay storage is "
                 "supported so far")
         self.obs_dtype = obs_dtype
-        if sample_mode != "stratified":
-            raise NotImplementedError(
-                f"sample_mode {sample_mode!r}: only 'stratified' is "
-                "supported so far")
+        if sample_mode not in ("stratified", "without_replacement"):
+            raise ValueError(
+                f"sample_mode must be 'stratified' or 'without_replacement', "
+                f"got {sample_mode!r}")
+        if sample_mode == "without_replacement" and \
+                self.batch_size > self.max_size:
+            # each pass draws batch_size distinct leaves
+            raise ValueError(
+                f"without_replacement sampling needs batch_size "
+                f"({self.batch_size}) <= buffer max_size ({self.max_size})")
         self.sample_mode = sample_mode
         self.device = resolve_device(device)
 
@@ -114,19 +125,31 @@ class PrioritizedReplayBuffer:
                  generator: Optional[torch.Generator] = None):
         """Draw ``n_batches * batch_size`` transitions in one stratified
         descent (kernel K2, ``ops/cuda/tree_sample.py``). ``u`` are the raw
-        uniforms ``[n*B]`` (drawn from ``generator`` if not given).
+        uniforms ``[n*B]`` (drawn from ``generator`` if not given). Without
+        replacement, a Gumbel-top-k pass per sub-batch instead (one top-k
+        over ``[n, leaves]``), ``u`` the Gumbel noise ``[n, leaves]``.
 
         The flat outputs are u-major: sub-batch ``u`` occupies rows
         ``[u*B, (u+1)*B)`` and takes strata ``{u, n+u, 2n+u, ...}``.
         Returns ``(TransitionBatch, indices [nB] int64, weights [nB])``."""
-        from ..ops.cuda.tree_sample import tree_sample
-
         B = self.batch_size
         D = B * n_batches
-        if u is None:
-            u = torch.rand(D, generator=generator, device=state.rows.device)
-        mass = sumtree.stratified_mass(state.tree, u)
-        idx, prio = tree_sample(state.tree, mass, n_batches)
+        wor = self.sample_mode == "without_replacement"
+        if wor:
+            noise = (sumtree.gumbel((n_batches, state.tree[0].shape[0]),
+                                    generator, state.rows.device)
+                     if u is None else u.reshape(n_batches, -1))
+            idx, prio = sumtree.sample_without_replacement(state.tree, B,
+                                                           noise)
+            idx, prio = idx.reshape(D), prio.reshape(D)
+        else:
+            from ..ops.cuda.tree_sample import tree_sample
+
+            if u is None:
+                u = torch.rand(D, generator=generator,
+                               device=state.rows.device)
+            mass = sumtree.stratified_mass(state.tree, u)
+            idx, prio = tree_sample(state.tree, mass, n_batches)
         rows = state.rows[idx]
         oshape = (D,) + self.obs_shape
         batch = TransitionBatch(
@@ -139,8 +162,12 @@ class PrioritizedReplayBuffer:
         if self.prioritized:
             p = prio / torch.clamp(sumtree.total(state.tree), min=1e-30)
             n = float(max(state.size, 1))
+            # a stratified draw lands on a zero leaf only in an empty
+            # buffer (unit weight: finite); a pass without replacement
+            # hands out unfilled slots once the filled ones run out, and
+            # those must not train (weight 0)
             weights = torch.where(p > 0, (n * p) ** (-self.beta),
-                                  torch.ones_like(p))
+                                  torch.full_like(p, 0.0 if wor else 1.0))
         else:
             weights = torch.ones(D, dtype=torch.float32, device=idx.device)
         return batch, idx, weights

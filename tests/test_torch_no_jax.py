@@ -5,7 +5,8 @@ raises), imports every module of ``deepqlearning_tpu_torch`` and runs one
 CPU loop iteration through each route (kernel twins and plain paths), for
 the feed-forward and the recurrent (DRQN) loop, one data-parallel
 iteration of each through ``DataParallelRunner`` in a one-rank gloo world,
-and a tiny ``DeepQLearningSolver.solve``.
+a tiny ``DeepQLearningSolver.solve``, the classic-control envs and one
+CartPole collect step through the collect kernel's route.
 """
 import os
 import subprocess
@@ -89,6 +90,29 @@ SCRIPT = textwrap.dedent("""
         eval_freq=32, num_ep_eval=4, logdir=None, verbose=False,
         device="cpu").solve(SimpleGridWorld())
     assert pol.action(torch.zeros(2)) in SimpleGridWorld().action_map
+    # the classic-control envs, and one CartPole collect step through the
+    # collect kernel's route (its plain twin on CPU tensors)
+    from deepqlearning_tpu_torch.learner.actor import (
+        init_actor, make_fused_collect_step)
+    from deepqlearning_tpu_torch.ops.cuda.fused_collect import (
+        collect_plan_for)
+    from deepqlearning_tpu_torch.envs import Acrobot, CartPole, MountainCar
+    g = torch.Generator().manual_seed(0)
+    for e in (Acrobot(), MountainCar()):
+        st, ob = e.reset_batch(4, g)
+        st, ob, r, d = e.step_batch(st, torch.zeros(4, dtype=torch.long), g)
+        assert ob.shape == (4,) + e.obs_shape
+    cp = CartPole()
+    net = create_dueling_network(Chain(Dense(4, 8, torch.tanh), Dense(8, 2)))
+    buf = PrioritizedReplayBuffer(cp.obs_shape, 256, 8, device="cpu")
+    plan = collect_plan_for(cp, net, buf)
+    assert plan is not None and plan.n_uniforms == 6
+    step = make_fused_collect_step(cp, net, 200, lambda t: 0.5,
+                                   lambda r, tr, ended: buf.insert(r, tr),
+                                   plan)
+    a, r, _ = step((init_actor(cp, net, 128, g), buf.init(),
+                    net.init(g)), g)
+    assert r.size == 128 and a.obs.shape == (128, 4)
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
     assert not bad, bad

@@ -166,6 +166,8 @@ def test_uniform_replay():
 def test_unsupported_storage_raises():
     with pytest.raises(NotImplementedError):
         TBuf((2,), 64, 8, obs_dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TBuf((2,), 64, 8, sample_mode="without_replacement",
-             device="cpu")
+    # the mode without replacement is supported; an unknown mode raises
+    assert TBuf((2,), 64, 8, sample_mode="without_replacement",
+                device="cpu").sample_mode == "without_replacement"
+    with pytest.raises(ValueError, match="sample_mode"):
+        TBuf((2,), 64, 8, sample_mode="bogus", device="cpu")
