@@ -25,12 +25,19 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    MountainCar at ε = 0.3 and 1, two runs bit for bit, done flags allowed
    to flip only within a few ulps of a threshold, counted; K2 and K3 also
    at the CartPole solve's shapes, 2^16 leaves / 4096 draws in 16 and U =
-   16, B = 256 with its dueling 4-64-64-2 net); then K1 (B = 32, 512, 4096), K2, K4 and K6 (each env), K7 and K8 timed by their
+   16, B = 256 with its dueling 4-64-64-2 net; K1 and K2 also at the
+   image-observation DQN's shapes: B = 512, A = 4 on the Q values of its
+   bf16 conv net cast to f32, and 2^15 leaves / 2048 draws in 4); then K1
+   (B = 32, 512, 4096, and the conv route's), K2 (also the conv route's),
+   K4 and K6 (each env), K7 and K8 timed by their
    device events alone, beside their wrappers' CUDA-event times, and an
    empty kernel launched as K1 is, K1's launch floor;
 4. slices: the small feed-forward loop (on SimpleGridWorld and on
    CartPole) and the small DRQN loop on the card against the same loops on
-   the CPU (plain twins) with injected uniforms and draws;
+   the CPU (plain twins) with injected uniforms and draws; then the full
+   conv net of ``examples/image_conv_dqn.py`` (f32 and bf16, B = 512) on
+   the card against its CPU forward, cuDNN's TF32 flag on (the layer turns
+   it off for f32 itself), and the f32 gradients;
 5. headline loop: the headline configuration (131072 envs, 2^20 replay,
    batch 512, train_freq 4096) through ``build_loop``, env-steps/s and
    ms/iteration;
@@ -63,7 +70,13 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     at ``examples/cartpole_dqn.py``'s configuration (256 envs, U = 16,
     batch 256, 2^16 PER, 400,000 steps): K4 (CartPole), K2 and K3 exactly
     once per iteration, K1 never, and a greedy return >= 150 of 200 over
-    64 episodes;
+    64 episodes; (e) the image-observation DQN's solve at
+    ``examples/image_conv_dqn.py``'s configuration (TestMDP with (20, 20, 4)
+    obs, 2048 envs, bf16 conv 4-32-64-128 + dueling 3200-512, 2^15 bf16
+    PER, batch 512, U = 4, 400,000 steps, 8 evaluations of 128 episodes)
+    through the example's ``main``: K1 exactly U and K2 exactly once per
+    iteration, K3, K4 and K7 never, a save and a restore, and a best greedy
+    return >= 1.0 (optimum 2.1);
 12. headline profile: the headline loop once more, near the end, with the
     host's enqueue per iteration and, under ``torch.profiler``, the device
     busy share and the kernel launches and device time per iteration (K3
@@ -75,17 +88,21 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     it) the same way (K1, K2 and K4 exactly once per iteration);
 15. grouped plain profile: phase 6's grouped plain loop the same way
     (K1 exactly U = 4 times and K2 once per iteration);
-16. CartPole profile: the CartPole solve's loop the same way, last (K4, K2
-    and K3 exactly once per iteration).
+16. CartPole profile: the CartPole solve's loop the same way (K4, K2
+    and K3 exactly once per iteration);
+17. conv profile: 11 (e)'s loop the same way (K1 U = 4 times and K2 once
+    per iteration), then ``scripts/conv_bench.py``'s loop (4096 envs,
+    batch 1024, U = 8, 2^15 PER) in bf16 and f32: ms per iteration and
+    model TFLOP/s by that script's accounting.
 
-Each of the paths 5 to 9 and each part of 11 to 16 runs with the launch
+Each of the paths 5 to 9 and each part of 11 to 17 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
 the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 3.5 minutes on an H100, the kernels' build included.
+result. About 4 minutes on an H100, the kernels' build included.
 """
 import itertools
 import json
@@ -560,6 +577,73 @@ def _k1_check(torch, dev, tk, g, results):
          + _kernel_line("K1", ms, pms, bms, by))
 
 
+def _conv_route_kernels(torch, dev, tk, ts, results):
+    """K1 and K2 at the image-observation DQN's shapes
+    (``examples/image_conv_dqn.py``; phase 11 (e)), from a generator of
+    their own (``kernel_events.py::conv_k1_inputs``): K1 at B = 512, A = 4 on
+    the Q values of the bf16 conv net cast to f32 (the train step's casts),
+    double-Q and max, against its twin at ``_k1_check``'s tolerances (loss
+    rtol 1e-5, td/prio/grad atol 1e-6), two runs bit for bit; K2 on 2^15
+    leaves with 2048 draws in 4 sub-batches, bit for bit against the
+    scan-order reference and >= 99% exact against the twin, as the other
+    K2 cases. Wrapper and plain times by CUDA events and the bound; the
+    device-event times come from ``phase_device_events``."""
+    from deepqlearning_tpu_torch.ops import sumtree
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_k1_inputs
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    args = conv_k1_inputs(torch, dev, g)
+    err = 0.0
+    for dq in (True, False):
+        ko = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, dq)
+        again = tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, dq)
+        po = tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, dq)
+        what = f"K1 conv route B=512 double_q={dq}"
+        _check(all(torch.equal(a, b) for a, b in zip(ko, again)),
+               f"{what}: two runs differ")
+        err = max(err, _close(ko[0], po[0], 1e-5, 1e-6, f"{what} loss"))
+        for k, p, name in zip(ko[1:], po[1:], ("td", "prio", "grad")):
+            err = max(err, _close(k, p, 1e-5, 1e-6, f"{what} {name}"))
+    ms = _time_ms(lambda: tk.td_loss_cuda(*args, 0.95, 0.6, 1e-3, True), 200)
+    pms = _time_ms(lambda: tk.td_loss_plain(*args, 0.95, 0.6, 1e-3, True),
+                   200)
+    bms, by = _bound(_nbytes(args, ko), 12 * 512 * 4)
+    results["td_loss"]["conv_route"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    _say(f"K1 td_loss on the conv route (B=512, A=4, Q of the bf16 conv net "
+         f"cast to f32): ok, double-Q and max, two runs equal bit for bit, "
+         f"max_abs_err {err:.3g} | " + _kernel_line("K1", ms, pms, bms, by))
+    cap, D, n = 1 << 15, 2048, 4
+    tree = sumtree.init_tree(cap, dev)
+    sumtree.set_priorities_slice(
+        tree, 0, torch.rand(cap, generator=g, device=dev) + 0.01)
+    mass = sumtree.stratified_mass(tree, torch.rand(D, generator=g,
+                                                    device=dev))
+    ik, pk = ts.tree_sample_cuda(tree, mass, n)
+    ik2, pk2 = ts.tree_sample_cuda(tree, mass, n)
+    ip, pp = ts.tree_sample_plain(tree, mass, n)
+    isc, psc = ts.tree_sample_scan(tree, mass, n)
+    _check(torch.equal(ik, ik2) and torch.equal(pk, pk2),
+           "K2 conv route: two runs differ")
+    _check(torch.equal(ik, isc) and torch.equal(pk, psc),
+           "K2 conv route: differs from the scan-order reference")
+    exact = (ik == ip).float().mean().item()
+    _check(exact >= 0.99, f"K2 conv route: only {exact:.4f} exact")
+    _check((ik - ip).abs().max().item() <= 1, "K2 conv route: not adjacent")
+    _check(torch.equal(pk, tree[0][ik]), "K2 conv route: prio != leaf")
+    t = (_time_ms(lambda: ts.tree_sample_cuda(tree, mass, n), 100),
+         _time_ms(lambda: ts.tree_sample_plain(tree, mass, n), 100))
+    reads = min(_nbytes(tree), D * len(tree) * 64 * 4)
+    b = _bound(reads + _nbytes(mass, pk, ik), D * len(tree) * 64 * 2)
+    results["tree_sample"]["conv_route"] = dict(
+        max_abs_err=float((ik - ip).abs().max().item()), ms=t[0],
+        plain_ms=t[1], bound_ms=b[0], bound_by=b[1])
+    _say(f"K2 tree_sample on the conv route (2^15 leaves / 2048 draws in 4 "
+         f"sub-batches): ok, equal to the scan-order reference bit for bit, "
+         f"two runs bit-identical, exact vs the twin {exact:.5f} | "
+         + _kernel_line("K2", *t, *b))
+
+
 def phase_kernels(torch, dev, results):
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
@@ -627,6 +711,7 @@ def phase_kernels(torch, dev, results):
                                   bound_by=bound[1],
                                   cartpole_solve_shape=solve_shape)
     _say(_kernel_line("K2 tree_sample 2^20/16384", *timing, *bound))
+    _conv_route_kernels(torch, dev, tk, ts, results)
 
     # --- K3: U=32, B=512, dueling 2->64->64->4 double-Q lr 1e-4, and a
     # plain chain with max; then the CartPole solve's shape (U=16, B=256,
@@ -1077,6 +1162,13 @@ def phase_device_events(results):
         "K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8": (
             "fused_drqn_grads", "device_ms",
             results["fused_drqn_grads"]["bound_ms"])})
+    # K1 and K2 on the conv route (_conv_route_kernels)
+    rows["K1 td_loss conv route B=512"] = (
+        ("td_loss", "conv_route"), "device_ms",
+        results["td_loss"]["conv_route"]["bound_ms"])
+    rows["K2 tree_sample conv route 2^15/2048 in 4"] = (
+        ("tree_sample", "conv_route"), "device_ms",
+        results["tree_sample"]["conv_route"]["bound_ms"])
     # K4 and K6 on the other envs they step: in the kernels' by_env entries
     for env, cell in (("CartPole", "LSTM32"), ("MountainCar", "dueling GRU16")):
         rows[f"K4 fused_collect {env} E=131072"] = (
@@ -1089,8 +1181,9 @@ def phase_device_events(results):
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
         key, field, bound = rows[name]
-        entry = (results[key] if isinstance(key, str)
-                 else results[key[0]]["by_env"][key[1]])
+        entry = (results[key] if isinstance(key, str) else
+                 results[key[0]][key[1]] if key[1] == "conv_route" else
+                 results[key[0]]["by_env"][key[1]])
         entry[field] = r["device_ms"]
         tail = ("the launch floor" if bound is None else
                 f"bound {bound:.6f} ms, share of the device time "
@@ -1567,7 +1660,8 @@ def _profile_iterations(torch, it, c, n):
     (``ops/cuda/loop_profile.py::device_profile``: the device's own events
     only): returns ``(carry, enqueue ms per iteration, device busy share of
     the profiled window, device ms per iteration, {kernel symbol: (launches,
-    device ms) per iteration})``; ATen's kernels, copies and fills are
+    device ms) per iteration}, {event name: (launches, device ms) per
+    iteration})``; in the first dict ATen's kernels, copies and fills are
     summed under "other"."""
     from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
         device_profile, enqueue_ms)
@@ -1576,7 +1670,7 @@ def _profile_iterations(torch, it, c, n):
     c, prof = device_profile(torch, it, c, n)
     _check(prof["device_ms"] > 0, "the profiler saw no device time")
     per_iter = {k: tuple(v) for k, v in prof["by_kernel"].items()}
-    return c, enq, prof["busy"], prof["device_ms"], per_iter
+    return c, enq, prof["busy"], prof["device_ms"], per_iter, prof["by_name"]
 
 
 def _dueling_net(torch, dev, width, act, no=2, A=4):
@@ -1629,7 +1723,8 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
     buf = PrioritizedReplayBuffer(
         env.obs_shape, cfg.buffer_size, cfg.batch_size,
         alpha=cfg.prioritized_replay_alpha, beta=cfg.prioritized_replay_beta,
-        eps=cfg.prioritized_replay_epsilon, prioritized=True, device=dev)
+        eps=cfg.prioritized_replay_epsilon, prioritized=True,
+        obs_dtype=cfg.dtype, device=dev)
     it, pop, opt = build_loop(env, net, buf, cfg,
                               LinearDecaySchedule(1.0, 0.01, 100_000),
                               gamma=env.discount)
@@ -1904,6 +1999,242 @@ def phase_cartpole_solve(torch, dev, card, run_path):
     _check(r >= 150.0, f"CartPole solve: greedy return {r} < 150")
 
 
+def phase_conv_forward(torch, dev):
+    """Conv2D on the card against the port's CPU forward: the full conv net
+    of ``examples/image_conv_dqn.py`` (dueling, 4-32-64-128 with the
+    3200-512 heads) at B = 512, f32 and bf16 parameters, the same
+    parameters and observations. cuDNN's TF32 is switched ON for this
+    phase, so the f32 check proves that the layer turns it off itself (its
+    forward and, through the gradients at B = 64, its backward): f32 Q
+    values within 1e-4 · max|Q|, gradients within 1e-4 · max|g| per tensor;
+    bf16 Q values (every layer rounded to bf16, sums in other orders) within
+    2^-5 · max|Q|, 8 bf16 ulps of the largest. The control: the same f32
+    forward with the layer's convolutions replaced by a bare ``F.conv2d``
+    (TF32 on) must miss the f32 tolerance, so the check can fail. Then the
+    heads' bf16 GEMM with an f32 result (``_DotBF16``) against the GEMM of
+    its operands promoted to f32: forward within 1e-5 · max|y|, gradients
+    within 1e-6 of their max."""
+    import copy
+
+    from deepqlearning_tpu_torch.models import chain
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
+
+    g = torch.Generator().manual_seed(11)
+    obs = torch.rand(512, 20, 20, 4, generator=g)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            host = conv_net(torch, "cpu", bf16)
+            params = host.init(g, dtype)
+            card = copy.deepcopy(host).to(dev)
+            pc = {k: v.to(dev) for k, v in params.items()}
+            with torch.no_grad():
+                q_host = host.apply(params, obs)[0].float()
+                q_card = card.apply(pc, obs.to(dev))[0].float().cpu()
+            scale = q_host.abs().max().item()
+            tol = (2 ** -5 if bf16 else 1e-4) * scale
+            err = (q_host - q_card).abs().max().item()
+            _check(err <= tol, f"Conv2D {dtype} on the card vs the CPU: max "
+                               f"abs err {err} > {tol}")
+            msg = (f"Conv2D net {dtype} B=512 on the card vs the CPU: max abs "
+                   f"err {err:.3g} (tolerance {tol:.3g}, max|Q| {scale:.3g})")
+            if not bf16:
+                chain._ConvNoTF32.apply = (
+                    lambda x, w, st, pad: torch.nn.functional.conv2d(
+                        x, w, None, st, pad))
+                try:
+                    with torch.no_grad():
+                        q_ctl = card.apply(pc, obs.to(dev))[0].float().cpu()
+                finally:
+                    del chain._ConvNoTF32.apply
+                ctl = (q_host - q_ctl).abs().max().item()
+                _check(ctl > tol, f"control: a bare TF32 conv2d is within the "
+                                  f"f32 tolerance ({ctl} <= {tol})")
+                msg += (f"; control (bare F.conv2d, TF32 on): max abs err "
+                        f"{ctl:.3g}, above the tolerance")
+                gerr = 0.0
+                for net, p, x in ((host, params, obs[:64]),
+                                  (card, pc, obs[:64].to(dev))):
+                    p = {k: v.detach().requires_grad_() for k, v in p.items()}
+                    loss = net.apply(p, x)[0].square().sum()
+                    grads = torch.autograd.grad(loss, list(p.values()))
+                    if net is host:
+                        ref = [gr.clone() for gr in grads]
+                    else:
+                        for a, b in zip(grads, ref):
+                            e = (a.cpu() - b).abs().max().item()
+                            gt = 1e-4 * b.abs().max().item()
+                            _check(e <= gt, f"Conv2D f32 gradient on the "
+                                            f"card: max abs err {e} > {gt}")
+                            gerr = max(gerr, e / max(b.abs().max().item(),
+                                                     1e-30))
+                msg += (f"; gradients at B=64 within {gerr:.3g} of each "
+                        f"tensor's max (tolerance 1e-4); cuDNN TF32 flag on "
+                        f"throughout")
+            _say(msg)
+        # the heads' bf16 GEMM (3200 -> 512 at B = 512) against the GEMM of
+        # the operands promoted to f32, forward and backward
+        x = torch.randn(512, 3200, generator=g).bfloat16().to(dev)
+        w = (0.02 * torch.randn(3200, 512, generator=g)).bfloat16().to(dev)
+        gy = torch.randn(512, 512, generator=g).to(dev)
+        out = []
+        for f in (chain._DotBF16.apply, lambda a, b: a.float() @ b.float()):
+            a, b = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = f(a, b)
+            out.append((y.detach(), *torch.autograd.grad(y, (a, b), gy)))
+        (y, gx, gw), (y0, gx0, gw0) = out
+        ey = ((y - y0).abs().max() / y0.abs().max()).item()
+        eg = max(((u.float() - v.float()).abs().max()
+                  / v.float().abs().max()).item()
+                 for u, v in ((gx, gx0), (gw, gw0)))
+        _check(y.dtype == torch.float32 and ey <= 1e-5 and eg <= 1e-6
+               and gx.dtype == gw.dtype == torch.bfloat16,
+               f"bf16 GEMM with an f32 result: forward {ey}, backward {eg}")
+        _say(f"Dense 3200->512 bf16 GEMM (f32 result) at B=512 vs the GEMM "
+             f"of the promoted operands: forward max err {ey:.3g} of max|y| "
+             f"(tolerance 1e-5), gradients {eg:.3g} of their max (tolerance "
+             f"1e-6)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _conv_fwd_flops(net, obs_shape):
+    """Forward FLOPs per sample (2 per multiply-add) of a dueling conv net,
+    by ``scripts/conv_bench.py``'s accounting ("SAME" convolutions)."""
+    from deepqlearning_tpu_torch import Conv2D, Dense, Flatten
+
+    def chain(ch, shape):
+        fl = 0
+        for layer in ch.layers:
+            if isinstance(layer, Conv2D):
+                (h, w, _), (sh, sw) = shape, layer.stride
+                ho, wo = -(-h // sh), -(-w // sw)
+                kh, kw = layer.kernel
+                fl += (2 * ho * wo * kh * kw * layer.in_channels
+                       * layer.out_channels)
+                shape = (ho, wo, layer.out_channels)
+            elif isinstance(layer, Dense):
+                fl += 2 * layer.in_dim * layer.out_dim
+                shape = (layer.out_dim,)
+            elif isinstance(layer, Flatten):
+                shape = (int(np.prod(shape)),)
+        return fl, shape
+
+    fb, shape = chain(net.base, obs_shape)
+    return fb + chain(net.val, shape)[0] + chain(net.adv, shape)[0]
+
+
+def phase_conv_solve(torch, dev, card, run_path):
+    """11 (e): ``examples/image_conv_dqn.py``'s solve at full width, its
+    configuration unchanged (TestMDP with (20, 20, 4) obs, 2048 envs, the
+    bf16 dueling conv net 4-32-64-128 with 3200-512 heads, 2^15 bf16 PER,
+    batch 512, U = 4, 400,000 steps, 8 evaluations of 128 episodes), through
+    the example's ``main`` with ``device=None`` (the card) and a temporary
+    logdir. Launches: K1 exactly U per iteration, K2 exactly once, K3, K4
+    and K7 never. A save and a restore: ``restore_best_model`` equals the
+    returned policy (the best model, restored at the end). The best greedy
+    evaluation return (128 episodes; the optimum is 2.1) must reach 1.0,
+    the threshold of ``tests/test_learning.py::test_bf16_replay_storage``
+    on this MDP family."""
+    import tempfile
+
+    from deepqlearning_tpu_torch import TestMDP
+    from deepqlearning_tpu_torch.examples import image_conv_dqn
+    from deepqlearning_tpu_torch.solver import checkpoint
+
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        (solver, policy), cnt = run_path(
+            "conv solve", lambda: image_conv_dqn.main(logdir=logdir),
+            ("td_loss", "tree_sample"),
+            ("fused_group_update", "fused_collect", "fused_grads"))
+        secs = time.perf_counter() - t0
+        cfg = solver.config
+        _check(solver.device is None, "the conv solve runs with device=None")
+        iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
+        U = cfg.updates_per_iter
+        _check(cnt["td_loss"] == U * iters and cnt["tree_sample"] == iters,
+               f"conv solve: {iters} iterations of U={U}, launches {cnt}")
+        _check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
+                   and bool(torch.isfinite(p).all())
+                   for p in policy.params.values()),
+               "conv solve: parameters bf16, on the card, finite")
+        _check(os.path.exists(os.path.join(logdir, checkpoint.CKPT_NAME)),
+               "conv solve: no saved model")
+        best = solver.restore_best_model(TestMDP((20, 20), 4, 6))
+        _check(all(torch.equal(best.params[k], v)
+                   for k, v in policy.params.items()),
+               "conv solve: the restored model differs from the returned one")
+    evals = [(t, round(v, 4)) for t, v in solver.metrics["eval"]]
+    top = max(v for _, v in solver.metrics["eval"])
+    _say(f"conv solve (examples/image_conv_dqn.py): 2048 envs, bf16 conv "
+         f"4-32-64-128 + dueling 3200-512, 2^15 bf16 PER, batch 512, U={U}, "
+         f"{iters} iterations in {secs:.2f} s "
+         f"({iters * cfg.env_steps_per_iter / secs:.1f} env-steps/s over the "
+         f"whole solve, populate, 8 evaluations of 128 episodes and saves "
+         f"included); eval returns {evals}; best greedy return {top:.4f} "
+         f"(optimum 2.1, threshold 1.0); save and restore ok | {card} | "
+         f"launches {cnt}")
+    _check(top >= 1.0, f"conv solve: best greedy return {top} < 1.0")
+
+
+def phase_conv_profile(torch, dev, card, run_path):
+    """17: one iteration of the conv solve's loop (11 (e)'s configuration
+    through ``build_loop``) profiled as phases 12-16 (K1 U = 4 times and K2
+    once per iteration), then ``scripts/conv_bench.py``'s loop (4096 envs,
+    batch 1024, train_freq 512: U = 8, 2^15 PER) in bf16 and f32, a warm-up
+    and 5 timed iterations each: ms per iteration and the model TFLOP/s by
+    that script's accounting, ``fwd_flops x (E + 5·U·B)`` per iteration."""
+    from deepqlearning_tpu_torch import TestMDP
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
+
+    env = TestMDP((20, 20), 4, 6)
+    absent = ("fused_group_update", "fused_grads", "fused_collect")
+    res, cnt = run_path(
+        "conv loop (profiled)",
+        lambda: _loop(torch, dev, 2048, 1 << 15, 512, 512, 10, 1, 10,
+                      net=conv_net(torch, dev), env=env,
+                      max_episode_length=6, target_update_freq=512 * 64,
+                      learning_rate=1e-3, dtype=torch.bfloat16),
+        ("td_loss", "tree_sample"), absent)
+    cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, by_name = res
+    _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
+           and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
+           f"conv loop: launches per iteration {per_iter}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    _say(f"conv loop (the conv solve's iteration: 2048 envs, bf16, U="
+         f"{cfg.updates_per_iter}, B=512), profiled: {sps:.1f} env-steps/s "
+         f"and {ms:.4f} ms/iteration over 10 iterations; host enqueue "
+         f"{enq:.4f} ms/iteration (each from an idle queue); device busy "
+         f"share {busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
+         f"torch.profiler, 10 iterations); per iteration (launches, device "
+         f"ms) by kernel {per_iter} | {card} | launches {cnt}")
+    _say(f"conv loop, device time by event name, per iteration (launches, "
+         f"device ms), the 16 longest (names cut at 100 characters): "
+         f"{ {k[:100]: v for k, v in top[:16]} } | {card}")
+    flops = _conv_fwd_flops(conv_net(torch, "cpu"), env.obs_shape)
+    for bf16 in (True, False):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        (cfg, sps, loss), cnt = run_path(
+            f"conv_bench loop {dtype}",
+            lambda: _loop(torch, dev, 4096, 1 << 15, 1024, 512, 5, 1,
+                          net=conv_net(torch, dev, bf16), env=env,
+                          max_episode_length=6, dtype=dtype),
+            ("td_loss", "tree_sample"), absent)
+        U, B, E = cfg.updates_per_iter, cfg.batch_size, cfg.num_envs
+        it_ms = 1e3 * cfg.env_steps_per_iter / sps
+        tflops = flops * (E + 5 * U * B) / (it_ms * 1e-3) / 1e12
+        peak = 989.0 if bf16 else 67.0  # dense bf16 tensor / f32 CUDA
+        _say(f"conv_bench loop {dtype}: 4096 envs, batch 1024, U={U}, 2^15 "
+             f"PER: {it_ms:.4f} ms/iteration, {sps:.1f} env-steps/s, model "
+             f"{tflops:.3f} TFLOP/s ({flops / 1e6:.3f} MFLOP forward per "
+             f"sample x (E + 5·U·B) per iteration), {tflops / peak:.5f} of "
+             f"the {peak:g} TFLOP/s {'bf16' if bf16 else 'f32'} peak, loss "
+             f"{loss:.5g} | {card} | launches {cnt}")
+
+
 def _cartpole_loop(torch, dev, n_iters):
     """The CartPole solve's loop, built as ``solve`` builds it (stock
     ε-greedy, so K4), populated, ``n_iters`` iterations to warm up and
@@ -2102,9 +2433,10 @@ def main():
     phase_kernels(torch, dev, results)
     phase_device_events(results)
 
-    # 4. the small slices on the card vs the CPU
+    # 4. the small slices on the card vs the CPU, and the conv net
     phase_slice(torch, dev)
     phase_drqn_slice(torch, dev)
+    phase_conv_forward(torch, dev)
 
     # 5. - 7. the main paths, each with the counters from zero
     wrappers = {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
@@ -2225,10 +2557,12 @@ def main():
     phase_solve(torch, dev, card, run_path)
     # 11 (d). the CartPole solve (examples/cartpole_dqn.py)
     phase_cartpole_solve(torch, dev, card, run_path)
+    # 11 (e). the image-observation DQN's solve (examples/image_conv_dqn.py)
+    phase_conv_solve(torch, dev, card, run_path)
 
     # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), head = run_path(
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), head = run_path(
         "headline loop (profiled)",
         lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 10, 2, 10),
         ("tree_sample", "fused_group_update", "fused_collect"))
@@ -2246,7 +2580,7 @@ def main():
     # 13. the DRQN loop again, profiled, beside phase 12: one grouped call
     # of U sub-updates per iteration, so one K5 launch per iteration (the
     # replaced design launched 2·U)
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), rec = run_path(
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), rec = run_path(
         "DRQN loop (profiled)", lambda: _drqn_loop(torch, dev, 16384, 10, 10),
         ("fused_drqn_group_update", "fused_collect_rnn"))
     _check(per_iter.get("dr_group_kernel", (0,))[0] == 1.0,
@@ -2261,7 +2595,7 @@ def main():
 
     # 14. solve's U = 1 iteration (phase 11 (a)'s configuration), profiled
     # beside phases 12 and 13: one K4, one K2 and one K1 per iteration
-    (cfg, sps, loss, it_ms, enq, busy, dev_ms, per_iter), u1 = run_path(
+    (cfg, sps, loss, it_ms, enq, busy, dev_ms, per_iter, _), u1 = run_path(
         "U=1 loop (profiled)",
         lambda: _loop(torch, dev, 4096, 1 << 18, 512, 4096, 10, 4, 10,
                       target_update_freq=8 * 4096),
@@ -2278,7 +2612,7 @@ def main():
 
     # 15. the grouped plain loop (path of phase 6) profiled the same way:
     # U = 4 K1 launches and one K2 launch per iteration
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter), wide = run_path(
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), wide = run_path(
         "grouped plain loop (profiled)",
         lambda: _wide_loop(torch, dev, 10, 10), ("td_loss", "tree_sample"),
         ("fused_group_update", "fused_grads", "fused_collect"))
@@ -2295,7 +2629,7 @@ def main():
 
     # 16. the CartPole solve's loop profiled the same way: K4 (CartPole),
     # K2 and K3 exactly once per iteration
-    (enq, busy, dev_ms, per_iter), cp = run_path(
+    (enq, busy, dev_ms, per_iter, _), cp = run_path(
         "CartPole loop (profiled)", lambda: _cartpole_loop(torch, dev, 40),
         ("fused_collect", "tree_sample", "fused_group_update"), ("td_loss",))
     for k in ("fc_kernel", "tree_sample_kernel", "fu_group_kernel"):
@@ -2307,6 +2641,10 @@ def main():
          f"{dev_ms:.4f} ms/iteration (under torch.profiler, 20 iterations); "
          f"per iteration (launches, device ms) by kernel {per_iter} | "
          f"{card} | launches {cp}")
+
+    # 17. the conv solve's loop profiled, and conv_bench's loop in bf16
+    # and f32
+    phase_conv_profile(torch, dev, card, run_path)
 
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",

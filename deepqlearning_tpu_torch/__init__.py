@@ -23,7 +23,7 @@ from .envs.test_mdp import TestMDP
 from .envs.tiger import TigerPOMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .models.chain import (
-    GRU, LSTM, Activation, Chain, Dense, Flatten, isrecurrent)
+    GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
 from .ops.helpers import flattenbatch, globalnorm, huber_loss
 from .parallel.dryrun import dryrun_multichip
@@ -53,7 +53,8 @@ __all__ = [
     "POMDPEnv", "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "CartPole",
     "MountainCar", "Acrobot", "LoopCarry",
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
-    "init_carry", "populate", "Activation", "Chain", "Dense", "Flatten",
+    "init_carry", "populate", "Activation", "Chain", "Conv2D", "Dense",
+    "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",
     "DuelingNetwork", "create_dueling_network", "flattenbatch", "globalnorm",

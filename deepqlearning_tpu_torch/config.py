@@ -3,7 +3,10 @@
 The defaults, the derived iteration sizes and the ``num_envs``/``train_freq``
 nesting check are those of the JAX package. Two fields change meaning:
 
-* ``dtype`` is a torch dtype; only ``torch.float32`` is supported so far.
+* ``dtype`` is a torch dtype (or its name, e.g. ``"bfloat16"``). It
+  reaches both the network's parameters and the replay storage
+  (``solver/solver.py``); the kernels that compute in f32 are chosen only
+  for ``torch.float32`` (``learner/loop.py``).
 * ``fused_updates`` / ``fused_collect``: ``None`` takes the kernel route
   whenever the network, env and buffer are supported, on any device. The
   kernel wrappers then dispatch on the tensors they are given: the CUDA

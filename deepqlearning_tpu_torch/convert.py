@@ -8,6 +8,13 @@ Dense, ``{"wi", "wh", "b"}`` for LSTM/GRU and ``{}`` otherwise; a
 1:1 with no transpose. The helpers take numpy copies of JAX state, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``; this module imports no JAX.
 
+Dtypes cross as they are: a leaf keeps its dtype, and a bf16 array (numpy
+holds it as ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) crosses
+as its 16-bit pattern, so bf16 parameters, Adam moments, replay rows and
+episode rings (uint8 ones too) cross bit for bit; :func:`params_to_numpy`
+gives bf16 back as ``ml_dtypes.bfloat16`` (imported only then, as the
+JAX side has it).
+
 A JAX ``DataParallelRunner`` carry stacks every device's shard on leading
 mesh axes; :func:`loop_carry_from_numpy` takes one shard of it as one
 rank's ``LoopCarry``, and :func:`adam_from_optax` reads the
@@ -23,7 +30,7 @@ import torch
 from .learner.actor import ActorState
 from .learner.loop import LoopCarry
 from .learner.train_step import AdamState
-from .models.chain import GRU, LSTM, Chain, Dense, params_of
+from .models.chain import GRU, LSTM, Chain, Conv2D, Dense, params_of
 from .models.dueling import DuelingNetwork
 from .replay.episode import EpisodeReplayState
 from .replay.prioritized import ReplayState
@@ -40,32 +47,59 @@ def _walk(module, tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
     elif isinstance(module, Chain):
         for i, (layer, sub) in enumerate(zip(module.layers, tree)):
             yield from _walk(layer, sub, f"{prefix}layers.{i}.")
-    elif isinstance(module, Dense):
+    elif isinstance(module, (Dense, Conv2D)):
         yield prefix + "w", tree["w"]
-        if module.use_bias:
+        if getattr(module, "use_bias", True):
             yield prefix + "b", tree["b"]
     elif isinstance(module, (LSTM, GRU)):
         for k in _CELL_KEYS:
             yield prefix + k, tree[k]
 
 
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """A tensor of the array's dtype and bits: bf16 through its uint16
+    pattern; float64 (numpy's default, never a JAX leaf here) as f32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16).to(device)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.tensor(a, device=device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`tensor_from_numpy`: bf16 as
+    ``ml_dtypes.bfloat16`` with the same bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def _as_dict(network, tree, device) -> Dict[str, torch.Tensor]:
-    return {name: torch.tensor(np.asarray(leaf, np.float32), device=device)
+    return {name: tensor_from_numpy(leaf, device)
             for name, leaf in _walk(network, tree)}
 
 
 def params_from_numpy(network, tree) -> Dict[str, torch.Tensor]:
     """Copy a JAX param pytree (numpy leaves) into the network's parameters,
-    in place, and return the port's parameter dict."""
-    params = params_of(network)
-    new = _as_dict(network, tree, next(iter(params.values())).device)
-    if new.keys() != params.keys():
+    in place, each parameter taking its leaf's dtype, and return the port's
+    parameter dict."""
+    device = next(network.parameters()).device
+    new = _as_dict(network, tree, device)
+    named = dict(network.named_parameters())
+    if new.keys() != named.keys():
         raise ValueError(f"parameter names differ: {sorted(new)} vs "
-                         f"{sorted(params)}")
+                         f"{sorted(named)}")
     with torch.no_grad():
         for k, t in new.items():
-            params[k].copy_(t)
-    return params
+            if named[k].dtype != t.dtype:
+                named[k].data = named[k].data.to(t.dtype)
+            named[k].copy_(t)
+    return params_of(network)
 
 
 def params_to_numpy(network, params: Dict[str, torch.Tensor]):
@@ -77,13 +111,13 @@ def params_to_numpy(network, params: Dict[str, torch.Tensor]):
         if isinstance(module, Chain):
             return tuple(build(l, f"{prefix}layers.{i}.")
                          for i, l in enumerate(module.layers))
-        if isinstance(module, Dense):
-            out = {"w": params[prefix + "w"].detach().cpu().numpy()}
-            if module.use_bias:
-                out["b"] = params[prefix + "b"].detach().cpu().numpy()
+        if isinstance(module, (Dense, Conv2D)):
+            out = {"w": tensor_to_numpy(params[prefix + "w"])}
+            if getattr(module, "use_bias", True):
+                out["b"] = tensor_to_numpy(params[prefix + "b"])
             return out
         if isinstance(module, (LSTM, GRU)):
-            return {k: params[prefix + k].detach().cpu().numpy()
+            return {k: tensor_to_numpy(params[prefix + k])
                     for k in _CELL_KEYS}
         return {}
 
@@ -156,22 +190,25 @@ def actor_from_numpy(actor, device=None) -> ActorState:
 def replay_from_numpy(rows, tree, insert_pos, size, device=None
                       ) -> ReplayState:
     """The port's ``ReplayState`` from a JAX ``ReplayState``'s numpy copies
-    (f32 rows ``[C, 2no+4]``, tree levels leaves first)."""
+    (rows ``[C, 2no + 4·ratio]`` in the storage dtype, bit for bit; tree
+    levels leaves first)."""
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
-    return ReplayState(rows=t(rows), tree=tuple(t(l) for l in tree),
+    return ReplayState(rows=tensor_from_numpy(rows, device),
+                       tree=tuple(t(l) for l in tree),
                        insert_pos=int(insert_pos), size=int(size))
 
 
 def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
     """The port's ``EpisodeReplayState`` from a JAX ``EpisodeReplayState``'s
-    numpy copies (f32 ring). The JAX ring ``[R+T-1, E/G, G·F]`` groups G
-    envs per row; the port's ``[R+T-1, E, F]`` is the same memory."""
+    numpy copies (the ring in its storage dtype, bit for bit). The JAX ring
+    ``[R+T-1, E/G, G·F]`` groups G envs per row; the port's ``[R+T-1, E,
+    F]`` is the same memory."""
     i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32,
                                  device=device)
-    data = np.asarray(state.data, np.float32)
+    data = tensor_from_numpy(state.data, device)
     E = np.asarray(state.rec_count).shape[0]
     return EpisodeReplayState(
-        data=torch.tensor(data.reshape(data.shape[0], E, -1), device=device),
+        data=data.reshape(data.shape[0], E, -1),
         ep_start=i32(state.ep_start), ep_len=i32(state.ep_len),
         rec_count=i32(state.rec_count), cur_len=i32(state.cur_len),
         t=int(state.t))
@@ -195,18 +232,21 @@ def adam_from_optax(params_tree, opt_state, device=None) -> AdamState:
     """``AdamState`` from the ``optax.flatten(optax.adam(...))`` state
     ``(ScaleByAdamState(count, mu, nu), EmptyState())`` of the JAX plain
     and data-parallel train steps, whose ``mu``/``nu`` are the moments
-    raveled in the flatten order of ``params_tree`` (numpy leaves)."""
+    raveled in the flatten order of ``params_tree`` (numpy leaves), in
+    their dtype (bf16 moments of bf16 parameters)."""
     adam = opt_state[0]
-    mu, nu = np.asarray(adam.mu, np.float32), np.asarray(adam.nu, np.float32)
+    mu = tensor_from_numpy(adam.mu, device)
+    nu = tensor_from_numpy(adam.nu, device)
     m, v, off = {}, {}, 0
     for name, leaf in _jax_leaves(params_tree):
         shape = np.shape(leaf)
         k = int(np.prod(shape))
-        m[name] = torch.tensor(mu[off:off + k].reshape(shape), device=device)
-        v[name] = torch.tensor(nu[off:off + k].reshape(shape), device=device)
+        m[name] = mu[off:off + k].reshape(shape).clone()
+        v[name] = nu[off:off + k].reshape(shape).clone()
         off += k
-    if off != mu.size:
-        raise ValueError(f"moments hold {mu.size} values, the params {off}")
+    if off != mu.numel():
+        raise ValueError(f"moments hold {mu.numel()} values, the params "
+                         f"{off}")
     return AdamState(m=m, v=v, count=torch.tensor(
         int(adam.count), dtype=torch.int32, device=device))
 

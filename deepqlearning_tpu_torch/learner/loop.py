@@ -33,6 +33,12 @@ supports env, network and buffer and no custom ``select_fn`` is given
 ``fused_collect=True`` that cannot be honoured raises.
 The kernel wrappers run the CUDA kernels for CUDA tensors and their plain
 twins for CPU tensors; nothing here moves work between devices.
+Dtypes: the whole-phase and collect kernels (K3/K7, K5/K8, K4/K6) compute
+in f32, so they are chosen only when ``cfg.dtype`` is f32, as in the JAX
+package; any other dtype (bf16) takes the plain steps and the plain
+collect, the grouped feed-forward step still with K1 on f32 casts of its Q
+values, and ``fused_updates=True`` or ``fused_collect=True`` with it
+raises ``ValueError`` (the JAX package falls back with a warning).
 
 The random state is one ``torch.Generator`` on the loop's device, in the
 carry. Every draw can be replaced by injected uniforms: ``iteration(carry,
@@ -89,14 +95,18 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
     (see the module docstring).
     """
     check_axis(axis_name)
-    if cfg.dtype != torch.float32:
-        raise NotImplementedError(f"dtype {cfg.dtype}: only float32 so far")
     grouped = cfg.grouped_updates and cfg.updates_per_iter > 1
     kernels = cfg.fused_updates is not False
     U = cfg.updates_per_iter if grouped else 1
+    f32 = cfg.dtype == torch.float32
+    for flag in ("fused_updates", "fused_collect"):
+        if getattr(cfg, flag) is True and not f32:
+            raise ValueError(
+                f"{flag}=True cannot be honoured: the fused kernels compute "
+                f"in float32 and dtype is {cfg.dtype}")
 
     fused = False
-    if kernels and (grouped or cfg.recurrence):
+    if kernels and f32 and (grouped or cfg.recurrence):
         if cfg.recurrence:
             from ..ops.cuda.fused_drqn import drqn_plan_for as gate
 
@@ -147,7 +157,7 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
         insert_fn = lambda replay, tr, ended: buffer.insert(replay, tr)
 
     cplan = None
-    if cfg.fused_collect is not False:
+    if cfg.fused_collect is not False and f32:
         from ..ops.cuda.fused_collect import collect_plan_for
 
         cplan = None if select_fn is not None else collect_plan_for(
@@ -224,8 +234,8 @@ def populate(populate_step, buffer, carry: LoopCarry, n_steps: int,
 def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
                device=None, params=None) -> LoopCarry:
     """A fresh carry on ``device`` (``None``: the buffer's device): one
-    generator seeded from ``cfg.seed`` draws the initial parameters (unless
-    given) and the envs' first states; the target network starts as a copy
+    generator seeded from ``cfg.seed`` draws the initial parameters in
+    ``cfg.dtype`` (unless given) and the envs' first states; the target network starts as a copy
     of the parameters. Raises ``ValueError`` when the network's parameters
     (or the given ``params``) lie on another device: nothing is moved."""
     device = resolve_device(buffer.device if device is None else device)
@@ -243,7 +253,7 @@ def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     if params is None:
-        params = network.init(gen)
+        params = network.init(gen, cfg.dtype)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return LoopCarry(
         actor=init_actor(env, network, cfg.num_envs, gen, device),

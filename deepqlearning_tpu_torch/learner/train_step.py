@@ -64,11 +64,32 @@ class AdamState(NamedTuple):
 
 class Adam:
     """Adam with optax's bias correction (β 0.9/0.999, ε 1e-8), as plain
-    tensor ops; ``update`` works in place on params, m, v and count."""
+    tensor ops; ``update`` works in place on params, m, v and count.
+
+    The moments take each parameter's dtype. On a non-f32 (bf16) leaf every
+    step runs in that dtype, as ``optax.adam`` does on bf16 leaves: the
+    constants β, 1 - β, ε and -lr rounded to the dtype first (JAX's weak
+    typing), the moment updates, the bias corrections ``1 - β^t`` computed
+    in f32 and cast to the moment's dtype
+    (``optax.tree_utils.tree_bias_correction``), ``m̂ / (√v̂ + ε)`` and
+    ``p + (-lr)·u``, each operation rounded to the dtype."""
 
     def __init__(self, learning_rate: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+        self._consts = {}
+
+    def _rounded(self, dtype):
+        """(1-β1, β1, 1-β2, β2, ε, -lr) rounded to ``dtype``, as floats: a
+        bf16 tensor times such a float is the product of two bf16 values,
+        exact in f32 and then rounded, as jnp multiplies them. For f32 this
+        is the rounding PyTorch applies to a Python scalar anyway."""
+        if dtype not in self._consts:
+            self._consts[dtype] = tuple(
+                torch.tensor(x, dtype=dtype).item() for x in (
+                    1.0 - self.b1, self.b1, 1.0 - self.b2, self.b2, self.eps,
+                    -self.lr))
+        return self._consts[dtype]
 
     def init(self, params) -> AdamState:
         dev = next(iter(params.values())).device
@@ -85,11 +106,12 @@ class Adam:
         bc1 = 1.0 - self.b1 ** t
         bc2 = 1.0 - self.b2 ** t
         for k, g in grads.items():
-            m, v = state.m[k], state.v[k]
-            m.mul_(self.b1).add_((1.0 - self.b1) * g)
-            v.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
-            params[k].sub_(self.lr * ((m / bc1) / (torch.sqrt(v / bc2)
-                                                   + self.eps)))
+            m, v, p = state.m[k], state.v[k], params[k]
+            c1, b1, c2, b2, eps, neg_lr = self._rounded(p.dtype)
+            m.mul_(b1).add_(c1 * g)
+            v.mul_(b2).add_(c2 * (g * g))
+            p.add_(neg_lr * ((m / bc1.to(m.dtype))
+                             / (torch.sqrt(v / bc2.to(v.dtype)) + eps)))
         return state
 
 
@@ -142,8 +164,9 @@ def pmean_flat(grads, axis_name):
     its size: a ``pmean``) or a tuple of groups, innermost (ICI) first:
     ``all_reduce(SUM)`` over each in order, then divide by the product of
     their sizes (the hierarchical mode of the JAX ``pmean_flat``). The
-    collective is issued even over a group of one. ``pmean_flat.calls``
-    counts the calls."""
+    collective is issued even over a group of one; the reduction runs in
+    f32 and each gradient comes back in its own dtype.
+    ``pmean_flat.calls`` counts the calls."""
     import torch.distributed as dist
 
     pmean_flat.calls += 1
@@ -176,6 +199,9 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
                         if double_q else q_sp_tgt)
         p = {k: t.detach().requires_grad_() for k, t in params.items()}
         q, _ = network.apply(p, batch.obs)
+        # a bf16 network's Q values in f32 (exact), as the JAX step feeds
+        # its TD head; autograd carries the cotangent back to bf16
+        q, q_sp_onl, q_sp_tgt = q.float(), q_sp_onl.float(), q_sp_tgt.float()
         if use_kernel:
             from ..ops.cuda.td_kernel import td_loss
 

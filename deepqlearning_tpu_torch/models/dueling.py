@@ -59,6 +59,7 @@ def create_dueling_network(network: Chain) -> DuelingNetwork:
         )
     last = trailing[-1]
     val = [copy.deepcopy(l) for l in trailing[:-1]]
-    val.append(Dense(last.in_dim, 1, device=last.w.device))
+    val.append(Dense(last.in_dim, 1, device=last.w.device,
+                     dtype=last.w.dtype))
     return DuelingNetwork(base=Chain(layers[:split]), val=Chain(val),
                           adv=Chain(trailing))

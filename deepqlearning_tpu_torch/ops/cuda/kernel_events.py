@@ -16,7 +16,8 @@ Dense(32, 4))`` (and on CartPole and MountainCar), K4 at 131072 envs on
 each env it steps (:func:`collect_cases`), K7 (``fu_group_kernel`` at U =
 1) at the DP headline's B = 512 with the dueling 2-64-64-4 net and
 double-Q, K8 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T =
-8 with the LSTM32 net and double-Q. Beside K1 it times an empty kernel
+8 with the LSTM32 net and double-Q, and K1 and K2 on the image-observation
+DQN's route (:func:`conv_cases`). Beside K1 it times an empty kernel
 launched as K1 is (``td_kernel.cu::empty_kernel``, K1's block, or its
 cluster of blocks past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
@@ -111,6 +112,7 @@ def cases(torch, dev):
     mass = sumtree.stratified_mass(tree, uni(16384))
     out["K2 tree_sample 2^20/16384"] = (
         "tree_sample_kernel", lambda: ts.tree_sample_cuda(tree, mass))
+    out.update(conv_cases(torch, dev))
     env, E = SimpleGridWorld(), 16384
     net = Chain(LSTM(2, 32, device=dev), Dense(32, 4, device=dev))
     plan = fc.collect_plan_for(env, net, None)
@@ -152,6 +154,73 @@ def cases(torch, dev):
         "dr_group_kernel", lambda: fd.fused_drqn_grads_cuda(
             k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
     return out
+
+
+def conv_cases(torch, dev):
+    """K1 and K2 at the image-observation DQN's shapes
+    (``examples/image_conv_dqn.py``): K1 at B = 512, A = 4 on the Q values
+    of its bf16 conv net cast to f32 (s from one parameter set, s' online
+    and target from two), K2 on 2^15 leaves with 2048 draws in 4
+    sub-batches; from a generator of their own. Only where the checkout has
+    ``Conv2D`` (K2's case too, to keep the pair together)."""
+    import deepqlearning_tpu_torch as pkg
+    from deepqlearning_tpu_torch.ops import sumtree
+    from deepqlearning_tpu_torch.ops.cuda import td_kernel as tk
+    from deepqlearning_tpu_torch.ops.cuda import tree_sample as ts
+
+    if not hasattr(pkg, "Conv2D"):
+        return {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    args = conv_k1_inputs(torch, dev, g)
+    tree = sumtree.init_tree(1 << 15, dev)
+    sumtree.set_priorities_slice(
+        tree, 0, torch.rand(1 << 15, generator=g, device=dev) + 0.01)
+    mass = sumtree.stratified_mass(
+        tree, torch.rand(2048, generator=g, device=dev))
+    return {
+        "K1 td_loss conv route B=512": (
+            "td_loss_kernel", lambda: tk.td_loss_cuda(
+                *args, 0.95, 0.6, 1e-3, True)),
+        "K2 tree_sample conv route 2^15/2048 in 4": (
+            "tree_sample_kernel", lambda: ts.tree_sample_cuda(tree, mass, 4)),
+    }
+
+
+def conv_net(torch, dev, bf16=True, A=4):
+    """``examples/image_conv_dqn.py``'s dueling conv net on (20, 20, 4)
+    obs (with its leading bf16 cast when ``bf16``), on ``dev``."""
+    from deepqlearning_tpu_torch import (
+        Activation, Chain, Conv2D, Dense, Flatten, create_dueling_network)
+
+    relu = torch.relu
+    layers = [Conv2D(4, 32, (3, 3), (1, 1), "SAME", relu),
+              Conv2D(32, 64, (3, 3), (2, 2), "SAME", relu),
+              Conv2D(64, 128, (3, 3), (2, 2), "SAME", relu), Flatten(),
+              Dense(5 * 5 * 128, 512, relu), Dense(512, A)]
+    if bf16:
+        layers.insert(0, Activation(lambda x: x.to(torch.bfloat16)))
+    return create_dueling_network(Chain(*layers)).to(dev)
+
+
+def conv_k1_inputs(torch, dev, g, B=512):
+    """K1's inputs on the conv route: Q(s), Q(s') online and Q(s') target
+    of the bf16 conv net (two parameter sets) cast to f32, int64 actions,
+    reward, done and IS weights."""
+    net = conv_net(torch, dev)
+    online = net.init(g, torch.bfloat16)
+    online = {k: v.clone() for k, v in online.items()}
+    target = net.init(g, torch.bfloat16)
+    obs = torch.rand(B, 20, 20, 4, generator=g, device=dev)
+    nobs = torch.rand(B, 20, 20, 4, generator=g, device=dev)
+    with torch.no_grad():
+        q = net.apply(online, obs)[0].float()
+        q_sp = net.apply(online, nobs)[0].float()
+        q_tgt = net.apply(target, nobs)[0].float()
+    return (q, q_sp, q_tgt,
+            torch.randint(0, 4, (B,), generator=g, device=dev),
+            torch.randn(B, generator=g, device=dev),
+            (torch.rand(B, generator=g, device=dev) < 0.1).float(),
+            torch.rand(B, generator=g, device=dev) + 0.5)
 
 
 def _collect_nets(torch, dev, no, A):

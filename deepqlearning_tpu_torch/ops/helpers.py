@@ -37,11 +37,12 @@ def select_action(q: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
 
 def globalnorm(grads) -> torch.Tensor:
     """Max absolute entry over all gradient tensors (the reference's
-    ``globalnorm`` is a max-abs, not a norm)."""
+    ``globalnorm`` is a max-abs, not a norm), as an f32 scalar (exact for
+    bf16 gradients)."""
     grads = list(grads.values()) if isinstance(grads, dict) else list(grads)
     if not grads:
         return torch.zeros((), dtype=torch.float32)
-    return torch.stack([g.abs().max() for g in grads]).max()
+    return torch.stack([g.abs().max().float() for g in grads]).max()
 
 
 def flatten(tensors, names) -> torch.Tensor:
@@ -51,11 +52,13 @@ def flatten(tensors, names) -> torch.Tensor:
 
 
 def unflatten(flat: torch.Tensor, like, names):
-    """Views of ``flat`` shaped like ``like[n]``, keyed by ``names`` in
-    order (the inverse of :func:`flatten`)."""
+    """Pieces of ``flat`` shaped like ``like[n]`` and in its dtype, keyed by
+    ``names`` in order (the inverse of :func:`flatten`): views where the
+    dtype is ``flat``'s, cast copies otherwise (a bf16 gradient comes back
+    bf16, as the JAX ``pmean_flat`` gives each leaf back)."""
     out, off = {}, 0
     for n in names:
         k = like[n].numel()
-        out[n] = flat[off:off + k].view(like[n].shape)
+        out[n] = flat[off:off + k].view(like[n].shape).to(like[n].dtype)
         off += k
     return out

@@ -1,19 +1,25 @@
 """Episode replay for the recurrent (DRQN) path, on the device.
 
-Counterpart of ``deepqlearning_tpu.replay.episode`` for f32 storage, with
-its semantics and not its TPU layout (the grouped 128-lane rows existed only
-to avoid lane padding):
+Counterpart of ``deepqlearning_tpu.replay.episode``, with its semantics and
+not its TPU layout: the JAX ring groups ``G`` envs into one row of up to
+128 lanes, the TPU's lane tiling, which a GPU does not have, so the port
+keeps one env per row slot (the same memory, ``convert.py``):
 
 * every lockstep step writes one row ``t % R`` of a time-major ring
-  ``[R + T - 1, E, F]``, ``F = 2·no + 4`` (obs, next_obs, action, reward,
-  done, pad); rows ``0..T-2`` are mirrored into ``T - 1`` shadow rows after
-  the ring, so every trace window is one contiguous run of ``T`` rows;
+  ``[R + T - 1, E, F]`` in the storage dtype ``obs_dtype`` (any 1-, 2- or
+  4-byte dtype), ``F = 2·no + 4·ratio`` with ``ratio = 4 / itemsize``:
+  obs and next_obs cast to the storage dtype, then the four f32 scalars
+  (action, reward, done, pad) bit-cast into ``4·ratio`` lanes, exact, as
+  the PER rows (``replay/prioritized.py``); rows ``0..T-2`` are mirrored
+  into ``T - 1`` shadow rows after the ring, so every trace window is one
+  contiguous run of ``T`` rows;
 * an env whose episode ended commits a ``(start, length)`` record into its
   own ring of ``M`` records;
 * a sample draws episodes uniformly over all stored episodes (a count-tree
   descent over the envs, ``ops/sumtree.py::descend``), a record of the
   drawn env, and a random start inside the episode; the window is
-  zero-padded past the episode's end with a validity ``mask``; a record
+  zero-padded past the episode's end with a validity ``mask`` (every field
+  of a masked step is zero; obs keep the storage dtype); a record
   whose rows the ring has overwritten is remapped to the env's newest one.
 
 The ring and the index tensors are updated IN PLACE; the global step
@@ -30,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import sumtree
+from .prioritized import pack_scalars, storage_ratio, unpack_scalars
 from .transition import TransitionBatch
 
 
@@ -45,7 +52,7 @@ class EpisodeBatch(NamedTuple):
 
 
 class EpisodeReplayState(NamedTuple):
-    data: torch.Tensor       # [R + T - 1, E, F] f32: ring + shadow rows
+    data: torch.Tensor       # [R + T - 1, E, F] obs_dtype: ring + shadows
     ep_start: torch.Tensor   # [E, M] int32 — global step of episode start
     ep_len: torch.Tensor     # [E, M] int32
     rec_count: torch.Tensor  # [E] int32 — records written per env
@@ -78,10 +85,6 @@ class EpisodeReplayBuffer:
                  batch_size: int, trace_length: int, max_episode_length: int,
                  num_envs: int = 1, obs_dtype=torch.float32,
                  max_ring_bytes: int = 2 << 30, device=None):
-        if obs_dtype != torch.float32:
-            raise NotImplementedError(
-                f"obs_dtype {obs_dtype}: only float32 episode storage is "
-                "supported so far")
         self.obs_shape = tuple(int(s) for s in obs_shape)
         self.max_size = int(max_size)
         self.batch_size = int(batch_size)
@@ -89,18 +92,20 @@ class EpisodeReplayBuffer:
         self.max_episode_length = int(max_episode_length)
         self.num_envs = int(num_envs)
         self.obs_dtype = obs_dtype
+        # f32 scalars bit-cast into 4*ratio ring lanes (16 B exact)
+        self.ratio = storage_ratio(self.obs_dtype)
         self.device = resolve_device(device)
         self.no = 1
         for s in self.obs_shape:
             self.no *= s
-        self.F = 2 * self.no + 4
+        self.F = 2 * self.no + 4 * self.ratio
         # record slots per env, so that all envs hold >= max_size episodes
         self.records_per_env = max(2, -(-self.max_size // self.num_envs))
         # steps per env for max_size episodes, and at least two max-length
         # episodes so the open episode never overwrites its own start
         self.ring = _pow2(max(2 * self.max_episode_length,
                               self.records_per_env * self.max_episode_length))
-        slot_bytes = 4 * self.F
+        slot_bytes = self.F * (4 // self.ratio)
         min_ring = _pow2(2 * self.max_episode_length)
         while (self.ring > min_ring
                and self.num_envs * self.ring * slot_bytes > max_ring_bytes):
@@ -119,7 +124,7 @@ class EpisodeReplayBuffer:
                       self.trace_length)
         i32 = dict(dtype=torch.int32, device=self.device)
         return EpisodeReplayState(
-            data=torch.zeros(R + T - 1, E, self.F, dtype=torch.float32,
+            data=torch.zeros(R + T - 1, E, self.F, dtype=self.obs_dtype,
                              device=self.device),
             ep_start=torch.zeros(E, M, **i32), ep_len=torch.zeros(E, M, **i32),
             rec_count=torch.zeros(E, **i32), cur_len=torch.zeros(E, **i32),
@@ -132,13 +137,12 @@ class EpisodeReplayBuffer:
         E, R, M, T = (self.num_envs, self.ring, self.records_per_env,
                       self.trace_length)
         k = state.t % R
+        sc = pack_scalars((batch.action, batch.reward, batch.done,
+                           torch.zeros_like(batch.reward, dtype=torch.float32)),
+                          self.obs_dtype, self.ratio)
         row = torch.cat([
-            batch.obs.reshape(E, self.no).float(),
-            batch.next_obs.reshape(E, self.no).float(),
-            batch.action.float()[:, None], batch.reward.float()[:, None],
-            batch.done.float()[:, None],
-            torch.zeros(E, 1, dtype=torch.float32, device=state.data.device),
-        ], dim=1)
+            batch.obs.reshape(E, self.no).to(self.obs_dtype),
+            batch.next_obs.reshape(E, self.no).to(self.obs_dtype), sc], dim=1)
         state.data[k] = row
         if k < T - 1:
             state.data[R + k] = row
@@ -221,13 +225,15 @@ class EpisodeReplayBuffer:
         rows = ((start + off) % R)[:, None] + steps[None, :]       # [D, T]
         win = state.data[rows, env[:, None]]                        # [D, T, F]
         no = self.no
-        win = torch.where(valid[..., None], win, 0.0)               # zero-pad
+        win = torch.where(valid[..., None], win,
+                          torch.zeros((), dtype=win.dtype, device=dev))
+        sc = unpack_scalars(win[..., 2 * no:], self.ratio)     # [D, T, 4] f32
         oshape = (D, T) + self.obs_shape
         return EpisodeBatch(
             obs=win[..., :no].reshape(oshape),
-            action=win[..., 2 * no].long(),
-            reward=win[..., 2 * no + 1],
+            action=sc[..., 0].long(),
+            reward=sc[..., 1],
             next_obs=win[..., no:2 * no].reshape(oshape),
-            done=win[..., 2 * no + 2],
+            done=sc[..., 2],
             mask=mask,
         )

@@ -1,9 +1,16 @@
 """Prioritized (and uniform) experience replay on the device.
 
-Counterpart of ``deepqlearning_tpu.replay.prioritized`` for f32 storage:
+Counterpart of ``deepqlearning_tpu.replay.prioritized``:
 
-* one merged row per slot, ``[C, 2·no + 4]``: obs, next_obs and the four
-  f32 scalars (action, reward, done, pad);
+* one merged row per slot in the storage dtype ``obs_dtype`` (any 1-, 2-
+  or 4-byte dtype), ``[C, 2·no + 4·ratio]`` with ``ratio = 4 /
+  itemsize``: obs and next_obs cast to the storage dtype (``astype``:
+  uint8 truncates), then the four f32 scalars (action, reward, done, pad)
+  bit-cast into ``4·ratio`` lanes (``Tensor.view``, the lane order of
+  ``jax.lax.bitcast_convert_type``), so they round-trip exactly; f32 is
+  the identity case, ``[C, 2·no + 4]``;
+* a sample returns obs in the storage dtype (no upcast: the network
+  promotes as it needs);
 * priority at insert ``(|r| + eps)^alpha``, at update ``(|td| + eps)^alpha``;
 * IS weights ``(N·p/total)^(-beta)``, not max-normalized, with the
   empty-buffer clamp to unit weight;
@@ -30,8 +37,31 @@ from ..ops import sumtree
 from .transition import TransitionBatch
 
 
+def storage_ratio(obs_dtype) -> int:
+    """Storage lanes per f32 scalar (``4 / itemsize``) of a 1-, 2- or
+    4-byte dtype; ``ValueError`` for any other, as the JAX buffers."""
+    size = torch.empty((), dtype=obs_dtype).element_size()
+    if size not in (1, 2, 4):
+        raise ValueError(
+            f"obs_dtype must be a 1/2/4-byte dtype, got {obs_dtype}")
+    return 4 // size
+
+
+def pack_scalars(cols, dtype, ratio: int) -> torch.Tensor:
+    """The f32 scalar columns ``cols`` as storage lanes ``[E, len·ratio]``:
+    bit-cast for a narrow dtype, a plain cast at ratio 1."""
+    sc = torch.stack([c.float() for c in cols], dim=1)
+    return sc.view(dtype) if ratio > 1 else sc.to(dtype)
+
+
+def unpack_scalars(sc: torch.Tensor, ratio: int) -> torch.Tensor:
+    """Storage lanes ``[..., 4·ratio]`` -> the four f32 scalars ``[...,
+    4]``, exactly."""
+    return sc.contiguous().view(torch.float32) if ratio > 1 else sc.float()
+
+
 class ReplayState(NamedTuple):
-    rows: torch.Tensor     # [C, 2*no + 4] f32
+    rows: torch.Tensor     # [C, 2*no + 4*ratio] obs_dtype
     tree: tuple            # per-level sum-tree tensors (leaves = cap2 >= C)
     insert_pos: int
     size: int
@@ -56,11 +86,9 @@ class PrioritizedReplayBuffer:
         self.beta = float(beta)
         self.eps = float(eps)
         self.prioritized = bool(prioritized)
-        if obs_dtype != torch.float32:
-            raise NotImplementedError(
-                f"obs_dtype {obs_dtype}: only float32 replay storage is "
-                "supported so far")
         self.obs_dtype = obs_dtype
+        # f32 scalars bit-cast into 4*ratio storage lanes (16 B exact)
+        self.ratio = storage_ratio(self.obs_dtype)
         if sample_mode not in ("stratified", "without_replacement"):
             raise ValueError(
                 f"sample_mode must be 'stratified' or 'without_replacement', "
@@ -76,21 +104,26 @@ class PrioritizedReplayBuffer:
 
     def init(self) -> ReplayState:
         return ReplayState(
-            rows=torch.zeros(self.max_size, 2 * self.no + 4,
-                             dtype=torch.float32, device=self.device),
+            rows=torch.zeros(self.max_size, 2 * self.no + 4 * self.ratio,
+                             dtype=self.obs_dtype, device=self.device),
             tree=sumtree.init_tree(self.max_size, self.device),
             insert_pos=0, size=0,
         )
 
     def _pack(self, batch: TransitionBatch) -> torch.Tensor:
+        """A transition batch as storage rows (see the module docstring)."""
         E = batch.action.shape[0]
+        sc = pack_scalars((batch.action, batch.reward, batch.done,
+                           torch.zeros_like(batch.reward, dtype=torch.float32)),
+                          self.obs_dtype, self.ratio)
         return torch.cat([
-            batch.obs.reshape(E, self.no).float(),
-            batch.next_obs.reshape(E, self.no).float(),
-            batch.action.float()[:, None], batch.reward.float()[:, None],
-            batch.done.float()[:, None],
-            torch.zeros(E, 1, dtype=torch.float32, device=batch.reward.device),
-        ], dim=1)
+            batch.obs.reshape(E, self.no).to(self.obs_dtype),
+            batch.next_obs.reshape(E, self.no).to(self.obs_dtype), sc], dim=1)
+
+    def peek_scalars(self, state: ReplayState) -> torch.Tensor:
+        """Every slot's (action, reward, done, pad) as ``[C, 4]`` f32 — a
+        test and diagnostic helper."""
+        return unpack_scalars(state.rows[:, 2 * self.no:], self.ratio)
 
     def _initial_priority(self, reward: torch.Tensor) -> torch.Tensor:
         if self.prioritized:
@@ -131,7 +164,8 @@ class PrioritizedReplayBuffer:
 
         The flat outputs are u-major: sub-batch ``u`` occupies rows
         ``[u*B, (u+1)*B)`` and takes strata ``{u, n+u, 2n+u, ...}``.
-        Returns ``(TransitionBatch, indices [nB] int64, weights [nB])``."""
+        Obs keep the storage dtype. Returns ``(TransitionBatch, indices
+        [nB] int64, weights [nB])``."""
         B = self.batch_size
         D = B * n_batches
         wor = self.sample_mode == "without_replacement"
@@ -151,13 +185,14 @@ class PrioritizedReplayBuffer:
             mass = sumtree.stratified_mass(state.tree, u)
             idx, prio = tree_sample(state.tree, mass, n_batches)
         rows = state.rows[idx]
+        sc = unpack_scalars(rows[:, 2 * self.no:], self.ratio)  # [D, 4] f32
         oshape = (D,) + self.obs_shape
         batch = TransitionBatch(
             obs=rows[:, :self.no].reshape(oshape),
-            action=rows[:, 2 * self.no].long(),
-            reward=rows[:, 2 * self.no + 1],
+            action=sc[:, 0].long(),
+            reward=sc[:, 1],
             next_obs=rows[:, self.no:2 * self.no].reshape(oshape),
-            done=rows[:, 2 * self.no + 2],
+            done=sc[:, 2],
         )
         if self.prioritized:
             p = prio / torch.clamp(sumtree.total(state.tree), min=1e-30)

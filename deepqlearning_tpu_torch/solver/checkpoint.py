@@ -15,7 +15,9 @@ carry (``ActorState.t`` / ``tick``, the replay's ``insert_pos`` / ``size``
 or ``t``, ``LoopCarry.sync_acc`` / ``iters``) as they are. Loading fills a
 template of the same structure: tensors are copied into the template's
 tensors in place (so a parameter dict keeps sharing its module's storage),
-generators take the saved state, host numbers are replaced.
+generators take the saved state, host numbers are replaced. A tensor keeps
+its dtype (bf16 parameters, moments and replay rows of a bf16 solve); a
+saved dtype other than the template's raises.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ def _fill(template, saved, path: str = "state"):
         if tuple(saved.shape) != tuple(template.shape):
             raise ValueError(f"{path}: saved shape {tuple(saved.shape)}, "
                              f"expected {tuple(template.shape)}")
+        if saved.dtype != template.dtype:
+            raise ValueError(f"{path}: saved dtype {saved.dtype}, expected "
+                             f"{template.dtype}")
         template.copy_(saved)
         return template
     if isinstance(template, tuple) and hasattr(template, "_fields"):

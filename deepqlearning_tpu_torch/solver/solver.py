@@ -28,7 +28,11 @@ What differs from the JAX package:
   passed its ``select`` and so never reached its fused collect. Only a
   ``VectorizedStrategy`` or another custom ``select`` is passed as
   ``select_fn``.
-* Checkpoints are ``torch.save`` archives (``solver/checkpoint.py``).
+* Checkpoints are ``torch.save`` archives (``solver/checkpoint.py``),
+  which keep each tensor's dtype.
+* ``cfg.dtype`` (e.g. ``torch.bfloat16``) reaches the parameters and the
+  replay storage, as in the JAX package; the policy and the evaluation
+  feed the env's f32 observations to the network, which promotes them.
 """
 from __future__ import annotations
 
@@ -176,7 +180,9 @@ class DeepQLearningSolver:
         buffer = self._build_buffer(env, device)
         gamma = float(env.discount)
         gens = role_generators(cfg.seed, device)
-        params = network.init(gens["init"])
+        # cfg.dtype reaches the parameters here and the replay storage in
+        # _build_buffer
+        params = network.init(gens["init"], cfg.dtype)
 
         eps_fn, select_fn = self._strategy()
         iteration, populate_step, optimizer = build_loop(
@@ -298,7 +304,8 @@ class DeepQLearningSolver:
         device = resolve_device(self.device)
         network = self._build_network(device)
         params = network.init(role_generators(self.config.seed,
-                                              device)["init"])
+                                              device)["init"],
+                              self.config.dtype)
         params = checkpoint.load_params(self.logdir, params)
         return NNPolicy(env, network, params, env.action_map,
                         len(env.obs_shape))

@@ -167,6 +167,14 @@ def test_ring_memory_cap_and_storage():
     with pytest.raises(ValueError, match="max_ring_bytes"):
         dt.EpisodeReplayBuffer((84, 84, 4), 1000, 4, 8, 100, num_envs=64,
                                max_ring_bytes=16 << 20, device="cpu")
-    with pytest.raises(NotImplementedError):
-        dt.EpisodeReplayBuffer((2,), 8, 4, 2, 4, obs_dtype=torch.bfloat16,
+    # a uint8 ring holds 4x the history under the same cap, as JAX's
+    buf8 = dt.EpisodeReplayBuffer((84, 84, 4), 1000, 4, 8, 100, num_envs=1,
+                                  obs_dtype=torch.uint8,
+                                  max_ring_bytes=256 << 20, device="cpu")
+    assert buf8.ring == JBuf((84, 84, 4), 1000, 4, 8, 100, num_envs=1,
+                             obs_dtype=np.uint8,
+                             max_ring_bytes=256 << 20).ring
+    assert buf8.F == 2 * 84 * 84 * 4 + 16 and buf8.ring == 4 * buf.ring
+    with pytest.raises(ValueError, match="1/2/4-byte"):
+        dt.EpisodeReplayBuffer((2,), 8, 4, 2, 4, obs_dtype=torch.float64,
                                device="cpu")

@@ -5,8 +5,10 @@ raises), imports every module of ``deepqlearning_tpu_torch`` and runs one
 CPU loop iteration through each route (kernel twins and plain paths), for
 the feed-forward and the recurrent (DRQN) loop, one data-parallel
 iteration of each through ``DataParallelRunner`` in a one-rank gloo world,
-a tiny ``DeepQLearningSolver.solve``, the classic-control envs and one
-CartPole collect step through the collect kernel's route.
+a tiny ``DeepQLearningSolver.solve``, the classic-control envs, one
+CartPole collect step through the collect kernel's route, and the examples
+(``deepqlearning_tpu_torch/examples``; the bf16 conv one runs at tiny
+sizes).
 """
 import os
 import subprocess
@@ -113,6 +115,17 @@ SCRIPT = textwrap.dedent("""
     a, r, _ = step((init_actor(cp, net, 128, g), buf.init(),
                     net.init(g)), g)
     assert r.size == 128 and a.obs.shape == (128, 4)
+    # the examples (imported above with every module): the bf16 conv one
+    # runs at tiny sizes, through Conv2D, bf16 replay and the K1/K2 twins
+    import contextlib, io
+    from deepqlearning_tpu_torch.examples import image_conv_dqn
+    with contextlib.redirect_stdout(io.StringIO()):
+        sol, pol = image_conv_dqn.main(
+            device="cpu", max_steps=32, num_envs=8, train_freq=8,
+            batch_size=8, buffer_size=64, train_start=16, num_ep_eval=2,
+            eval_freq=16, log_freq=16, logdir=None, verbose=False)
+    assert {p.dtype for p in pol.params.values()} == {torch.bfloat16}
+    assert "deepqlearning_tpu_torch.examples.cartpole_dqn" in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in
            ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
     assert not bad, bad

@@ -164,8 +164,13 @@ def test_uniform_replay():
 
 
 def test_unsupported_storage_raises():
-    with pytest.raises(NotImplementedError):
-        TBuf((2,), 64, 8, obs_dtype=torch.bfloat16, device="cpu")
+    # 1-, 2- and 4-byte storage dtypes are supported (narrow rows bit-cast
+    # their scalars, tests/test_torch_narrow_storage.py); an 8-byte one
+    # raises ValueError, as the JAX buffer does
+    assert TBuf((2,), 64, 8, obs_dtype=torch.bfloat16,
+                device="cpu").ratio == 2
+    with pytest.raises(ValueError, match="1/2/4-byte"):
+        TBuf((2,), 64, 8, obs_dtype=torch.float64, device="cpu")
     # the mode without replacement is supported; an unknown mode raises
     assert TBuf((2,), 64, 8, sample_mode="without_replacement",
                 device="cpu").sample_mode == "without_replacement"
