@@ -93,9 +93,23 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 17. conv profile: 11 (e)'s loop the same way (K1 U = 4 times and K2 once
     per iteration), then ``scripts/conv_bench.py``'s loop (4096 envs,
     batch 1024, U = 8, 2^15 PER) in bf16 and f32: ms per iteration and
-    model TFLOP/s by that script's accounting.
+    model TFLOP/s by that script's accounting;
+18. per-instance envs (run after 11, before the profiles; its profiles
+    last): ``torch.func.vmap`` with a CUDA generator (each vmapped draw
+    must equal ``torch.rand(E)`` from the same state); (a)
+    :func:`user_envs`' GridWorld, written one instance at a time with a
+    NamedTuple state and no cols, through ``build_loop`` at the headline's
+    shape: K3 and K2 exactly once per iteration, K4 and K1 never, its first
+    2 iterations equal bit for bit to the built-in SimpleGridWorld's plain
+    collect loop (or to the built-in dynamics on row-wise draws, where one
+    ``[2, E]`` draw does not line up with them), env-steps/s, ms and host
+    enqueue per iteration and a ``step_batch``'s host ms beside the built-in
+    env's with ``fused_collect=False``; (b) the per-instance StaticArrayMDP
+    through ``solve(device=None)`` (K1 and K2; greedy return > 1.0); (c)
+    the per-instance MiniPOMDP through a DRQN ``solve`` (K5 once per
+    iteration, K6 never); last, (a)'s two loops profiled as in phase 12.
 
-Each of the paths 5 to 9 and each part of 11 to 17 runs with the launch
+Each of the paths 5 to 9 and each part of 11 to 18 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
 the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
@@ -459,6 +473,126 @@ def _collect_env_check(torch, dev, fc, fu, fd, name, env, net, E, gen):
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, done_flips=n_flips)
 
+
+
+def user_envs():
+    """``(GridWorld, StaticArrayMDP, MiniPOMDP)``: three problems written
+    one instance at a time, as a user of the JAX package writes them (its
+    ``Env.reset(key)`` / ``step(state, action, key)`` / ``observe(state)``
+    and its problems' ``initial_state(key)`` / ``gen(s, a, key)``), with
+    torch in place of jnp, a generator in place of a key and no cols.
+    ``GridWorld`` is SimpleGridWorld's dynamics over a NamedTuple state; it
+    draws its uniforms one at a time in the order of the built-in env's
+    rows, so that on the CPU its vmapped draws are the built-in env's.
+    ``StaticArrayMDP`` is ``tests/test_compat.py``'s, ``MiniPOMDP`` a hidden
+    bit observed correctly with probability 0.9. Every tensor is made on
+    the generator's (or the state's) device."""
+    from typing import NamedTuple
+
+    import torch
+
+    from deepqlearning_tpu_torch.envs.base import Env
+
+    def uniform(generator):
+        return torch.rand((), generator=generator, device=generator.device)
+
+    class GridState(NamedTuple):
+        pos: torch.Tensor       # [2] f32, 1-indexed
+        terminal: torch.Tensor  # () f32, 0 or 1
+
+    class GridWorld(Env):
+        DIRS = ((0, 1), (0, -1), (-1, 0), (1, 0))  # up, down, left, right
+
+        def __init__(self, size=(10, 10), tprob=0.7, discount=0.95,
+                     rewards=((4, 3, -10.0), (4, 6, -5.0), (9, 3, 10.0),
+                              (8, 8, 3.0))):
+            self.size = size
+            self.tprob = tprob
+            self.discount = discount
+            self.rewards = rewards
+            self.num_actions = 4
+            self.obs_shape = (2,)
+
+        def observe(self, state):
+            return torch.where(state.terminal > 0.5, -1.0, state.pos)
+
+        def reset(self, generator):
+            ux, uy = uniform(generator), uniform(generator)
+            pos = torch.stack([1.0 + torch.floor(ux * float(self.size[0])),
+                               1.0 + torch.floor(uy * float(self.size[1]))])
+            state = GridState(pos, torch.zeros((), device=generator.device))
+            return state, self.observe(state)
+
+        def step(self, state, action, generator):
+            u_dir, u_other = uniform(generator), uniform(generator)
+            px, py = state.pos[0], state.pos[1]
+            cell_r = torch.zeros_like(px)
+            for cx, cy, rv in self.rewards:
+                cell_r = cell_r + torch.where((px == cx) & (py == cy), rv,
+                                              0.0)
+            r = torch.where(state.terminal > 0.5, 0.0, cell_r)
+            a = action.float()
+            other = torch.floor(u_other * 3.0)
+            other = torch.where(other >= a, other + 1.0, other)
+            d = torch.where(u_dir < self.tprob, a, other)
+            dx, dy = torch.zeros_like(px), torch.zeros_like(py)
+            for k, (ddx, ddy) in enumerate(self.DIRS):
+                dx = torch.where(d == float(k), float(ddx), dx)
+                dy = torch.where(d == float(k), float(ddy), dy)
+            pos = torch.stack([torch.clamp(px + dx, 1.0, float(self.size[0])),
+                               torch.clamp(py + dy, 1.0, float(self.size[1]))])
+            terminal = torch.maximum(state.terminal, (cell_r != 0.0).float())
+            new = GridState(torch.where(terminal > 0.5, state.pos, pos),
+                            terminal)
+            return new, self.observe(new), r, terminal > 0.5
+
+    class StaticArrayMDP:
+        num_actions = 2
+        discount = 0.95
+        action_map = [0, 1]
+
+        def initial_state(self, generator):
+            return torch.ones(1, dtype=torch.int32, device=generator.device)
+
+        def gen(self, s, a, generator):
+            return s + a.to(torch.int32)
+
+        def reward(self, s, a, sp):
+            return (s[0] ** 2).float()
+
+        def isterminal(self, s):
+            return s[0] >= 3
+
+        def convert_s(self, s):
+            return s.float()
+
+    class MiniPOMDP:
+        num_actions = 2
+        discount = 0.9
+        action_map = ["stay", "guess"]
+
+        def initial_state(self, generator):
+            return (uniform(generator) < 0.5).to(torch.int32)
+
+        def gen(self, s, a, generator):
+            return s
+
+        def reward(self, s, a, sp):
+            return torch.where(a == 1, torch.where(s == 1, 1.0, -1.0), 0.0)
+
+        def isterminal(self, s):
+            return torch.zeros((), dtype=torch.bool, device=s.device)
+
+        def observation(self, s, a, sp, generator):
+            return torch.where(uniform(generator) < 0.9, sp, 1 - sp)
+
+        def initial_obs(self, s):
+            return s
+
+        def convert_o(self, o):
+            return o[None].float()
+
+    return GridWorld, StaticArrayMDP, MiniPOMDP
 
 
 def phase_default_device(torch):
@@ -1701,11 +1835,12 @@ def _cartpole_net(torch, dev):
     return create_dueling_network(_cartpole_model(torch, dev))
 
 
-def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
-          n_iters, n_pop, profile_iters=0, net=None, env=None, **cfg_kw):
-    """A feed-forward PER loop through ``build_loop`` on SimpleGridWorld
-    (or ``env``), with the headline's dueling 2-64-64-4 tanh net unless
-    ``net`` is given; ``cfg_kw`` go to ``DQNConfig``."""
+def _loop_setup(torch, dev, num_envs, buffer_size, batch_size, train_freq,
+                n_pop, net=None, env=None, **cfg_kw):
+    """``(iteration, carry, cfg)``: a feed-forward PER loop through
+    ``build_loop`` on SimpleGridWorld (or ``env``), with the headline's
+    dueling 2-64-64-4 tanh net unless ``net`` is given, after ``n_pop``
+    populate steps; ``cfg_kw`` go to ``DQNConfig``."""
     from deepqlearning_tpu_torch import (
         DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         SimpleGridWorld)
@@ -1729,6 +1864,16 @@ def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
                               LinearDecaySchedule(1.0, 0.01, 100_000),
                               gamma=env.discount)
     c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), n_pop)
+    return it, c, cfg
+
+
+def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
+          n_iters, n_pop, profile_iters=0, net=None, env=None, **cfg_kw):
+    """:func:`_loop_setup`'s loop, a warm-up iteration and ``n_iters``
+    timed ones: ``(cfg, env-steps/s, loss)``, and with ``profile_iters``
+    also the ms per iteration and :func:`_profile_iterations`' figures."""
+    it, c, cfg = _loop_setup(torch, dev, num_envs, buffer_size, batch_size,
+                             train_freq, n_pop, net, env, **cfg_kw)
     c = it(c)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2235,6 +2380,280 @@ def phase_conv_profile(torch, dev, card, run_path):
              f"{loss:.5g} | {card} | launches {cnt}")
 
 
+def _vmap_draws(torch, dev, E):
+    """Whether ``torch.func.vmap(..., randomness="different")`` takes a
+    CUDA generator, and its two draws of ``torch.rand((), generator=g)``
+    inside the vmapped function against the same generator state drawn
+    batched: ``(equal to two draws of E, equal to one draw of [2, E])``.
+    The first is the per-instance protocol's claim and must hold; the
+    second is whether the built-in env's ``[2, E]`` rows line up."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    start = g.get_state()
+
+    def two(_):
+        return (torch.rand((), generator=g, device=dev),
+                torch.rand((), generator=g, device=dev))
+
+    a, b = torch.func.vmap(two, randomness="different")(
+        torch.empty(E, device=dev))
+    g.set_state(start)
+    rows = [torch.rand(E, generator=g, device=dev) for _ in range(2)]
+    g.set_state(start)
+    block = torch.rand(2, E, generator=g, device=dev)
+    return (torch.equal(a, rows[0]) and torch.equal(b, rows[1]),
+            torch.equal(torch.stack([a, b]), block))
+
+
+def _row_draw_gridworld(torch):
+    """SimpleGridWorld's own dynamics (``reset_cols`` / ``step_cols``) on
+    uniforms drawn one row of E at a time, as the vmapped per-instance
+    env draws them: the reference where one ``[2, E]`` draw does not line
+    up with two draws of E."""
+    from deepqlearning_tpu_torch import SimpleGridWorld
+
+    def rows(n, generator):
+        return torch.stack([torch.rand(n, generator=generator,
+                                       device=generator.device)
+                            for _ in range(2)])
+
+    class RowDrawGridWorld(SimpleGridWorld):
+        def reset_batch(self, num, generator):
+            return self.reset_cols(rows(num, generator))
+
+        def step_batch(self, state, action, generator):
+            return self.step_cols(state, action, rows(state.shape[0],
+                                                      generator))
+
+    return RowDrawGridWorld()
+
+
+def _host_ms(torch, fn, n):
+    """Host ms of each of ``n`` calls of ``fn``, each from an idle queue
+    and timed until it returns."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _pi_headline(torch, dev, env, n_cmp, n_time, n_enq,
+                 shape=(131072, 1 << 20, 512, 4096), **cfg_kw):
+    """The headline loop (``shape``: 131072 envs, 2^20 PER, batch 512,
+    train_freq 4096, so U = 32; dueling 2-64-64-4 tanh, 2 populate steps)
+    on ``env``: ``n_cmp`` iterations, then a snapshot of the carry, a
+    warm-up, ``n_time`` timed iterations and ``n_enq`` more from an idle
+    queue, then the env's ``step_batch`` alone, ``n_enq`` times from an idle
+    queue. Returns ``(snapshot, cfg, env-steps/s, ms/iteration, median
+    host enqueue ms/iteration, median host ms of a step_batch)``; the
+    snapshot holds the env state as ``[E, 3]`` (px, py, terminal)."""
+    it, c, cfg = _loop_setup(torch, dev, *shape, 2, env=env, **cfg_kw)
+    for _ in range(n_cmp):
+        c = it(c)
+    st = c.actor.env_state
+    if not torch.is_tensor(st):
+        st = torch.cat([st.pos, st.terminal[:, None]], dim=1)
+    snap = dict(state=st.clone(), obs=c.actor.obs.clone(),
+                ep_step=c.actor.ep_step.clone(), ep_ret=c.actor.ep_ret.clone(),
+                rows=c.replay.rows.clone(), leaves=c.replay.tree[0].clone(),
+                loss=c.loss.clone(),
+                **{k: v.clone() for k, v in c.params.items()})
+    c = it(c)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        c = it(c)
+    loss = float(c.loss)  # device -> host read ends the timed region
+    dt = time.perf_counter() - t0
+    _check(np.isfinite(loss), "per-instance headline: loss finite")
+    box = [c]
+
+    def one():
+        box[0] = it(box[0])
+
+    enq = float(np.median(_host_ms(torch, one, n_enq)))
+    c = box[0]
+    _check(int(c.actor.ep_count) > 0, "per-instance headline: progress")
+    action = torch.zeros(shape[0], dtype=torch.long, device=dev)
+    step = float(np.median(_host_ms(torch, lambda: env.step_batch(
+        c.actor.env_state, action, c.generator), n_enq)))
+    sps = n_time * cfg.env_steps_per_iter / dt
+    return snap, cfg, sps, 1e3 * dt / n_time, enq, step
+
+
+def _solve_static_mdp(torch, dev, StaticArrayMDP):
+    """``tests/test_compat.py::test_functional_mdp_adapter``'s solve of the
+    per-instance StaticArrayMDP with ``device=None`` (the card): returns
+    the greedy return of 20 episodes of 100 steps (the test's threshold is
+    1.0)."""
+    from deepqlearning_tpu_torch import (
+        Chain, DeepQLearningSolver, Dense, EpsGreedyPolicy,
+        LinearDecaySchedule, basic_evaluation)
+
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(Dense(1, 32), Dense(32, 2)), max_steps=64,
+        learning_rate=0.005, logdir=None, verbose=False, double_q=True,
+        dueling=True, prioritized_replay=True, train_start=64,
+        buffer_size=256,
+        exploration_policy=EpsGreedyPolicy(LinearDecaySchedule(1.0, 0.01, 5)))
+    policy = solver.solve(StaticArrayMDP())
+    env = policy.problem
+    _check(not env.batched and all(p.is_cuda for p in policy.params.values()),
+           "StaticArrayMDP solve: a per-instance problem on the card")
+    r, _, _ = basic_evaluation(policy.network, policy.params, env, 20, 100,
+                               0)
+    # a raw per-instance state goes through the env's observe
+    state, obs = env.reset(torch.Generator(device=dev).manual_seed(0))
+    _check(state.is_cuda and policy.action(state) == policy.action(obs),
+           "StaticArrayMDP: the policy on a raw state")
+    return r
+
+
+def _solve_mini_pomdp(torch, MiniPOMDP, n_iters):
+    """A DRQN solve of the per-instance MiniPOMDP on the card:
+    ``Chain(LSTM(1, 8), Dense(8, 2))``, dueling, double-Q, episode replay
+    (batch 32, trace 8), episodes cut at 16 steps, num_envs = train_freq =
+    64 (U = 1). Returns ``(solver, policy)``."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, DeepQLearningSolver, Dense)
+
+    E = 64
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(LSTM(1, 8), Dense(8, 2)), recurrence=True,
+        num_envs=E, train_freq=E, batch_size=32, trace_length=8,
+        max_episode_length=16, buffer_size=512, prioritized_replay=False,
+        dueling=True, double_q=True, learning_rate=1e-3,
+        max_steps=n_iters * E, train_start=E, target_update_freq=8 * E,
+        eval_freq=10 * E, log_freq=10 * E, num_ep_eval=64, logdir=None,
+        verbose=False)
+    policy = solver.solve(MiniPOMDP())
+    _check(all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in policy.params.values()), "MiniPOMDP solve: params")
+    _check(all(np.isfinite(v) for v in solver.metrics["loss"]),
+           "MiniPOMDP solve: loss finite")
+    state, _ = policy.problem.reset(torch.Generator(
+        device=policy.device).manual_seed(0))
+    _check(policy.action(state) in policy.problem.action_map,
+           "MiniPOMDP: the policy on a raw (state, obs) tuple")
+    return solver, policy
+
+
+def phase_per_instance(torch, dev, card, run_path):
+    """Envs and problems written one instance at a time (:func:`user_envs`)
+    on the card, batched by ``torch.func.vmap``: first vmap with a CUDA
+    generator; then (a) the per-instance GridWorld through ``build_loop`` at
+    the headline's shape (K3 and K2 exactly once per iteration, K4 and K1
+    never: the collect kernel serves no env without cols), its first
+    iterations equal bit for bit to the built-in SimpleGridWorld's plain
+    collect loop from the same seed (or, where one ``[2, E]`` draw does not
+    line up with the vmapped draws, to the built-in dynamics on row-wise
+    draws), both timed; (b) the per-instance StaticArrayMDP through
+    ``solve(device=None)`` (K1 and K2; greedy return > 1.0); (c) the
+    per-instance MiniPOMDP through a DRQN ``solve`` (K5 once per
+    iteration, K6 never)."""
+    GridWorld, StaticArrayMDP, MiniPOMDP = user_envs()
+    E = 131072
+    per_row, one_block = _vmap_draws(torch, dev, E)
+    _check(per_row, "vmap on the card: torch.rand((), generator=g) inside "
+                    "the vmapped function did not draw torch.rand(E, "
+                    "generator=g)")
+    _say(f"per-instance envs: torch.func.vmap takes a CUDA generator; "
+         f"each vmapped draw equals torch.rand(E) from the same state: "
+         f"{per_row}; two equal one [2, E] draw: {one_block} (E = {E})")
+
+    from deepqlearning_tpu_torch import SimpleGridWorld
+
+    n_cmp, n_time, n_enq = 2, 10, 8
+    n_it = n_cmp + 1 + n_time + n_enq
+    kernels = ("tree_sample", "fused_group_update")
+    absent = ("fused_collect", "td_loss")
+    ref_env = SimpleGridWorld() if one_block else _row_draw_gridworld(torch)
+    (ref, cfg, sps_b, ms_b, enq_b, step_b), built = run_path(
+        "built-in GridWorld, plain collect",
+        lambda: _pi_headline(torch, dev, ref_env, n_cmp, n_time, n_enq,
+                             fused_collect=False), kernels, absent)
+    (pis, cfg, sps_p, ms_p, enq_p, step_p), pi = run_path(
+        "per-instance GridWorld",
+        lambda: _pi_headline(torch, dev, GridWorld(), n_cmp, n_time, n_enq),
+        kernels, absent)
+    for name, counts in (("per-instance", pi), ("built-in", built)):
+        _check(counts["fused_group_update"] == counts["tree_sample"] == n_it,
+               f"{name} GridWorld loop: launches {counts}, not K3 = K2 = "
+               f"{n_it} iterations")
+    differ = [k for k in ref if not torch.equal(ref[k], pis[k])]
+    _check(not differ, f"per-instance GridWorld vs the built-in env after "
+                       f"{n_cmp} iterations: {differ} differ")
+    U = cfg.updates_per_iter
+    ref_name = ("built-in env" if one_block else
+                "built-in dynamics on row-wise draws")
+    _say(f"per-instance (a): GridWorld written one instance at a time "
+         f"(NamedTuple state, no cols) through build_loop at the headline's "
+         f"shape (131072 envs, 2^20 PER, batch 512, U={U}, dueling 2-64-64-4 "
+         f"tanh): {sps_p:.1f} env-steps/s, {ms_p:.4f} ms/iteration, host "
+         f"enqueue {enq_p:.4f} ms/iteration, step_batch {step_p:.4f} ms on "
+         f"the host (medians of {n_enq}, each from an idle queue); the "
+         f"built-in SimpleGridWorld with fused_collect=False in the same "
+         f"call: {sps_b:.1f} env-steps/s, {ms_b:.4f} ms/iteration, enqueue "
+         f"{enq_b:.4f}, step_batch {step_b:.4f}; after "
+         f"{n_cmp} iterations equal bit for bit (params, env state, obs, "
+         f"replay, loss) to the {ref_name} | {card} | launches {pi}")
+
+    r, mdp = run_path("per-instance StaticArrayMDP solve",
+                      lambda: _solve_static_mdp(torch, dev, StaticArrayMDP),
+                      ("td_loss", "tree_sample"),
+                      ("fused_group_update", "fused_collect"))
+    _check(r > 1.0, f"per-instance StaticArrayMDP: greedy return {r} <= 1.0")
+    _say(f"per-instance (b): StaticArrayMDP (initial_state(generator)) "
+         f"through solve(device=None), test_compat's configuration: greedy "
+         f"return {r:.4f} (> 1.0) | {card} | launches {mdp}")
+
+    n = 30
+    (solver, policy), rec = run_path(
+        "per-instance MiniPOMDP DRQN solve",
+        lambda: _solve_mini_pomdp(torch, MiniPOMDP, n),
+        ("fused_drqn_group_update",),
+        ("fused_collect_rnn", "fused_collect"))
+    _check(rec["fused_drqn_group_update"] == n,
+           f"MiniPOMDP solve: K5 launched {rec['fused_drqn_group_update']} "
+           f"times, not once per iteration ({n})")
+    _say(f"per-instance (c): MiniPOMDP through a DRQN solve (LSTM(1,8), "
+         f"dueling, 64 envs, U=1, batch 32, trace 8, {n} iterations): eval "
+         f"returns {[round(v, 3) for _, v in solver.metrics['eval']]} | "
+         f"{card} | launches {rec}")
+
+
+def phase_per_instance_profile(torch, dev, card, run_path):
+    """Phase 18 (a)'s two loops profiled as phase 12 profiles the headline
+    (K3 and K2 exactly once per iteration in each): the per-instance
+    GridWorld and the built-in SimpleGridWorld with ``fused_collect=False``,
+    in that order."""
+    from deepqlearning_tpu_torch import SimpleGridWorld
+
+    GridWorld = user_envs()[0]
+    for name, env, kw in (
+            ("per-instance GridWorld", GridWorld(), {}),
+            ("built-in SimpleGridWorld, plain collect", SimpleGridWorld(),
+             dict(fused_collect=False))):
+        (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), counts = \
+            run_path(f"{name} (profiled)",
+                     lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096,
+                                   10, 2, 10, env=env, **kw),
+                     ("tree_sample", "fused_group_update"),
+                     ("fused_collect", "td_loss"))
+        for k in ("fu_group_kernel", "tree_sample_kernel"):
+            _check(per_iter.get(k, (0,))[0] == 1.0,
+                   f"{name}: {k} launches per iteration {per_iter}")
+        _say(f"{name} loop at the headline's shape, profiled: {sps:.1f} "
+             f"env-steps/s and {ms:.4f} ms/iteration over 10 iterations; "
+             f"host enqueue {enq:.4f} ms/iteration (each from an idle "
+             f"queue); device busy share {busy:.4f} and device time "
+             f"{dev_ms:.4f} ms/iteration (under torch.profiler, 10 "
+             f"iterations); per iteration (launches, device ms) by kernel "
+             f"{per_iter} | {card} | launches {counts}")
+
+
 def _cartpole_loop(torch, dev, n_iters):
     """The CartPole solve's loop, built as ``solve`` builds it (stock
     ε-greedy, so K4), populated, ``n_iters`` iterations to warm up and
@@ -2560,6 +2979,10 @@ def main():
     # 11 (e). the image-observation DQN's solve (examples/image_conv_dqn.py)
     phase_conv_solve(torch, dev, card, run_path)
 
+    # 18. envs and problems written one instance at a time, before the
+    # profiles (a profiler session can leave host costs behind it)
+    phase_per_instance(torch, dev, card, run_path)
+
     # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
     (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), head = run_path(
@@ -2645,6 +3068,9 @@ def main():
     # 17. the conv solve's loop profiled, and conv_bench's loop in bf16
     # and f32
     phase_conv_profile(torch, dev, card, run_path)
+    # 18 (profiles). the per-instance env's loop and the built-in env's
+    # plain loop, profiled
+    phase_per_instance_profile(torch, dev, card, run_path)
 
     src = {
         "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",

@@ -25,7 +25,8 @@ from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .models.chain import (
     GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
-from .ops.helpers import flattenbatch, globalnorm, huber_loss
+from .ops.helpers import (
+    batch_trajectories, flattenbatch, globalnorm, huber_loss)
 from .parallel.dryrun import dryrun_multichip
 from .parallel.mesh import DataParallelRunner, make_mesh
 from .replay.episode import (
@@ -57,7 +58,8 @@ __all__ = [
     "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",
-    "DuelingNetwork", "create_dueling_network", "flattenbatch", "globalnorm",
+    "DuelingNetwork", "create_dueling_network", "batch_trajectories",
+    "flattenbatch", "globalnorm",
     "huber_loss", "PrioritizedReplayBuffer", "ReplayBuffer", "ReplayState",
     "DQExperience", "TransitionBatch", "ConstantEpsilon",
     "LinearDecaySchedule", "epsilon_greedy_select",

@@ -9,6 +9,8 @@ The batched state is an ``[E, 4]`` f32 block ``(theta1, theta2, dtheta1,
 dtheta2)``; the observation is ``(cos θ1, sin θ1, cos θ2, sin θ2, dθ1,
 dθ2)``. The JAX env has no cols protocol, so the collect kernel does not
 serve it: loops on Acrobot take the plain collect step.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 
 def _wrap_pi(x: torch.Tensor) -> torch.Tensor:
@@ -44,7 +46,7 @@ class Acrobot(Env):
     def action_map(self):
         return [-1.0, 0.0, 1.0]
 
-    def observe(self, state: torch.Tensor) -> torch.Tensor:
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
         t1, t2, d1, d2 = state.unbind(1)
         return torch.stack([torch.cos(t1), torch.sin(t1), torch.cos(t2),
                             torch.sin(t2), d1, d2], dim=1)
@@ -89,10 +91,22 @@ class Acrobot(Env):
             torch.clamp(ns[3], -self.MAX_VEL_2, self.MAX_VEL_2)], dim=1)
         t1, t2 = new[:, 0], new[:, 1]
         done = (-torch.cos(t1) - torch.cos(t2 + t1) > 1.0).float()
-        return new, self.observe(new), torch.full_like(done, -1.0), done
+        return new, self.observe_batch(new), torch.full_like(done, -1.0), done
 
     def reset_batch(self, num: int, generator: torch.Generator):
         """Each angle and velocity uniform in [-0.1, 0.1)."""
         u = torch.rand(num, 4, generator=generator, device=generator.device)
         state = u * 0.2 - 0.1
-        return state, self.observe(state)
+        return state, self.observe_batch(state)
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

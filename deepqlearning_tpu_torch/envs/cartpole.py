@@ -10,6 +10,8 @@ The batched state is an ``[E, 4]`` f32 block in the JAX cols order
 draws no uniforms; the reset draws four (``u * 0.1 - 0.05`` each). The
 collect kernel (``ops/cuda/fused_collect.py``) runs the same dynamics on
 the card and reads the physics constants from this object.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 
 def div_exact(a: torch.Tensor, c: float) -> torch.Tensor:
@@ -74,12 +76,16 @@ class CartPole(Env):
         done = ((torch.abs(nx) > self.x_threshold)
                 | (torch.abs(nth) > self.theta_threshold)).float()
         new = torch.stack([nx, nx_dot, nth, nth_dot], dim=1)
-        return new, new.clone(), torch.ones_like(done), done
+        return new, self.observe_batch(new), torch.ones_like(done), done
 
     def reset_cols(self, u: torch.Tensor):
         """``u [>=4, E]`` -> ``(state [E, 4], obs [E, 4])``."""
         state = (u[0:4] * 0.1 - 0.05).t().contiguous()
-        return state, state.clone()
+        return state, self.observe_batch(state)
+
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
+        """``state [E, 4]`` -> ``obs [E, 4]``: the state itself."""
+        return state.clone()
 
     def reset_batch(self, num: int, generator: torch.Generator):
         u = torch.rand(self.n_uniform_reset, num, generator=generator,
@@ -88,3 +94,15 @@ class CartPole(Env):
 
     def step_batch(self, state, action, generator: torch.Generator):
         return self.step_cols(state, action)
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..replay.transition import TransitionBatch
+from ..replay.transition import DQExperience, batch_from_experience
 
 
 class HostEnv:
@@ -120,12 +120,8 @@ def solve_host(solver, env: HostEnv):
     eps_fn = eps_schedule(solver.exploration_policy)
 
     def push(replay, o, a, r, op, done, ended):
-        tr = TransitionBatch(
-            obs=torch.as_tensor(o, device=device)[None],
-            action=torch.tensor([a], dtype=torch.long, device=device),
-            reward=torch.tensor([r], dtype=torch.float32, device=device),
-            next_obs=torch.as_tensor(op, device=device)[None],
-            done=torch.tensor([float(done)], device=device))
+        tr = batch_from_experience(DQExperience(s=o, a=a, r=r, sp=op,
+                                                done=done), device)
         if cfg.recurrence:
             return buffer.add_step(
                 replay, tr, torch.tensor([ended], device=device))

@@ -11,12 +11,14 @@ Uniforms come in rows as in the JAX cols protocol: ``step_cols`` reads two
 spawn). The collect kernel (``ops/cuda/fused_collect.py``) runs the same
 dynamics on the card and reads the reward cells, ``tprob`` and the grid size
 from this object.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 # (dx, dy) for up, down, left, right
 DIRS = ((0, 1), (0, -1), (-1, 0), (1, 0))
@@ -69,16 +71,21 @@ class SimpleGridWorld(Env):
         bt = torch.maximum(term, in_cell)
         npx = torch.where(bt > 0.5, px, npx)
         npy = torch.where(bt > 0.5, py, npy)
-        obs = torch.stack([torch.where(bt > 0.5, -1.0, npx),
-                           torch.where(bt > 0.5, -1.0, npy)], dim=1)
-        return torch.stack([npx, npy, bt], dim=1), obs, r, bt
+        new = torch.stack([npx, npy, bt], dim=1)
+        return new, self.observe_batch(new), r, bt
+
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
+        """``state [E, 3]`` -> ``obs [E, 2]``: the position, ``(-1, -1)``
+        once terminal."""
+        term = state[:, 2:3] > 0.5
+        return torch.where(term, -1.0, state[:, :2])
 
     def reset_cols(self, u: torch.Tensor):
         """``u [>=2, E]`` -> ``(state [E, 3], obs [E, 2])``: uniform spawn."""
         px = 1.0 + torch.floor(u[0] * float(self.size[0]))
         py = 1.0 + torch.floor(u[1] * float(self.size[1]))
         state = torch.stack([px, py, torch.zeros_like(px)], dim=1)
-        return state, state[:, :2].clone()
+        return state, self.observe_batch(state)
 
     def reset_batch(self, num: int, generator: torch.Generator):
         u = torch.rand(self.n_uniform_reset, num, generator=generator,
@@ -89,3 +96,15 @@ class SimpleGridWorld(Env):
         u = torch.rand(self.n_uniform_step, state.shape[0],
                        generator=generator, device=state.device)
         return self.step_cols(state, action, u)
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

@@ -10,12 +10,14 @@ The batched state is an ``[E, 2]`` f32 block in the JAX cols order
 uniforms; the reset draws one (the position, uniform in [-0.6, -0.4]). The
 collect kernel (``ops/cuda/fused_collect.py``) runs the same dynamics on
 the card and reads the physics constants from this object.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 
 class MountainCar(Env):
@@ -50,13 +52,17 @@ class MountainCar(Env):
         vel = torch.where((npos <= self.min_position) & (vel < 0.0), 0.0, vel)
         done = (npos >= self.goal_position).float()
         new = torch.stack([npos, vel], dim=1)
-        return new, new.clone(), torch.full_like(done, -1.0), done
+        return new, self.observe_batch(new), torch.full_like(done, -1.0), done
 
     def reset_cols(self, u: torch.Tensor):
         """``u [>=1, E]`` -> ``(state [E, 2], obs [E, 2])``."""
         pos = -0.6 + u[0] * 0.2
         state = torch.stack([pos, torch.zeros_like(pos)], dim=1)
-        return state, state.clone()
+        return state, self.observe_batch(state)
+
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
+        """``state [E, 2]`` -> ``obs [E, 2]``: the state itself."""
+        return state.clone()
 
     def reset_batch(self, num: int, generator: torch.Generator):
         u = torch.rand(self.n_uniform_reset, num, generator=generator,
@@ -65,3 +71,15 @@ class MountainCar(Env):
 
     def step_batch(self, state, action, generator: torch.Generator):
         return self.step_cols(state, action)
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

@@ -11,13 +11,15 @@ first, on the last axis, scaled by 1/255. Optimal value 2.1, optimal policy
 
 The batched state is an ``[E, 5]`` int32 block: the history, oldest first,
 then the time index. The dynamics draw no randomness.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 _HIST = 4  # the reference always keeps a history of 4
 
@@ -41,7 +43,7 @@ class TestMDP(Env):
             np.stack([bad, normal, good]).astype(np.float32) / 255.0)
         self._rewards = torch.tensor([-0.1, 0.0, 0.1])
 
-    def observe(self, state: torch.Tensor) -> torch.Tensor:
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
         """``state [E, 5]`` -> ``obs [E, *shape, o_stack]``."""
         recent = state[:, _HIST - self.o_stack:_HIST].flip(1).long()
         frames = self._images.to(state.device)[recent]  # [E, o, *shape]
@@ -51,7 +53,7 @@ class TestMDP(Env):
         state = torch.zeros(num, _HIST + 1, dtype=torch.int32,
                             device=generator.device)
         state[:, _HIST] = 1
-        return state, self.observe(state)
+        return state, self.observe_batch(state)
 
     def step_batch(self, state, action, generator: torch.Generator):
         hist, t = state[:, :_HIST], state[:, _HIST]
@@ -64,4 +66,16 @@ class TestMDP(Env):
         new_state = torch.cat([hist[:, 1:], new[:, None], t_new[:, None]],
                               dim=1)
         done = (t_new >= self.max_time).float()
-        return new_state, self.observe(new_state), r, done
+        return new_state, self.observe_batch(new_state), r, done
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

@@ -12,12 +12,14 @@ opened)``. Uniforms come in rows as in SimpleGridWorld's cols protocol:
 ``reset_cols`` reads one (the tiger's side, left when ``u < 0.5``) and
 ``step_cols`` one (the listen is correct when ``u < p_correct``), so a test
 can inject the outcomes of the JAX package's Bernoulli draws.
+A per-instance state (``reset``, ``step``, ``observe``) is one row of the
+batched state.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import Env
+from .base import Env, batch_of_one, first_row
 
 
 class TigerPOMDP(Env):
@@ -39,7 +41,7 @@ class TigerPOMDP(Env):
     def action_map(self):
         return ["open-left", "open-right", "listen"]
 
-    def observe(self, state: torch.Tensor) -> torch.Tensor:
+    def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
         return state[:, 1:2].clone()
 
     def reset_cols(self, u: torch.Tensor):
@@ -47,7 +49,7 @@ class TigerPOMDP(Env):
         left = (u[0] < 0.5).float()
         state = torch.stack([left, torch.zeros_like(left),
                              torch.zeros_like(left)], dim=1)
-        return state, self.observe(state)
+        return state, self.observe_batch(state)
 
     def step_cols(self, state: torch.Tensor, action: torch.Tensor,
                   u: torch.Tensor):
@@ -65,7 +67,7 @@ class TigerPOMDP(Env):
                         self.r_escapetiger)).float()
         done = (~is_listen).float()
         new_state = torch.stack([state[:, 0], new_obs, done], dim=1)
-        return new_state, self.observe(new_state), r, done
+        return new_state, self.observe_batch(new_state), r, done
 
     def reset_batch(self, num: int, generator: torch.Generator):
         u = torch.rand(self.n_uniform_reset, num, generator=generator,
@@ -76,3 +78,15 @@ class TigerPOMDP(Env):
         u = torch.rand(self.n_uniform_step, state.shape[0],
                        generator=generator, device=state.device)
         return self.step_cols(state, action, u)
+
+    # --- one instance (the JAX package's protocol): the batched code at
+    # one row
+    def reset(self, generator: torch.Generator):
+        return first_row(self.reset_batch(1, generator))
+
+    def step(self, state, action, generator: torch.Generator):
+        state, action = batch_of_one(state, action)
+        return first_row(self.step_batch(state, action, generator))
+
+    def observe(self, state: torch.Tensor) -> torch.Tensor:
+        return first_row(self.observe_batch(batch_of_one(state)))

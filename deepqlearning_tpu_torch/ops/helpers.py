@@ -62,3 +62,37 @@ def unflatten(flat: torch.Tensor, like, names):
         out[n] = flat[off:off + k].view(like[n].shape).to(like[n].dtype)
         off += k
     return out
+
+
+def obs_dimensions(env) -> tuple:
+    """Observation shape of an env."""
+    return tuple(env.obs_shape)
+
+
+def default_discount(env) -> float:
+    """Discount of an env: its ``discount``, else 1.0 (a raw env)."""
+    return float(getattr(env, "discount", 1.0))
+
+
+def hiddenstates(net_state) -> list:
+    """The recurrent entries of a network state (``Chain.init_state``'s
+    tuple, where a layer without state holds ``()``)."""
+    return [s for s in net_state if s != ()]
+
+
+def sethiddenstates(net_state, hs) -> tuple:
+    """Inverse of :func:`hiddenstates`: the per-layer state tuple of
+    ``net_state``'s layout with its recurrent entries taken from ``hs``."""
+    it = iter(hs)
+    return tuple(next(it) if s != () else () for s in net_state)
+
+
+def batch_trajectories(x: torch.Tensor, traj_length: int,
+                       batch_size: int) -> torch.Tensor:
+    """``[batch, traj, features...]`` -> time-major ``[traj, batch, F]``,
+    the features flattened."""
+    if x.shape[0] != batch_size or x.shape[1] != traj_length:
+        raise ValueError(
+            f"batch_trajectories: expected [{batch_size}, {traj_length}, "
+            f"...], got {list(x.shape)}")
+    return x.reshape(batch_size, traj_length, -1).transpose(0, 1)

@@ -87,6 +87,11 @@ def total(tree: Tree) -> torch.Tensor:
     return tree[-1][0]
 
 
+def get_leaf(tree: Tree, indices: torch.Tensor) -> torch.Tensor:
+    """The leaf priorities at ``indices``."""
+    return tree[0][indices]
+
+
 def descend(tree: Tree, mass: torch.Tensor):
     """Descend given target masses; returns ``(leaf idx [D] int64,
     residual mass [D])``. Per level: prefix-sum the node's children, take

@@ -165,6 +165,13 @@ class EpisodeReplayBuffer:
         state.cur_len.zero_()
         return state
 
+    @property
+    def size_fn(self):
+        """``state -> `` the number of episode records the buffer holds (each
+        env keeps at most ``records_per_env``), an int32 scalar."""
+        return lambda state: torch.clamp(
+            state.rec_count, max=self.records_per_env).sum(dtype=torch.int32)
+
     def sample(self, state: EpisodeReplayState,
                draws: Optional[EpisodeDraws] = None,
                generator: Optional[torch.Generator] = None) -> EpisodeBatch:

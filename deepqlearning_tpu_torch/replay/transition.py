@@ -24,3 +24,14 @@ class TransitionBatch(NamedTuple):
     reward: torch.Tensor    # [B] f32
     next_obs: torch.Tensor  # [B, *obs_shape] f32
     done: torch.Tensor      # [B] f32 (0/1)
+
+
+def batch_from_experience(exp: DQExperience, device=None) -> TransitionBatch:
+    """A batch of one from one ``DQExperience``: the host path's insert
+    unit, on ``device``."""
+    return TransitionBatch(
+        obs=torch.as_tensor(exp.s, device=device)[None],
+        action=torch.tensor([exp.a], dtype=torch.long, device=device),
+        reward=torch.tensor([exp.r], dtype=torch.float32, device=device),
+        next_obs=torch.as_tensor(exp.sp, device=device)[None],
+        done=torch.tensor([float(exp.done)], device=device))

@@ -7,12 +7,12 @@ Q-vector (numpy), ``value`` its max. A recurrent network's state is carried
 from call to call on the parameters' device; ``reset_state`` zeroes it.
 
 An input is an observation (array-like, floating point) or a raw problem
-state, which goes through ``problem.observe``: anything ``torch.as_tensor``
-cannot convert (a tuple of tensors, as the adapters' states are), or a
-tensor that is not floating point when the problem is a batched env with
-``observe`` (TestMDP's integer states). A raw state is one env's batched state,
-``[1, ...]``, as ``reset_batch(1, generator)`` returns it. An observation
-of the wrong rank raises ``ValueError`` ("NNPolicyError").
+state, which goes through the env's per-instance ``observe``: anything
+``torch.as_tensor`` cannot convert (a tuple or NamedTuple of tensors, as the
+adapters' states are), or a tensor that is not floating point (TestMDP's
+integer states). A raw state is one instance's state, as ``env.reset(
+generator)`` returns it. An observation of the wrong rank raises
+``ValueError`` ("NNPolicyError").
 """
 from __future__ import annotations
 
@@ -58,21 +58,16 @@ class NNPolicy(AbstractNNPolicy):
         return self.action_map
 
     def _check(self, o) -> torch.Tensor:
-        # raw states exist only for batched envs (a HostEnv's observe()
-        # reads the env itself)
+        # raw states exist only for an Env (a HostEnv's observe() reads the
+        # env itself)
         observe = (getattr(self.problem, "observe", None)
                    if hasattr(self.problem, "reset_batch") else None)
         if _raw_state(o, observe):
             if not callable(observe):
                 raise TypeError(
-                    f"{type(self.problem).__name__} has no observe(): "
+                    f"{type(self.problem).__name__} has no observe(state): "
                     f"cannot convert a raw state of type {type(o).__name__}")
             x = torch.as_tensor(observe(o))
-            if x.shape[0] != 1:
-                raise ValueError(
-                    "NNPolicyError: a raw state must be one env's batched "
-                    f"state, got a batch of {x.shape[0]}")
-            x = x[0]
         else:
             x = torch.as_tensor(o)
         x = x.to(device=self.device, dtype=torch.float32)

@@ -3,8 +3,9 @@
 
 ``solve(env)`` turns a problem into a trained ``NNPolicy``: a ``HostEnv``
 goes to the serial host loop (``envs/compat.py::solve_host``), a raw
-MDP/POMDP problem object is wrapped by ``envs/adapters.py``, and a batched
-``Env`` runs ``learner/loop.py::build_loop``: the replay is pre-filled with
+MDP/POMDP problem object (either form: one instance at a time or batched)
+is wrapped by ``envs/adapters.py``, and an ``Env`` (either form) runs
+``learner/loop.py::build_loop``: the replay is pre-filled with
 ε = 1 collect steps, then the iterations run in segments between the log,
 eval and save boundaries, with the JAX package's deferred eval and
 best-model saves, and at the end the train state is saved and the best
@@ -167,7 +168,7 @@ class DeepQLearningSolver:
                 env = MDPEnv(env)
             else:
                 raise TypeError(
-                    "solve expects a batched Env, a HostEnv, or a "
+                    "solve expects an Env, a HostEnv, or a "
                     "FunctionalMDP/POMDP problem object; got "
                     f"{type(env).__name__}")
         return self._solve_functional(env, resume=resume)

@@ -8,7 +8,8 @@ iteration of each through ``DataParallelRunner`` in a one-rank gloo world,
 a tiny ``DeepQLearningSolver.solve``, the classic-control envs, one
 CartPole collect step through the collect kernel's route, and the examples
 (``deepqlearning_tpu_torch/examples``; the bf16 conv one runs at tiny
-sizes).
+sizes). A second subprocess steps the problems written one instance at a
+time (``chip_smoke.user_envs``) and calls the helper names, JAX blocked.
 """
 import os
 import subprocess
@@ -140,3 +141,50 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().startswith("OK")
     assert int(res.stdout.split()[-1]) >= 20  # every module was imported
+
+
+PER_INSTANCE = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "deepqlearning_tpu", "optax", "flax"):
+        sys.modules[name] = None
+    import torch
+    from deepqlearning_tpu_torch import MDPEnv, POMDPEnv, batch_trajectories
+    from deepqlearning_tpu_torch.ops.helpers import (
+        default_discount, hiddenstates, obs_dimensions, sethiddenstates)
+    from deepqlearning_tpu_torch.ops.sumtree import get_leaf, init_tree
+    from deepqlearning_tpu_torch.replay.episode import EpisodeReplayBuffer
+    from deepqlearning_tpu_torch.replay.transition import (
+        DQExperience, batch_from_experience)
+    import chip_smoke
+    GridWorld, StaticArrayMDP, MiniPOMDP = chip_smoke.user_envs()
+    g = torch.Generator().manual_seed(0)
+    for env in (GridWorld(), MDPEnv(StaticArrayMDP()),
+                POMDPEnv(MiniPOMDP())):
+        s, o = env.reset_batch(8, g)
+        s, o, r, d = env.step_batch(s, torch.ones(8, dtype=torch.long), g)
+        assert o.shape == (8,) + obs_dimensions(env)
+        assert r.dtype == d.dtype == torch.float32
+        assert default_discount(env) == env.discount
+    assert batch_trajectories(torch.zeros(2, 3, 4), 3, 2).shape == (3, 2, 4)
+    assert get_leaf(init_tree(8), torch.arange(3)).shape == (3,)
+    assert batch_from_experience(DQExperience(
+        torch.zeros(2), 1, 0.5, torch.ones(2), False)).obs.shape == (1, 2)
+    buf = EpisodeReplayBuffer((2,), 8, 4, 2, 4, num_envs=2, device="cpu")
+    assert int(buf.size_fn(buf.init())) == 0
+    assert hiddenstates(sethiddenstates(((), (1,)), [(2,)])) == [(2,)]
+    bad = [m for m in sys.modules if m.split(".")[0] in
+           ("jax", "jaxlib", "deepqlearning_tpu") and sys.modules[m]]
+    assert not bad, bad
+    print("OK")
+""")
+
+
+def test_per_instance_envs_and_new_names_import_no_jax():
+    """The per-instance env protocol and the helper names, with JAX
+    blocked: one step of each of ``chip_smoke.user_envs``' problems."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", PER_INSTANCE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "OK"

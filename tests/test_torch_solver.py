@@ -310,7 +310,7 @@ def test_functional_mdp_adapter():
                                   100, 0)
     assert r > 1.0
     # a raw (integer) problem state goes through observe
-    state, _ = env.reset_batch(1, torch.Generator().manual_seed(0))
+    state, _ = env.reset(torch.Generator().manual_seed(0))
     assert policy.action(state) == policy.action(np.ones(1, np.float32))
 
 

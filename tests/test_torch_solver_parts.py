@@ -161,11 +161,11 @@ def test_nnpolicy_converts_raw_states():
     net = dt.Chain(dt.Flatten(), dt.Dense(6, mdp.num_actions))
     policy = dt.NNPolicy(mdp, net, net.init(torch.Generator().manual_seed(0)),
                          mdp.action_map, len(mdp.obs_shape))
-    state, obs = mdp.reset_batch(1, torch.Generator().manual_seed(1))
+    state, obs = mdp.reset(torch.Generator().manual_seed(1))
     assert state.dtype == torch.int32
-    assert policy.action(state) == policy.action(obs[0])
+    assert policy.action(state) == policy.action(obs)
     np.testing.assert_array_equal(policy.actionvalues(state),
-                                  policy.actionvalues(obs[0].numpy()))
+                                  policy.actionvalues(obs.numpy()))
 
 
 def test_basic_evaluation_equals_jax_on_testmdp():
