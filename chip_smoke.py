@@ -109,6 +109,28 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     the per-instance MiniPOMDP through a DRQN ``solve`` (K5 once per
     iteration, K6 never); last, (a)'s two loops profiled as in phase 12.
 
+19. compiled segment (after 18, before the profiles): the CUDA graph of
+    one iteration (``learner/segment.py``) on the headline, U = 1, grouped
+    plain, conv and CartPole routes at full width: 3 replays against 3
+    eager iterations from cloned carries, every tensor and the generator's
+    state bit for bit; the replays draw fresh numbers (they differ from
+    eager iterations that reuse one generator state); K1-K4 launches per
+    replay; ``torch.cuda.memory_allocated`` flat over 100 replays; eager
+    beside graph from an idle queue (medians of 8: host ms and ms per
+    iteration, env-steps/s, busy share and device ms under
+    ``torch.profiler``). Last of all, a ``select_fn`` that reads the
+    device from the host (``.item()``) must make ``solve`` raise.
+    ``python3 chip_smoke.py --segment-only`` runs phases 1, 2 and 19.
+
+The loops of phases 5-7 and 12-17 (but DRQN's and the DP ones) and the
+solves of 11 (a), (c), (d), (e) run as replays of their CUDA graph, as
+``solve`` runs them; 11 (d) and (e) on seeds 0, 1 and 2, each gated.
+``torch.profiler`` can lose the first records of a graph's first launch
+in a session, so each trace that counts a graph's launches either primes
+the session with one launch (``ops/cuda/loop_profile.py::traced``: the
+profiles of 12-17 and 19) or leaves each graph's first launch out (11
+(a)'s resume).
+
 Each of the paths 5 to 9 and each part of 11 to 18 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
@@ -415,11 +437,14 @@ def _collect_env_check(torch, dev, fc, fu, fd, name, env, net, E, gen):
     cuda = fc.fused_collect_rnn_cuda if rec else fc.fused_collect_cuda
     err, n_flips, fracs = 0.0, 0, []
     for eps in (0.3, 1.0):
-        ko = cuda(env, plan, params, eps=eps, **ins)
-        ko2 = cuda(env, plan, params, eps=eps, **ins)
+        # ε as the device scalar the kernels read through a pointer, the
+        # twin on the same tensor
+        e = torch.full((), eps, dtype=torch.float32, device=dev)
+        ko = cuda(env, plan, params, eps=e, **ins)
+        ko2 = cuda(env, plan, params, eps=e, **ins)
         _check(all(torch.equal(a, b) for a, b in zip(ko, ko2)),
                f"{name} eps={eps}: two runs differ")
-        po = fc.fused_collect_plain(env, plan, params, eps=eps, **ins)
+        po = fc.fused_collect_plain(env, plan, params, eps=e, **ins)
         no = plan.no
         agree = ko[0][:, 2 * no] == po[0][:, 2 * no]
         frac = agree.float().mean().item()
@@ -1662,7 +1687,8 @@ def phase_slice(torch, dev):
     rows_g, rows_c = cg.replay.rows.cpu(), cc.replay.rows
     agree = (rows_g[:, 8] == rows_c[:, 8]).float().mean().item()
     _check(agree >= 0.99, f"CartPole slice actions agree on only {agree}")
-    _check(cg.replay.size == cc.replay.size == 512, "CartPole slice size")
+    _check(int(cg.replay.size) == int(cc.replay.size) == 512,
+           "CartPole slice size")
     _say(f"CartPole slice GPU vs CPU (128 envs, U=4, B=32, 2 iterations): "
          f"ok, params max_abs_err {err:.3g}, replay actions agree "
          f"{agree:.4f}")
@@ -1837,10 +1863,10 @@ def _cartpole_net(torch, dev):
 
 def _loop_setup(torch, dev, num_envs, buffer_size, batch_size, train_freq,
                 n_pop, net=None, env=None, **cfg_kw):
-    """``(iteration, carry, cfg)``: a feed-forward PER loop through
-    ``build_loop`` on SimpleGridWorld (or ``env``), with the headline's
-    dueling 2-64-64-4 tanh net unless ``net`` is given, after ``n_pop``
-    populate steps; ``cfg_kw`` go to ``DQNConfig``."""
+    """``(iteration, carry, cfg, (env, buffer))``: a feed-forward PER loop
+    through ``build_loop`` on SimpleGridWorld (or ``env``), with the
+    headline's dueling 2-64-64-4 tanh net unless ``net`` is given, after
+    ``n_pop`` populate steps; ``cfg_kw`` go to ``DQNConfig``."""
     from deepqlearning_tpu_torch import (
         DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         SimpleGridWorld)
@@ -1864,27 +1890,36 @@ def _loop_setup(torch, dev, num_envs, buffer_size, batch_size, train_freq,
                               LinearDecaySchedule(1.0, 0.01, 100_000),
                               gamma=env.discount)
     c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), n_pop)
-    return it, c, cfg
+    return it, c, cfg, (env, buf)
 
 
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
           n_iters, n_pop, profile_iters=0, net=None, env=None, **cfg_kw):
     """:func:`_loop_setup`'s loop, a warm-up iteration and ``n_iters``
     timed ones: ``(cfg, env-steps/s, loss)``, and with ``profile_iters``
-    also the ms per iteration and :func:`_profile_iterations`' figures."""
-    it, c, cfg = _loop_setup(torch, dev, num_envs, buffer_size, batch_size,
-                             train_freq, n_pop, net, env, **cfg_kw)
+    also the ms per iteration and :func:`_profile_iterations`' figures.
+    After the eager warm-up the iterations run through ``make_segment``,
+    as ``solve`` runs them: replays of one CUDA graph on the routes that
+    ``learner/segment.py`` captures (its warm-up and capture call each
+    kernel's wrapper once more), eagerly on the others."""
+    from deepqlearning_tpu_torch.learner.segment import make_segment
+
+    it, c, cfg, (env, buf) = _loop_setup(
+        torch, dev, num_envs, buffer_size, batch_size, train_freq, n_pop,
+        net, env, **cfg_kw)
     c = it(c)  # warm-up
+    run = make_segment(it, c, cfg, env, buf, "chip_smoke loop")
+    it = lambda x: run(x, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_iters):
-        c = it(c)
+    c = run(c, n_iters)
     loss = float(c.loss)  # device -> host read ends the timed region
     dt = time.perf_counter() - t0
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
-    _check(c.replay.size > 0 and int(c.actor.ep_count) > 0, "loop progress")
+    _check(int(c.replay.size) > 0 and int(c.actor.ep_count) > 0,
+           "loop progress")
     sps = n_iters * cfg.env_steps_per_iter / dt
     if not profile_iters:
         return cfg, sps, loss
@@ -1913,7 +1948,7 @@ def _train_state_counters(torch, logdir):
 
     raw = torch.load(os.path.join(logdir, checkpoint.TRAIN_STATE_NAME),
                      weights_only=True)["__fields__"]
-    return raw["iters"], raw["actor"]["__fields__"]["t"]
+    return int(raw["iters"]), int(raw["actor"]["__fields__"]["t"])
 
 
 def _solve_ff(torch, dev, logdir, n_iters, resume=False):
@@ -2006,7 +2041,13 @@ def _solve_learning(torch):
 def phase_solve(torch, dev, card, run_path):
     """``DeepQLearningSolver.solve``, the users' front door, on the card:
     (a) the feed-forward solve, ``restore_best_model`` and a resumed solve
-    (K1, K2 and K4 launched at least once per iteration, K3 never: U = 1);
+    (U = 1, populate and the iterations as graph replays: K4's wrapper is
+    called by the populate graph's warm-up and capture and the segment's,
+    K1's and K2's by the segment's, K3's never; the resumed solve runs
+    under ``torch.profiler``, whose trace must hold K1, K2 and K4 once per
+    replayed iteration or populate step and eager warm-up, and the same
+    device events in every replay of a graph; each graph's first launch,
+    the guard's replay, is left out: the profiler can lose its head);
     (b) the DRQN solve (K5 at U = 1 and K6 at least once per iteration);
     (c) a learning threshold of the JAX package's tests."""
     import tempfile
@@ -2019,8 +2060,8 @@ def phase_solve(torch, dev, card, run_path):
             "solve (feed-forward)", lambda: _solve_ff(torch, dev, logdir, n),
             ("td_loss", "tree_sample", "fused_collect"),
             ("fused_group_update",))
-        for k in ("td_loss", "tree_sample", "fused_collect"):
-            _check(ff[k] >= n, f"solve: {k} launched {ff[k]} < {n} times")
+        _check(ff["td_loss"] == ff["tree_sample"] == 2
+               and ff["fused_collect"] == 4, f"solve: wrapper calls {ff}")
         _check(_train_state_counters(torch, logdir) == (n, n * 4096),
                "solve: saved train state")
         for f in (checkpoint.CKPT_NAME, checkpoint.TRAIN_STATE_NAME):
@@ -2041,19 +2082,31 @@ def phase_solve(torch, dev, card, run_path):
              f"; restore_best_model equals the returned policy | {card} | "
              f"launches {ff}")
         m = 5
-        (_, _, sps_r), rs = run_path(
-            "solve (resume)",
-            lambda: _solve_ff(torch, dev, logdir, m, resume=True),
+        ((_, _, sps_r), seen, per_launch), rs = run_path(
+            "solve (resume)", lambda: _graph_launch_trace(
+                torch, lambda: _solve_ff(torch, dev, logdir, m, resume=True)),
             ("td_loss", "tree_sample", "fused_collect"),
             ("fused_group_update",))
-        for k in ("td_loss", "tree_sample", "fused_collect"):
-            _check(rs[k] >= m, f"resume: {k} launched {rs[k]} times")
+        _check(rs["td_loss"] == rs["tree_sample"] == 2
+               and rs["fused_collect"] == 4, f"resume: wrapper calls {rs}")
+        # the segment: the eager warm-up and m replays; populate (4 steps,
+        # train_start = 4 x 4096): the eager warm-up and 4 replays (each
+        # graph's guard replay left out)
+        want = {"td_loss_kernel": m + 1, "tree_sample_kernel": m + 1,
+                "fc_kernel": m + 1 + 4 + 1}
+        _check(seen == want, f"resume: the trace saw {seen}, not {want}")
+        _check(len(per_launch) == 2 and all(len(x) == 1 for x in per_launch),
+               f"resume: the graphs' replays differ in their device events "
+               f"{per_launch} (populate, segment)")
         _check(_train_state_counters(torch, logdir) == (n + m,
                                                         (n + m) * 4096),
                "resume did not continue the counters")
         _say(f"solve (a) resume=True: {m} more iterations continue the "
              f"saved counters (iters {n} -> {n + m}): {sps_r:.1f} env-steps/s "
-             f"| {card} | launches {rs}")
+             f"under torch.profiler, whose trace saw the port's kernels "
+             f"launched {seen} outside the guard replays, and "
+             f"{per_launch} device events in each replay of populate's "
+             f"graph and the segment's | {card} | launches {rs}")
     with tempfile.TemporaryDirectory() as logdir:
         nd = 30
         (solver, sps_d), rec = run_path(
@@ -2084,7 +2137,10 @@ CARTPOLE_CFG = dict(
 CARTPOLE_EPS = (1.0, 0.05, 150_000)  # LinearDecaySchedule
 
 
-def _solve_cartpole(torch, logdir):
+SEEDS = (0, 1, 2)  # the learning gates' seeds (0: the examples' own)
+
+
+def _solve_cartpole(torch, logdir, seed=0):
     """``DeepQLearningSolver.solve`` on CartPole at ``examples/
     cartpole_dqn.py``'s configuration (dueling 4-64-64-2 tanh, double-Q,
     2^16 PER, batch 256, 256 envs, train_freq 16: U = 16 updates per
@@ -2097,7 +2153,7 @@ def _solve_cartpole(torch, logdir):
     solver = DeepQLearningSolver(
         qnetwork=_cartpole_model(torch), logdir=logdir, verbose=True,
         exploration_policy=EpsGreedyPolicy(LinearDecaySchedule(
-            *CARTPOLE_EPS)), **CARTPOLE_CFG)
+            *CARTPOLE_EPS)), seed=seed, **CARTPOLE_CFG)
     _check(solver.device is None, "the CartPole solve runs with device=None")
     cfg = solver.config
     iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
@@ -2112,36 +2168,42 @@ def _solve_cartpole(torch, logdir):
 
 
 def phase_cartpole_solve(torch, dev, card, run_path):
-    """The slice's path: the CartPole solve, with the counters from zero.
-    Every iteration launches K4 (on CartPole), K2 and K3 once (U = 16, B =
-    256): K4 exactly iterations + the populate step, K2 and K3 exactly once
-    per iteration, K1 never. The returned policy's greedy return over 64
-    episodes (a generator seeded 7) must reach 150 of 200, the example's
-    full-episode balance (``docs/PARITY.md``)."""
+    """The slice's path: the CartPole solve on each of ``SEEDS``, each
+    with the counters from zero. Every iteration launches K4 (on
+    CartPole), K2 and K3 once (U = 16, B = 256), as graph replays (phase
+    16 reads them from a trace): the wrappers are called by the warm-ups
+    and captures alone, K4's twice for populate and twice for the
+    segment, K2's and K3's twice, K1's never. The returned policy's greedy return over 64 episodes (a
+    generator seeded 7) must reach 150 of 200, the example's full-episode
+    balance (``docs/PARITY.md``), on every seed."""
     import tempfile
 
     from deepqlearning_tpu_torch import CartPole, basic_evaluation
 
-    with tempfile.TemporaryDirectory() as logdir:
-        (solver, policy, iters, sps), cnt = run_path(
-            "CartPole solve", lambda: _solve_cartpole(torch, logdir),
-            ("fused_collect", "tree_sample", "fused_group_update"),
-            ("td_loss", "fused_collect_rnn", "fused_grads"))
-    n_pop = -(-solver.config.train_start // solver.config.num_envs)
-    _check(cnt["fused_collect"] == iters + n_pop
-           and cnt["tree_sample"] == cnt["fused_group_update"] == iters,
-           f"CartPole solve: {iters} iterations, launches {cnt}")
-    r, steps, _ = basic_evaluation(policy.network, policy.params,
-                                   CartPole(), 64, 200, 7)
-    evals = [(t, round(v, 3)) for t, v in solver.metrics["eval"]]
-    _say(f"CartPole solve (examples/cartpole_dqn.py): 256 envs, U=16, "
-         f"batch 256, 2^16 PER, {iters} iterations: {sps:.1f} env-steps/s "
-         f"over the whole solve (populate, 4 evaluations of 64 episodes and "
-         f"saves included; the verbose lines above give each segment's "
-         f"loop rate), eval returns {evals}; greedy return of the returned "
-         f"policy {r:.4f} over 64 episodes ({steps:.2f} steps) | {card} | "
-         f"launches {cnt}")
-    _check(r >= 150.0, f"CartPole solve: greedy return {r} < 150")
+    returns = {}
+    for seed in SEEDS:
+        with tempfile.TemporaryDirectory() as logdir:
+            (solver, policy, iters, sps), cnt = run_path(
+                f"CartPole solve (seed {seed})",
+                lambda: _solve_cartpole(torch, logdir, seed),
+                ("fused_collect", "tree_sample", "fused_group_update"),
+                ("td_loss", "fused_collect_rnn", "fused_grads"))
+        _check(cnt["fused_collect"] == 4
+               and cnt["tree_sample"] == cnt["fused_group_update"] == 2,
+               f"CartPole solve: {iters} iterations, wrapper calls {cnt}")
+        r, steps, _ = basic_evaluation(policy.network, policy.params,
+                                       CartPole(), 64, 200, 7)
+        returns[seed] = r
+        evals = [(t, round(v, 3)) for t, v in solver.metrics["eval"]]
+        _say(f"CartPole solve (examples/cartpole_dqn.py), seed {seed}: 256 "
+             f"envs, U=16, batch 256, 2^16 PER, {iters} iterations: "
+             f"{sps:.1f} env-steps/s over the whole solve (populate, 4 "
+             f"evaluations of 64 episodes and saves included; the verbose "
+             f"lines above give each segment's loop rate), eval returns "
+             f"{evals}; greedy return of the returned policy {r:.4f} over 64 "
+             f"episodes ({steps:.2f} steps) | {card} | launches {cnt}")
+    _check(all(r >= 150.0 for r in returns.values()),
+           f"CartPole solve: greedy returns by seed {returns}, threshold 150")
 
 
 def phase_conv_forward(torch, dev):
@@ -2277,12 +2339,22 @@ def phase_conv_solve(torch, dev, card, run_path):
     bf16 dueling conv net 4-32-64-128 with 3200-512 heads, 2^15 bf16 PER,
     batch 512, U = 4, 400,000 steps, 8 evaluations of 128 episodes), through
     the example's ``main`` with ``device=None`` (the card) and a temporary
-    logdir. Launches: K1 exactly U per iteration, K2 exactly once, K3, K4
-    and K7 never. A save and a restore: ``restore_best_model`` equals the
+    logdir. As graph replays (phase 17 reads their launches from a trace):
+    K1's wrapper called U times and K2's once by each of the segment's
+    warm-up and capture, K3's, K4's and K7's never. A save and a restore: ``restore_best_model`` equals the
     returned policy (the best model, restored at the end). The best greedy
     evaluation return (128 episodes; the optimum is 2.1) must reach 1.0,
     the threshold of ``tests/test_learning.py::test_bf16_replay_storage``
-    on this MDP family."""
+    on this MDP family, on each of ``SEEDS``."""
+    tops = {}
+    for seed in SEEDS:
+        tops[seed] = _conv_solve_seed(torch, card, run_path, seed)
+    _check(all(v >= 1.0 for v in tops.values()),
+           f"conv solve: best greedy returns by seed {tops}, threshold 1.0")
+
+
+def _conv_solve_seed(torch, card, run_path, seed):
+    """One seed of 11 (e): its checks and its best greedy return."""
     import tempfile
 
     from deepqlearning_tpu_torch import TestMDP
@@ -2292,7 +2364,8 @@ def phase_conv_solve(torch, dev, card, run_path):
     with tempfile.TemporaryDirectory() as logdir:
         t0 = time.perf_counter()
         (solver, policy), cnt = run_path(
-            "conv solve", lambda: image_conv_dqn.main(logdir=logdir),
+            f"conv solve (seed {seed})",
+            lambda: image_conv_dqn.main(logdir=logdir, seed=seed),
             ("td_loss", "tree_sample"),
             ("fused_group_update", "fused_collect", "fused_grads"))
         secs = time.perf_counter() - t0
@@ -2300,8 +2373,9 @@ def phase_conv_solve(torch, dev, card, run_path):
         _check(solver.device is None, "the conv solve runs with device=None")
         iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
         U = cfg.updates_per_iter
-        _check(cnt["td_loss"] == U * iters and cnt["tree_sample"] == iters,
-               f"conv solve: {iters} iterations of U={U}, launches {cnt}")
+        _check(cnt["td_loss"] == 2 * U and cnt["tree_sample"] == 2,
+               f"conv solve: {iters} iterations of U={U}, wrapper calls "
+               f"{cnt}")
         _check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
                    and bool(torch.isfinite(p).all())
                    for p in policy.params.values()),
@@ -2314,7 +2388,8 @@ def phase_conv_solve(torch, dev, card, run_path):
                "conv solve: the restored model differs from the returned one")
     evals = [(t, round(v, 4)) for t, v in solver.metrics["eval"]]
     top = max(v for _, v in solver.metrics["eval"])
-    _say(f"conv solve (examples/image_conv_dqn.py): 2048 envs, bf16 conv "
+    _say(f"conv solve (examples/image_conv_dqn.py), seed {seed}: 2048 "
+         f"envs, bf16 conv "
          f"4-32-64-128 + dueling 3200-512, 2^15 bf16 PER, batch 512, U={U}, "
          f"{iters} iterations in {secs:.2f} s "
          f"({iters * cfg.env_steps_per_iter / secs:.1f} env-steps/s over the "
@@ -2322,7 +2397,7 @@ def phase_conv_solve(torch, dev, card, run_path):
          f"included); eval returns {evals}; best greedy return {top:.4f} "
          f"(optimum 2.1, threshold 1.0); save and restore ok | {card} | "
          f"launches {cnt}")
-    _check(top >= 1.0, f"conv solve: best greedy return {top} < 1.0")
+    return top
 
 
 def phase_conv_profile(torch, dev, card, run_path):
@@ -2449,7 +2524,7 @@ def _pi_headline(torch, dev, env, n_cmp, n_time, n_enq,
     queue. Returns ``(snapshot, cfg, env-steps/s, ms/iteration, median
     host enqueue ms/iteration, median host ms of a step_batch)``; the
     snapshot holds the env state as ``[E, 3]`` (px, py, terminal)."""
-    it, c, cfg = _loop_setup(torch, dev, *shape, 2, env=env, **cfg_kw)
+    it, c, cfg, _ = _loop_setup(torch, dev, *shape, 2, env=env, **cfg_kw)
     for _ in range(n_cmp):
         c = it(c)
     st = c.actor.env_state
@@ -2656,13 +2731,15 @@ def phase_per_instance_profile(torch, dev, card, run_path):
 
 def _cartpole_loop(torch, dev, n_iters):
     """The CartPole solve's loop, built as ``solve`` builds it (stock
-    ε-greedy, so K4), populated, ``n_iters`` iterations to warm up and
-    fill the replay, then 20 iterations profiled (``_profile_iterations``)."""
+    ε-greedy, so K4) and run as ``solve`` runs it (replays of its CUDA
+    graph), populated, ``n_iters`` iterations to warm up and fill the
+    replay, then 20 iterations profiled (``_profile_iterations``)."""
     from deepqlearning_tpu_torch import (
         CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         create_dueling_network)
     from deepqlearning_tpu_torch.learner.loop import (
         build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.learner.segment import make_segment
 
     env = CartPole()
     net = create_dueling_network(_cartpole_model(torch, dev))
@@ -2673,10 +2750,10 @@ def _cartpole_loop(torch, dev, n_iters):
                               LinearDecaySchedule(*CARTPOLE_EPS),
                               env.discount)
     c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
-    for _ in range(n_iters):
-        c = it(c)
+    run = make_segment(it, c, cfg, env, buf, "chip_smoke CartPole loop")
+    c = run(c, n_iters)
     torch.cuda.synchronize()
-    return _profile_iterations(torch, it, c, 20)[1:]
+    return _profile_iterations(torch, lambda x: run(x, 1), c, 20)[1:]
 
 
 def _dp_loop(torch, dev, recurrent, n_iters):
@@ -2728,10 +2805,426 @@ def _dp_loop(torch, dev, recurrent, n_iters):
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
-    _check(int(c.actor.ep_count) > 0 and c.iters == warmup + n_iters,
+    _check(int(c.actor.ep_count) > 0 and int(c.iters) == warmup + n_iters,
            "loop progress")
     return (cfg, n_iters * cfg.env_steps_per_iter / dt,
             1000.0 * dt / n_iters, loss, warmup + n_iters)
+
+
+def _clone_carry(torch, c):
+    """A copy of a carry: every tensor cloned, each generator a new one in
+    the same state."""
+    from torch.utils._pytree import tree_map
+
+    def one(x):
+        if isinstance(x, torch.Generator):
+            g = torch.Generator(device=x.device)
+            g.set_state(x.get_state())
+            return g
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return tree_map(one, c)
+
+
+def _carry_diff(torch, a, b):
+    """``{leaf index: max abs difference}`` of the leaves of two carries
+    that are not equal bit for bit (a generator by its state, as -1)."""
+    from torch.utils._pytree import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    _check(len(la) == len(lb), "carries of different structure")
+    out = {}
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                out[i] = -1.0
+        elif not torch.equal(x, y):
+            out[i] = float((x.double() - y.double()).abs().max())
+    return out
+
+
+def _segment_routes(torch, dev):
+    """Phase 19's routes at full width: ``{name: (setup, launches per
+    iteration)}``, ``setup()`` giving ``(iteration, carry, cfg, (env,
+    buffer))`` after populate."""
+    from deepqlearning_tpu_torch import (
+        CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
+        TestMDP)
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
+
+    def cartpole():
+        env = CartPole()
+        net = _cartpole_net(torch, dev)
+        cfg = DQNConfig(**CARTPOLE_CFG, logdir=None)
+        buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                      cfg.batch_size, device=dev)
+        it, pop, opt = build_loop(env, net, buf, cfg,
+                                  LinearDecaySchedule(*CARTPOLE_EPS),
+                                  env.discount)
+        c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
+        return it, c, cfg, (env, buf)
+
+    return {
+        "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
+                                         4096, 2),
+                     {"tree_sample": 1, "fused_group_update": 1,
+                      "fused_collect": 1}),
+        "U=1": (lambda: _loop_setup(torch, dev, 4096, 1 << 18, 512, 4096, 4,
+                                    target_update_freq=2 * 4096),
+                {"td_loss": 1, "tree_sample": 1, "fused_collect": 1}),
+        "grouped plain": (
+            lambda: _loop_setup(torch, dev, 2048, 1 << 15, 512, 512, 2,
+                                net=_dueling_net(torch, dev, 512, torch.relu),
+                                target_update_freq=2 * 2048),
+            {"td_loss": 4, "tree_sample": 1}),
+        "conv": (lambda: _loop_setup(
+            torch, dev, 2048, 1 << 15, 512, 512, 1, net=conv_net(torch, dev),
+            env=TestMDP((20, 20), 4, 6), max_episode_length=6,
+            target_update_freq=2 * 2048, learning_rate=1e-3,
+            dtype=torch.bfloat16), {"td_loss": 4, "tree_sample": 1}),
+        "CartPole": (cartpole, {"fused_collect": 1, "tree_sample": 1,
+                                "fused_group_update": 1}),
+    }
+
+
+def _idle_ms(torch, fn, c, n):
+    """``n`` calls of ``fn`` each from an idle queue: ``(carry, median host
+    ms until fn returns, median ms until the device is done)``."""
+    host, total = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = fn(c)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append(1e3 * (t1 - t0))
+        total.append(1e3 * (t2 - t0))
+    return c, float(np.median(host)), float(np.median(total))
+
+
+def _capture_failure(torch):
+    """A ``select_fn`` that reads the device from the host (``.item()``)
+    makes ``solve`` raise on the card instead of running eagerly."""
+    from deepqlearning_tpu_torch import (
+        Chain, DeepQLearningSolver, Dense, Flatten, SimpleGridWorld,
+        VectorizedStrategy)
+
+    def select(q, t, generator):
+        if q[0, 0].item() > 1e30:       # a host read inside the iteration
+            raise AssertionError("unreachable")
+        return torch.argmax(q, dim=-1), torch.zeros((), device=q.device)
+
+    solver = DeepQLearningSolver(
+        qnetwork=Chain(Flatten(), Dense(2, 16, torch.tanh), Dense(16, 4)),
+        exploration_policy=VectorizedStrategy(select), num_envs=256,
+        train_freq=256, batch_size=32, buffer_size=1 << 12, train_start=256,
+        max_steps=4 * 256, logdir=None, verbose=False)
+    try:
+        solver.solve(SimpleGridWorld())
+    except RuntimeError as e:
+        msg = str(e)
+        _check("capturing one iteration as a CUDA graph failed" in msg,
+               f"capture failure: another error: {msg}")
+        return msg
+    raise AssertionError("capture failure: solve ran a select_fn with a "
+                         "host read without raising")
+
+
+def _all_wrappers():
+    """Every kernel wrapper of the port by name; each counts the calls
+    that launch (or, under capture, record) its kernel in ``.launches``."""
+    from deepqlearning_tpu_torch.ops.cuda import (
+        fused_collect as fc, fused_drqn as fd, fused_update as fu,
+        td_kernel as tk, tree_sample as ts)
+
+    return {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
+            "fused_group_update": fu.fused_group_update_cuda,
+            "fused_collect": fc.fused_collect_cuda,
+            "fused_drqn_group_update": fd.fused_drqn_group_update_cuda,
+            "fused_collect_rnn": fc.fused_collect_rnn_cuda,
+            "fused_grads": fu.fused_grads_cuda,
+            "fused_drqn_grads": fd.fused_drqn_grads_cuda,
+            # the data-parallel updates (calls; each launches K7 / K8, the
+            # all-reduce and an Adam kernel per sub-update)
+            "dp_update": fu.fused_dp_group_update_cuda,
+            "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda}
+
+
+# the symbols of the kernels on the graph routes, by wrapper
+SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
+           "fused_group_update": "fu_group_kernel",
+           "fused_collect": "fc_kernel"}
+
+
+def _traced_launches(torch, prime, fn):
+    """``(fn(), {kernel symbol: launches})``: ``prime()`` and ``fn()`` in
+    one ``torch.profiler`` session (``loop_profile.traced``: ``prime()``
+    gives each graph its first launch in the session, whose first records
+    the profiler can lose), and the launches of the port's kernels that the
+    trace saw on the device during ``fn()`` (a graph's replays included)."""
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import kernel_symbol
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
+        port_kernels, traced)
+
+    out, events, _ = traced(torch, prime, fn)
+    ours, seen = port_kernels(), {}
+    for e in events:
+        sym = kernel_symbol(e.name)
+        if sym in ours:
+            seen[sym] = seen.get(sym, 0) + 1
+    return out, seen
+
+
+def _graph_launch_trace(torch, fn):
+    """``(fn(), {kernel symbol: launches}, [{device events per launch}])``:
+    ``fn()``, which makes its CUDA graphs itself, under ``torch.profiler``.
+    The launches of the port's kernels leave out each graph's first launch
+    (the first ``cudaGraphLaunch`` after each ``cudaGraphInstantiate``: the
+    segment's guard replay), whose first records the profiler can lose
+    (``loop_profile.traced``); the list gives, for each graph in the order
+    of instantiation, the set of device event counts of its other launches
+    (one number where every replay was recorded whole)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import kernel_symbol
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import port_kernels
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # a launch's device events carry the correlation id of its
+    # cudaGraphLaunch
+    host = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                   and ("GraphInstantiate" in e.name
+                        or "GraphLaunch" in e.name)),
+                  key=lambda e: e.time_range.start)
+    first, graphs, fresh = set(), [], False
+    for e in host:
+        if "GraphInstantiate" in e.name:
+            graphs.append({})
+            fresh = True
+        elif not graphs:
+            raise AssertionError("the trace launches a graph made before it")
+        elif fresh:
+            first.add(e.id)
+            fresh = False
+        else:
+            graphs[-1][e.id] = 0
+    ours, seen = port_kernels(), {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.id in first:
+            continue
+        for g in graphs:
+            if e.id in g:
+                g[e.id] += 1
+        sym = kernel_symbol(e.name)
+        if sym in ours:
+            seen[sym] = seen.get(sym, 0) + 1
+    return out, seen, [sorted(set(g.values())) for g in graphs]
+
+
+def _drift_env(torch, host_counter):
+    """A user env written batched on ``[0, 1]``: an action moves each
+    state by a step; with ``host_counter`` the step grows with a Python
+    count of the env's steps, host state that a graph replay repeats as it
+    was at capture."""
+    from deepqlearning_tpu_torch.envs.base import Env
+
+    class Drift(Env):
+        num_actions, obs_shape, discount = 2, (1,), 0.9
+        steps = 0
+
+        def reset_batch(self, num, generator):
+            s = torch.rand(num, generator=generator, device=generator.device)
+            return s, s[:, None]
+
+        def observe_batch(self, state):
+            return state[:, None]
+
+        def step_batch(self, state, action, generator):
+            self.steps += 1
+            d = 0.01 * (self.steps if host_counter else 1)
+            s = (state + torch.where(action == 1, d, -d)).clamp(0.0, 1.0)
+            return s, s[:, None], s, (s >= 1.0).float()
+
+    return Drift()
+
+
+def _host_state_guard(torch, dev):
+    """``make_segment`` on a user env that keeps a Python counter must
+    raise (its first replay differs from the eager iteration); the same
+    env without the counter is captured. Returns the error's text."""
+    from deepqlearning_tpu_torch import (
+        Chain, Dense, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer)
+    from deepqlearning_tpu_torch.learner.loop import (
+        build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.learner.segment import (
+        CompiledSegment, make_segment)
+
+    def segment(host_counter):
+        env = _drift_env(torch, host_counter)
+        net = Chain(Dense(1, 16, torch.tanh, device=dev),
+                    Dense(16, 2, device=dev))
+        cfg = DQNConfig(num_envs=256, batch_size=32, buffer_size=1 << 12,
+                        train_freq=256, max_episode_length=20,
+                        double_q=True, prioritized_replay=True)
+        buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                      cfg.batch_size, device=dev)
+        it, pop, opt = build_loop(env, net, buf, cfg,
+                                  LinearDecaySchedule(1.0, 0.05, 10_000),
+                                  env.discount)
+        c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 2)
+        return make_segment(it, it(c), cfg, env, buf,
+                            f"chip_smoke Drift (host counter {host_counter})")
+
+    _check(isinstance(segment(False), CompiledSegment),
+           "the Drift env without host state is not captured")
+    try:
+        segment(True)
+    except RuntimeError as e:
+        msg = str(e)
+        _check("differs from the eager iteration" in msg,
+               f"host state guard: another error: {msg}")
+        return msg
+    raise AssertionError("host state guard: an env with a Python counter "
+                         "was captured without raising")
+
+
+def phase_compiled_segment(torch, dev, card):
+    """19: the compiled segment (``learner/segment.py``) on each route it
+    captures, at full width: (a) N = 3 replays from a cloned carry against
+    N eager iterations, every carry tensor and the generator's state bit
+    for bit (two eager runs first: where they differ, the graph is held to
+    the eager runs' own spread); (b) the replays draw fresh numbers: they
+    differ from eager iterations that reuse one generator state; (c) the
+    warm-up and the capture call each wrapper as often as one iteration
+    launches its kernel, the replays call none, and a ``torch.profiler``
+    trace of N more replays (after one that primes the session:
+    ``loop_profile.traced``) sees each kernel N times as often;
+    (d) ``torch.cuda.memory_allocated`` is flat over 100 replays; then
+    eager beside graph from an idle queue (medians of 8: host ms and ms
+    until the device is done per iteration; env-steps/s over 10
+    back-to-back; busy share and device ms per iteration under
+    ``torch.profiler``, 5 iterations). (f) a user env with a Python
+    counter makes ``make_segment`` raise. Last, (e): a ``select_fn`` with
+    a host read makes ``solve`` raise on the card."""
+    from deepqlearning_tpu_torch.learner.segment import (
+        CompiledSegment, make_segment)
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+
+    names = _all_wrappers()
+    N = 3
+    table = {}
+    for name, (setup, per_iter) in _segment_routes(torch, dev).items():
+        it, c, cfg, (env, buf) = setup()
+        c = it(c)  # fills the replay past one batch, as a solve's first
+        torch.cuda.synchronize()
+        base = _clone_carry(torch, c)
+        runs = []
+        for _ in range(2):
+            e = _clone_carry(torch, base)
+            for _ in range(N):
+                e = it(e)
+            runs.append(e)
+        spread = _carry_diff(torch, runs[0], runs[1])
+        stale = _clone_carry(torch, base)
+        g0 = stale.generator.get_state()
+        for _ in range(N):
+            stale.generator.set_state(g0)
+            stale = it(stale)
+        t0 = time.perf_counter()
+        g = _clone_carry(torch, base)
+        for w in names.values():
+            w.launches = 0
+        run = make_segment(it, g, cfg, env, buf, f"chip_smoke {name}")
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        _check(isinstance(run, CompiledSegment), f"{name}: not captured")
+        built = {k: w.launches for k, w in names.items() if w.launches}
+        _check(built == {k: 2 * v for k, v in per_iter.items()},
+               f"{name}: warm-up and capture called the wrappers {built} "
+               f"times, not twice {per_iter}")
+        for w in names.values():
+            w.launches = 0
+        g = run(g, N)
+        diff = _carry_diff(torch, g, runs[0])
+        if not spread:
+            _check(not diff, f"{name}: graph vs eager differ at leaves "
+                             f"{diff} (two eager runs agree bit for bit)")
+        else:
+            bad = {i: d for i, d in diff.items()
+                   if d < 0 or d > 4 * max(spread.get(i, 0.0), 1e-30)}
+            _check(not bad, f"{name}: graph vs eager {diff} beyond 4x the "
+                            f"eager-vs-eager spread {spread}")
+        _check(_carry_diff(torch, g, stale),
+               f"{name}: the replays equal iterations that reuse one "
+               "generator state")
+        # (c) N more replays under the profiler, after one that primes it
+        g, seen = _traced_launches(torch, lambda: run(g, 1),
+                                   lambda: run(g, N))
+        counts = {k: w.launches for k, w in names.items() if w.launches}
+        _check(not counts, f"{name}: {2 * N + 1} replays called the "
+                           f"wrappers {counts}")
+        want = {SYMBOLS[k]: v * N for k, v in per_iter.items()}
+        _check(seen == want, f"{name}: the trace of {N} replays saw "
+                             f"{seen}, not {want}")
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        g = run(g, 100)
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated(dev)
+        _check(m1 == m0, f"{name}: memory {m0} -> {m1} over 100 replays")
+        _check(bool(torch.isfinite(g.loss)), f"{name}: loss not finite")
+        # eager beside graph, each from its own carry
+        rows = {}
+        spi = cfg.env_steps_per_iter
+        for mode, fn, c0 in (("eager", it, runs[1]),
+                             ("graph", lambda x: run(x, 1), g)):
+            c0, host, ms = _idle_ms(torch, fn, c0, 8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                c0 = fn(c0)
+            torch.cuda.synchronize()
+            sps = 10 * spi / (time.perf_counter() - t0)
+            c0, prof = device_profile(torch, fn, c0, 5)
+            _check(prof["device_ms"] > 0, f"{name} {mode}: no device time")
+            rows[mode] = dict(
+                ms=round(ms, 4), host_ms=round(host, 4), sps=round(sps, 1),
+                busy=round(prof["busy"], 4),
+                device_ms=round(prof["device_ms"], 4),
+                by_kernel={k: tuple(round(x, 4) for x in v)
+                           for k, v in prof["by_kernel"].items()})
+            top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])
+            rows[mode]["top"] = {k[:60]: tuple(round(x, 4) for x in v)
+                                 for k, v in top[:12]}
+        for k, v in per_iter.items():
+            sym = SYMBOLS[k]
+            _check(rows["graph"]["by_kernel"].get(sym, (0,))[0] == v,
+                   f"{name}: the profiler saw {sym} launched "
+                   f"{rows['graph']['by_kernel'].get(sym)} times per replay, "
+                   f"not {v}")
+        table[name] = rows
+        _say(f"compiled segment, {name} (U={cfg.updates_per_iter}, "
+             f"{cfg.num_envs} envs, {cfg.dtype}): graph = eager over {N} "
+             f"iterations ({'bit for bit' if not spread else 'within 4x the eager spread ' + str(spread)}), "
+             f"fresh draws, wrapper calls at warm-up and capture {built}, "
+             f"launches in the trace of {N} replays {seen}, memory flat at "
+             f"{m1} bytes "
+             f"over 100 replays, capture {capture_s:.2f} s; eager "
+             f"{rows['eager']} | graph {rows['graph']} | {card}")
+        del run, g, base, runs, stale, c
+        torch.cuda.empty_cache()
+    _say(f"compiled segment (f): a user env with a Python counter makes "
+         f"make_segment raise: {_host_state_guard(torch, dev)[:300]!r}")
+    return table
 
 
 def _two_rank_slice(rank, world, device):
@@ -2821,9 +3314,7 @@ def main():
     import torch.distributed as dist
 
     from deepqlearning_tpu_torch.learner import train_step as tsm
-    from deepqlearning_tpu_torch.ops.cuda import (
-        build, fused_collect as fc, fused_drqn as fd, fused_update as fu,
-        td_kernel as tk, tree_sample as ts)
+    from deepqlearning_tpu_torch.ops.cuda import build
     from deepqlearning_tpu_torch.parallel.launch import free_port
     from deepqlearning_tpu_torch.parallel.multihost import (
         initialize_multihost)
@@ -2846,6 +3337,11 @@ def main():
          f"{build._library_path().name}")
 
     phase_default_device(torch)
+    if "--segment-only" in sys.argv[1:]:
+        # phase 19 alone, for work on the compiled segment (no result line)
+        phase_compiled_segment(torch, dev, card)
+        _say(f"capture failure raises: {_capture_failure(torch)[:200]}")
+        return 0
 
     # 3. kernels vs plain, and the short kernels by their device events
     results = {}
@@ -2858,17 +3354,8 @@ def main():
     phase_conv_forward(torch, dev)
 
     # 5. - 7. the main paths, each with the counters from zero
-    wrappers = {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
-                "fused_group_update": fu.fused_group_update_cuda,
-                "fused_collect": fc.fused_collect_cuda,
-                "fused_drqn_group_update": fd.fused_drqn_group_update_cuda,
-                "fused_collect_rnn": fc.fused_collect_rnn_cuda,
-                "fused_grads": fu.fused_grads_cuda,
-                "fused_drqn_grads": fd.fused_drqn_grads_cuda}
-    # the data-parallel updates (calls; each launches K7 / K8, the
-    # all-reduce and an Adam kernel per sub-update)
-    others = {"dp_update": fu.fused_dp_group_update_cuda,
-              "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda}
+    wrappers = _all_wrappers()
+    others = {k: wrappers.pop(k) for k in ("dp_update", "drqn_dp_update")}
     launches = dict.fromkeys(wrappers, 0)
 
     def run_path(name, fn, kernels, absent=()):
@@ -2906,10 +3393,11 @@ def main():
         ("td_loss", "tree_sample"),
         ("fused_group_update", "fused_grads", "fused_collect"))
     U = cfg.updates_per_iter
-    # one warm-up iteration and n_wide timed ones, U loss heads each
-    _check(wide["td_loss"] == U * (n_wide + 1),
-           f"grouped plain loop: K1 launched {wide['td_loss']} times, not "
-           f"U x iterations = {U * (n_wide + 1)}")
+    # U loss heads in each of the eager warm-up iteration and
+    # make_segment's warm-up and capture; the n_wide replays call no wrapper
+    _check(wide["td_loss"] == U * 3,
+           f"grouped plain loop: K1's wrapper called {wide['td_loss']} times, "
+           f"not U x (eager warm-up, graph warm-up, capture) = {U * 3}")
     _say(f"grouped plain loop: 2048 envs, dueling 2-512-512-4 relu (the K3 "
          f"and K4 plans refuse it), 2^15 PER, batch 512, U={U}: {sps_w:.1f} "
          f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_w:.4f} "
@@ -2921,9 +3409,11 @@ def main():
          f"512, trace 8, U={cfg.updates_per_iter}: {sps3:.1f} env-steps/s, "
          f"loss {loss3:.5g} | {card} | launches {rec}")
     # K4 on a second env at full width inside a loop: MountainCar at the
-    # headline's shape (2 populate steps, a warm-up and 5 iterations), with
-    # episodes cut at 4 steps so that K4 resets envs within those 8 steps
-    # (the car needs ~100 steps to reach the goal)
+    # headline's shape (2 populate steps, a warm-up and 5 iterations, the
+    # 5 as graph replays), with episodes cut at 4 steps so that K4 resets
+    # envs within those 8 steps (the car needs ~100 steps to reach the
+    # goal). The wrappers count the 2 populate steps, the eager warm-up and
+    # make_segment's warm-up and capture
     from deepqlearning_tpu_torch import MountainCar
 
     (cfg, sps_m, loss_m), mc = run_path(
@@ -2933,8 +3423,8 @@ def main():
                       env=MountainCar(), max_episode_length=4),
         ("tree_sample", "fused_group_update", "fused_collect"),
         ("td_loss",))
-    _check(mc["fused_collect"] == 2 + 6 and mc["tree_sample"] == 6
-           and mc["fused_group_update"] == 6,
+    _check(mc["fused_collect"] == 2 + 3 and mc["tree_sample"] == 3
+           and mc["fused_group_update"] == 3,
            f"MountainCar loop: launches {mc}")
     _say(f"MountainCar loop: 131072 envs, 2^20 replay, batch 512, U="
          f"{cfg.updates_per_iter}, dueling 2-64-64-3 tanh: {sps_m:.1f} "
@@ -2982,6 +3472,10 @@ def main():
     # 18. envs and problems written one instance at a time, before the
     # profiles (a profiler session can leave host costs behind it)
     phase_per_instance(torch, dev, card, run_path)
+
+    # 19. the compiled segment: graph replays against eager iterations on
+    # each route it captures, before the profiles
+    phase_compiled_segment(torch, dev, card)
 
     # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
@@ -3111,6 +3605,9 @@ def main():
                     source=src[k][0], replaces=src[k][1],
                     launches=launches[k], **results[k], library_ms=None)
                for k in wrappers]
+    # 19 (e), last: a capture that fails raises (nothing runs after it)
+    _say(f"compiled segment: a select_fn with a host read makes solve "
+         f"raise: {_capture_failure(torch)[:300]!r}")
     _say(card)
     _say(json.dumps({"kernels": kernels}))
     _say(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 ``DeepQLearningSolver.solve`` (the solver layer: policy, evaluation,
 checkpoints, problem adapters and the host-env path) over the feed-forward,
 prioritized-replay, dueling double-DQN actor-learner loop and the recurrent
-(DRQN) loop over episode replay (``learner/loop.py::build_loop``) on NVIDIA
-Hopper GPUs, on one card or
+(DRQN) loop over episode replay (``learner/loop.py::build_loop``; on the
+card, the feed-forward routes run as replays of one CUDA graph per
+iteration, ``learner/segment.py``) on NVIDIA Hopper GPUs, on one card or
 data-parallel over ``torch.distributed`` ranks (``parallel/``), with the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels
 (``csrc/``, bound in ``ops/cuda/``). Module paths and public names mirror
@@ -22,6 +23,7 @@ from .envs.mountain_car import MountainCar
 from .envs.test_mdp import TestMDP
 from .envs.tiger import TigerPOMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
+from .learner.segment import make_collect_graph, make_segment
 from .models.chain import (
     GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
@@ -54,7 +56,8 @@ __all__ = [
     "POMDPEnv", "DQNConfig", "Env", "SimpleGridWorld", "TestMDP", "CartPole",
     "MountainCar", "Acrobot", "LoopCarry",
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
-    "init_carry", "populate", "Activation", "Chain", "Conv2D", "Dense",
+    "init_carry", "populate", "make_segment", "make_collect_graph",
+    "Activation", "Chain", "Conv2D", "Dense",
     "Flatten",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",

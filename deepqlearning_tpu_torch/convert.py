@@ -27,6 +27,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from .device import counter
 from .learner.actor import ActorState
 from .learner.loop import LoopCarry
 from .learner.train_step import AdamState
@@ -183,7 +184,8 @@ def actor_from_numpy(actor, device=None) -> ActorState:
         ep_step=t(actor.ep_step, torch.int32), ep_ret=t(actor.ep_ret),
         ret_ring=t(actor.ret_ring), ep_count=t(actor.ep_count, torch.int32),
         step_ring=t(actor.step_ring), cnt_ring=t(actor.cnt_ring),
-        tick=int(actor.tick), t=int(actor.t),
+        tick=counter(int(actor.tick), device),
+        t=counter(int(actor.t), device),
     )
 
 
@@ -195,7 +197,8 @@ def replay_from_numpy(rows, tree, insert_pos, size, device=None
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
     return ReplayState(rows=tensor_from_numpy(rows, device),
                        tree=tuple(t(l) for l in tree),
-                       insert_pos=int(insert_pos), size=int(size))
+                       insert_pos=counter(int(insert_pos), device),
+                       size=counter(int(size), device))
 
 
 def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
@@ -290,4 +293,5 @@ def loop_carry_from_numpy(network, carry, index=None, device=None,
         target_params=_as_dict(network, c.target_params, device),
         opt_state=adam_from_optax(c.params, c.opt_state, device),
         generator=generator, loss=f32(c.loss), gnorm=f32(c.gnorm),
-        sync_acc=int(c.sync_acc))
+        sync_acc=counter(int(c.sync_acc), device),
+        iters=counter(0, device))

@@ -4,7 +4,8 @@
 //
 // Both do the (dueling) Dense forward with the parameters in shared
 // memory, the epsilon-greedy action (first-max argmax over the real
-// actions; a random action floor(u1 * A) when u0 < eps), the env's
+// actions; a random action floor(u1 * A) when u0 < eps, eps read from
+// device memory so that a captured launch follows the device counter), the env's
 // step_cols and reset_cols as device code (SimpleGridWorld, CartPole or
 // MountainCar: a template parameter, FcEnv<ENV>), truncation at
 // max_episode_length, auto-reset and the episode accumulators. Transition
@@ -422,7 +423,8 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
     NetDesc d, TensorPtrs params, EnvDesc g, const float* __restrict__ obs,
     const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u, int E,
-    int TE, float eps, int max_len, float* __restrict__ fields,
+    int TE, const float* __restrict__ eps, int max_len,
+    float* __restrict__ fields,
     float* __restrict__ obs_out, float* __restrict__ state_out,
     int* __restrict__ ep_step_out, float* __restrict__ ep_ret_out,
     float* __restrict__ partials) {
@@ -458,7 +460,7 @@ __global__ void __launch_bounds__(FC_THREADS) fc_kernel(
     const int e = e0 + el;
     const int greedy = fc_tile_greedy(d, aout, sv, el, TE);
     const float u0 = u[e], u1 = u[(size_t)E + e];
-    const float action = (u0 < eps) ? floorf(u1 * (float)A) : (float)greedy;
+    const float action = (u0 < *eps) ? floorf(u1 * (float)A) : (float)greedy;
     fc_env_step<ENV>(g, sx, TE, el, action, e, E, state, ep_step, ep_ret, u,
                      max_len, fields, obs_out, state_out, ep_step_out,
                      ep_ret_out, s_ret, s_len, s_end);
@@ -584,7 +586,8 @@ __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
     const float* __restrict__ bc, EnvDesc g, const float* __restrict__ obs,
     const float* __restrict__ state, const int* __restrict__ ep_step,
     const float* __restrict__ ep_ret, const float* __restrict__ u,
-    const float* __restrict__ nstate, int E, int TE, float eps, int max_len,
+    const float* __restrict__ nstate, int E, int TE,
+    const float* __restrict__ eps, int max_len,
     float* __restrict__ fields, float* __restrict__ obs_out,
     float* __restrict__ state_out, int* __restrict__ ep_step_out,
     float* __restrict__ ep_ret_out, float* __restrict__ nstate_out,
@@ -647,7 +650,7 @@ __global__ void __launch_bounds__(FC_THREADS) fc_rnn_kernel(
     const int greedy = fc_tile_greedy(d, aout, sv, el, TE);
     const float u0 = u[e], u1 = u[(size_t)E + e];
     const float action =
-        (u0 < eps) ? floorf(u1 * (float)d.num_actions) : (float)greedy;
+        (u0 < *eps) ? floorf(u1 * (float)d.num_actions) : (float)greedy;
     const bool end = fc_env_step<ENV>(g, sx, TP, el, action, e, E, state,
                                       ep_step, ep_ret, u, max_len, fields,
                                       obs_out, state_out, ep_step_out,
@@ -669,7 +672,8 @@ template <int ENV>
 static int fc_launch(const NetDesc* d, const TensorPtrs& P,
                      const EnvDesc& g, const void* obs, const void* state,
                      const void* ep_step, const void* ep_ret, const void* u,
-                     int E, int TE, float eps, int max_len, void* fields,
+                     int E, int TE, const void* eps, int max_len,
+                     void* fields,
                      void* obs_out, void* state_out, void* ep_step_out,
                      void* ep_ret_out, void* partials, void* stream) {
   if (d->in_dim != FcEnv<ENV>::NO) return (int)cudaErrorInvalidValue;
@@ -680,7 +684,8 @@ static int fc_launch(const NetDesc* d, const TensorPtrs& P,
   const int blocks = (E + TE - 1) / TE;
   fc_kernel<ENV><<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
       *d, P, g, (const float*)obs, (const float*)state, (const int*)ep_step,
-      (const float*)ep_ret, (const float*)u, E, TE, eps, max_len,
+      (const float*)ep_ret, (const float*)u, E, TE, (const float*)eps,
+      max_len,
       (float*)fields, (float*)obs_out, (float*)state_out,
       (int*)ep_step_out, (float*)ep_ret_out, (float*)partials);
   return (int)cudaGetLastError();
@@ -690,7 +695,7 @@ DQ_API int dq_fused_collect(const NetDesc* d, const int64_t* p_ptrs,
                             const EnvDesc* env, const void* obs,
                             const void* state, const void* ep_step,
                             const void* ep_ret, const void* u, int E, int TE,
-                            float eps, int max_len, void* fields,
+                            const void* eps, int max_len, void* fields,
                             void* obs_out, void* state_out,
                             void* ep_step_out, void* ep_ret_out,
                             void* partials, void* stream) {
@@ -720,7 +725,7 @@ static int fc_rnn_launch(const NetDesc* d, const TensorPtrs& P, int kind,
                          const void* bc, const EnvDesc& g, const void* obs,
                          const void* state, const void* ep_step,
                          const void* ep_ret, const void* u,
-                         const void* nstate, int E, int TE, float eps,
+                         const void* nstate, int E, int TE, const void* eps,
                          int max_len, void* fields, void* obs_out,
                          void* state_out, void* ep_step_out,
                          void* ep_ret_out, void* nstate_out, void* partials,
@@ -737,7 +742,8 @@ static int fc_rnn_launch(const NetDesc* d, const TensorPtrs& P, int kind,
   fc_rnn_kernel<ENV><<<blocks, FC_THREADS, smem, (cudaStream_t)stream>>>(
       *d, P, kind, H, (const float*)wi, (const float*)wh, (const float*)bc, g,
       (const float*)obs, (const float*)state, (const int*)ep_step,
-      (const float*)ep_ret, (const float*)u, (const float*)nstate, E, TE, eps,
+      (const float*)ep_ret, (const float*)u, (const float*)nstate, E, TE,
+      (const float*)eps,
       max_len, (float*)fields, (float*)obs_out, (float*)state_out,
       (int*)ep_step_out, (float*)ep_ret_out, (float*)nstate_out,
       (float*)partials);
@@ -750,7 +756,8 @@ DQ_API int dq_fused_collect_rnn(const NetDesc* d, const int64_t* p_ptrs,
                                 const EnvDesc* env, const void* obs,
                                 const void* state, const void* ep_step,
                                 const void* ep_ret, const void* u,
-                                const void* nstate, int E, int TE, float eps,
+                                const void* nstate, int E, int TE,
+                                const void* eps,
                                 int max_len, void* fields, void* obs_out,
                                 void* state_out, void* ep_step_out,
                                 void* ep_ret_out, void* nstate_out,

@@ -20,3 +20,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available: the port runs on the card unless "
             "the caller asks for the CPU; pass device=\"cpu\" to run there")
     return torch.device("cuda")
+
+
+def counter(value: int, device) -> torch.Tensor:
+    """A 0-d int64 counter on ``device`` (the carry's step counts, insert
+    position, fill size), made by a fill kernel, not a host copy."""
+    return torch.full((), int(value), dtype=torch.int64, device=device)

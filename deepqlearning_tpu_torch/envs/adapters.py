@@ -12,7 +12,9 @@ by the arity of ``initial_state``:
   the batched methods vmap those (``envs/base.py``);
 * batched (``initial_state(num, generator)``, two): every state, action and
   observation carries a leading batch axis ``[E, ...]``; the per-instance
-  methods are the batched ones at one row.
+  methods are the batched ones at one row. On the card ``solve`` captures
+  a batched problem's functions into a CUDA graph and replays it, so they
+  must be pure device code, as ``envs/base.py`` states for batched envs.
 
 A FunctionalMDP provides
   * ``initial_state(generator) -> state`` (a tensor, or a pytree of them)

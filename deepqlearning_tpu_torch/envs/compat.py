@@ -197,7 +197,9 @@ def solve_host(solver, env: HostEnv):
                                          res.replay_state)
             loss_val, grad_val = float(res.loss), float(res.grad_norm)
         if t % cfg.target_update_freq == 0:
-            target_params = sync_target(params, target_params, True)
+            target_params = sync_target(
+                params, target_params,
+                torch.ones((), dtype=torch.bool, device=device))
         if t % cfg.eval_freq == 0:
             eval_next = True
         if t % cfg.save_freq == 0:

@@ -42,11 +42,20 @@ class TestMDP(Env):
         self._images = torch.from_numpy(
             np.stack([bad, normal, good]).astype(np.float32) / 255.0)
         self._rewards = torch.tensor([-0.1, 0.0, 0.1])
+        self._on_device = {}
+
+    def _tables(self, device):
+        """(images, rewards) on ``device``, copied there once: a copy from
+        the host on every step could not be captured in a CUDA graph."""
+        if device not in self._on_device:
+            self._on_device[device] = (self._images.to(device),
+                                       self._rewards.to(device))
+        return self._on_device[device]
 
     def observe_batch(self, state: torch.Tensor) -> torch.Tensor:
         """``state [E, 5]`` -> ``obs [E, *shape, o_stack]``."""
         recent = state[:, _HIST - self.o_stack:_HIST].flip(1).long()
-        frames = self._images.to(state.device)[recent]  # [E, o, *shape]
+        frames = self._tables(state.device)[0][recent]  # [E, o, *shape]
         return torch.movedim(frames, 1, -1)
 
     def reset_batch(self, num: int, generator: torch.Generator):
@@ -61,7 +70,7 @@ class TestMDP(Env):
         action = action.to(torch.int32)
         new = torch.where(action < 3, action, prev)
         t_new = t + 1
-        r = self._rewards.to(state.device)[new.long()]
+        r = self._tables(state.device)[1][new.long()]
         r = torch.where(prev == 1, r * -10.0, r)
         new_state = torch.cat([hist[:, 1:], new[:, None], t_new[:, None]],
                               dim=1)

@@ -5,7 +5,10 @@ A collect step is ``step((actor, replay, params), generator=None, u=None)
 -> (actor, replay, params)``: ε-greedy act → env step → replay insert →
 episode bookkeeping, for all E envs at once. Episode-completion aggregates
 go into small rings for the recent-average log metric. The rings, the
-episode counter and the replay are updated IN PLACE. A recurrent network's
+episode counter and the replay are updated IN PLACE. The step counters
+``tick`` and ``t`` are 0-d int64 tensors on the envs' device, advanced by
+tensor arithmetic (``ActorState.tick`` / ``t`` of the JAX package are
+device int32), so a step reads nothing back to the host. A recurrent network's
 state (``net_state``, one entry per layer as ``init_state`` gives it) is
 carried from step to step and zeroed where an episode ended.
 """
@@ -15,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import counter
 from ..envs.base import auto_reset
 from ..replay.transition import TransitionBatch
 
@@ -32,8 +36,8 @@ class ActorState(NamedTuple):
     ep_count: torch.Tensor   # int32 scalar — completed episodes
     step_ring: torch.Tensor  # [RETURN_RING] f32 — per-step ended lengths
     cnt_ring: torch.Tensor   # [RETURN_RING] f32 — per-step ended counts
-    tick: int                # lockstep step index mod RETURN_RING
-    t: int                   # aggregate env steps so far (saturating)
+    tick: torch.Tensor       # int64 scalar — lockstep step index mod RETURN_RING
+    t: torch.Tensor          # int64 scalar — aggregate env steps (saturating)
 
 
 def init_actor(env, network, num_envs: int, generator: torch.Generator,
@@ -51,7 +55,7 @@ def init_actor(env, network, num_envs: int, generator: torch.Generator,
         ep_count=torch.zeros((), dtype=torch.int32, device=device),
         step_ring=torch.zeros(RETURN_RING, **f32),
         cnt_ring=torch.zeros(RETURN_RING, **f32),
-        tick=0, t=0,
+        tick=counter(0, device), t=counter(0, device),
     )
 
 
@@ -64,16 +68,17 @@ def zero_ended(net_state, ended: torch.Tensor):
 
 def _advance(actor: ActorState, env_state, obs, ep_step, ep_ret, totals,
              net_state=()):
-    """Write this step's completion aggregates into the rings (in place)
-    and advance the counters."""
-    actor.ret_ring[actor.tick] = totals[0]
-    actor.step_ring[actor.tick] = totals[1]
-    actor.cnt_ring[actor.tick] = totals[2]
+    """Write this step's completion aggregates into the rings at the
+    device index ``tick`` (in place) and advance the counters."""
+    slot = actor.tick.reshape(1)
+    for ring, k in ((actor.ret_ring, 0), (actor.step_ring, 1),
+                    (actor.cnt_ring, 2)):
+        ring.index_copy_(0, slot, totals[k:k + 1].to(ring.dtype))
     actor.ep_count.add_(totals[2].to(torch.int32))
     return actor._replace(
         env_state=env_state, obs=obs, net_state=net_state, ep_step=ep_step,
         ep_ret=ep_ret, tick=(actor.tick + 1) % RETURN_RING,
-        t=min(actor.t + obs.shape[0], T_MAX),
+        t=torch.clamp(actor.t + obs.shape[0], max=T_MAX),
     )
 
 

@@ -40,6 +40,13 @@ collect, the grouped feed-forward step still with K1 on f32 casts of its Q
 values, and ``fused_updates=True`` or ``fused_collect=True`` with it
 raises ``ValueError`` (the JAX package falls back with a warning).
 
+The carry's counters (the actor's ``tick`` and ``t``, the replay's
+``insert_pos`` and ``size``, ``sync_acc``, ``iters``) are 0-d int64
+tensors on the loop's device and ε is computed from the device ``t``, so
+an iteration reads nothing back to the host: ``learner/segment.py``
+captures one as a CUDA graph, the counterpart of the JAX package's
+``jax.jit(lax.scan(iteration))``.
+
 The random state is one ``torch.Generator`` on the loop's device, in the
 carry. Every draw can be replaced by injected uniforms: ``iteration(carry,
 collect_u=[u [2 + ns + nr, E] per collect step (the collect plan's
@@ -54,7 +61,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..config import DQNConfig
-from ..device import resolve_device
+from ..device import counter, resolve_device
+from ..solver.exploration import ConstantEpsilon
 from .actor import ActorState, init_actor, make_collect_step
 from .train_step import (
     check_axis,
@@ -79,10 +87,11 @@ class LoopCarry(NamedTuple):
     generator: torch.Generator
     loss: torch.Tensor
     gnorm: torch.Tensor
-    # env steps accumulated since the last hard target sync
-    sync_acc: int = 0
-    # iterations run on this carry (local-SGD counts its period by it)
-    iters: int = 0
+    # env steps accumulated since the last hard target sync (int64 scalar)
+    sync_acc: torch.Tensor
+    # iterations run on this carry (int64 scalar; local-SGD counts its
+    # period by it)
+    iters: torch.Tensor
 
 
 def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
@@ -174,14 +183,15 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
         collect_step = make_fused_collect_step(
             env, network, cfg.max_episode_length, eps_fn, insert_fn, cplan)
         populate_step = make_fused_collect_step(
-            env, network, cfg.max_episode_length, lambda t: 1.0, insert_fn,
-            cplan)
+            env, network, cfg.max_episode_length, ConstantEpsilon(1.0),
+            insert_fn, cplan)
     else:
         collect_step = make_collect_step(
             env, network, cfg.max_episode_length, eps_fn, insert_fn,
             select_fn=select_fn)
         populate_step = make_collect_step(
-            env, network, cfg.max_episode_length, lambda t: 1.0, insert_fn)
+            env, network, cfg.max_episode_length, ConstantEpsilon(1.0),
+            insert_fn)
     tuf = cfg.target_update_freq
     n_calls = cfg.updates_per_iter // U
 
@@ -205,8 +215,9 @@ def build_loop(env, network, buffer, cfg: DQNConfig, eps_fn, gamma: float,
             loss, gnorm = res.loss, res.grad_norm
         sync_acc = carry.sync_acc + cfg.env_steps_per_iter
         do_sync = sync_acc >= tuf
-        if do_sync:
-            sync_acc %= tuf
+        # a count below tuf is its own remainder, so this is the JAX
+        # package's where(do_sync, sync_acc % tuf, sync_acc)
+        sync_acc = sync_acc % tuf
         target_params = sync_target(params, carry.target_params, do_sync)
         return LoopCarry(actor, replay, params, target_params, opt_state,
                          gen, loss, gnorm, sync_acc, carry.iters + 1)
@@ -260,5 +271,6 @@ def init_carry(env, network, buffer, cfg: DQNConfig, optimizer,
         replay=buffer.init(), params=params,
         target_params={k: p.clone() for k, p in params.items()},
         opt_state=optimizer.init(params), generator=gen,
-        loss=zero, gnorm=zero.clone(), sync_acc=0, iters=0,
+        loss=zero, gnorm=zero.clone(), sync_acc=counter(0, device),
+        iters=counter(0, device),
     )

@@ -538,9 +538,20 @@ def make_fused_dp_drqn_train_step(network, buffer, gamma: float,
 
 
 @torch.no_grad()
-def sync_target(params, target_params, do_sync: bool):
-    """Hard target copy, in place, when ``do_sync``."""
-    if do_sync:
-        for k, t in target_params.items():
-            t.copy_(params[k])
+def sync_target(params, target_params, do_sync):
+    """Hard target copy, in place, where ``do_sync`` (a 0-d bool tensor on
+    the parameters' device) holds: a select, as the JAX ``sync_target`` is
+    a ``jnp.where``, so the decision stays on the device. The select runs
+    once over all the parameters of a dtype laid end to end (a kernel per
+    parameter would cost a graph replay more than the copy)."""
+    by_dtype = {}
+    for k, t in target_params.items():
+        by_dtype.setdefault(t.dtype, []).append(k)
+    for keys in by_dtype.values():
+        ts = [target_params[k] for k in keys]
+        flat = torch.where(do_sync,
+                           torch.cat([params[k].reshape(-1) for k in keys]),
+                           torch.cat([t.reshape(-1) for t in ts]))
+        parts = flat.split([t.numel() for t in ts])
+        torch._foreach_copy_(ts, [x.view_as(t) for x, t in zip(parts, ts)])
     return target_params

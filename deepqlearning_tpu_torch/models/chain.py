@@ -16,8 +16,9 @@ the activation in f32, and casts the result to the input's dtype; an f32
 input against bf16 weights computes in f32. A bf16 Conv2D keeps its output
 in bf16 before the bias, as the JAX layer does
 (``preferred_element_type=None``). For f32 operands every cast is the
-identity, and an f32 convolution runs without TF32 on the card
-(:class:`_ConvNoTF32`), whatever the global flag says.
+identity, and an f32 convolution runs without TF32 on the card, and
+every convolution with cuDNN's deterministic algorithms
+(:class:`_ConvNoTF32`), whatever the global flags say.
 
 The modules own their parameters (created on ``device``), and the learner
 works functionally on a dict of tensors ``{name: tensor}`` keyed like
@@ -197,33 +198,39 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def _cudnn_exact():
+    """cuDNN without TF32 and with deterministic algorithms only."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic = prev
 
 
 class _ConvNoTF32(torch.autograd.Function):
     """``conv2d`` of NCHW ``x`` and OIHW ``w`` (cuDNN on the card), in the
     operands' dtype, whose forward and backward both run with cuDNN's TF32
-    off (the backward runs outside the forward's context): an f32
-    convolution stays f32 whatever the global flag says."""
+    off and its deterministic algorithms only (the backward runs outside
+    the forward's context): an f32 convolution stays f32 whatever the
+    global flag says, and every run gives the same bits, as XLA's
+    convolutions do (an f32 weight gradient at batch 1024 otherwise takes
+    an algorithm whose sums vary from run to run, which the CUDA graph's
+    replay check of ``learner/segment.py`` refuses)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding)
-        with _no_tf32():
+        with _cudnn_exact():
             return F.conv2d(x, w, None, stride, padding)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         stride, padding = ctx.conf
-        with _no_tf32():
+        with _cudnn_exact():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, list(stride), list(padding), [1, 1], False,
                 [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],

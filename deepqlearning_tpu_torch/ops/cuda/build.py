@@ -198,10 +198,10 @@ def library() -> ctypes.CDLL:
                             I, P],
         "dq_fused_update_max_grid": [NP, ctypes.POINTER(ctypes.c_int)],
         "dq_fused_collect": [NP, I64P, ctypes.POINTER(EnvDesc), P, P, P,
-                             P, P, I, I, F, I, P, P, P, P, P, P, P],
+                             P, P, I, I, P, I, P, P, P, P, P, P, P],
         "dq_fused_collect_rnn": [NP, I64P, I, I, I, P, P, P,
                                  ctypes.POINTER(EnvDesc), P, P, P, P, P, P,
-                                 I, I, F, I, P, P, P, P, P, P, P, P],
+                                 I, I, P, I, P, P, P, P, P, P, P, P],
         "dq_fused_drqn": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I,
                           I, P, P, P, P, P, P, P, F, I, F, F, F, F, P, P, P,
                           P, P, P, I, P],

@@ -11,6 +11,9 @@ episode accumulators. Transition fields come out in replay-row order
 ``[E, 2·no + 4]`` = (obs, obs', action, reward, done, ended); the per-tile
 (Σ ret·ended, Σ len·ended, Σ ended) partials are summed by plain torch.
 
+ε comes in as a 0-d f32 tensor on the device (the actor's schedule of its
+device step count), which the kernels read through a pointer, as the JAX
+kernel takes ε as an array: a captured launch then follows the counter.
 Uniforms come in as ``u [2 + ns + nr, E]`` (``CollectPlan.n_uniforms``) —
 rows: explore, random action, the env's ``ns`` step uniforms, its ``nr``
 reset uniforms — the layout of the JAX kernel's host uniforms: 6 rows for
@@ -254,7 +257,7 @@ def collect_plan_for(env, network, buffer) -> Optional[CollectPlan]:
 
 
 def _collect_rest(env, plan: CollectPlan, q, nstate, *, obs, state,
-                  ep_step, ep_ret, u, eps: float, max_episode_length: int,
+                  ep_step, ep_ret, u, eps, max_episode_length: int,
                   tile=None):
     """Everything after Q(s): epsilon-greedy, the env step and its
     bookkeeping, and (``nstate`` given) the new state rows zeroed where the
@@ -286,7 +289,7 @@ def _collect_rest(env, plan: CollectPlan, q, nstate, *, obs, state,
 
 
 def fused_collect_plain(env, plan: CollectPlan, params, *, obs, state,
-                        ep_step, ep_ret, u, eps: float,
+                        ep_step, ep_ret, u, eps,
                         max_episode_length: int, nstate=None):
     """Plain PyTorch version; same contract as :func:`fused_collect`."""
     x = obs.reshape(obs.shape[0], -1)
@@ -312,7 +315,7 @@ def _ordered_matmul(x, w):
 
 
 def fused_collect_rnn_tiled(env, plan: CollectPlan, params, *, obs, state,
-                            ep_step, ep_ret, u, eps: float,
+                            ep_step, ep_ret, u, eps,
                             max_episode_length: int, nstate):
     """Plain reference of K6 in its order: each gate sum over the rows x
     then h in ascending order (the GRU's n gate as x . W_in and h . W_hn
@@ -364,17 +367,19 @@ def fused_collect_rnn_tiled(env, plan: CollectPlan, params, *, obs, state,
 
 
 def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
-                       ep_step, ep_ret, u, eps: float,
+                       ep_step, ep_ret, u, eps,
                        max_episode_length: int):
-    """Launch K4 (``ceil(E / plan.tile)`` blocks) on the current stream."""
+    """Launch K4 (``ceil(E / plan.tile)`` blocks) on the current stream;
+    the kernel reads ε from ``eps``'s device memory."""
     E = obs.shape[0]
     obs = obs.reshape(E, -1).float().contiguous()
     state = state.float().contiguous()
     ep_step = ep_step.to(torch.int32).contiguous()
     ep_ret = ep_ret.float().contiguous()
     u = u[:plan.n_uniforms].float().contiguous()
+    eps = eps_tensor(eps, obs.device)
     tensors = [params[n] for n in plan.net.names]
-    build.require_cuda(obs, state, ep_step, ep_ret, u, *tensors)
+    build.require_cuda(obs, state, ep_step, ep_ret, u, eps, *tensors)
     build.require_plan_params(plan.net, tensors)
     build.require_shape(obs, (E, plan.no), "obs")
     build.require_shape(state, (E, plan.W), "state")
@@ -390,8 +395,7 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
         plan.net.desc(), build.int64_array([t.data_ptr() for t in tensors]),
         env_desc(env), obs.data_ptr(), state.data_ptr(),
         ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(), E, plan.tile,
-        float(eps),
-        int(max_episode_length), fields.data_ptr(), obs_out.data_ptr(),
+        eps.data_ptr(), int(max_episode_length), fields.data_ptr(), obs_out.data_ptr(),
         state_out.data_ptr(), ep_step_out.data_ptr(), ep_ret_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))
     build.check(err, "fused_collect")
@@ -404,9 +408,10 @@ fused_collect_cuda.launches = 0
 
 
 def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
-                           ep_step, ep_ret, u, eps: float,
+                           ep_step, ep_ret, u, eps,
                            max_episode_length: int, nstate):
-    """Launch K6 (``ceil(E / plan.tile)`` blocks) on the current stream."""
+    """Launch K6 (``ceil(E / plan.tile)`` blocks) on the current stream;
+    the kernel reads ε from ``eps``'s device memory."""
     E = obs.shape[0]
     obs = obs.reshape(E, -1).float().contiguous()
     state = state.float().contiguous()
@@ -414,10 +419,11 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
     ep_ret = ep_ret.float().contiguous()
     u = u[:plan.n_uniforms].float().contiguous()
     nstate = nstate.float().contiguous()
+    eps = eps_tensor(eps, obs.device)
     tensors = [params[n] for n in plan.net.names]
     wi, wh, b = (params[n] for n in plan.cell.names)
-    build.require_cuda(obs, state, ep_step, ep_ret, u, nstate, wi, wh, b,
-                       *tensors)
+    build.require_cuda(obs, state, ep_step, ep_ret, u, nstate, eps, wi, wh,
+                       b, *tensors)
     build.require_plan_params(plan.net, tensors)
     cp = plan.cell
     g = cp.n_gates * cp.hidden
@@ -442,7 +448,8 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
         wh.data_ptr(), b.data_ptr(), env_desc(env), obs.data_ptr(),
         state.data_ptr(),
         ep_step.data_ptr(), ep_ret.data_ptr(), u.data_ptr(),
-        nstate.data_ptr(), E, plan.tile, float(eps), int(max_episode_length),
+        nstate.data_ptr(), E, plan.tile, eps.data_ptr(),
+        int(max_episode_length),
         fields.data_ptr(), obs_out.data_ptr(), state_out.data_ptr(),
         ep_step_out.data_ptr(), ep_ret_out.data_ptr(), nstate_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))
@@ -455,14 +462,29 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
 fused_collect_rnn_cuda.launches = 0
 
 
+def eps_tensor(eps, device) -> torch.Tensor:
+    """ε as the 0-d f32 tensor on ``device`` that the kernels read (K4 and
+    K6 take a device pointer, as the JAX kernel takes an array): a tensor
+    as it is, a Python number made into one by a fill."""
+    if torch.is_tensor(eps):
+        if eps.dim() != 0 or eps.dtype != torch.float32 or \
+                eps.device != torch.device(device):
+            raise ValueError(f"eps must be a 0-d float32 tensor on {device}, "
+                             f"got {tuple(eps.shape)} {eps.dtype} on "
+                             f"{eps.device}")
+        return eps
+    return torch.full((), float(eps), dtype=torch.float32, device=device)
+
+
 def fused_collect(env, plan: CollectPlan, params, *, obs, state, ep_step,
-                  ep_ret, u, eps: float, max_episode_length: int,
+                  ep_ret, u, eps, max_episode_length: int,
                   nstate=None):
     """One collect step over all E envs.
 
     ``obs [E, no]``, ``state [E, W]`` (the env's batched state), ``ep_step
     [E]`` int32, ``ep_ret [E]`` f32, ``u [plan.n_uniforms, E]`` uniforms,
-    ``eps`` float; a recurrent plan also takes the cell's state rows
+    ``eps`` a 0-d f32 tensor on obs' device (a Python number is made into
+    one, :func:`eps_tensor`); a recurrent plan also takes the cell's state rows
     ``nstate [E, S]`` (h;c for LSTM, h for GRU). Returns ``(fields [E,
     2no+4], obs' [E, no], state' [E, W], ep_step' [E] int32, ep_ret' [E],
     totals [3])`` with totals = (ended return sum, ended length sum, ended
@@ -476,7 +498,8 @@ def fused_collect(env, plan: CollectPlan, params, *, obs, state, ep_step,
     if state.shape[0] != E or ep_step.shape[0] != E or ep_ret.shape[0] != E:
         raise ValueError("obs, state, ep_step and ep_ret must share E")
     kw = dict(obs=obs, state=state, ep_step=ep_step, ep_ret=ep_ret, u=u,
-              eps=eps, max_episode_length=max_episode_length)
+              eps=eps_tensor(eps, obs.device),
+              max_episode_length=max_episode_length)
     if plan.cell is not None:
         if nstate is None or tuple(nstate.shape) != (E, plan.state_width):
             raise ValueError(f"a recurrent plan needs nstate [E={E}, "

@@ -342,14 +342,14 @@ def _group_update(grads_fn, plan: DRQNPlan, params, m, v, count, obs, nobs,
     the last sub-update's loss and gnorm."""
     B, U = batch_size, n_updates
     loss = gnorm = None
-    t0 = int(count)
+    t0 = count.to(torch.int64)
     for u in range(U):
         sl = slice(u * B, (u + 1) * B)
         flat, loss, gnorm = grads_fn(
             plan, params, obs[sl], nobs[sl], action[sl], reward[sl],
             done[sl], mask[sl], q_sp_tgt[sl], gamma=gamma, double_q=double_q)
         adam_plain(plan.names, params, m, v,
-                   unflatten(flat, params, plan.names), t0 + u + 1, lr, b1,
+                   unflatten(flat, params, plan.names), t0 + (u + 1), lr, b1,
                    b2, adam_eps)
     count.add_(U)
     return loss, gnorm

@@ -304,9 +304,13 @@ def _fwd_bwd(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
     return grads, td, prio, loss
 
 
-def adam_plain(names, params, m, v, grads, t: int, lr, b1, b2, adam_eps):
-    """Adam with bias correction at step ``t``, in place on ``params``,
+def adam_plain(names, params, m, v, grads, t, lr, b1, b2, adam_eps):
+    """Adam with bias correction at step ``t`` (an int, or a 0-d int tensor
+    on the parameters' device: the corrections are then computed there in
+    f64, as the host computes them for an int), in place on ``params``,
     ``m`` and ``v`` for each key of ``names``."""
+    if torch.is_tensor(t):
+        t = t.to(torch.float64)
     c1 = 1.0 / (1.0 - b1 ** t)
     c2 = 1.0 / (1.0 - b2 ** t)
     for name in names:
@@ -325,7 +329,7 @@ def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
     B, U = batch_size, n_updates
     tds, prios = [], []
     loss = gnorm = None
-    t0 = int(count)
+    t0 = count.to(torch.int64)
     for u in range(U):
         sl = slice(u * B, (u + 1) * B)
         grads, td, prio, loss = _fwd_bwd(
@@ -335,7 +339,7 @@ def fused_group_update_plain(plan: FusedPlan, params, m, v, count, obs, nobs,
         tds.append(td)
         prios.append(prio)
         gnorm = torch.stack([g.abs().max() for g in grads.values()]).max()
-        adam_plain(plan.names, params, m, v, grads, t0 + u + 1, lr, b1, b2,
+        adam_plain(plan.names, params, m, v, grads, t0 + (u + 1), lr, b1, b2,
                    adam_eps)
     count.add_(U)
     return torch.stack(tds), torch.stack(prios), loss, gnorm
@@ -352,7 +356,7 @@ def fused_group_update_tiled(plan: FusedPlan, params, m, v, count, obs,
     B, U = batch_size, n_updates
     tds, prios = [], []
     loss = gnorm = None
-    t0 = int(count)
+    t0 = count.to(torch.int64)
     for u in range(U):
         sl = slice(u * B, (u + 1) * B)
         parts, td, prio, loss = _fwd_bwd(
@@ -367,7 +371,7 @@ def fused_group_update_tiled(plan: FusedPlan, params, m, v, count, obs,
         gnorm = flat.abs().max()
         adam_plain(plan.names, params, m, v, unflatten(flat, params,
                                                        plan.names),
-                   t0 + u + 1, lr, b1, b2, adam_eps)
+                   t0 + (u + 1), lr, b1, b2, adam_eps)
     count.add_(U)
     return torch.stack(tds), torch.stack(prios), loss, gnorm
 
@@ -579,7 +583,7 @@ def adam_flat_plain(names, params, m, v, count, flat, *, u, lr, b1=0.9,
     ``names`` order, in place; returns the gradient's max-abs entry.
     ``count`` is not advanced."""
     adam_plain(names, params, m, v, unflatten(flat, params, names),
-               int(count) + u + 1, lr, b1, b2, adam_eps)
+               count.to(torch.int64) + (u + 1), lr, b1, b2, adam_eps)
     return flat.abs().max()
 
 

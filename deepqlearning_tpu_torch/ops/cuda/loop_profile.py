@@ -12,7 +12,8 @@ U = 1 that ``chip_smoke.py`` phases 11 (a) and 14 drive (SimpleGridWorld,
 slots, batch 512, double-Q, a target sync every 8 iterations). Either goes
 through ``build_loop``, is populated, runs 3 warm-up iterations, N
 (default 10) each timed on the host from an idle queue (the enqueue), and
-N under ``torch.profiler`` (CUDA events and kernels). Prints the card,
+N under ``torch.profiler`` (CUDA events and kernels) after one more that
+primes the session (:func:`traced`). Prints the card,
 then one JSON line: host enqueue, device ms, launches and the busy share
 per iteration, the port's kernels and the rest (ATen's kernels, copies,
 fills) with their launches and device ms per iteration, and every device
@@ -112,32 +113,67 @@ def enqueue_ms(torch, it, c, n):
     return c, 1e3 * total / n
 
 
-def device_profile(torch, it, c, n):
-    """``n`` iterations of any loop's ``it`` under ``torch.profiler``:
-    ``(carry, summary)`` with device ms, launches and busy share per
-    iteration, ``by_kernel``: ``{port kernel symbol or "other": [launches,
-    device ms] per iteration}`` (other: ATen's kernels, copies, fills), and
-    ``by_name``: the same for every event name, most launches first. Only
-    the device's own events count (kernels, copies, fills): an ATen op's or
-    a runtime call's device time is that of the kernels it launched, which
-    are counted already."""
+PAUSE = "loop_profile pause"
+
+
+def traced(torch, prime, fn):
+    """``(fn(), [device events], wall s of fn)``: ``prime()``, a marked
+    pause of 20 ms and ``fn()`` in one ``torch.profiler`` session, and the
+    device's events (kernels, copies, fills) that start after the pause.
+    The profiler can lose the first records of a CUDA graph's first launch
+    in a session: the head of that replay, which grows the longer the
+    process has replayed graphs (on an H100 it has reached past the first
+    three port kernels of a 1370-node replay). It lost none of a graph's
+    later launches in a session, so ``prime()`` launches each graph that
+    ``fn()`` replays once and only what follows counts."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        prime()
+        torch.cuda.synchronize()
+        with record_function(PAUSE):
+            time.sleep(0.02)
         t0 = time.perf_counter()
-        for _ in range(n):
-            c = it(c)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.events()
+    pause = next(e for e in events if e.name == PAUSE)
+    cut = 0.5 * (pause.time_range.start + pause.time_range.end)
+    return out, [e for e in events if e.device_type == DeviceType.CUDA
+                 and e.time_range.start >= cut], wall
+
+
+def device_profile(torch, it, c, n):
+    """``n`` iterations of any loop's ``it`` under ``torch.profiler``,
+    after one that primes the session (:func:`traced`): ``(carry,
+    summary)`` with device ms, launches and busy share per iteration,
+    ``by_kernel``: ``{port kernel symbol or "other": [launches, device ms]
+    per iteration}`` (other: ATen's kernels, copies, fills), and
+    ``by_name``: the same for every event name, most launches first. Only
+    the device's own events count (kernels, copies, fills): an ATen op's or
+    a runtime call's device time is that of the kernels it launched, which
+    are counted already. The carry comes back ``n + 1`` iterations on."""
+    box = [c]
+
+    def prime():
+        box[0] = it(box[0])
+
+    def run():
+        x = box[0]
+        for _ in range(n):
+            x = it(x)
+        return x
+
+    c, events, wall = traced(torch, prime, run)
     names = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = names.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
+    for e in events:
+        k = names.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += e.time_range.elapsed_us()
     dev_us = sum(v[1] for v in names.values())
     ours, kernels, other = port_kernels(), {}, [0, 0.0]
     for k, (count, us) in names.items():

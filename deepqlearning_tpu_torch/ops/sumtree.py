@@ -75,11 +75,22 @@ def set_priorities(tree: Tree, indices: torch.Tensor,
     return rebuild(tree)
 
 
-def set_priorities_slice(tree: Tree, start: int,
+def set_priorities_slice(tree: Tree, start,
                          priorities: torch.Tensor) -> Tree:
-    """Set a contiguous run of leaves starting at ``start`` and rebuild,
+    """Set a contiguous run of leaves starting at ``start`` (an int or a
+    0-d int tensor on the tree's device, read on the device) and rebuild,
     in place. Used by the aligned ring insert."""
-    tree[0][start:start + priorities.shape[0]] = priorities.float()
+    n = priorities.shape[0]
+    idx = torch.as_tensor(start, device=tree[0].device) + torch.arange(
+        n, device=tree[0].device)
+    return set_priorities_run(tree, idx, priorities)
+
+
+def set_priorities_run(tree: Tree, indices: torch.Tensor,
+                       priorities: torch.Tensor) -> Tree:
+    """Set the leaves at ``indices``, all distinct (a contiguous run of
+    :func:`set_priorities_slice`), and rebuild, in place."""
+    tree[0].index_copy_(0, indices, priorities.float())
     return rebuild(tree)
 
 

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DQNConfig
+from ..device import counter
 from ..learner.actor import init_actor
 from ..learner.loop import LoopCarry, build_loop
 from ..learner.train_step import pmean_flat
@@ -116,7 +117,8 @@ class DataParallelRunner:
             replay=self.buffer.init(), params=params,
             target_params={k: p.clone() for k, p in params.items()},
             opt_state=self.optimizer.init(params), generator=rank_gen,
-            loss=zero, gnorm=zero.clone(), sync_acc=0, iters=0)
+            loss=zero, gnorm=zero.clone(), sync_acc=counter(0, dev),
+            iters=counter(0, dev))
 
     def run_populate(self, carry: LoopCarry, n_iters: int,
                      collect_u: Optional[Sequence] = None) -> LoopCarry:
@@ -141,7 +143,9 @@ class DataParallelRunner:
             carry = self._iteration(
                 carry, collect_u=None if collect_u is None else collect_u[i],
                 sample_u=None if sample_u is None else sample_u[i])
-            if k > 1 and carry.iters % k == 0:
+            # the data-parallel route runs eagerly: the period is read
+            # from the device counter
+            if k > 1 and int(carry.iters) % k == 0:
                 self._average_across_dcn(carry)
         return carry
 

@@ -22,9 +22,12 @@ Counterpart of ``deepqlearning_tpu.replay.prioritized``:
   sampler; a draw that lands on an unfilled slot gets IS weight 0.
 
 The rows and the sum-tree levels are updated IN PLACE; ``insert`` and
-``update_priorities`` return a ``ReplayState`` over the same tensors, with
-the insert position and fill size as Python ints (they advance by a fixed
-batch size, so the host knows them without reading the device).
+``update_priorities`` return a ``ReplayState`` over the same tensors. The
+insert position and the fill size are 0-d int64 tensors on the buffer's
+device, advanced by tensor arithmetic as the JAX package advances its
+device int32s: an insert writes the rows ``pos + arange(E)`` (the
+counterpart of ``dynamic_update_slice``) and a sample takes ``max(size,
+1)`` as a tensor, so neither reads the device from the host.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import counter, resolve_device
 from ..ops import sumtree
 from .transition import TransitionBatch
 
@@ -63,8 +66,8 @@ def unpack_scalars(sc: torch.Tensor, ratio: int) -> torch.Tensor:
 class ReplayState(NamedTuple):
     rows: torch.Tensor     # [C, 2*no + 4*ratio] obs_dtype
     tree: tuple            # per-level sum-tree tensors (leaves = cap2 >= C)
-    insert_pos: int
-    size: int
+    insert_pos: torch.Tensor  # int64 scalar
+    size: torch.Tensor        # int64 scalar
 
 
 class PrioritizedReplayBuffer:
@@ -107,7 +110,7 @@ class PrioritizedReplayBuffer:
             rows=torch.zeros(self.max_size, 2 * self.no + 4 * self.ratio,
                              dtype=self.obs_dtype, device=self.device),
             tree=sumtree.init_tree(self.max_size, self.device),
-            insert_pos=0, size=0,
+            insert_pos=counter(0, self.device), size=counter(0, self.device),
         )
 
     def _pack(self, batch: TransitionBatch) -> torch.Tensor:
@@ -132,23 +135,24 @@ class PrioritizedReplayBuffer:
 
     def insert(self, state: ReplayState, batch: TransitionBatch
                ) -> ReplayState:
-        """Ring-insert E transitions, in place. When E divides the capacity
-        the write is one contiguous slice; otherwise a scatter with
-        wraparound."""
+        """Ring-insert E transitions at the device position, in place. When
+        E divides the capacity the write is one contiguous run of rows
+        ``pos + arange(E)``; otherwise a scatter with wraparound."""
         E = batch.action.shape[0]
         prio = self._initial_priority(batch.reward.float())
         rows = self._pack(batch)
         pos = state.insert_pos
         if self.max_size % E == 0:
-            state.rows[pos:pos + E] = rows
-            sumtree.set_priorities_slice(state.tree, pos, prio)
+            idx = pos + torch.arange(E, device=rows.device)
+            state.rows.index_copy_(0, idx, rows)
+            sumtree.set_priorities_run(state.tree, idx, prio)
         else:
             idx = (pos + torch.arange(E, device=rows.device)) % self.max_size
             state.rows[idx] = rows[sumtree.last_source(idx, self.max_size)]
             sumtree.set_priorities(state.tree, idx, prio)
         return ReplayState(state.rows, state.tree,
                            (pos + E) % self.max_size,
-                           min(state.size + E, self.max_size))
+                           torch.clamp(state.size + E, max=self.max_size))
 
     def sample(self, state: ReplayState, u=None, generator=None):
         return self.sample_n(state, 1, u=u, generator=generator)
@@ -196,7 +200,7 @@ class PrioritizedReplayBuffer:
         )
         if self.prioritized:
             p = prio / torch.clamp(sumtree.total(state.tree), min=1e-30)
-            n = float(max(state.size, 1))
+            n = torch.clamp(state.size, min=1).to(torch.float32)
             # a stratified draw lands on a zero leaf only in an empty
             # buffer (unit weight: finite); a pass without replacement
             # hands out unfilled slots once the filled ones run out, and

@@ -10,12 +10,14 @@ resume=True)`` continues where the last solve stopped.
 The files are ``torch.save`` archives read with ``torch.load(...,
 weights_only=True)``, where the JAX package writes flax msgpack: a tree of
 dicts, tuples, lists, CPU tensors and host numbers. NamedTuples are stored
-by field name, a ``torch.Generator`` by its state, and the host ints of the
-carry (``ActorState.t`` / ``tick``, the replay's ``insert_pos`` / ``size``
-or ``t``, ``LoopCarry.sync_acc`` / ``iters``) as they are. Loading fills a
+by field name, a ``torch.Generator`` by its state, and the carry's
+counters (``ActorState.t`` / ``tick``, the replay's ``insert_pos`` /
+``size``, ``LoopCarry.sync_acc`` / ``iters``: 0-d device tensors) as
+tensors; the episode replay's host ``t`` as it is. Loading fills a
 template of the same structure: tensors are copied into the template's
-tensors in place (so a parameter dict keeps sharing its module's storage),
-generators take the saved state, host numbers are replaced. A tensor keeps
+tensors in place (so a parameter dict keeps sharing its module's storage,
+and a carry that a CUDA graph replays keeps its buffers), generators take
+the saved state, host numbers are replaced. A tensor keeps
 its dtype (bf16 parameters, moments and replay rows of a bf16 solve); a
 saved dtype other than the template's raises.
 """
@@ -95,8 +97,8 @@ def load_params(logdir: str, params_template):
 
 
 def save_train_state(logdir: str, carry) -> str:
-    """The full resume checkpoint: the carry's tensors, host ints and
-    generator state."""
+    """The full resume checkpoint: the carry's tensors (its counters
+    included), host numbers and generator state."""
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, TRAIN_STATE_NAME)
     torch.save(_pack(carry), path)

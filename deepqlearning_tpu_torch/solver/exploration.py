@@ -1,10 +1,14 @@
 """Exploration strategies (``deepqlearning_tpu.solver.exploration``).
 
-Schedules map an aggregate step count ``t`` (a Python int) to ε, computed
-in float32 as the JAX package does, so both packages compare their uniforms
-against the same ε. A vectorized strategy's ``select(q [E, A], t,
-generator) -> (actions [E], eps)`` takes a ``torch.Generator`` where the JAX
-protocol takes a key.
+Schedules map an aggregate step count ``t`` to ε, computed in float32 as
+the JAX package does, so both packages compare their uniforms against the
+same ε. ``t`` is the actor's device counter, a 0-d int tensor, and ε then
+is a 0-d f32 tensor on its device, made by tensor ops alone (no host read,
+so a CUDA graph can hold it, as ``jax.jit`` holds the JAX schedule); a
+host int ``t`` (the solver's log) gives a Python float. A vectorized
+strategy's ``select(q [E, A], t, generator) -> (actions [E], eps)`` takes a
+``torch.Generator`` where the JAX protocol takes a key, and the device
+``t``.
 """
 from __future__ import annotations
 
@@ -24,9 +28,20 @@ class LinearDecaySchedule:
     stop: float = 0.01
     steps: int = 5000
 
-    def __call__(self, t) -> float:
+    def __call__(self, t):
         f32 = np.float32
-        frac = np.clip(f32(t) / f32(max(self.steps, 1)), f32(0.0), f32(1.0))
+        steps = f32(max(self.steps, 1))
+        if torch.is_tensor(t):
+            # the same f32 operations in the same order; the divisor is a
+            # tensor, since ATen on CUDA multiplies by a Python scalar
+            # divisor's reciprocal
+            frac = torch.clamp(
+                t.to(torch.float32) / torch.full(
+                    (), float(steps), dtype=torch.float32, device=t.device),
+                0.0, 1.0)
+            return float(f32(self.start)) - float(
+                f32(self.start - self.stop)) * frac
+        frac = np.clip(f32(t) / steps, f32(0.0), f32(1.0))
         return float(f32(self.start) - f32(self.start - self.stop) * frac)
 
 
@@ -34,14 +49,18 @@ class LinearDecaySchedule:
 class ConstantEpsilon:
     eps: float = 0.01
 
-    def __call__(self, t) -> float:
+    def __call__(self, t):
+        if torch.is_tensor(t):
+            return torch.full((), float(np.float32(self.eps)),
+                              dtype=torch.float32, device=t.device)
         return float(np.float32(self.eps))
 
 
 def epsilon_greedy_select(eps_fn):
     """``select(q [E, A], t, generator) -> (actions [E] int64, eps)``: a
     uniform random action with probability ε(t), else the first-max greedy
-    action."""
+    action; with a device ``t``, ε is a device tensor and nothing is read
+    back to the host."""
 
     def select(q, t, generator):
         E, A = q.shape
@@ -83,7 +102,10 @@ class VectorizedStrategy:
     ``fn(q [E, A], t, generator) -> (actions [E], eps)``, the counterpart
     of the host path's ``f(policy, env, obs, t, rng) -> (action, eps)``.
     ``schedule`` optionally gives ε(t) for the log; without one ε logs as
-    0."""
+    0. ``t`` is the actor's 0-d device counter. On a route that ``solve``
+    runs as a CUDA graph (``learner/segment.py``) ``fn`` is captured once
+    and replayed, so it must be pure device code: no host read and no
+    host-side state, as ``envs/base.py`` states for batched envs."""
 
     fn: Callable
     schedule: Optional[Callable] = None

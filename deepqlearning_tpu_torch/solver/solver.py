@@ -31,6 +31,14 @@ What differs from the JAX package:
   ``select_fn``.
 * Checkpoints are ``torch.save`` archives (``solver/checkpoint.py``),
   which keep each tensor's dtype.
+* The JAX solver jits ``populate`` and each segment (``lax.scan`` over
+  the iteration); here the routes of ``learner/segment.py::graph_route``
+  (feed-forward, PER, the env's own batched methods, f32 or bf16) run
+  them as replays of one CUDA graph per step on the card, and the others
+  (DRQN, per-instance envs) enqueue every op from Python. A graph that
+  cannot be captured, or whose replay differs from the eager iteration
+  (host-side state in user code), raises; there is no switch back to
+  eager.
 * ``cfg.dtype`` (e.g. ``torch.bfloat16``) reaches the parameters and the
   replay storage, as in the JAX package; the policy and the evaluation
   feed the env's f32 observations to the network, which promotes them.
@@ -45,10 +53,11 @@ import numpy as np
 import torch
 
 from ..config import DQNConfig
-from ..device import resolve_device
+from ..device import counter, resolve_device
 from ..envs.base import Env
 from ..learner.actor import avg_recent, init_actor
-from ..learner.loop import LoopCarry, build_loop, populate
+from ..learner.loop import LoopCarry, build_loop
+from ..learner.segment import make_collect_graph, make_segment
 from ..models.chain import isrecurrent
 from ..models.dueling import create_dueling_network
 from ..replay.episode import EpisodeReplayBuffer
@@ -194,18 +203,26 @@ class DeepQLearningSolver:
         carry = LoopCarry(
             init_actor(env, network, cfg.num_envs, gens["populate"], device),
             buffer.init(), params, {k: p.clone() for k, p in params.items()},
-            optimizer.init(params), gens["populate"], zero, zero.clone())
+            optimizer.init(params), gens["populate"], zero, zero.clone(),
+            counter(0, device), counter(0, device))
         n_pop = -(-cfg.train_start // cfg.num_envs)
         if cfg.recurrence:
             # every env commits an episode before the first sample
             n_pop = max(n_pop, cfg.max_episode_length + 1)
-        carry = populate(populate_step, buffer, carry, n_pop)
+        # the routes of learner/segment.py::graph_route run populate and
+        # every segment as replays of one CUDA graph on the card, the
+        # others eagerly
+        route = (f"solve on {type(env).__name__} "
+                 f"(U={cfg.updates_per_iter}, {cfg.dtype})")
+        carry = make_collect_graph(populate_step, carry, cfg, env, buffer,
+                                   f"{route}, populate")(carry, n_pop)
         carry = carry._replace(
             actor=init_actor(env, network, cfg.num_envs, gens["actor"],
                              device),
             generator=gens["learn"])
         if resume:
             carry = checkpoint.load_train_state(self.logdir, carry)
+        run_segment = make_segment(iteration, carry, cfg, env, buffer, route)
 
         spi = cfg.env_steps_per_iter
         seg_env_steps = max(spi, min(cfg.log_freq, cfg.eval_freq,
@@ -231,8 +248,7 @@ class DeepQLearningSolver:
         while done_iters < total_iters:
             n = min(seg_iters, total_iters - done_iters)
             seg_t0 = time.perf_counter()
-            for _ in range(n):
-                carry = iteration(carry)
+            carry = run_segment(carry, n)
             loss_val = float(carry.loss)  # waits for the segment's work
             seg_s = time.perf_counter() - seg_t0
             done_iters += n

@@ -82,7 +82,9 @@ def _torch_side(jcarry, **kw):
         actor=convert.actor_from_numpy(np_(jcarry.actor)), replay=buf.init(),
         params=params, target_params={k: p.clone() for k, p in params.items()},
         opt_state=opt.init(params), generator=torch.Generator().manual_seed(0),
-        loss=torch.zeros(()), gnorm=torch.zeros(()), sync_acc=0)
+        loss=torch.zeros(()), gnorm=torch.zeros(()),
+        sync_acc=torch.zeros((), dtype=torch.int64),
+        iters=torch.zeros((), dtype=torch.int64))
     return net, cfg, buf, it, pop, carry
 
 

@@ -227,8 +227,8 @@ def test_user_gridworld_loop_matches_builtin():
     out = []
     for env, kw in ((GridWorld(), {}),
                     (dt.SimpleGridWorld(), dict(fused_collect=False))):
-        it, c, cfg = chip_smoke._loop_setup(torch, CPU, *shape, 2, env=env,
-                                            **kw)
+        it, c, cfg, _ = chip_smoke._loop_setup(torch, CPU, *shape, 2,
+                                               env=env, **kw)
         assert cfg.updates_per_iter == 4
         for _ in range(3):
             c = it(c)

@@ -77,7 +77,9 @@ def _torch_side(jcarry):
         actor=convert.actor_from_numpy(np_(jcarry.actor)), replay=buf.init(),
         params=params, target_params={k: p.clone() for k, p in params.items()},
         opt_state=opt.init(params), generator=gen,
-        loss=torch.zeros(()), gnorm=torch.zeros(()), sync_acc=0)
+        loss=torch.zeros(()), gnorm=torch.zeros(()),
+        sync_acc=torch.zeros((), dtype=torch.int64),
+        iters=torch.zeros((), dtype=torch.int64))
     return net, cfg, it, pop, carry
 
 

@@ -68,7 +68,8 @@ def snapshot(carry):
     """The carry's state as numpy arrays."""
     n = lambda t: t.detach().cpu().numpy().copy()
     out = {"loss": n(carry.loss), "gnorm": n(carry.gnorm),
-           "count": int(carry.opt_state.count), "sync_acc": carry.sync_acc,
+           "count": int(carry.opt_state.count),
+           "sync_acc": int(carry.sync_acc),
            "obs": n(carry.actor.obs), "ep_step": n(carry.actor.ep_step)}
     for name, d in (("params", carry.params),
                     ("target", carry.target_params),
@@ -76,7 +77,7 @@ def snapshot(carry):
         out.update({f"{name}/{k}": n(t) for k, t in d.items()})
     r = carry.replay
     if hasattr(r, "rows"):
-        out.update(rows=n(r.rows), leaves=n(r.tree[0]), size=r.size)
+        out.update(rows=n(r.rows), leaves=n(r.tree[0]), size=int(r.size))
     else:
         out.update({k: n(getattr(r, k)) for k in (
             "data", "ep_start", "ep_len", "rec_count", "cur_len")})
@@ -149,7 +150,7 @@ def local_sgd_rank(rank, world):
     for _ in range(2):
         carry = runner.run_segment(carry, 1)
         out.append(_flat(carry.params))
-    return refused, out, carry.iters
+    return refused, out, int(carry.iters)
 
 
 def multihost_rank(rank, world):
