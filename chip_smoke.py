@@ -47,10 +47,12 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    K3 and K4 plans refuse (K1 exactly U times per iteration, K2, the plain
    collect step; K3, K4 and K7 never);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
-   LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), env-steps/s;
-   then MountainCar at the headline's shape (131072 envs, 2^20 PER, batch
-   512, U = 32, dueling 2-64-64-3; episodes cut at 4 steps): K4 on a
-   second env inside a loop;
+   LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), populate and
+   the iterations as graph replays (the wrappers called by the graphs'
+   warm-ups and captures and one eager warm-up only: K6 5, K5 3),
+   env-steps/s; then MountainCar at the headline's shape (131072 envs,
+   2^20 PER, batch 512, U = 32, dueling 2-64-64-3; episodes cut at 4
+   steps): K4 on a second env inside a loop;
 8. DP headline loop: the headline configuration through
    ``DataParallelRunner`` in a one-rank NCCL world (K7, ``pmean_flat``
    and one Adam launch per sub-update), env-steps/s and ms/iteration;
@@ -64,9 +66,10 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     temporary logdir; K1, K2 and K4 at least once per iteration, K3
     never), then ``restore_best_model`` and ``resume=True`` for 5 more
     iterations, which continue the saved counters; (b) the DRQN solve
-    (LSTM(2, 32), dueling, 1024 envs, U = 1; K5 and K6 at least once per
-    iteration); (c) ``tests/test_learning.py::test_prioritized_ddqn``'s
-    configuration on TestMDP, greedy return >= 1.5; (d) the CartPole solve
+    (LSTM(2, 32), dueling, 1024 envs, U = 1, as graph replays: K5's
+    wrapper called 2 times, K6's 4); (c)
+    ``tests/test_learning.py::test_prioritized_ddqn``'s configuration on
+    TestMDP, greedy return >= 1.5; (d) the CartPole solve
     at ``examples/cartpole_dqn.py``'s configuration (256 envs, U = 16,
     batch 256, 2^16 PER, 400,000 steps): K4 (CartPole), K2 and K3 exactly
     once per iteration, K1 never, and a greedy return >= 150 of 200 over
@@ -76,13 +79,17 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     PER, batch 512, U = 4, 400,000 steps, 8 evaluations of 128 episodes)
     through the example's ``main``: K1 exactly U and K2 exactly once per
     iteration, K3, K4 and K7 never, a save and a restore, and a best greedy
-    return >= 1.0 (optimum 2.1);
+    return >= 1.0 (optimum 2.1); (f) ``tests/test_learning.py``'s
+    ``test_testmdp_drqn`` and ``test_gridworld_ddrqn`` configurations
+    (6000 steps each) through ``solve(device=None)``, each greedy return
+    >= 0.0 as those tests ask, with its env-steps/s;
 12. headline profile: the headline loop once more, near the end, with the
     host's enqueue per iteration and, under ``torch.profiler``, the device
     busy share and the kernel launches and device time per iteration (K3
     exactly once: one cooperative launch per grouped call);
-13. DRQN profile: the DRQN loop the same way (K5 exactly once per
-    iteration: one cooperative launch per grouped call of U = 4);
+13. DRQN profile: the DRQN loop's replays the same way (K5 and K6
+    exactly once per replay: one cooperative launch per grouped call of
+    U = 4);
 14. U = 1 profile: ``solve``'s iteration at U = 1 (phase 11 (a)'s
     configuration, as ``ops/cuda/loop_profile.py::u1_loop`` also builds
     it) the same way (K1, K2 and K4 exactly once per iteration);
@@ -105,31 +112,34 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     ``[2, E]`` draw does not line up with them), env-steps/s, ms and host
     enqueue per iteration and a ``step_batch``'s host ms beside the built-in
     env's with ``fused_collect=False``; (b) the per-instance StaticArrayMDP
-    through ``solve(device=None)`` (K1 and K2; greedy return > 1.0); (c)
-    the per-instance MiniPOMDP through a DRQN ``solve`` (K5 once per
-    iteration, K6 never); last, (a)'s two loops profiled as in phase 12.
+    through ``solve(device=None)`` (K1 and K2 once per replay in its
+    trace; greedy return > 1.0); (c) the per-instance MiniPOMDP through a
+    DRQN ``solve`` (K5 once per replay in its trace, K6 never); each as
+    graph replays; last, (a)'s two loops profiled as in phase 12.
 
 19. compiled segment (after 18, before the profiles): the CUDA graph of
     one iteration (``learner/segment.py``) on the headline, U = 1, grouped
-    plain, conv and CartPole routes at full width: 3 replays against 3
-    eager iterations from cloned carries, every tensor and the generator's
-    state bit for bit; the replays draw fresh numbers (they differ from
-    eager iterations that reuse one generator state); K1-K4 launches per
-    replay; ``torch.cuda.memory_allocated`` flat over 100 replays; eager
-    beside graph from an idle queue (medians of 8: host ms and ms per
-    iteration, env-steps/s, busy share and device ms under
+    plain, conv, CartPole, DRQN (K5, K6), DRQN plain (autograd BPTT, the
+    plain recurrent collect), per-instance GridWorld (K2, K3) and
+    per-instance MiniPOMDP DRQN (K5) routes at full width: 3 replays
+    against 3 eager iterations from cloned carries, every tensor and the
+    generator's state bit for bit; the replays draw fresh numbers (they
+    differ from eager iterations that reuse one generator state); K1-K6
+    launches per replay; ``torch.cuda.memory_allocated`` flat over 100
+    replays; eager beside graph from an idle queue (medians of 8: host
+    ms and ms per iteration, env-steps/s, busy share and device ms under
     ``torch.profiler``). Last of all, a ``select_fn`` that reads the
     device from the host (``.item()``) must make ``solve`` raise.
     ``python3 chip_smoke.py --segment-only`` runs phases 1, 2 and 19.
 
-The loops of phases 5-7 and 12-17 (but DRQN's and the DP ones) and the
-solves of 11 (a), (c), (d), (e) run as replays of their CUDA graph, as
-``solve`` runs them; 11 (d) and (e) on seeds 0, 1 and 2, each gated.
+The loops of phases 5-7, 12-18 and the solves of 11 and 18 run as replays
+of their CUDA graphs, as ``solve`` runs them (the DP loops of phases 8 and
+9 eagerly); 11 (d) and (e) on seeds 0, 1 and 2, each gated.
 ``torch.profiler`` can lose the first records of a graph's first launch
 in a session, so each trace that counts a graph's launches either primes
 the session with one launch (``ops/cuda/loop_profile.py::traced``: the
-profiles of 12-17 and 19) or leaves each graph's first launch out (11
-(a)'s resume).
+profiles of 12-18 and 19) or leaves each graph's first launch out (11
+(a)'s resume, 18 (b) and (c)).
 
 Each of the paths 5 to 9 and each part of 11 to 18 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
@@ -1767,22 +1777,28 @@ def phase_drqn_slice(torch, dev):
          f"{frac:.4f}")
 
 
-def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
-    """``scripts/drqn_bench.py``'s configuration through ``build_loop``;
-    with ``profile_iters``, then that many iterations profiled (see
-    ``_profile_iterations``)."""
+def _drqn_setup(torch, dev, num_envs=16384, **cfg_kw):
+    """``(iteration, carry, cfg, (env, buffer))``: ``scripts/
+    drqn_bench.py``'s configuration (SimpleGridWorld, ``Chain(LSTM(2, 32),
+    Dense(32, 4))``, episode replay, batch 512, trace 8, U = 4 at 16384
+    envs) through ``build_loop``, populated as ``solve`` populates it:
+    ``max_episode_length + 1`` steps (every env commits an episode before
+    the first sample) through ``make_collect_graph``, replays of one CUDA
+    graph that end by dropping the open episodes. ``cfg_kw`` go to
+    ``DQNConfig`` (``fused_updates=False, fused_collect=False``: the plain
+    recurrent route)."""
     from deepqlearning_tpu_torch import (
         LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer,
         LinearDecaySchedule, SimpleGridWorld)
-    from deepqlearning_tpu_torch.learner.loop import (
-        build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.learner.loop import build_loop, init_carry
+    from deepqlearning_tpu_torch.learner.segment import make_collect_graph
 
     env = SimpleGridWorld()
     net = Chain(LSTM(2, 32, device=dev), Dense(32, env.num_actions,
                                                device=dev))
     cfg = DQNConfig(num_envs=num_envs, batch_size=512, buffer_size=4096,
                     train_freq=4096, trace_length=8, max_episode_length=100,
-                    recurrence=True, double_q=True)
+                    recurrence=True, double_q=True, **cfg_kw)
     buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size, cfg.batch_size,
                               cfg.trace_length, cfg.max_episode_length,
                               num_envs=num_envs, device=dev)
@@ -1790,14 +1806,34 @@ def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
                               LinearDecaySchedule(1.0, 0.01, 100_000),
                               gamma=env.discount)
     c = init_carry(env, net, buf, cfg, opt, dev)
-    # every env commits an episode before the first sample
-    c = populate(pop, buf, c, cfg.max_episode_length + 1)
-    for _ in range(3):  # warm-up
-        c = it(c)
+    n_pop = cfg.max_episode_length + 1
+    c = make_collect_graph(pop, c, cfg, env, buf,
+                           "chip_smoke DRQN populate")(c, n_pop)
+    _check(not bool(c.replay.cur_len.any()) and int(c.replay.t) == n_pop,
+           "DRQN populate graph: open episodes left or t wrong")
+    return it, c, cfg, (env, buf)
+
+
+def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
+    """:func:`_drqn_setup`'s loop, one eager warm-up iteration and
+    ``n_iters`` timed ones as replays of its CUDA graph (``make_segment``,
+    as ``solve`` runs them); with ``profile_iters``, then that many
+    replays profiled (see ``_profile_iterations``, its last figure
+    replaced by the launches and device ms of one eager env draw of the
+    episode sample, ``EpisodeReplayBuffer._weighted_env``). The
+    wrappers count populate's warm-up and capture (K6), the eager warm-up
+    (K5, K6) and the segment's warm-up and capture (K5, K6): K6 5, K5 3."""
+    from deepqlearning_tpu_torch.learner.segment import (
+        CompiledSegment, make_segment)
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+
+    it, c, cfg, (env, buf) = _drqn_setup(torch, dev, num_envs)
+    c = it(c)  # warm-up
+    run = make_segment(it, c, cfg, env, buf, "chip_smoke DRQN loop")
+    _check(isinstance(run, CompiledSegment), "the DRQN loop is not captured")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_iters):
-        c = it(c)
+    c = run(c, n_iters)
     loss = float(c.loss)  # device -> host read ends the timed region
     dt = time.perf_counter() - t0
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
@@ -1805,13 +1841,32 @@ def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
            "params finite")
     _check(int(c.replay.rec_count.min()) > 0 and int(c.actor.ep_count) > 0,
            "loop progress")
+    _check(int(c.replay.t) == cfg.max_episode_length + 2 + n_iters,
+           f"DRQN loop: the ring's step counter {int(c.replay.t)}")
     _check(all(bool(torch.isfinite(s).all()) for s in c.actor.net_state[0]),
            "LSTM state finite")
     sps = n_iters * cfg.env_steps_per_iter / dt
     if not profile_iters:
         return cfg, sps, loss
-    return (cfg, sps, loss, 1e3 * dt / n_iters,
-            *_profile_iterations(torch, it, c, profile_iters)[1:])
+    c, *prof, _ = _profile_iterations(torch, lambda x: run(x, 1), c,
+                                      profile_iters)
+    # the episode sample's env draw (in proportion to the envs' records):
+    # its launches and device ms per draw of U·B envs, eagerly
+    u = torch.rand(cfg.updates_per_iter * cfg.batch_size, device=dev)
+    tree = device_profile(torch, lambda x: (buf._weighted_env(x.replay, u),
+                                            x)[1], c, 5)[1]
+    return (cfg, sps, loss, 1e3 * dt / n_iters, *prof,
+            (tree["launches"], tree["device_ms"]))
+
+
+def _drqn_calls(counts, name):
+    """The wrapper calls of :func:`_drqn_loop`: K6 5 (populate's warm-up
+    and capture, the eager warm-up, the segment's warm-up and capture), K5
+    3; the replays call none."""
+    _check(counts["fused_collect_rnn"] == 5
+           and counts["fused_drqn_group_update"] == 3,
+           f"{name}: wrapper calls {counts}, not K6 5 and K5 3 (graph "
+           "warm-ups and captures and one eager iteration)")
 
 
 def _profile_iterations(torch, it, c, n):
@@ -1985,6 +2040,46 @@ def _solve_ff(torch, dev, logdir, n_iters, resume=False):
     return solver, policy, n_iters * E / dt
 
 
+def _solve_parts(torch, fn):
+    """``(fn(), {part: seconds})``: ``fn()``, a ``solve``, with the seconds
+    it spends in each part that is not a segment's replays: "capture"
+    (``make_collect_graph`` and ``make_segment``: the warm-ups, captures
+    and guard replays), "populate" (the populate graph's replays),
+    "evaluation" and "save" (the best model and the train state), each
+    call timed from an idle queue to the device's end."""
+    from deepqlearning_tpu_torch.solver import checkpoint
+    from deepqlearning_tpu_torch.solver import solver as sm
+
+    parts = dict.fromkeys(("capture", "populate", "evaluation", "save"), 0.0)
+
+    def timed(key, f):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = [(sm, "make_segment", sm.make_segment),
+             (sm, "make_collect_graph", sm.make_collect_graph),
+             (sm, "evaluation", sm.evaluation),
+             (checkpoint, "save_model", checkpoint.save_model),
+             (checkpoint, "save_train_state", checkpoint.save_train_state)]
+    sm.make_segment = timed("capture", sm.make_segment)
+    sm.make_collect_graph = lambda *a, **kw: timed(
+        "populate", timed("capture", saved[1][2])(*a, **kw))
+    sm.evaluation = timed("evaluation", sm.evaluation)
+    checkpoint.save_model = timed("save", checkpoint.save_model)
+    checkpoint.save_train_state = timed("save", checkpoint.save_train_state)
+    try:
+        return fn(), parts
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+
+
 def _solve_drqn(torch, logdir, n_iters):
     """``solve`` with ``Chain(LSTM(2, 32), Dense(32, 4))``, dueling, episode
     replay (batch 512, trace 8), num_envs = train_freq = 1024 (U = 1)."""
@@ -2038,6 +2133,50 @@ def _solve_learning(torch):
     return r, steps, dt
 
 
+def _solve_learning_drqn(torch, name):
+    """``tests/test_learning.py``'s ``test_testmdp_drqn`` (TestMDP((5, 5),
+    1, 6): partially observable; ``Chain(Flatten(), LSTM(25, 8),
+    Dense(8, 4))``, double-Q, not dueling, trace 10) or
+    ``test_gridworld_ddrqn`` (SimpleGridWorld, ``Chain(Flatten(), LSTM(2,
+    32), Dense(32, 4))``, lr 1e-3, uniform replay, double dueling, trace
+    10; evaluated over 10 steps) on the card: 6000 steps, the tests'
+    solver defaults (``tests/test_torch_learning_drqn.py::solver``), the
+    greedy return of 100 episodes from a generator seeded 7. Returns
+    ``(return, env-steps/s over the whole solve, collect steps per
+    iteration)``; the threshold 0.0 is the test's."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, DeepQLearningSolver, Dense, EpsGreedyPolicy, Flatten,
+        LinearDecaySchedule, SimpleGridWorld, TestMDP, basic_evaluation)
+
+    kw = dict(max_steps=6000, learning_rate=0.005, eval_freq=2000,
+              num_ep_eval=100, log_freq=2000, logdir=None, verbose=False,
+              exploration_policy=EpsGreedyPolicy(
+                  LinearDecaySchedule(1.0, 0.01, 3000)),
+              recurrence=True, trace_length=10, double_q=True)
+    if name == "test_testmdp_drqn":
+        env, eval_steps = TestMDP((5, 5), 1, 6), 100
+        kw.update(qnetwork=Chain(Flatten(), LSTM(25, 8),
+                                 Dense(8, env.num_actions)), dueling=False)
+    else:
+        env, eval_steps = SimpleGridWorld(), 10
+        kw.update(qnetwork=Chain(Flatten(), LSTM(2, 32),
+                                 Dense(32, env.num_actions)),
+                  learning_rate=0.001, prioritized_replay=False,
+                  dueling=True)
+    solver = DeepQLearningSolver(**kw)
+    _check(solver.device is None, f"{name}: runs with device=None")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    policy = solver.solve(env)
+    dt = time.perf_counter() - t0
+    _check(all(p.is_cuda for p in policy.params.values()),
+           f"{name}: params on the card")
+    r, _, _ = basic_evaluation(policy.network, policy.params, env, 100,
+                               eval_steps, 7)
+    _check(r >= 0.0, f"{name} on the card: greedy return {r} < 0.0")
+    return r, 6000 / dt, solver.config.steps_per_iter
+
+
 def phase_solve(torch, dev, card, run_path):
     """``DeepQLearningSolver.solve``, the users' front door, on the card:
     (a) the feed-forward solve, ``restore_best_model`` and a resumed solve
@@ -2048,7 +2187,8 @@ def phase_solve(torch, dev, card, run_path):
     replayed iteration or populate step and eager warm-up, and the same
     device events in every replay of a graph; each graph's first launch,
     the guard's replay, is left out: the profiler can lose its head);
-    (b) the DRQN solve (K5 at U = 1 and K6 at least once per iteration);
+    (b) the DRQN solve (K5 at U = 1 and K6; populate and the segments as
+    graph replays, so the wrappers count warm-ups and captures only);
     (c) a learning threshold of the JAX package's tests."""
     import tempfile
 
@@ -2109,22 +2249,56 @@ def phase_solve(torch, dev, card, run_path):
              f"graph and the segment's | {card} | launches {rs}")
     with tempfile.TemporaryDirectory() as logdir:
         nd = 30
-        (solver, sps_d), rec = run_path(
-            "solve (DRQN)", lambda: _solve_drqn(torch, logdir, nd),
+        ((solver, sps_d), parts), rec = run_path(
+            "solve (DRQN)", lambda: _solve_parts(
+                torch, lambda: _solve_drqn(torch, logdir, nd)),
             ("fused_drqn_group_update", "fused_collect_rnn"))
-        for k in ("fused_drqn_group_update", "fused_collect_rnn"):
-            _check(rec[k] >= nd, f"DRQN solve: {k} launched {rec[k]} times")
+        total = nd * 1024 / sps_d
+        # populate and the segments as graph replays: the wrappers count
+        # populate's warm-up and capture (K6) and the segment's (K5, K6),
+        # where the eager solve counted every step (K6 131, K5 30)
+        _check(rec["fused_drqn_group_update"] == 2
+               and rec["fused_collect_rnn"] == 4,
+               f"DRQN solve: wrapper calls {rec}, not K5 2 and K6 4")
         _say(f"solve (b) DRQN: LSTM(2,32), dueling, episode replay, 1024 "
-             f"envs, U=1, batch 512, trace 8, {nd} iterations: {sps_d:.1f} "
-             f"env-steps/s over the whole solve, eval returns "
-             f"{[round(r, 3) for _, r in solver.metrics['eval']]} | {card} | "
-             f"launches {rec}")
+             f"envs, U=1, batch 512, trace 8, {nd} iterations, populate "
+             f"and the segments as graph replays: {sps_d:.1f} env-steps/s "
+             f"over the whole solve ({total:.4f} s, of which "
+             f"{ {k: round(v, 4) for k, v in parts.items()} } s, the rest "
+             f"the segments' replays and the solve's own host work), eval "
+             f"returns {[round(r, 3) for _, r in solver.metrics['eval']]} "
+             f"| {card} | launches {rec}")
     (r, steps, dt), lrn = run_path(
         "solve (learning)", lambda: _solve_learning(torch),
         ("td_loss", "tree_sample"))
     _say(f"solve (c) learning: test_prioritized_ddqn's config on TestMDP, "
          f"10000 steps in {dt:.2f} s: greedy return {r:.4f} (>= 1.5, "
          f"optimum 2.1), {steps:.2f} steps | {card} | launches {lrn}")
+
+
+def phase_drqn_learning(torch, card, run_path):
+    """11 (f): ``tests/test_learning.py``'s two DRQN learning tests'
+    configurations through ``solve(device=None)``, populate and the
+    segments as graph replays, each held to its test's threshold."""
+    for name, cols in (("test_testmdp_drqn", False),
+                       ("test_gridworld_ddrqn", True)):
+        (r, sps_l, spi), drq = run_path(
+            f"solve (f) {name}", lambda: _solve_learning_drqn(torch, name),
+            ("fused_drqn_group_update",))
+        # graph routes: a wrapper is called by the graphs' warm-ups and
+        # captures only, never once per iteration: K5 by the segment's
+        # (one update per iteration), K6 (SimpleGridWorld; TestMDP has no
+        # cols) by populate's (one collect step) and the segment's (spi
+        # collect steps per iteration)
+        want = {"fused_drqn_group_update": 2,
+                "fused_collect_rnn": 2 + 2 * spi if cols else 0}
+        _check(all(drq[k] == v for k, v in want.items()),
+               f"solve (f) {name}: wrapper calls {drq}, not {want}")
+        _say(f"solve (f) learning: {name}'s configuration (6000 steps, "
+             f"one env, {spi} collect steps and one update per iteration) "
+             f"through solve(device=None) as graph replays: "
+             f"greedy return {r:.4f} (>= 0.0), {sps_l:.1f} env-steps/s over "
+             f"the whole solve | {card} | launches {drq}")
 
 
 # examples/cartpole_dqn.py's configuration (its model: _cartpole_model)
@@ -2523,8 +2697,19 @@ def _pi_headline(torch, dev, env, n_cmp, n_time, n_enq,
     queue, then the env's ``step_batch`` alone, ``n_enq`` times from an idle
     queue. Returns ``(snapshot, cfg, env-steps/s, ms/iteration, median
     host enqueue ms/iteration, median host ms of a step_batch)``; the
-    snapshot holds the env state as ``[E, 3]`` (px, py, terminal)."""
-    it, c, cfg, _ = _loop_setup(torch, dev, *shape, 2, env=env, **cfg_kw)
+    snapshot holds the env state as ``[E, 3]`` (px, py, terminal). The
+    iterations are replays of the loop's CUDA graph (``make_segment``, as
+    ``solve`` runs them): the wrappers count its warm-up and capture."""
+    from deepqlearning_tpu_torch.learner.segment import (
+        CompiledSegment, make_segment)
+
+    it, c, cfg, (_, buf) = _loop_setup(torch, dev, *shape, 2, env=env,
+                                       **cfg_kw)
+    run = make_segment(it, c, cfg, env, buf,
+                       f"chip_smoke {type(env).__name__} headline")
+    _check(isinstance(run, CompiledSegment),
+           f"{type(env).__name__}: the headline loop is not captured")
+    it = lambda x: run(x, 1)
     for _ in range(n_cmp):
         c = it(c)
     st = c.actor.env_state
@@ -2562,7 +2747,7 @@ def _solve_static_mdp(torch, dev, StaticArrayMDP):
     """``tests/test_compat.py::test_functional_mdp_adapter``'s solve of the
     per-instance StaticArrayMDP with ``device=None`` (the card): returns
     the greedy return of 20 episodes of 100 steps (the test's threshold is
-    1.0)."""
+    1.0) and the solve's number of iterations."""
     from deepqlearning_tpu_torch import (
         Chain, DeepQLearningSolver, Dense, EpsGreedyPolicy,
         LinearDecaySchedule, basic_evaluation)
@@ -2574,6 +2759,8 @@ def _solve_static_mdp(torch, dev, StaticArrayMDP):
         buffer_size=256,
         exploration_policy=EpsGreedyPolicy(LinearDecaySchedule(1.0, 0.01, 5)))
     policy = solver.solve(StaticArrayMDP())
+    cfg = solver.config
+    n_iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
     env = policy.problem
     _check(not env.batched and all(p.is_cuda for p in policy.params.values()),
            "StaticArrayMDP solve: a per-instance problem on the card")
@@ -2583,7 +2770,7 @@ def _solve_static_mdp(torch, dev, StaticArrayMDP):
     state, obs = env.reset(torch.Generator(device=dev).manual_seed(0))
     _check(state.is_cuda and policy.action(state) == policy.action(obs),
            "StaticArrayMDP: the policy on a raw state")
-    return r
+    return r, n_iters
 
 
 def _solve_mini_pomdp(torch, MiniPOMDP, n_iters):
@@ -2618,16 +2805,18 @@ def _solve_mini_pomdp(torch, MiniPOMDP, n_iters):
 def phase_per_instance(torch, dev, card, run_path):
     """Envs and problems written one instance at a time (:func:`user_envs`)
     on the card, batched by ``torch.func.vmap``: first vmap with a CUDA
-    generator; then (a) the per-instance GridWorld through ``build_loop`` at
-    the headline's shape (K3 and K2 exactly once per iteration, K4 and K1
-    never: the collect kernel serves no env without cols), its first
-    iterations equal bit for bit to the built-in SimpleGridWorld's plain
-    collect loop from the same seed (or, where one ``[2, E]`` draw does not
-    line up with the vmapped draws, to the built-in dynamics on row-wise
-    draws), both timed; (b) the per-instance StaticArrayMDP through
-    ``solve(device=None)`` (K1 and K2; greedy return > 1.0); (c) the
-    per-instance MiniPOMDP through a DRQN ``solve`` (K5 once per
-    iteration, K6 never)."""
+    generator; then, each as replays of its CUDA graph, (a) the
+    per-instance GridWorld through ``build_loop`` at the headline's shape
+    (K3 and K2 called by the graph's warm-up and capture, K4 and K1 never:
+    the collect kernel serves no env without cols; once per replay in the
+    traces of :func:`phase_per_instance_profile`), its first iterations
+    equal bit for bit to the built-in SimpleGridWorld's plain collect loop
+    from the same seed (or, where one ``[2, E]`` draw does not line up with
+    the vmapped draws, to the built-in dynamics on row-wise draws), both
+    timed; (b) the per-instance StaticArrayMDP through
+    ``solve(device=None)`` (K1 and K2 once per replay in its trace; greedy
+    return > 1.0); (c) the per-instance MiniPOMDP through a DRQN ``solve``
+    (K5 once per replay in its trace, K6 never)."""
     GridWorld, StaticArrayMDP, MiniPOMDP = user_envs()
     E = 131072
     per_row, one_block = _vmap_draws(torch, dev, E)
@@ -2641,7 +2830,6 @@ def phase_per_instance(torch, dev, card, run_path):
     from deepqlearning_tpu_torch import SimpleGridWorld
 
     n_cmp, n_time, n_enq = 2, 10, 8
-    n_it = n_cmp + 1 + n_time + n_enq
     kernels = ("tree_sample", "fused_group_update")
     absent = ("fused_collect", "td_loss")
     ref_env = SimpleGridWorld() if one_block else _row_draw_gridworld(torch)
@@ -2653,10 +2841,13 @@ def phase_per_instance(torch, dev, card, run_path):
         "per-instance GridWorld",
         lambda: _pi_headline(torch, dev, GridWorld(), n_cmp, n_time, n_enq),
         kernels, absent)
+    # graph replays: the wrappers count the segment's warm-up and capture;
+    # the launches per replay are read from the traces of the profiles
+    # (phase_per_instance_profile)
     for name, counts in (("per-instance", pi), ("built-in", built)):
-        _check(counts["fused_group_update"] == counts["tree_sample"] == n_it,
-               f"{name} GridWorld loop: launches {counts}, not K3 = K2 = "
-               f"{n_it} iterations")
+        _check(counts["fused_group_update"] == counts["tree_sample"] == 2,
+               f"{name} GridWorld loop: wrapper calls {counts}, not K3 = "
+               f"K2 = 2 (the graph's warm-up and capture)")
     differ = [k for k in ref if not torch.equal(ref[k], pis[k])]
     _check(not differ, f"per-instance GridWorld vs the built-in env after "
                        f"{n_cmp} iterations: {differ} differ")
@@ -2666,37 +2857,56 @@ def phase_per_instance(torch, dev, card, run_path):
     _say(f"per-instance (a): GridWorld written one instance at a time "
          f"(NamedTuple state, no cols) through build_loop at the headline's "
          f"shape (131072 envs, 2^20 PER, batch 512, U={U}, dueling 2-64-64-4 "
-         f"tanh): {sps_p:.1f} env-steps/s, {ms_p:.4f} ms/iteration, host "
-         f"enqueue {enq_p:.4f} ms/iteration, step_batch {step_p:.4f} ms on "
-         f"the host (medians of {n_enq}, each from an idle queue); the "
-         f"built-in SimpleGridWorld with fused_collect=False in the same "
-         f"call: {sps_b:.1f} env-steps/s, {ms_b:.4f} ms/iteration, enqueue "
-         f"{enq_b:.4f}, step_batch {step_b:.4f}; after "
-         f"{n_cmp} iterations equal bit for bit (params, env state, obs, "
-         f"replay, loss) to the {ref_name} | {card} | launches {pi}")
+         f"tanh), as graph replays: {sps_p:.1f} env-steps/s, {ms_p:.4f} "
+         f"ms/iteration, host enqueue {enq_p:.4f} ms/iteration, step_batch "
+         f"{step_p:.4f} ms on the host (medians of {n_enq}, each from an "
+         f"idle queue); the built-in SimpleGridWorld with "
+         f"fused_collect=False in the same call, as graph replays too: "
+         f"{sps_b:.1f} env-steps/s, {ms_b:.4f} ms/iteration, enqueue "
+         f"{enq_b:.4f}, step_batch {step_b:.4f}; after {n_cmp} iterations "
+         f"equal bit for bit (params, env state, obs, replay, loss) to the "
+         f"{ref_name} | {card} | launches {pi}")
 
-    r, mdp = run_path("per-instance StaticArrayMDP solve",
-                      lambda: _solve_static_mdp(torch, dev, StaticArrayMDP),
-                      ("td_loss", "tree_sample"),
-                      ("fused_group_update", "fused_collect"))
+    # (b) and (c) run under torch.profiler: the trace (each graph's guard
+    # replay left out) sees a kernel in the segment's eager warm-up and in
+    # every replay, and the wrappers count the warm-up and the capture
+    ((r, n_b), seen_b, per_b), mdp = run_path(
+        "per-instance StaticArrayMDP solve",
+        lambda: _graph_launch_trace(
+            torch, lambda: _solve_static_mdp(torch, dev, StaticArrayMDP)),
+        ("td_loss", "tree_sample"), ("fused_group_update", "fused_collect"))
     _check(r > 1.0, f"per-instance StaticArrayMDP: greedy return {r} <= 1.0")
+    _check(mdp["td_loss"] == mdp["tree_sample"] == 2,
+           f"StaticArrayMDP solve: wrapper calls {mdp}")
+    want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1}
+    _check(seen_b == want, f"StaticArrayMDP solve: the trace saw {seen_b}, "
+                           f"not {want}")
     _say(f"per-instance (b): StaticArrayMDP (initial_state(generator)) "
-         f"through solve(device=None), test_compat's configuration: greedy "
-         f"return {r:.4f} (> 1.0) | {card} | launches {mdp}")
+         f"through solve(device=None), test_compat's configuration, as "
+         f"graph replays: greedy return {r:.4f} (> 1.0); the trace saw "
+         f"{seen_b} over {n_b} replays and the warm-up, {per_b} device "
+         f"events per replay (populate, segment) | {card} | launches {mdp}")
 
     n = 30
-    (solver, policy), rec = run_path(
+    ((solver, policy), seen_c, per_c), rec = run_path(
         "per-instance MiniPOMDP DRQN solve",
-        lambda: _solve_mini_pomdp(torch, MiniPOMDP, n),
+        lambda: _graph_launch_trace(
+            torch, lambda: _solve_mini_pomdp(torch, MiniPOMDP, n)),
         ("fused_drqn_group_update",),
         ("fused_collect_rnn", "fused_collect"))
-    _check(rec["fused_drqn_group_update"] == n,
-           f"MiniPOMDP solve: K5 launched {rec['fused_drqn_group_update']} "
-           f"times, not once per iteration ({n})")
+    _check(rec["fused_drqn_group_update"] == 2,
+           f"MiniPOMDP solve: K5's wrapper called "
+           f"{rec['fused_drqn_group_update']} times, not 2 (the graph's "
+           "warm-up and capture)")
+    _check(seen_c == {"dr_group_kernel": n + 1},
+           f"MiniPOMDP solve: the trace saw {seen_c}, not K5 once per "
+           f"replay ({n}) and in the warm-up")
     _say(f"per-instance (c): MiniPOMDP through a DRQN solve (LSTM(1,8), "
-         f"dueling, 64 envs, U=1, batch 32, trace 8, {n} iterations): eval "
-         f"returns {[round(v, 3) for _, v in solver.metrics['eval']]} | "
-         f"{card} | launches {rec}")
+         f"dueling, 64 envs, U=1, batch 32, trace 8, {n} iterations) as "
+         f"graph replays: eval returns "
+         f"{[round(v, 3) for _, v in solver.metrics['eval']]}; the trace "
+         f"saw {seen_c}, {per_c} device events per replay (populate, "
+         f"segment) | {card} | launches {rec}")
 
 
 def phase_per_instance_profile(torch, dev, card, run_path):
@@ -2866,6 +3076,38 @@ def _segment_routes(torch, dev):
         c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
         return it, c, cfg, (env, buf)
 
+    GridWorld, _, MiniPOMDP = user_envs()
+
+    def mini_pomdp():
+        """Phase 18 (c)'s loop: the per-instance MiniPOMDP, LSTM(1, 8)
+        dueling, 64 envs, batch 32, trace 8, U = 1 (K5; no cols, so the
+        plain collect)."""
+        from deepqlearning_tpu_torch import (
+            LSTM, Chain, Dense, EpisodeReplayBuffer, POMDPEnv,
+            create_dueling_network)
+        from deepqlearning_tpu_torch.learner.segment import (
+            make_collect_graph)
+
+        env = POMDPEnv(MiniPOMDP())
+        net = create_dueling_network(Chain(LSTM(1, 8, device=dev),
+                                           Dense(8, 2, device=dev)))
+        cfg = DQNConfig(num_envs=64, train_freq=64, batch_size=32,
+                        trace_length=8, max_episode_length=16,
+                        buffer_size=512, recurrence=True, double_q=True,
+                        learning_rate=1e-3, target_update_freq=8 * 64)
+        buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                  cfg.batch_size, cfg.trace_length,
+                                  cfg.max_episode_length, num_envs=64,
+                                  device=dev)
+        it, pop, opt = build_loop(env, net, buf, cfg,
+                                  LinearDecaySchedule(1.0, 0.01, 640),
+                                  env.discount)
+        c = init_carry(env, net, buf, cfg, opt, dev)
+        c = make_collect_graph(pop, c, cfg, env, buf,
+                               "chip_smoke MiniPOMDP populate")(
+                                   c, cfg.max_episode_length + 1)
+        return it, c, cfg, (env, buf)
+
     return {
         "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
                                          4096, 2),
@@ -2886,6 +3128,18 @@ def _segment_routes(torch, dev):
             dtype=torch.bfloat16), {"td_loss": 4, "tree_sample": 1}),
         "CartPole": (cartpole, {"fused_collect": 1, "tree_sample": 1,
                                 "fused_group_update": 1}),
+        "DRQN": (lambda: _drqn_setup(torch, dev),
+                 {"fused_drqn_group_update": 1, "fused_collect_rnn": 1}),
+        # autograd BPTT, Adam per parameter and the plain recurrent
+        # collect: no kernel of the port but the sample's gathers
+        "DRQN plain": (lambda: _drqn_setup(torch, dev, fused_updates=False,
+                                           fused_collect=False), {}),
+        "per-instance GridWorld": (
+            lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512, 4096, 2,
+                                env=GridWorld()),
+            {"tree_sample": 1, "fused_group_update": 1}),
+        "per-instance MiniPOMDP DRQN": (mini_pomdp,
+                                        {"fused_drqn_group_update": 1}),
     }
 
 
@@ -2956,7 +3210,9 @@ def _all_wrappers():
 # the symbols of the kernels on the graph routes, by wrapper
 SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
            "fused_group_update": "fu_group_kernel",
-           "fused_collect": "fc_kernel"}
+           "fused_collect": "fc_kernel",
+           "fused_drqn_group_update": "dr_group_kernel",
+           "fused_collect_rnn": "fc_rnn_kernel"}
 
 
 def _traced_launches(torch, prime, fn):
@@ -3405,9 +3661,12 @@ def main():
     (cfg, sps3, loss3), rec = run_path(
         "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
         ("fused_drqn_group_update", "fused_collect_rnn"))
+    _drqn_calls(rec, "DRQN loop")
     _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
-         f"512, trace 8, U={cfg.updates_per_iter}: {sps3:.1f} env-steps/s, "
-         f"loss {loss3:.5g} | {card} | launches {rec}")
+         f"512, trace 8, U={cfg.updates_per_iter}, populate and 50 "
+         f"iterations as graph replays: {sps3:.1f} env-steps/s, "
+         f"{1000.0 * cfg.env_steps_per_iter / sps3:.4f} ms/iteration, loss "
+         f"{loss3:.5g} | {card} | launches {rec}")
     # K4 on a second env at full width inside a loop: MountainCar at the
     # headline's shape (2 populate steps, a warm-up and 5 iterations, the
     # 5 as graph replays), with episodes cut at 4 steps so that K4 resets
@@ -3468,6 +3727,8 @@ def main():
     phase_cartpole_solve(torch, dev, card, run_path)
     # 11 (e). the image-observation DQN's solve (examples/image_conv_dqn.py)
     phase_conv_solve(torch, dev, card, run_path)
+    # 11 (f). the JAX package's DRQN learning tests on the card
+    phase_drqn_learning(torch, card, run_path)
 
     # 18. envs and problems written one instance at a time, before the
     # profiles (a profiler session can leave host costs behind it)
@@ -3494,21 +3755,24 @@ def main():
          f"torch.profiler, 10 iterations); per iteration (launches, device "
          f"ms) by kernel {per_iter} | {card} | launches {head}")
 
-    # 13. the DRQN loop again, profiled, beside phase 12: one grouped call
-    # of U sub-updates per iteration, so one K5 launch per iteration (the
-    # replaced design launched 2·U)
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), rec = run_path(
+    # 13. the DRQN loop again, as graph replays, profiled beside phase 12:
+    # one grouped call of U sub-updates per iteration, so one K5 launch per
+    # replay (the replaced design launched 2·U), and one K6 launch
+    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, tree), rec = run_path(
         "DRQN loop (profiled)", lambda: _drqn_loop(torch, dev, 16384, 10, 10),
         ("fused_drqn_group_update", "fused_collect_rnn"))
-    _check(per_iter.get("dr_group_kernel", (0,))[0] == 1.0,
-           f"DRQN loop: K5 launches per grouped call {per_iter}")
+    _drqn_calls(rec, "DRQN loop (profiled)")
+    for k in ("dr_group_kernel", "fc_rnn_kernel"):
+        _check(per_iter.get(k, (0,))[0] == 1.0,
+               f"DRQN loop: {k} launches per replay {per_iter}")
     _say(f"DRQN loop, profiled: {sps:.1f} env-steps/s and {ms:.4f} "
          f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
          f"ms/iteration (each from an idle queue); device busy share "
          f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
          f"torch.profiler, 10 iterations, U={cfg.updates_per_iter}); per "
-         f"iteration (launches, device ms) by kernel {per_iter} | {card} | "
-         f"launches {rec}")
+         f"iteration (launches, device ms) by kernel {per_iter}; the "
+         f"sample's env draw (_weighted_env, eager) {tree[0]} launches and "
+         f"{tree[1]} device ms per draw | {card} | launches {rec}")
 
     # 14. solve's U = 1 iteration (phase 11 (a)'s configuration), profiled
     # beside phases 12 and 13: one K4, one K2 and one K1 per iteration
@@ -3595,10 +3859,13 @@ def main():
                "fused_group_update": "fu_group_kernel (cooperative)",
                "fused_collect": "fc_kernel (SimpleGridWorld, CartPole, "
                                 "MountainCar)",
-               "fused_drqn_group_update": "dr_group_kernel (cooperative)",
+               "fused_drqn_group_update": "dr_group_kernel (cooperative; "
+                                          "in the DRQN routes' CUDA "
+                                          "graphs)",
                "fused_collect_rnn": "fc_rnn_kernel (tiles of envs; "
                                     "SimpleGridWorld, CartPole, "
-                                    "MountainCar)",
+                                    "MountainCar; in the DRQN routes' "
+                                    "CUDA graphs)",
                "fused_grads": "fu_group_kernel (cooperative, U=1)",
                "fused_drqn_grads": "dr_group_kernel (cooperative, U=1)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",

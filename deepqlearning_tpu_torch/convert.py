@@ -203,9 +203,10 @@ def replay_from_numpy(rows, tree, insert_pos, size, device=None
 
 def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
     """The port's ``EpisodeReplayState`` from a JAX ``EpisodeReplayState``'s
-    numpy copies (the ring in its storage dtype, bit for bit). The JAX ring
-    ``[R+T-1, E/G, G·F]`` groups G envs per row; the port's ``[R+T-1, E,
-    F]`` is the same memory."""
+    numpy copies (the ring in its storage dtype, bit for bit; the step
+    counter ``t`` a device counter). The JAX ring ``[R+T-1, E/G, G·F]``
+    groups G envs per row; the port's ``[R+T-1, E, F]`` is the same
+    memory."""
     i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32,
                                  device=device)
     data = tensor_from_numpy(state.data, device)
@@ -214,7 +215,7 @@ def episode_replay_from_numpy(state, device=None) -> EpisodeReplayState:
         data=data.reshape(data.shape[0], E, -1),
         ep_start=i32(state.ep_start), ep_len=i32(state.ep_len),
         rec_count=i32(state.rec_count), cur_len=i32(state.cur_len),
-        t=int(state.t))
+        t=counter(int(state.t), device))
 
 
 def _jax_leaves(tree, prefix: str = ""):

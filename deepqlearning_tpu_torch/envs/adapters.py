@@ -12,9 +12,14 @@ by the arity of ``initial_state``:
   the batched methods vmap those (``envs/base.py``);
 * batched (``initial_state(num, generator)``, two): every state, action and
   observation carries a leading batch axis ``[E, ...]``; the per-instance
-  methods are the batched ones at one row. On the card ``solve`` captures
-  a batched problem's functions into a CUDA graph and replays it, so they
-  must be pure device code, as ``envs/base.py`` states for batched envs.
+  methods are the batched ones at one row.
+
+On the card ``solve`` captures the problem's functions of either form
+(batched, or per-instance under ``torch.func.vmap``) into a CUDA graph and
+replays it, so they must be pure device code that draws only from the
+generator passed in, as ``envs/base.py`` states for envs: a Python counter
+or a host random number in ``gen`` or ``observation`` would repeat its
+value at capture on every replay, and makes the segment raise.
 
 A FunctionalMDP provides
   * ``initial_state(generator) -> state`` (a tensor, or a pytree of them)

@@ -30,15 +30,19 @@ other:
   dynamics from ``step_cols`` / ``reset_cols``) and give their per-instance
   methods as the batched code at one row.
 
-  On the card, ``solve`` captures the batched methods of such an env (the
-  class's own, not the vmapped defaults) into one CUDA graph per iteration
-  and replays it (``learner/segment.py``), so they must be pure device
-  code: no host read (``.item()``, ``bool(t)``, ``int(t)``, a shape taken
-  from data), no host-to-device copy of a host tensor, and nothing kept or
-  drawn on the host between calls (a Python counter, a host random number),
-  which every replay would repeat as it was at capture. The capture raises
-  on the first; the segment raises on the others where its first replay
-  differs from the eager iteration.
+On the card, ``solve`` captures an env of either form into one CUDA graph
+per iteration and replays it (``learner/segment.py``): the batched methods,
+or the per-instance ``reset`` / ``step`` / ``observe`` through the vmapped
+defaults, run once at capture and never again. So they must be pure device
+code: no host read (``.item()``, ``bool(t)``, ``int(t)``, a shape taken
+from data), no host-to-device copy of a host tensor, and nothing kept or
+drawn on the host between calls (a Python counter such as ``self.steps +=
+1``, a host random number, Python-side state), which every replay would
+repeat as it was at capture. Draw only from the ``generator`` passed in:
+it is the carry's, registered with the graph, so each replay draws fresh
+numbers, each vmapped draw the row that ``torch.rand(E, generator=g)``
+would give. The capture raises on a host read; the segment raises on the
+others where its first replay differs from the eager iteration.
 
 The loop consumes the batched form: ``obs`` ``[E, *obs_shape]``, ``action``
 ``[E]`` int, ``reward``/``done`` ``[E]`` f32 (the vmapped defaults cast a

@@ -13,9 +13,9 @@ the carry on the device and no host read inside an iteration
 * :func:`make_segment` ``(iteration, carry, cfg, env, buffer) ->
   run_segment(carry, n)``: on a route of :func:`graph_route` with the
   carry on the card, warms one iteration up on a side stream (the kernels
-  build, K3's grid and K2's level descriptors are cached, the cuBLAS and
-  cuDNN handles and Adam's constants exist), puts the carry and its
-  generator back as they were, captures one iteration, and copies the
+  build, K3's and K5's grids and K2's level descriptors are cached, the
+  cuBLAS and cuDNN handles and Adam's constants exist), puts the carry and
+  its generator back as they were, captures one iteration, and copies the
   iteration's new tensors (the env state, obs, episode counters, loss, the
   counters) back into the static carry at the end of the captured
   iteration. The carry's ``torch.Generator`` is registered with the graph,
@@ -26,30 +26,35 @@ the carry on the device and no host read inside an iteration
   iterations.
 * :func:`make_collect_graph` ``(step, carry, cfg, env, buffer) ->
   run(carry, n)``: the same for ``populate``'s ε = 1 collect step
-  (``learner/loop.py::populate`` off the graph).
+  (``learner/loop.py::populate`` off the graph), an episode buffer's
+  ``reset_in_progress`` after the ``n`` replays, as ``populate`` ends.
 * :func:`graph_route`: the static gate of the routes this module captures:
-  a feed-forward network (no ``recurrence``), no ``axis_name``, a replay
-  of ``replay/prioritized.py``, an env whose batched methods are its
-  class's own (not a per-instance env batched by ``torch.func.vmap``), in
-  f32 or bf16. The DRQN routes (K5, K6 over the episode replay), data
-  parallelism (K7, K8 and the collectives), the per-instance envs and the
-  host path ``solve_host`` run eagerly.
+  no ``axis_name``, an env of the ``Env`` protocol, and a feed-forward
+  network over a replay of ``replay/prioritized.py`` or a recurrent one
+  (``recurrence``) over ``replay/episode.py``, in f32 or bf16. That takes
+  every single-card route of ``build_loop``: the feed-forward PER routes
+  (K1-K4), DRQN with K5 and K6 or the plain recurrent steps, built-in and
+  batched envs, and envs and problems written one instance at a time,
+  batched by ``torch.func.vmap`` (``envs/base.py``). Data parallelism
+  (K7, K8 and the collectives) and the host path ``solve_host`` run
+  eagerly.
 
 There is no fallback: a capture that fails on a route of the gate raises,
 naming the route, and nothing switches the graph off.
 
-The graph route's contract for user code: the env's batched methods
-(``reset_batch``, ``step_batch``, ``observe_batch``), a batched
-``MDPEnv``/``POMDPEnv`` problem and a ``VectorizedStrategy``'s function are
-captured once and replayed, so they must be pure device code: no host read
-(``.item()``, ``bool(t)``, ``int(t)``, a data-dependent shape), no
-pageable host-to-device copy, and nothing that changes on the host between
-calls (a Python counter, a host random number, Python-side state), which a
-replay would repeat as it was at capture. The first of these makes the
-capture raise; for the others the segment runs one replay right after the
-capture and requires it to equal the warm-up iteration bit for bit (every
-carry tensor and the generator's state), and raises, naming the route,
-where it does not.
+The graph route's contract for user code: the env's methods (the batched
+``reset_batch``, ``step_batch``, ``observe_batch``, or the per-instance
+``reset``, ``step``, ``observe`` that vmap batches), an ``MDPEnv``/
+``POMDPEnv`` problem of either form and a ``VectorizedStrategy``'s
+function are captured once and replayed, so they must be pure device code:
+no host read (``.item()``, ``bool(t)``, ``int(t)``, a data-dependent
+shape), no pageable host-to-device copy, and nothing that changes on the
+host between calls (a Python counter, a host random number, Python-side
+state), which a replay would repeat as it was at capture. The first of
+these makes the capture raise; for the others the segment runs one replay
+right after the capture and requires it to equal the warm-up iteration bit
+for bit (every carry tensor and the generator's state), and raises, naming
+the route, where it does not.
 
 Launch counts: a kernel wrapper counts a launch where Python calls it, so
 the warm-up and the capture count one each and the replays none (they
@@ -71,13 +76,13 @@ def graph_route(cfg, env, buffer, axis_name=None) -> bool:
     """Whether the loop of ``cfg`` on ``env`` and ``buffer`` is one this
     module captures on the card (module docstring); the device is
     :func:`make_segment`'s to check."""
+    from ..replay.episode import EpisodeReplayBuffer
     from ..replay.prioritized import PrioritizedReplayBuffer
 
-    own = all(getattr(type(env), m) is not getattr(Env, m)
-              for m in ("reset_batch", "step_batch"))
-    return (not cfg.recurrence and axis_name is None
-            and isinstance(buffer, PrioritizedReplayBuffer)
-            and own and getattr(env, "batched", True)
+    replay = EpisodeReplayBuffer if cfg.recurrence else \
+        PrioritizedReplayBuffer
+    return (axis_name is None and isinstance(env, Env)
+            and isinstance(buffer, replay)
             and cfg.dtype in (torch.float32, torch.bfloat16))
 
 
@@ -235,9 +240,9 @@ def make_collect_graph(step: Callable, carry, cfg, env, buffer,
                        route: str = "populate"):
     """``run(carry, n) -> carry``: ``n`` collect steps of ``step`` (the
     ε = 1 ``populate_step`` of ``build_loop``) on the carry's actor,
-    replay and generator: ``populate`` of ``learner/loop.py``, as replays
-    of one CUDA graph where :func:`make_segment` captures, else that
-    function itself."""
+    replay and generator, then an episode buffer's ``reset_in_progress``:
+    ``populate`` of ``learner/loop.py``, as replays of one CUDA graph
+    where :func:`make_segment` captures, else that function itself."""
     if not _graphed(carry, cfg, env, buffer):
         return lambda c, n: populate(step, buffer, c, n)
 
@@ -246,4 +251,7 @@ def make_collect_graph(step: Callable, carry, cfg, env, buffer,
                                      c.generator)
         return c._replace(actor=actor, replay=replay, params=params)
 
-    return CompiledSegment(body, carry, route)
+    graph = CompiledSegment(body, carry, route)
+    # populate of no further step is populate's end alone: an episode
+    # buffer drops its open episodes
+    return lambda c, n: populate(step, buffer, graph(c, n), 0)

@@ -15,17 +15,24 @@ keeps one env per row slot (the same memory, ``convert.py``):
   contiguous run of ``T`` rows;
 * an env whose episode ended commits a ``(start, length)`` record into its
   own ring of ``M`` records;
-* a sample draws episodes uniformly over all stored episodes (a count-tree
-  descent over the envs, ``ops/sumtree.py::descend``), a record of the
+* a sample draws episodes uniformly over all stored episodes (a
+  ``searchsorted`` over the prefix sums of the envs' record counts, where
+  the JAX package descends a count tree), a record of the
   drawn env, and a random start inside the episode; the window is
   zero-padded past the episode's end with a validity ``mask`` (every field
   of a masked step is zero; obs keep the storage dtype); a record
   whose rows the ring has overwritten is remapped to the env's newest one.
 
-The ring and the index tensors are updated IN PLACE; the global step
-counter ``t`` is a host int (it advances by one per ``add_step``), so no
-call reads the device. Every random draw can be injected
-(:class:`EpisodeDraws`): the env indices (or the uniforms of the count-tree
+The ring and the index tensors are updated IN PLACE. The global step
+counter ``t`` is a 0-d int64 tensor on the buffer's device, as every
+counter of the loop's carry (``device.py::counter``), advanced by tensor
+arithmetic; the ring row ``t % R``, its shadow row and the episode starts
+are computed from it on the device and written through one-element index
+tensors, with no branch, as the JAX package's ``dynamic_update_slice``
+writes them. So no call reads the device, and a CUDA graph of an
+iteration (``learner/segment.py``) writes each replay's transition into
+the row of that replay's ``t``. Every random draw can be injected
+(:class:`EpisodeDraws`): the env indices (or the uniforms of the record
 mass), the raw record ints and the raw start ints.
 """
 from __future__ import annotations
@@ -34,8 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
-from ..ops import sumtree
+from ..device import counter, resolve_device
 from .prioritized import pack_scalars, storage_ratio, unpack_scalars
 from .transition import TransitionBatch
 
@@ -57,13 +63,13 @@ class EpisodeReplayState(NamedTuple):
     ep_len: torch.Tensor     # [E, M] int32
     rec_count: torch.Tensor  # [E] int32 — records written per env
     cur_len: torch.Tensor    # [E] int32 — steps of the open episode
-    t: int                   # global lockstep step counter
+    t: torch.Tensor          # int64 scalar — global lockstep step counter
 
 
 class EpisodeDraws(NamedTuple):
     """Injected draws of one sample of ``D`` windows (any may be None).
 
-    ``env`` [D] env indices, or ``env_u`` [D] uniforms for the count-tree
+    ``env`` [D] env indices, or ``env_u`` [D] uniforms for the record
     mass ``u · total``; ``rec`` and ``start`` [D] raw non-negative ints,
     taken modulo the env's record count and the episode length."""
 
@@ -128,27 +134,30 @@ class EpisodeReplayBuffer:
                              device=self.device),
             ep_start=torch.zeros(E, M, **i32), ep_len=torch.zeros(E, M, **i32),
             rec_count=torch.zeros(E, **i32), cur_len=torch.zeros(E, **i32),
-            t=0)
+            t=counter(0, self.device))
 
     def add_step(self, state: EpisodeReplayState, batch: TransitionBatch,
                  ended: torch.Tensor) -> EpisodeReplayState:
         """Append one transition per env (ring row ``t % R`` and its shadow
-        row); envs whose episode ``ended`` commit a record. In place."""
+        row); envs whose episode ``ended`` commit a record. In place but
+        for ``t``, which comes back advanced."""
         E, R, M, T = (self.num_envs, self.ring, self.records_per_env,
                       self.trace_length)
-        k = state.t % R
+        k = (state.t % R).reshape(1)
+        # the shadow of rows 0..T-2; from T-1 on, row k again (a duplicate
+        # write in place of a branch)
+        k2 = torch.where(k < T - 1, R + k, k)
         sc = pack_scalars((batch.action, batch.reward, batch.done,
                            torch.zeros_like(batch.reward, dtype=torch.float32)),
                           self.obs_dtype, self.ratio)
         row = torch.cat([
             batch.obs.reshape(E, self.no).to(self.obs_dtype),
             batch.next_obs.reshape(E, self.no).to(self.obs_dtype), sc], dim=1)
-        state.data[k] = row
-        if k < T - 1:
-            state.data[R + k] = row
+        state.data.index_copy_(0, k, row[None])
+        state.data.index_copy_(0, k2, row[None])
         ended = ended.bool()
         new_len = state.cur_len + 1
-        start = state.t - new_len + 1
+        start = state.t.to(torch.int32) - new_len + 1
         # ended envs write record slot rec_count % M; the others match none
         slot = torch.where(ended, state.rec_count % M, M)
         sel = torch.arange(M, device=slot.device)[None, :] == slot[:, None]
@@ -187,17 +196,18 @@ class EpisodeReplayBuffer:
                                   generator)
 
     def _weighted_env(self, state: EpisodeReplayState, u: torch.Tensor):
-        """Envs drawn in proportion to their stored episodes: a descent of a
-        count tree with mass ``u · total``. Once every env's record ring is
-        full this is the uniform env draw, so there is no branch on the
-        counts (which would read the device)."""
-        E, M = self.num_envs, self.records_per_env
-        ctree = sumtree.init_tree(E, state.rec_count.device)
-        ctree[0][:E] = torch.clamp(state.rec_count, max=M).float()
-        sumtree.rebuild(ctree)
-        mass = u * torch.clamp(sumtree.total(ctree), min=1.0)
-        env, _ = sumtree.descend(ctree, mass)
-        return torch.clamp(env, max=E - 1)
+        """Envs drawn in proportion to their stored episodes: the first env
+        whose prefix sum of record counts exceeds the mass ``u · total``,
+        one ``searchsorted`` over the f32 cumsum. The counts are integers,
+        so every prefix is exact (below 2^24 records) and the env is the
+        one the JAX package's count-tree descent finds. Once every env's
+        record ring is full this is the uniform env draw, so there is no
+        branch on the counts (which would read the device)."""
+        counts = torch.clamp(state.rec_count, max=self.records_per_env)
+        csum = torch.cumsum(counts.float(), dim=0)
+        mass = u.float() * torch.clamp(csum[-1], min=1.0)
+        env = torch.searchsorted(csum, mass, right=True)
+        return torch.clamp(env, max=self.num_envs - 1)
 
     def _sample_batch(self, state: EpisodeReplayState, D: int,
                       draws: Optional[EpisodeDraws],

@@ -12,8 +12,8 @@ weights_only=True)``, where the JAX package writes flax msgpack: a tree of
 dicts, tuples, lists, CPU tensors and host numbers. NamedTuples are stored
 by field name, a ``torch.Generator`` by its state, and the carry's
 counters (``ActorState.t`` / ``tick``, the replay's ``insert_pos`` /
-``size``, ``LoopCarry.sync_acc`` / ``iters``: 0-d device tensors) as
-tensors; the episode replay's host ``t`` as it is. Loading fills a
+``size`` or the episode replay's ``t``, ``LoopCarry.sync_acc`` /
+``iters``: 0-d device tensors) as tensors. Loading fills a
 template of the same structure: tensors are copied into the template's
 tensors in place (so a parameter dict keeps sharing its module's storage,
 and a carry that a CUDA graph replays keeps its buffers), generators take

@@ -32,10 +32,10 @@ What differs from the JAX package:
 * Checkpoints are ``torch.save`` archives (``solver/checkpoint.py``),
   which keep each tensor's dtype.
 * The JAX solver jits ``populate`` and each segment (``lax.scan`` over
-  the iteration); here the routes of ``learner/segment.py::graph_route``
-  (feed-forward, PER, the env's own batched methods, f32 or bf16) run
-  them as replays of one CUDA graph per step on the card, and the others
-  (DRQN, per-instance envs) enqueue every op from Python. A graph that
+  the iteration); here ``populate`` and every segment run on the card as
+  replays of one CUDA graph per step (``learner/segment.py::graph_route``:
+  feed-forward over PER or DRQN over the episode replay, built-in,
+  batched or per-instance envs and problems, f32 or bf16). A graph that
   cannot be captured, or whose replay differs from the eager iteration
   (host-side state in user code), raises; there is no switch back to
   eager.

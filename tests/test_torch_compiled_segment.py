@@ -16,6 +16,11 @@ test's tolerance for the parameters.
 
 (c) ``run_segment`` and ``make_collect_graph`` on CPU tensors equal the
 eager iterations and collect steps bit for bit.
+
+The routes: the feed-forward PER routes (K1-K4's twins), DRQN over the
+episode replay (K5 and K6's twins, the plain recurrent steps, bf16) and
+envs and problems written one instance at a time (``chip_smoke.
+user_envs``, batched by ``torch.func.vmap``).
 """
 import dataclasses
 
@@ -28,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_flatten  # noqa: E402
 
+import chip_smoke  # noqa: E402
 import deepqlearning_tpu as dq  # noqa: E402
 import deepqlearning_tpu_torch as dt  # noqa: E402
 from deepqlearning_tpu.learner.actor import init_actor as j_init_actor  # noqa: E402
@@ -68,9 +74,45 @@ def _dueling(no, width, act, A):
         dt.Dense(width, A)))
 
 
+GridWorld, StaticArrayMDP, MiniPOMDP = chip_smoke.user_envs()
+
+
+def _drqn(**kw):
+    """DRQN on SimpleGridWorld: ``Chain(LSTM(2, 8), Dense(8, 4))``, 64
+    envs, batch 16, trace 4, U = 2 (K5 and K6, their CPU twins, unless
+    ``kw`` turn them off)."""
+    return (dt.SimpleGridWorld(), dt.Chain(dt.LSTM(2, 8), dt.Dense(8, 4)),
+            dict(num_envs=64, buffer_size=256, batch_size=16, train_freq=32,
+                 trace_length=4, recurrence=True, **kw))
+
+
 def _route(name):
     """``(env, network, DQNConfig kwargs)`` of a route the segment
     captures, cut to a CPU size."""
+    if name == "drqn":          # K6, K5
+        return _drqn()
+    if name == "drqn_plain":    # plain recurrent collect, U = 2 plain steps
+        return _drqn(fused_updates=False, fused_collect=False,
+                     grouped_updates=False)
+    if name == "drqn_plain_grouped":  # plain collect, the grouped step
+        return _drqn(fused_updates=False, fused_collect=False)
+    if name == "drqn_bf16":     # bf16 parameters and ring: the plain steps
+        return _drqn(dtype=torch.bfloat16)
+    if name == "per_instance":  # vmapped GridWorld: plain collect, K2, K3
+        return (GridWorld(), _dueling(2, 64, torch.tanh, 4),
+                dict(num_envs=64, buffer_size=1 << 10, batch_size=32,
+                     train_freq=32))
+    if name == "per_instance_mdp":  # vmapped StaticArrayMDP: K2, K1
+        return (dt.MDPEnv(StaticArrayMDP()),
+                dt.Chain(dt.Dense(1, 32), dt.Dense(32, 2)),
+                dict(num_envs=16, buffer_size=256, batch_size=16,
+                     train_freq=16))
+    if name == "per_instance_pomdp_drqn":  # vmapped MiniPOMDP: K5
+        return (dt.POMDPEnv(MiniPOMDP()),
+                dt.create_dueling_network(
+                    dt.Chain(dt.LSTM(1, 8), dt.Dense(8, 2))),
+                dict(num_envs=16, buffer_size=128, batch_size=8,
+                     train_freq=16, trace_length=4, recurrence=True))
     if name == "headline":      # K4, K2, K3: the headline's net, E = 256
         return (dt.SimpleGridWorld(), _dueling(2, 64, torch.tanh, 4),
                 dict(num_envs=256, buffer_size=1 << 12, batch_size=32,
@@ -102,16 +144,25 @@ def _route(name):
 
 
 ROUTES = ("headline", "u1", "grouped_plain", "conv_bf16", "cartpole",
-          "mountaincar")
+          "mountaincar", "drqn", "drqn_plain", "drqn_plain_grouped",
+          "drqn_bf16", "per_instance", "per_instance_mdp",
+          "per_instance_pomdp_drqn")
+MAXLEN = 5
 
 
 def _build(name, seed=0):
     env, net, kw = _route(name)
-    cfg = dt.DQNConfig(max_episode_length=5, target_update_freq=128,
+    cfg = dt.DQNConfig(max_episode_length=MAXLEN, target_update_freq=128,
                        learning_rate=1e-3, seed=seed, **kw)
-    buf = dt.PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
-                                     cfg.batch_size, obs_dtype=cfg.dtype,
-                                     device="cpu")
+    if cfg.recurrence:
+        buf = dt.EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                     cfg.batch_size, cfg.trace_length,
+                                     MAXLEN, num_envs=cfg.num_envs,
+                                     obs_dtype=cfg.dtype, device="cpu")
+    else:
+        buf = dt.PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                         cfg.batch_size, obs_dtype=cfg.dtype,
+                                         device="cpu")
     it, pop, opt = build_loop(env, net, buf, cfg,
                               dt.LinearDecaySchedule(1.0, 0.05, 200),
                               env.discount)
@@ -119,11 +170,18 @@ def _build(name, seed=0):
     return env, buf, cfg, it, pop, carry
 
 
+def _n_pop(cfg):
+    """Populate steps before the first iteration: one, or for DRQN enough
+    that every env commits an episode (``solve``'s count)."""
+    return MAXLEN + 1 if cfg.recurrence else 1
+
+
 @pytest.mark.parametrize("name", ROUTES)
 def test_no_host_read_in_an_iteration(name):
     env, buf, cfg, it, pop, c = _build(name)
     assert graph_route(cfg, env, buf)
-    c = populate(pop, buf, c, 1)
+    n_pop = _n_pop(cfg)
+    c = populate(pop, buf, c, n_pop)
     c = it(c)  # the warm-up make_segment runs before its capture
     with NoHostRead():
         c = populate(pop, buf, c, 1)
@@ -132,8 +190,15 @@ def test_no_host_read_in_an_iteration(name):
     leaves = tree_flatten(c)[0]
     assert all(isinstance(x, (torch.Tensor, torch.Generator))
                for x in leaves)
-    assert int(c.iters) == 3 and int(c.actor.t) == 5 * cfg.num_envs
-    assert torch.isfinite(c.loss) and int(c.replay.size) > 0
+    steps = n_pop + 1 + 3 * cfg.steps_per_iter
+    assert int(c.iters) == 3 and int(c.actor.t) == steps * cfg.num_envs
+    assert torch.isfinite(c.loss)
+    if cfg.recurrence:
+        t = c.replay.t
+        assert t.dim() == 0 and t.dtype == torch.int64 and int(t) == steps
+        assert int(c.replay.rec_count.min()) > 0
+    else:
+        assert int(c.replay.size) > 0
 
 
 def test_the_guard_sees_a_host_read():
@@ -152,8 +217,6 @@ def test_graph_route_gate():
     env, buf, cfg, *_ = _build("headline")
     assert graph_route(cfg, env, buf)
     assert not graph_route(cfg, env, buf, axis_name=object())
-    assert not graph_route(dataclasses.replace(cfg, recurrence=True), env,
-                           buf)
     assert not graph_route(dataclasses.replace(cfg, dtype=torch.float16),
                            env, buf)
 
@@ -166,10 +229,24 @@ def test_graph_route_gate():
         def step(self, state, action, generator):
             return state, torch.zeros(1), torch.zeros(()), torch.zeros(())
 
-    assert not graph_route(cfg, PerInstance(), buf)
+    # per-instance envs and problems, batched by vmap, are graph routes
+    assert graph_route(cfg, PerInstance(), buf)
+    assert graph_route(cfg, dt.MDPEnv(StaticArrayMDP()), buf)
+    # a recurrent loop over the episode replay is one; over PER there is
+    # no such loop
     ebuf = dt.EpisodeReplayBuffer((2,), 64, 8, 4, 10, num_envs=8,
                                   device="cpu")
-    assert not graph_route(dt.DQNConfig(recurrence=True), env, ebuf)
+    rcfg = dt.DQNConfig(recurrence=True)
+    assert graph_route(rcfg, env, ebuf)
+    assert graph_route(rcfg.replace(dtype=torch.bfloat16), env, ebuf)
+    assert graph_route(rcfg, dt.POMDPEnv(MiniPOMDP()), ebuf)
+    assert not graph_route(dataclasses.replace(cfg, recurrence=True), env,
+                           buf)
+    assert not graph_route(cfg, env, ebuf)
+    assert not graph_route(rcfg, env, ebuf, axis_name=object())
+    assert not graph_route(rcfg.replace(dtype=torch.float16), env, ebuf)
+    # a host env is stepped on the host (solve_host)
+    assert not graph_route(cfg, dt.HostEnv(), buf)
 
 
 # --- (b) the counters against the JAX package -----------------------------
@@ -295,13 +372,21 @@ def _equal(a, b):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("name", ("headline", "grouped_plain"))
+@pytest.mark.parametrize("name", ("headline", "grouped_plain", "drqn",
+                                  "drqn_plain", "drqn_plain_grouped",
+                                  "drqn_bf16", "per_instance",
+                                  "per_instance_mdp",
+                                  "per_instance_pomdp_drqn"))
 def test_run_segment_on_cpu_is_eager(name):
     env, buf, cfg, it, pop, c1 = _build(name, seed=3)
     _, buf2, _, it2, pop2, c2 = _build(name, seed=3)
-    c1 = make_collect_graph(pop, c1, cfg, env, buf)(c1, 2)
-    c2 = populate(pop2, buf2, c2, 2)
+    n_pop = _n_pop(cfg) + 1
+    c1 = make_collect_graph(pop, c1, cfg, env, buf)(c1, n_pop)
+    c2 = populate(pop2, buf2, c2, n_pop)
     _equal(c1, c2)
+    if cfg.recurrence:  # populate ends by dropping the open episodes
+        assert not c1.replay.cur_len.any()
+        assert int(c1.replay.t) == n_pop
     c1 = make_segment(it, c1, cfg, env, buf)(c1, 3)
     for _ in range(3):
         c2 = it2(c2)

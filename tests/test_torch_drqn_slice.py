@@ -139,7 +139,8 @@ def test_drqn_slice_matches_jax_loop():
         for name in ("ep_start", "ep_len", "rec_count", "cur_len"):
             np.testing.assert_array_equal(getattr(tc.replay, name).numpy(),
                                           getattr(ref, name).numpy(), name)
-        assert tc.replay.t == ref.t == MAXLEN + 2 + i
+        assert tc.replay.t.dim() == 0 and tc.replay.t.dtype == torch.int64
+        assert int(tc.replay.t) == int(jc.replay.t) == MAXLEN + 2 + i
         ja, ta = jc.actor, tc.actor
         _close(ta.obs, ja.obs, 1e-6, err="obs")
         _close(ta.env_state,

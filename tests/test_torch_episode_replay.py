@@ -19,6 +19,7 @@ from deepqlearning_tpu.replay.episode import (  # noqa: E402
 from deepqlearning_tpu.replay.transition import (  # noqa: E402
     TransitionBatch as JBatch)
 from deepqlearning_tpu_torch import convert  # noqa: E402
+from deepqlearning_tpu_torch.ops import sumtree  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -70,7 +71,10 @@ def _same_state(ts, js):
     for name in ("data", "ep_start", "ep_len", "rec_count", "cur_len"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       getattr(ref, name).numpy(), name)
-    assert ts.t == ref.t
+    # the step counter: a 0-d int64 tensor on the buffer's device
+    assert ts.t.dim() == 0 and ts.t.dtype == torch.int64
+    assert ref.t.dim() == 0 and ref.t.dtype == torch.int64
+    assert int(ts.t) == int(ref.t) == int(js.t)
 
 
 def _same_batch(tbatch, jbatch):
@@ -109,6 +113,70 @@ def test_add_step_and_samples_match_jax_exactly(E, max_size, maxlen, T,
     _same_state(ts, js)
     assert stale_seen                 # some records outlived their rows
     assert branches == {True, False}  # both JAX env-draw branches ran
+
+
+def test_device_counter_over_ring_wraps_matches_jax_exactly():
+    """R = 8, T = 4, 4 envs, 3R steps: after every step the ring (shadow
+    rows included), the records, the open lengths and ``int(t)`` equal the
+    JAX buffer's; the row of step ``t`` is ``t % R`` and its shadow
+    ``R + t % R`` while ``t % R < T - 1``; samples of records the ring has
+    overwritten are remapped as JAX remaps them. Exact: the buffers copy
+    f32 values and index with the same integers."""
+    E, T = 4, 4
+    jb = JBuf((3,), 8, 16, T, 4, num_envs=E)
+    tb = dt.EpisodeReplayBuffer((3,), 8, 16, T, 4, num_envs=E, device="cpu")
+    R, M = tb.ring, tb.records_per_env
+    assert (R, jb.ring) == (8, 8)
+    jsample = jax.jit(jb.sample_n, static_argnums=2)
+    stale_sampled = 0
+    for i, (js, ts) in enumerate(_stream(jb, tb, E, 3 * R, 7, 0.4)):
+        _same_state(ts, js)
+        assert int(ts.t) == i + 1
+        k = i % R
+        if k < T - 1:
+            assert torch.equal(ts.data[R + k], ts.data[k])
+        key = jax.random.PRNGKey(100 + i)
+        d = jax_draws(js, key, 32, M)
+        _same_batch(tb.sample_n(ts, 2, draws=d), jsample(js, key, 2))
+        # the records the draws took before the remap, and whether stale
+        env = (d.env if d.env is not None else
+               tb._weighted_env(ts, d.env_u)).long()
+        n_rec = ts.rec_count[env].long().clamp(max=M).clamp(min=1)
+        rec = d.rec % n_rec
+        start = ts.ep_start[env, rec].long()
+        length = ts.ep_len[env, rec].long().clamp(min=1)
+        stale_sampled += int(((ts.t - start) > (R - length)).sum())
+    assert stale_sampled > 0
+
+
+@pytest.mark.parametrize("E,M", [(1, 3), (7, 2), (64, 4), (100, 3),
+                                 (16384, 2)])
+def test_weighted_env_equals_the_count_tree_descent(E, M):
+    """The env draw (one searchsorted over the prefix sums of the record
+    counts) picks the env the count-tree descent picks (``ops/sumtree.py``,
+    as the JAX package draws it), exactly: on random counts with zeros, at
+    uniforms that put the mass on every prefix boundary, at 0 and at the
+    largest f32 below 1, and with no record stored at all."""
+    buf = dt.EpisodeReplayBuffer((2,), E * M, 4, 2, 4, num_envs=E,
+                                 device="cpu")
+    assert buf.records_per_env == M
+    rng = np.random.default_rng(E)
+    for zeros in (0.0, 0.5, 1.0):
+        counts = rng.integers(0, M + 3, E) * (rng.random(E) >= zeros)
+        st = buf.init()._replace(
+            rec_count=torch.from_numpy(counts.astype(np.int32)))
+        clamped = torch.clamp(st.rec_count, max=M).float()
+        total = max(float(clamped.sum()), 1.0)
+        bounds = torch.cumsum(clamped, 0)[:-1] / total
+        u = torch.cat([torch.rand(4096, generator=torch.Generator()
+                                  .manual_seed(E)),
+                       bounds.float(), torch.tensor([0.0, 1.0 - 2 ** -24])])
+        tree = sumtree.init_tree(E)
+        tree[0][:E] = clamped
+        sumtree.rebuild(tree)
+        mass = u * torch.clamp(sumtree.total(tree), min=1.0)
+        want = torch.clamp(sumtree.descend(tree, mass)[0], max=E - 1)
+        assert torch.equal(buf._weighted_env(st, u), want)
 
 
 def test_windows_across_the_ring_boundary():

@@ -1,12 +1,16 @@
-"""The compiled segment's guard against host state, on the card
+"""The compiled segment on the card
 (``deepqlearning_tpu_torch/learner/segment.py``).
 
 A CUDA graph replays what the capture recorded, so a user env that keeps a
 Python counter would repeat the counter's value at capture on every replay.
 ``make_segment`` runs one replay after the capture and raises where it
 differs from the eager warm-up iteration; the same env without the counter
-is captured. These tests need an NVIDIA GPU (a CUDA graph has no CPU form)
-and skip elsewhere. On a card::
+is captured, in the batched form and in the per-instance form that
+``torch.func.vmap`` batches. A DRQN segment (K5, K6 over the episode
+replay, whose step counter lives on the device) replays eager iterations
+bit for bit, and the populate graph ends by dropping the open episodes.
+These tests need an NVIDIA GPU (a CUDA graph has no CPU form) and skip
+elsewhere. On a card::
 
     python -m pytest --noconftest -m card tests/test_torch_segment_card.py
 """
@@ -14,13 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.utils._pytree import tree_flatten, tree_map  # noqa: E402
+
 from deepqlearning_tpu_torch import (  # noqa: E402
-    Chain, Dense, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer)
+    LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer, LinearDecaySchedule,
+    PrioritizedReplayBuffer, SimpleGridWorld)
 from deepqlearning_tpu_torch.envs.base import Env  # noqa: E402
 from deepqlearning_tpu_torch.learner.loop import (  # noqa: E402
     build_loop, init_carry, populate)
 from deepqlearning_tpu_torch.learner.segment import (  # noqa: E402
-    CompiledSegment, make_segment)
+    CompiledSegment, make_collect_graph, make_segment)
 
 
 @pytest.fixture
@@ -54,8 +61,31 @@ class Drift(Env):
         return s, s[:, None], s, (s >= 1.0).float()
 
 
-def _segment(dev, host_counter):
-    env = Drift(host_counter)
+class PerInstanceDrift(Env):
+    """:class:`Drift` written one instance at a time, batched by vmap."""
+
+    num_actions, obs_shape, discount = 2, (1,), 0.9
+
+    def __init__(self, host_counter):
+        self.host_counter = host_counter
+        self.steps = 0
+
+    def reset(self, generator):
+        s = torch.rand((), generator=generator, device=generator.device)
+        return s, s[None]
+
+    def observe(self, state):
+        return state[None]
+
+    def step(self, state, action, generator):
+        self.steps += 1
+        d = 0.01 * (self.steps if self.host_counter else 1)
+        s = (state + torch.where(action == 1, d, -d)).clamp(0.0, 1.0)
+        return s, s[None], s, s >= 1.0
+
+
+def _segment(dev, host_counter, per_instance=False):
+    env = (PerInstanceDrift if per_instance else Drift)(host_counter)
     net = Chain(Dense(1, 16, torch.tanh, device=dev), Dense(16, 2, device=dev))
     cfg = DQNConfig(num_envs=256, batch_size=32, buffer_size=1 << 12,
                     train_freq=256, max_episode_length=20, double_q=True,
@@ -81,3 +111,74 @@ def test_pure_device_env_is_captured(card):
 def test_host_counter_in_env_raises(card):
     with pytest.raises(RuntimeError, match="differs from the eager iteration"):
         _segment(card, host_counter=True)
+
+
+@pytest.mark.card
+def test_per_instance_env_is_captured(card):
+    run, c = _segment(card, host_counter=False, per_instance=True)
+    assert isinstance(run, CompiledSegment)
+    c = run(c, 3)
+    assert int(c.iters) == 4 and bool(torch.isfinite(c.loss))
+
+
+@pytest.mark.card
+def test_host_counter_in_per_instance_env_raises(card):
+    with pytest.raises(RuntimeError, match="differs from the eager iteration"):
+        _segment(card, host_counter=True, per_instance=True)
+
+
+def _clone(c):
+    def one(x):
+        if isinstance(x, torch.Generator):
+            g = torch.Generator(device=x.device)
+            g.set_state(x.get_state())
+            return g
+        return x.clone()
+
+    return tree_map(one, c)
+
+
+def _drqn(dev, n_pop):
+    """A DRQN loop on the card (K6 and K5 at U = 2), populated through
+    its collect graph."""
+    env = SimpleGridWorld()
+    net = Chain(LSTM(2, 16, device=dev), Dense(16, 4, device=dev))
+    cfg = DQNConfig(num_envs=256, batch_size=32, buffer_size=1024,
+                    train_freq=128, trace_length=4, max_episode_length=20,
+                    recurrence=True, double_q=True)
+    buf = EpisodeReplayBuffer(env.obs_shape, cfg.buffer_size, cfg.batch_size,
+                              cfg.trace_length, cfg.max_episode_length,
+                              num_envs=cfg.num_envs, device=dev)
+    it, pop, opt = build_loop(env, net, buf, cfg,
+                              LinearDecaySchedule(1.0, 0.05, 10_000),
+                              env.discount)
+    c = init_carry(env, net, buf, cfg, opt, dev)
+    c = make_collect_graph(pop, c, cfg, env, buf, "DRQN populate")(c, n_pop)
+    return it, c, cfg, env, buf
+
+
+@pytest.mark.card
+def test_drqn_populate_graph_drops_open_episodes(card):
+    n_pop = 21
+    _, c, *_ = _drqn(card, n_pop)
+    assert not bool(c.replay.cur_len.any())
+    assert int(c.replay.t) == n_pop and c.replay.t.is_cuda
+    assert int(c.replay.rec_count.min()) > 0
+
+
+@pytest.mark.card
+def test_drqn_segment_replays_equal_eager_iterations(card):
+    it, c, cfg, env, buf = _drqn(card, 21)
+    e = _clone(c)
+    run = make_segment(it, c, cfg, env, buf, "DRQN")
+    assert isinstance(run, CompiledSegment)
+    c = run(c, 3)
+    for _ in range(3):
+        e = it(e)
+    la, lb = tree_flatten(c)[0], tree_flatten(e)[0]
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Generator):
+            assert torch.equal(x.get_state(), y.get_state())
+        else:
+            assert torch.equal(x, y)
+    assert int(c.replay.t) == 21 + 3 and int(c.iters) == 3

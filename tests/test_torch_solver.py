@@ -240,6 +240,37 @@ def test_full_train_state_resume_recurrent(tmp_path):
     assert not torch.equal(leaves(p1.params)[0], leaves(p2.params)[0])
 
 
+def test_drqn_resume_continues_the_ring_counter(tmp_path):
+    """The episode replay's step counter crosses a save and a resume as the
+    device tensor it is: the archive holds a 0-d int64 tensor, loading
+    fills the template's counter in place (a carry that a CUDA graph
+    replays keeps its buffers), and the resumed iteration writes the ring
+    row ``t % R`` that the saved run writes next and moves ``t`` on."""
+    env, net, buf, cfg, it, pop, opt = _small_carry(0, recurrent=True)
+    c = dt.populate(pop, buf, init_carry(env, net, buf, cfg, opt,
+                                         device="cpu"), 6)
+    for _ in range(3):
+        c = it(c)
+    t_saved = int(c.replay.t)
+    assert t_saved == 6 + 3 * cfg.steps_per_iter
+    checkpoint.save_train_state(str(tmp_path), c)
+    raw = torch.load(os.path.join(tmp_path, checkpoint.TRAIN_STATE_NAME),
+                     weights_only=True)["__fields__"]["replay"]["__fields__"]
+    assert torch.is_tensor(raw["t"]) and raw["t"].dim() == 0
+    assert raw["t"].dtype == torch.int64 and int(raw["t"]) == t_saved
+    env2, net2, buf2, cfg2, it2, pop2, opt2 = _small_carry(5, recurrent=True)
+    tmpl = init_carry(env2, net2, buf2, cfg2, opt2, device="cpu")
+    counter = tmpl.replay.t
+    loaded = checkpoint.load_train_state(str(tmp_path), tmpl)
+    assert loaded.replay.t is counter and int(counter) == t_saved
+    k = t_saved % buf.ring
+    before = loaded.replay.data[k].clone()
+    a, b = it(c), it2(loaded)
+    assert int(b.replay.t) == int(a.replay.t) == t_saved + 1
+    assert not torch.equal(b.replay.data[k], before)
+    assert torch.equal(b.replay.data, a.replay.data)
+
+
 # --- adapters -----------------------------------------------------------
 class StaticArrayMDP:
     """s' = s + a, reward s^2, terminal at s >= 3; batched."""
