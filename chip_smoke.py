@@ -55,11 +55,15 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    steps): K4 on a second env inside a loop;
 8. DP headline loop: the headline configuration through
    ``DataParallelRunner`` in a one-rank NCCL world (K7, ``pmean_flat``
-   and one Adam launch per sub-update), env-steps/s and ms/iteration;
+   and one Adam launch per sub-update), populate and the iterations as
+   replays of the runner's CUDA graphs: ``pmean_flat`` and K7's wrapper
+   called U times by each of the segment graph's warm-up and capture,
+   K7 U times per replay in a primed trace; env-steps/s, ms/iteration,
+   capture seconds, device events and device time per replay;
 9. DP DRQN loop: the DRQN configuration the same way (K8);
 10. two ranks: a small data-parallel slice in two gloo ranks on the one
     card (NCCL refuses two ranks on one device) against the same two-rank
-    program on CPU tensors;
+    program on CPU tensors, eager iterations (the gate's route for gloo);
 11. solve: ``DeepQLearningSolver.solve`` with ``device=None`` (the card):
     (a) SimpleGridWorld with the headline's dueling net at U = 1 (4096
     envs, batch 512, 2^18 PER, 100 iterations, eval, log and save in a
@@ -121,20 +125,26 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     one iteration (``learner/segment.py``) on the headline, U = 1, grouped
     plain, conv, CartPole, DRQN (K5, K6), DRQN plain (autograd BPTT, the
     plain recurrent collect), per-instance GridWorld (K2, K3) and
-    per-instance MiniPOMDP DRQN (K5) routes at full width: 3 replays
+    per-instance MiniPOMDP DRQN (K5) routes at full width, and the DP
+    headline (K7), DP DRQN (K8) and DP local SGD (k = 2 on the ``(1, 1)``
+    mesh: two graphs) routes in the one-rank NCCL world: 3 replays
     against 3 eager iterations from cloned carries, every tensor and the
     generator's state bit for bit; the replays draw fresh numbers (they
-    differ from eager iterations that reuse one generator state); K1-K6
+    differ from eager iterations that reuse one generator state); K1-K8
     launches per replay; ``torch.cuda.memory_allocated`` flat over 100
     replays; eager beside graph from an idle queue (medians of 8: host
-    ms and ms per iteration, env-steps/s, busy share and device ms under
-    ``torch.profiler``). Last of all, a ``select_fn`` that reads the
-    device from the host (``.item()``) must make ``solve`` raise.
+    ms and ms per iteration, env-steps/s, busy share, device ms and
+    launches under ``torch.profiler``); then ``basic_evaluation``'s
+    graphs on 11 (a), (b) and (e)'s evaluations against the eager rollout
+    bit for bit, the caller's generator included, eager beside graph per
+    step and per whole evaluation, and an env with a Python counter must
+    make it raise. Last of all, a ``select_fn`` that reads the device from
+    the host (``.item()``) must make ``solve`` raise.
     ``python3 chip_smoke.py --segment-only`` runs phases 1, 2 and 19.
 
-The loops of phases 5-7, 12-18 and the solves of 11 and 18 run as replays
-of their CUDA graphs, as ``solve`` runs them (the DP loops of phases 8 and
-9 eagerly); 11 (d) and (e) on seeds 0, 1 and 2, each gated.
+The loops of phases 5-9, 12-18 and the solves of 11 and 18 run as replays
+of their CUDA graphs, as ``solve`` runs them, and so do their greedy
+evaluations; 11 (d) and (e) on seeds 0, 1 and 2, each gated.
 ``torch.profiler`` can lose the first records of a graph's first launch
 in a session, so each trace that counts a graph's launches either primes
 the session with one launch (``ops/cuda/loop_profile.py::traced``: the
@@ -144,7 +154,8 @@ profiles of 12-18 and 19) or leaves each graph's first launch out (11
 Each of the paths 5 to 9 and each part of 11 to 18 runs with the launch
 counters (and ``pmean_flat.calls``) zeroed just before it and read just
 after: every kernel of the path must have launched there, K3 / K5 not on
-the data-parallel paths, and ``pmean_flat`` once per sub-update. Prints the
+the data-parallel paths, and ``pmean_flat`` once per sub-update of each
+traced iteration (the graph's warm-up and capture). Prints the
 card's line, a JSON line of per-kernel results, and last the line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
@@ -2966,16 +2977,20 @@ def _cartpole_loop(torch, dev, n_iters):
     return _profile_iterations(torch, lambda x: run(x, 1), c, 20)[1:]
 
 
-def _dp_loop(torch, dev, recurrent, n_iters):
-    """The headline (or, ``recurrent``, the DRQN) configuration through
-    ``DataParallelRunner`` over the one-rank NCCL mesh: the data-parallel
-    route (K7 / K8, ``pmean_flat``, one Adam launch per sub-update)."""
+def _dp_setup(torch, dev, recurrent, dcn_sync_every=1):
+    """``(runner, carry, cfg)``: the headline (or, ``recurrent``, the DRQN)
+    configuration through ``DataParallelRunner`` over the one-rank NCCL
+    mesh (with ``dcn_sync_every > 1``, local SGD over the ``(1, 1)``
+    ``hybrid_mesh``): the data-parallel route (K7 / K8, ``pmean_flat``, one
+    Adam launch per sub-update), populated through its populate graph
+    (open episodes stay open, as in the JAX runner)."""
     from deepqlearning_tpu_torch import (
         LSTM, Chain, Dense, DQNConfig, EpisodeReplayBuffer, Flatten,
         LinearDecaySchedule, PrioritizedReplayBuffer, SimpleGridWorld,
         create_dueling_network)
     from deepqlearning_tpu_torch.parallel.mesh import (
         DataParallelRunner, make_mesh)
+    from deepqlearning_tpu_torch.parallel.multihost import hybrid_mesh
 
     env = SimpleGridWorld()
     if recurrent:
@@ -2988,7 +3003,7 @@ def _dp_loop(torch, dev, recurrent, n_iters):
                                   cfg.batch_size, cfg.trace_length,
                                   cfg.max_episode_length,
                                   num_envs=cfg.num_envs, device=dev)
-        n_pop, warmup = cfg.max_episode_length + 1, 3
+        n_pop = cfg.max_episode_length + 1
     else:
         net = create_dueling_network(Chain(
             Flatten(), Dense(2, 64, torch.tanh, device=dev),
@@ -3001,11 +3016,34 @@ def _dp_loop(torch, dev, recurrent, n_iters):
             alpha=cfg.prioritized_replay_alpha,
             beta=cfg.prioritized_replay_beta,
             eps=cfg.prioritized_replay_epsilon, prioritized=True, device=dev)
-        n_pop, warmup = 2, 1
+        n_pop = 2
+    mesh = hybrid_mesh() if dcn_sync_every > 1 else make_mesh(1)
     runner = DataParallelRunner(env, net, buf, cfg,
                                 LinearDecaySchedule(1.0, 0.01, 100_000),
-                                env.discount, mesh=make_mesh(1))
+                                env.discount, mesh=mesh,
+                                dcn_sync_every=dcn_sync_every)
+    _check(runner.graphed, "the NCCL runner is not on the graph route")
     c = runner.run_populate(runner.init_carry(0), n_pop)
+    if recurrent:
+        _check(bool(c.replay.cur_len.any()) and int(c.replay.t) == n_pop,
+               "DP populate graph: the open episodes were dropped")
+    return runner, c, cfg
+
+
+def _dp_loop(torch, dev, recurrent, n_iters, n_trace=3):
+    """:func:`_dp_setup`'s loop as ``solve`` would run it: the first
+    ``run_segment`` call captures the iteration (timed), warm-up replays,
+    ``n_iters`` timed replays, then a trace of ``n_trace`` replays after
+    one that primes the session, and the device profile of 5."""
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+
+    runner, c, cfg = _dp_setup(torch, dev, recurrent)
+    warmup = 3 if recurrent else 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = runner.run_segment(c, 0)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
     c = runner.run_segment(c, warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3015,10 +3053,14 @@ def _dp_loop(torch, dev, recurrent, n_iters):
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
-    _check(int(c.actor.ep_count) > 0 and int(c.iters) == warmup + n_iters,
+    c, seen = _traced_launches(torch, lambda: runner.run_segment(c, 1),
+                               lambda: runner.run_segment(c, n_trace))
+    c, prof = device_profile(torch, lambda x: runner.run_segment(x, 1), c, 5)
+    _check(int(c.actor.ep_count) > 0
+           and int(c.iters) == warmup + n_iters + n_trace + 1 + 6,
            "loop progress")
     return (cfg, n_iters * cfg.env_steps_per_iter / dt,
-            1000.0 * dt / n_iters, loss, warmup + n_iters)
+            1000.0 * dt / n_iters, loss, capture_s, seen, prof)
 
 
 def _clone_carry(torch, c):
@@ -3053,15 +3095,40 @@ def _carry_diff(torch, a, b):
     return out
 
 
+def _dp_route(torch, dev, recurrent, dcn_sync_every=1):
+    """A phase 19 setup on ``DataParallelRunner`` (:func:`_dp_setup`):
+    the eager iteration reads the local-SGD period from the device after
+    each iteration, as the runner did before its graphs; ``make_run(g)``
+    captures the runner's graphs on ``g`` (its first ``run_segment``
+    call) and gives ``(run_segment, [graphs])``."""
+    runner, c, cfg = _dp_setup(torch, dev, recurrent, dcn_sync_every)
+    k = dcn_sync_every
+
+    def eager(x):
+        x = runner._iteration(x)
+        if k > 1 and int(x.iters) % k == 0:
+            runner._average_across_dcn(x)
+        return x
+
+    def make_run(g):
+        runner.run_segment(g, 0)
+        return runner.run_segment, [x for kind, x in runner._graphs.items()
+                                    if kind != "populate"]
+
+    return eager, c, cfg, make_run
+
+
 def _segment_routes(torch, dev):
-    """Phase 19's routes at full width: ``{name: (setup, launches per
-    iteration)}``, ``setup()`` giving ``(iteration, carry, cfg, (env,
-    buffer))`` after populate."""
+    """Phase 19's routes at full width: ``{name: (setup, wrapper calls per
+    iteration)}``, ``setup()`` giving ``(eager iteration, carry, cfg,
+    make_run)`` after populate, ``make_run(carry)`` the graphs captured on
+    that carry: ``(run_segment, [CompiledSegment])``."""
     from deepqlearning_tpu_torch import (
         CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         TestMDP)
     from deepqlearning_tpu_torch.learner.loop import (
         build_loop, init_carry, populate)
+    from deepqlearning_tpu_torch.learner.segment import make_segment
     from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
 
     def cartpole():
@@ -3075,6 +3142,19 @@ def _segment_routes(torch, dev):
                                   env.discount)
         c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
         return it, c, cfg, (env, buf)
+
+    def single(setup, name):
+        """A single-card route: its graph from ``make_segment``."""
+        def run():
+            it, c, cfg, (env, buf) = setup()
+
+            def make_run(g):
+                seg = make_segment(it, g, cfg, env, buf, f"chip_smoke {name}")
+                return seg, [seg]
+
+            return it, c, cfg, make_run
+
+        return run
 
     GridWorld, _, MiniPOMDP = user_envs()
 
@@ -3108,7 +3188,7 @@ def _segment_routes(torch, dev):
                                    c, cfg.max_episode_length + 1)
         return it, c, cfg, (env, buf)
 
-    return {
+    routes = {
         "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
                                          4096, 2),
                      {"tree_sample": 1, "fused_group_update": 1,
@@ -3141,6 +3221,25 @@ def _segment_routes(torch, dev):
         "per-instance MiniPOMDP DRQN": (mini_pomdp,
                                         {"fused_drqn_group_update": 1}),
     }
+    routes = {name: (single(setup, name), per_iter)
+              for name, (setup, per_iter) in routes.items()}
+    # the data-parallel routes in the one-rank NCCL world: per sub-update
+    # K7 (K8), the all-reduce and an Adam launch, in the graph
+    # (and "adam": the Adam kernel launched by the update's wrapper)
+    routes["DP headline"] = (lambda: _dp_route(torch, dev, False),
+                             {"fused_grads": 32, "dp_update": 1,
+                              "adam": 32, "tree_sample": 1,
+                              "fused_collect": 1})
+    routes["DP DRQN"] = (lambda: _dp_route(torch, dev, True),
+                         {"fused_drqn_grads": 4, "drqn_dp_update": 1,
+                          "adam": 4, "fused_collect_rnn": 1})
+    # local SGD, k = 2, on the (1, 1) mesh: two graphs, the second with
+    # the DCN average after the iteration
+    routes["DP local SGD (k=2)"] = (lambda: _dp_route(torch, dev, False, 2),
+                                    {"fused_grads": 32, "dp_update": 1,
+                                     "adam": 32, "tree_sample": 1,
+                                     "fused_collect": 1})
+    return routes
 
 
 def _idle_ms(torch, fn, c, n):
@@ -3207,12 +3306,17 @@ def _all_wrappers():
             "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda}
 
 
-# the symbols of the kernels on the graph routes, by wrapper
+# the symbols of the kernels on the graph routes, by wrapper (the
+# data-parallel updates' wrappers launch K7 / K8 through fused_grads and
+# fused_drqn_grads, and have no kernel of their own)
 SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
            "fused_group_update": "fu_group_kernel",
            "fused_collect": "fc_kernel",
            "fused_drqn_group_update": "dr_group_kernel",
-           "fused_collect_rnn": "fc_rnn_kernel"}
+           "fused_collect_rnn": "fc_rnn_kernel",
+           "fused_grads": "fu_group_kernel",
+           "fused_drqn_grads": "dr_group_kernel",
+           "adam": "dq_adam_flat_kernel"}
 
 
 def _traced_launches(torch, prime, fn):
@@ -3353,33 +3457,188 @@ def _host_state_guard(torch, dev):
                          "was captured without raising")
 
 
+def _eval_routes(torch, dev):
+    """The greedy evaluations of 11 (a), (b) and (e), each with parameters
+    from a seeded generator: ``{name: (env, network, params, n_eval,
+    max_episode_length)}``."""
+    from deepqlearning_tpu_torch import (
+        LSTM, Chain, Dense, SimpleGridWorld, TestMDP,
+        create_dueling_network)
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    ff = _dueling_net(torch, dev, 64, torch.tanh)
+    drqn = create_dueling_network(Chain(LSTM(2, 32, device=dev),
+                                        Dense(32, 4, device=dev)))
+    conv = conv_net(torch, dev)
+    return {
+        "11 (a) SimpleGridWorld, dueling 2-64-64-4": (
+            SimpleGridWorld(), ff, ff.init(g), 100, 100),
+        "11 (b) SimpleGridWorld, DRQN LSTM(2,32) dueling": (
+            SimpleGridWorld(), drqn, drqn.init(g), 100, 100),
+        "11 (e) TestMDP (20,20,4) images, bf16 conv": (
+            TestMDP((20, 20), 4, 6), conv, conv.init(g, torch.bfloat16),
+            128, 6),
+    }
+
+
+def phase_eval_graph(torch, dev, card):
+    """19 (g): ``basic_evaluation``'s graphs (``solver/evaluation.py``) on
+    the evaluations of 11 (a), (b) and (e): the reset and N = 3 greedy
+    step replays against N eager steps from a cloned carry, bit for bit
+    (every tensor and the generator's state); three whole evaluations
+    against the eager rollout (``_eval_rollout``) on the same seeds, the
+    means and the caller's generator state bit for bit; memory flat over
+    100 step replays; eager beside graph from an idle queue, per step
+    (medians of 8: host ms and ms; busy share, device ms and launches
+    under ``torch.profiler``, 5 steps) and per whole evaluation (median of
+    3, seconds); then an env with a Python counter makes the evaluation
+    raise. Returns ``{name: rows}``."""
+    from torch.utils._pytree import tree_map
+
+    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+    from deepqlearning_tpu_torch.solver import evaluation as ev
+
+    N = 3
+    table = {}
+    for name, (env, net, params, n, L) in _eval_routes(torch, dev).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = ev.eval_graph(net, params, env, n, dev)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        # the step graph against eager steps from one reset state
+        gen = torch.Generator(device=dev).manual_seed(5)
+        torch._foreach_copy_(list(graph.params.values()),
+                             [params[k] for k in graph.params])
+        graph.carry.generator.set_state(gen.get_state())
+        graph.reset(graph.carry, 1)
+        e = _clone_carry(torch, graph.carry)
+        step = ev.eval_step(env, net, graph.params)
+        with torch.no_grad():
+            for _ in range(N):
+                e = step(e)
+        graph.step(graph.carry, N)
+        diff = _carry_diff(torch, graph.carry, e)
+        _check(not diff, f"eval {name}: {N} step replays differ from eager "
+                         f"steps at leaves {diff}")
+        # whole evaluations against the eager rollout
+        for seed in (1, 2, 3):
+            ours = torch.Generator(device=dev).manual_seed(seed)
+            ref = torch.Generator(device=dev).manual_seed(seed)
+            got = ev.basic_evaluation(net, params, env, n, L, ours)[:2]
+            want = tuple(float(x) for x in ev._eval_rollout(
+                env, params, net, n, L, ref))
+            _check(got == want, f"eval {name}: graph {got} vs eager {want}")
+            _check(torch.equal(ours.get_state(), ref.get_state()),
+                   f"eval {name}: the caller's generator differs")
+        _check(ev.eval_graph(net, params, env, n, dev) is graph,
+               f"eval {name}: the graphs were captured again")
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        graph.step(graph.carry, 100)
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated(dev)
+        _check(m1 == m0, f"eval {name}: memory {m0} -> {m1} over 100 "
+                         "replays")
+        rows = {}
+        for mode in ("eager", "graph"):
+            if mode == "eager":
+                c0 = _clone_carry(torch, graph.carry)
+                fn = lambda x: step(x)
+                whole = lambda: ev._eval_rollout(env, params, net, n, L,
+                                                 torch.Generator(device=dev)
+                                                 .manual_seed(9))
+            else:
+                c0 = graph.carry
+                fn = lambda x: graph.step(x, 1)
+                whole = lambda: ev.basic_evaluation(net, params, env, n, L, 9)
+            with torch.no_grad():
+                c0, host, ms = _idle_ms(torch, fn, c0, 8)
+                c0, prof = device_profile(torch, fn, c0, 5)
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                whole()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            rows[mode] = dict(
+                ms=round(ms, 4), host_ms=round(host, 4),
+                busy=round(prof["busy"], 4),
+                device_ms=round(prof["device_ms"], 4),
+                launches=prof["launches"],
+                eval_s=round(float(np.median(secs)), 4))
+        table[name] = rows
+        _say(f"evaluation graph, {name} ({n} episodes, {L + 1} steps): "
+             f"reset and {N} step replays = eager steps bit for bit; 3 "
+             f"evaluations = the eager rollout bit for bit (means and the "
+             f"caller's generator); memory flat at {m1} bytes over 100 "
+             f"replays; capture {capture_s:.3f} s; per step and whole "
+             f"evaluation: eager {rows['eager']} | graph {rows['graph']} | "
+             f"{card}")
+        del graph
+    from deepqlearning_tpu_torch import Chain, Dense
+
+    drift_net = Chain(Dense(1, 8, torch.tanh, device=dev),
+                      Dense(8, 2, device=dev))
+    drift_params = drift_net.init(torch.Generator(device=dev).manual_seed(0))
+    ev.basic_evaluation(drift_net, drift_params, _drift_env(torch, False),
+                        32, 10, 1)
+    try:
+        ev.basic_evaluation(drift_net, drift_params,
+                            _drift_env(torch, True), 32, 10, 1)
+    except RuntimeError as e:
+        _check("differs from the eager iteration" in str(e),
+               f"eval host state guard: another error: {e}")
+        _say(f"evaluation graph: an env with a Python counter makes "
+             f"basic_evaluation raise: {str(e)[:200]!r}")
+    else:
+        raise AssertionError("eval host state guard: an env with a Python "
+                             "counter was captured without raising")
+    torch.cuda.empty_cache()
+    return table
+
+
 def phase_compiled_segment(torch, dev, card):
     """19: the compiled segment (``learner/segment.py``) on each route it
-    captures, at full width: (a) N = 3 replays from a cloned carry against
-    N eager iterations, every carry tensor and the generator's state bit
-    for bit (two eager runs first: where they differ, the graph is held to
-    the eager runs' own spread); (b) the replays draw fresh numbers: they
+    captures, at full width, the data-parallel routes of phases 8 and 9
+    and local SGD (k = 2, on the ``(1, 1)`` mesh) in a one-rank NCCL world
+    included: (a) N = 3 replays from a cloned carry against N eager
+    iterations, every carry tensor and the generator's state bit for bit
+    (two eager runs first: where they differ, the graph is held to the
+    eager runs' own spread); (b) the replays draw fresh numbers: they
     differ from eager iterations that reuse one generator state; (c) the
-    warm-up and the capture call each wrapper as often as one iteration
-    launches its kernel, the replays call none, and a ``torch.profiler``
-    trace of N more replays (after one that primes the session:
-    ``loop_profile.traced``) sees each kernel N times as often;
+    warm-up and the capture of each graph call each wrapper as often as
+    one iteration launches its kernel, the replays call none, and a
+    ``torch.profiler`` trace of N more replays (after one that primes the
+    session: ``loop_profile.traced``) sees each kernel N times as often;
     (d) ``torch.cuda.memory_allocated`` is flat over 100 replays; then
     eager beside graph from an idle queue (medians of 8: host ms and ms
     until the device is done per iteration; env-steps/s over 10
-    back-to-back; busy share and device ms per iteration under
+    back-to-back; busy share, device ms and launches per iteration under
     ``torch.profiler``, 5 iterations). (f) a user env with a Python
-    counter makes ``make_segment`` raise. Last, (e): a ``select_fn`` with
-    a host read makes ``solve`` raise on the card."""
-    from deepqlearning_tpu_torch.learner.segment import (
-        CompiledSegment, make_segment)
+    counter makes ``make_segment`` raise. (g) the greedy evaluation's
+    graphs (:func:`phase_eval_graph`). Last, (e): a ``select_fn`` with a
+    host read makes ``solve`` raise on the card."""
+    import torch.distributed as dist
+
+    from deepqlearning_tpu_torch.learner.segment import CompiledSegment
     from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
 
+    own_world = not dist.is_initialized()
+    if own_world:
+        from deepqlearning_tpu_torch.parallel.launch import free_port
+        from deepqlearning_tpu_torch.parallel.multihost import (
+            initialize_multihost)
+
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend="nccl")
     names = _all_wrappers()
     N = 3
     table = {}
     for name, (setup, per_iter) in _segment_routes(torch, dev).items():
-        it, c, cfg, (env, buf) = setup()
+        it, c, cfg, make_run = setup()
         c = it(c)  # fills the replay past one batch, as a solve's first
         torch.cuda.synchronize()
         base = _clone_carry(torch, c)
@@ -3399,14 +3658,17 @@ def phase_compiled_segment(torch, dev, card):
         g = _clone_carry(torch, base)
         for w in names.values():
             w.launches = 0
-        run = make_segment(it, g, cfg, env, buf, f"chip_smoke {name}")
+        run, graphs = make_run(g)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
-        _check(isinstance(run, CompiledSegment), f"{name}: not captured")
+        _check(graphs and all(isinstance(x, CompiledSegment)
+                              for x in graphs), f"{name}: not captured")
         built = {k: w.launches for k, w in names.items() if w.launches}
-        _check(built == {k: 2 * v for k, v in per_iter.items()},
-               f"{name}: warm-up and capture called the wrappers {built} "
-               f"times, not twice {per_iter}")
+        want = {k: 2 * len(graphs) * v for k, v in per_iter.items()
+                if k in names}
+        _check(built == want,
+               f"{name}: the warm-ups and captures of {len(graphs)} graphs "
+               f"called the wrappers {built} times, not {want}")
         for w in names.values():
             w.launches = 0
         g = run(g, N)
@@ -3428,7 +3690,11 @@ def phase_compiled_segment(torch, dev, card):
         counts = {k: w.launches for k, w in names.items() if w.launches}
         _check(not counts, f"{name}: {2 * N + 1} replays called the "
                            f"wrappers {counts}")
-        want = {SYMBOLS[k]: v * N for k, v in per_iter.items()}
+        syms = {}
+        for k, v in per_iter.items():
+            if k in SYMBOLS:
+                syms[SYMBOLS[k]] = syms.get(SYMBOLS[k], 0) + v
+        want = {sym: v * N for sym, v in syms.items()}
         _check(seen == want, f"{name}: the trace of {N} replays saw "
                              f"{seen}, not {want}")
         torch.cuda.synchronize()
@@ -3441,13 +3707,19 @@ def phase_compiled_segment(torch, dev, card):
         # eager beside graph, each from its own carry
         rows = {}
         spi = cfg.env_steps_per_iter
-        for mode, fn, c0 in (("eager", it, runs[1]),
-                             ("graph", lambda x: run(x, 1), g)):
+
+        def eager_n(x, n):
+            for _ in range(n):
+                x = it(x)
+            return x
+
+        for mode, fn, many, c0 in (
+                ("eager", it, eager_n, runs[1]),
+                ("graph", lambda x: run(x, 1), run, g)):
             c0, host, ms = _idle_ms(torch, fn, c0, 8)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(10):
-                c0 = fn(c0)
+            c0 = many(c0, 10)
             torch.cuda.synchronize()
             sps = 10 * spi / (time.perf_counter() - t0)
             c0, prof = device_profile(torch, fn, c0, 5)
@@ -3456,13 +3728,13 @@ def phase_compiled_segment(torch, dev, card):
                 ms=round(ms, 4), host_ms=round(host, 4), sps=round(sps, 1),
                 busy=round(prof["busy"], 4),
                 device_ms=round(prof["device_ms"], 4),
+                launches=prof["launches"],
                 by_kernel={k: tuple(round(x, 4) for x in v)
                            for k, v in prof["by_kernel"].items()})
             top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])
             rows[mode]["top"] = {k[:60]: tuple(round(x, 4) for x in v)
                                  for k, v in top[:12]}
-        for k, v in per_iter.items():
-            sym = SYMBOLS[k]
+        for sym, v in syms.items():
             _check(rows["graph"]["by_kernel"].get(sym, (0,))[0] == v,
                    f"{name}: the profiler saw {sym} launched "
                    f"{rows['graph']['by_kernel'].get(sym)} times per replay, "
@@ -3471,15 +3743,19 @@ def phase_compiled_segment(torch, dev, card):
         _say(f"compiled segment, {name} (U={cfg.updates_per_iter}, "
              f"{cfg.num_envs} envs, {cfg.dtype}): graph = eager over {N} "
              f"iterations ({'bit for bit' if not spread else 'within 4x the eager spread ' + str(spread)}), "
-             f"fresh draws, wrapper calls at warm-up and capture {built}, "
+             f"fresh draws, wrapper calls at the warm-ups and captures of "
+             f"{len(graphs)} graph(s) {built}, "
              f"launches in the trace of {N} replays {seen}, memory flat at "
              f"{m1} bytes "
              f"over 100 replays, capture {capture_s:.2f} s; eager "
              f"{rows['eager']} | graph {rows['graph']} | {card}")
-        del run, g, base, runs, stale, c
+        del run, graphs, g, base, runs, stale, c
         torch.cuda.empty_cache()
+    if own_world:
+        dist.destroy_process_group()
     _say(f"compiled segment (f): a user env with a Python counter makes "
          f"make_segment raise: {_host_state_guard(torch, dev)[:300]!r}")
+    table.update(phase_eval_graph(torch, dev, card))
     return table
 
 
@@ -3527,7 +3803,7 @@ def _two_rank_slice(rank, world, device):
     c = runner.run_segment(c, n, [[u(6, E)] for _ in range(n)],
                            [[u(U * cfg.batch_size)] for _ in range(n)])
     return ({k: t.cpu().numpy() for k, t in c.params.items()},
-            c.replay.rows[:, 4].cpu().numpy(), float(c.loss))
+            c.replay.rows[:, 4].cpu().numpy(), float(c.loss), runner.graphed)
 
 
 def phase_two_ranks():
@@ -3540,6 +3816,8 @@ def phase_two_ranks():
 
     gpu = spawn(_two_rank_slice, 2, "cuda")
     cpu = spawn(_two_rank_slice, 2, "cpu")
+    _check(not any(r[3] for r in gpu + cpu),
+           "two ranks: a gloo runner is not on the eager route")
     err = 0.0
     for k in gpu[0][0]:
         _check(np.array_equal(gpu[0][0][k], gpu[1][0][k]),
@@ -3554,7 +3832,9 @@ def phase_two_ranks():
     _check(not np.array_equal(gpu[0][1], gpu[1][1]),
            "two ranks: the ranks collected the same data")
     _say(f"two gloo ranks on one card vs CPU (1024 envs per rank, U=4, "
-         f"B=32, 3 iterations): ok, params equal across ranks, card vs CPU "
+         f"B=32, 3 iterations; eager iterations, as the gate states for "
+         f"gloo, which reduces through host memory and takes injected "
+         f"draws): ok, params equal across ranks, card vs CPU "
          f"max_abs_err {err:.3g}, replay actions agree {agree:.4f}")
 
 
@@ -3693,30 +3973,48 @@ def main():
     # 8. - 9. the data-parallel routes in a one-rank NCCL world
     torch.cuda.set_device(dev)
     initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
-    (cfg, sps4, ms4, loss4, iters), dph = run_path(
-        "DP headline loop", lambda: _dp_loop(torch, dev, False, 20),
+    N = 3
+    (cfg, sps4, ms4, loss4, cap4, seen4, prof4), dph = run_path(
+        "DP headline loop", lambda: _dp_loop(torch, dev, False, 20, N),
         ("fused_grads", "tree_sample", "fused_collect"),
         ("fused_group_update",))
     U = cfg.updates_per_iter
-    _check(dph["pmean_flat"] == U * iters == dph["fused_grads"]
-           and dph["dp_update"] == iters, f"DP headline: counts {dph}")
-    _say(f"DP headline loop (NCCL, world 1): 131072 envs, 2^20 replay, "
-         f"batch 512, U={U}: {sps4:.1f} env-steps/s, {ms4:.3f} ms/iteration "
-         f"(non-DP headline above: {sps:.1f} env-steps/s, "
-         f"{1000.0 * cfg.env_steps_per_iter / sps:.3f} ms/iteration), loss "
-         f"{loss4:.5g} | {card} | launches {dph}")
-    (cfg, sps5, ms5, loss5, iters), dpr = run_path(
-        "DP DRQN loop", lambda: _dp_loop(torch, dev, True, 20),
+    # the iteration's graph is captured once: its warm-up and capture call
+    # K7's wrapper and pmean_flat U times each; the replays call none
+    _check(dph["pmean_flat"] == 2 * U == dph["fused_grads"]
+           and dph["dp_update"] == 2, f"DP headline: counts {dph}")
+    want = {"fu_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
+            "tree_sample_kernel": N, "fc_kernel": N}
+    _check(seen4 == want, f"DP headline: the trace of {N} replays saw "
+                          f"{seen4}, not {want}")
+    _say(f"DP headline loop (NCCL, world 1) as graph replays: 131072 envs, "
+         f"2^20 replay, batch 512, U={U}: {sps4:.1f} env-steps/s, "
+         f"{ms4:.4f} ms/iteration (non-DP headline above: {sps:.1f} "
+         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps:.4f} "
+         f"ms/iteration), loss {loss4:.5g}; capture {cap4:.3f} s; the trace "
+         f"of {N} replays saw {seen4}; per replay {prof4['launches']} device "
+         f"events (the graph's kernel and copy nodes), device time "
+         f"{prof4['device_ms']} ms, busy {prof4['busy']} | {card} | "
+         f"wrapper calls {dph}")
+    (cfg, sps5, ms5, loss5, cap5, seen5, prof5), dpr = run_path(
+        "DP DRQN loop", lambda: _dp_loop(torch, dev, True, 20, N),
         ("fused_drqn_grads", "fused_collect_rnn"),
         ("fused_drqn_group_update",))
     U = cfg.updates_per_iter
-    _check(dpr["pmean_flat"] == U * iters == dpr["fused_drqn_grads"]
-           and dpr["drqn_dp_update"] == iters, f"DP DRQN: counts {dpr}")
-    _say(f"DP DRQN loop (NCCL, world 1): 16384 envs, LSTM(2,32), U={U}: "
-         f"{sps5:.1f} env-steps/s, {ms5:.3f} ms/iteration (non-DP DRQN "
-         f"above: {sps3:.1f} env-steps/s), loss {loss5:.5g} | {card} | "
-         f"launches {dpr}")
-    dist.destroy_process_group()
+    _check(dpr["pmean_flat"] == 2 * U == dpr["fused_drqn_grads"]
+           and dpr["drqn_dp_update"] == 2, f"DP DRQN: counts {dpr}")
+    want = {"dr_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
+            "fc_rnn_kernel": N}
+    _check(seen5 == want, f"DP DRQN: the trace of {N} replays saw {seen5}, "
+                          f"not {want}")
+    _say(f"DP DRQN loop (NCCL, world 1) as graph replays: 16384 envs, "
+         f"LSTM(2,32), U={U}: {sps5:.1f} env-steps/s, {ms5:.4f} "
+         f"ms/iteration (non-DP DRQN above: {sps3:.1f} env-steps/s), loss "
+         f"{loss5:.5g}; capture {cap5:.3f} s; the trace of {N} replays saw "
+         f"{seen5}; per replay {prof5['launches']} device events, device "
+         f"time {prof5['device_ms']} ms, busy {prof5['busy']} | {card} | "
+         f"wrapper calls {dpr}")
+    # the NCCL world stays for phase 19's data-parallel routes
 
     # 10. two gloo ranks on the one card vs the same program on the CPU
     phase_two_ranks()
@@ -3735,8 +4033,10 @@ def main():
     phase_per_instance(torch, dev, card, run_path)
 
     # 19. the compiled segment: graph replays against eager iterations on
-    # each route it captures, before the profiles
+    # each route it captures (the data-parallel ones in phase 8's NCCL
+    # world) and the evaluation's graphs, before the profiles
     phase_compiled_segment(torch, dev, card)
+    dist.destroy_process_group()
 
     # 12. the headline loop again, profiled last (a profiler session can
     # leave per-launch host costs behind it for the loops that follow)
@@ -3866,8 +4166,11 @@ def main():
                                     "SimpleGridWorld, CartPole, "
                                     "MountainCar; in the DRQN routes' "
                                     "CUDA graphs)",
-               "fused_grads": "fu_group_kernel (cooperative, U=1)",
-               "fused_drqn_grads": "dr_group_kernel (cooperative, U=1)"}
+               "fused_grads": "fu_group_kernel (cooperative, U=1; in the "
+                              "data-parallel routes' CUDA graphs)",
+               "fused_drqn_grads": "dr_group_kernel (cooperative, U=1; in "
+                                   "the data-parallel routes' CUDA "
+                                   "graphs)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
                     source=src[k][0], replaces=src[k][1],
                     launches=launches[k], **results[k], library_ms=None)

@@ -28,19 +28,30 @@ the carry on the device and no host read inside an iteration
   run(carry, n)``: the same for ``populate``'s ε = 1 collect step
   (``learner/loop.py::populate`` off the graph), an episode buffer's
   ``reset_in_progress`` after the ``n`` replays, as ``populate`` ends.
+  :func:`collect_body` is that step as an iteration of the carry, which
+  the data-parallel populate replays without that ending.
 * :func:`graph_route`: the static gate of the routes this module captures:
-  no ``axis_name``, an env of the ``Env`` protocol, and a feed-forward
-  network over a replay of ``replay/prioritized.py`` or a recurrent one
-  (``recurrence``) over ``replay/episode.py``, in f32 or bf16. That takes
-  every single-card route of ``build_loop``: the feed-forward PER routes
-  (K1-K4), DRQN with K5 and K6 or the plain recurrent steps, built-in and
-  batched envs, and envs and problems written one instance at a time,
-  batched by ``torch.func.vmap`` (``envs/base.py``). Data parallelism
-  (K7, K8 and the collectives) and the host path ``solve_host`` run
-  eagerly.
+  an env of the ``Env`` protocol, and a feed-forward network over a
+  replay of ``replay/prioritized.py`` or a recurrent one (``recurrence``)
+  over ``replay/episode.py``, in f32 or bf16; and either no ``axis_name``
+  or one whose process groups are all NCCL. That takes every route of
+  ``build_loop`` on the card: the feed-forward PER routes (K1-K4), DRQN
+  with K5 and K6 or the plain recurrent steps, built-in and batched envs,
+  envs and problems written one instance at a time, batched by
+  ``torch.func.vmap`` (``envs/base.py``), and data parallelism over NCCL
+  (K7, K8 and ``pmean_flat``'s all-reduces, captured into the graph;
+  ``parallel/mesh.py``). The routes that run eagerly, by the same gate:
+  CPU tensors, data parallelism over gloo (which reduces through host
+  memory, outside any stream), and the host path ``solve_host``.
+  ``solver/evaluation.py`` replays the greedy evaluation's step as a
+  :class:`CompiledSegment` of its own.
 
 There is no fallback: a capture that fails on a route of the gate raises,
-naming the route, and nothing switches the graph off.
+naming the route, and nothing switches the graph off. Across ranks
+(``group``), every rank captures the same collectives, and the capture's
+and the guard replay's verdicts are all-reduced (MAX) before either
+raises, so that every rank raises where one does instead of the others
+hanging in their next collective.
 
 The graph route's contract for user code: the env's methods (the batched
 ``reset_batch``, ``step_batch``, ``observe_batch``, or the per-instance
@@ -72,17 +83,31 @@ from ..envs.base import Env
 from .loop import populate
 
 
+def nccl_groups(axis_name) -> bool:
+    """Whether ``axis_name`` (a process group or a tuple of them) is made
+    of NCCL groups only: a collective over them runs on the card's
+    streams, which a CUDA graph captures; gloo's runs on the host."""
+    import torch.distributed as dist
+
+    groups = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
+        else (axis_name,)
+    return bool(groups) and all(
+        isinstance(g, dist.ProcessGroup) and dist.get_backend(g) == "nccl"
+        for g in groups)
+
+
 def graph_route(cfg, env, buffer, axis_name=None) -> bool:
-    """Whether the loop of ``cfg`` on ``env`` and ``buffer`` is one this
-    module captures on the card (module docstring); the device is
+    """Whether the loop of ``cfg`` on ``env`` and ``buffer`` (with
+    gradients averaged over ``axis_name``, if given) is one this module
+    captures on the card (module docstring); the device is
     :func:`make_segment`'s to check."""
     from ..replay.episode import EpisodeReplayBuffer
     from ..replay.prioritized import PrioritizedReplayBuffer
 
     replay = EpisodeReplayBuffer if cfg.recurrence else \
         PrioritizedReplayBuffer
-    return (axis_name is None and isinstance(env, Env)
-            and isinstance(buffer, replay)
+    return ((axis_name is None or nccl_groups(axis_name))
+            and isinstance(env, Env) and isinstance(buffer, replay)
             and cfg.dtype in (torch.float32, torch.bfloat16))
 
 
@@ -96,12 +121,27 @@ def _check_leaves(leaves, what: str) -> None:
             "device tensor (build the carry with init_carry)")
 
 
+def _agree(count: int, group, device) -> int:
+    """``count``, or over ``group`` the largest of the ranks' counts."""
+    if group is None:
+        return count
+    import torch.distributed as dist
+
+    t = torch.tensor([count], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t)
+
+
 class CompiledSegment:
     """One captured iteration over the static carry ``carry``; call it as
     ``run_segment(carry, n)`` (module docstring). ``route`` names the
-    route in errors."""
+    route in errors. ``group``: the process group whose ranks capture the
+    same iteration (its collectives included) and must reach one verdict
+    on the capture and on the guard replay; with a group the capture runs
+    in ``torch.cuda.graph``'s ``"thread_local"`` mode, so that c10d's
+    watchdog thread may query its events while this thread captures."""
 
-    def __init__(self, iteration: Callable, carry, route: str):
+    def __init__(self, iteration: Callable, carry, route: str, group=None):
         self.route = route
         self.static = carry
         leaves, self._spec = tree_flatten(carry)
@@ -127,15 +167,22 @@ class CompiledSegment:
         self.graph = torch.cuda.CUDAGraph()
         for g in gens:
             self.graph.register_generator_state(g)
+        failed = None
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, capture_error_mode=(
+                    "global" if group is None else "thread_local")):
                 self._copy_back(iteration(carry), "capture")
-        except Exception as e:
+        except Exception as e:  # re-raised below, on every rank
+            failed = e
+        if _agree(failed is not None, group, device):
+            where = device if failed is not None else "another rank"
             raise RuntimeError(
                 f"{route}: capturing one iteration as a CUDA graph failed "
-                f"on {device}; this route runs only as a graph (an "
-                "iteration must not read the device from the host: no "
-                ".item(), bool(t), int(t) or data-dependent shapes)") from e
+                f"on {where}; this route runs only as a graph (an iteration "
+                "must not read the device from the host: no .item(), "
+                "bool(t), int(t) or data-dependent shapes; a collective "
+                "must run on NCCL, without TORCH_NCCL_BLOCKING_WAIT)"
+            ) from failed
 
         # the guard: host state that the capture froze shows as a replay
         # that differs from the eager iteration
@@ -144,11 +191,13 @@ class CompiledSegment:
         differ += sum(not torch.equal(g.get_state(), s)
                       for g, s in zip(gens, expect_states))
         self._restore(tensors, snapshot, gens, states)
+        differ = _agree(differ, group, device)
         if differ:
+            most = "" if group is None else " (on the rank where most differ)"
             raise RuntimeError(
                 f"{route}: one replay of the captured iteration differs from "
                 f"the eager iteration in {differ} of the carry's "
-                f"{len(tensors) + len(gens)} tensors and generators; a "
+                f"{len(tensors) + len(gens)} tensors and generators{most}; a "
                 "replay repeats the iteration as it was at capture, so the "
                 "env's batched methods, the problem and the exploration "
                 "function must be pure device code (no Python counter, "
@@ -194,10 +243,14 @@ class CompiledSegment:
             torch._foreach_copy_([s for s, _ in group],
                                  [o for _, o in group])
 
-    def __call__(self, carry, n: int):
+    def holds(self, carry) -> bool:
+        """Whether ``carry``'s tensors are this graph's static buffers."""
         leaves = tree_flatten(carry)[0]
-        if len(leaves) != len(self._leaves) or any(
-                x is not s for x, s in zip(leaves, self._leaves)):
+        return len(leaves) == len(self._leaves) and all(
+            x is s for x, s in zip(leaves, self._leaves))
+
+    def __call__(self, carry, n: int):
+        if not self.holds(carry):
             raise ValueError(
                 f"{self.route}: run_segment takes the carry it was made from "
                 "(or one it returned): its tensors are the graph's buffers")
@@ -236,6 +289,18 @@ def make_segment(iteration: Callable, carry, cfg, env, buffer,
     return CompiledSegment(iteration, carry, route)
 
 
+def collect_body(step: Callable) -> Callable:
+    """One collect step of ``step`` (``populate_step``) on a carry's
+    actor, replay and generator, as an iteration of the carry."""
+
+    def body(c):
+        actor, replay, params = step((c.actor, c.replay, c.params),
+                                     c.generator)
+        return c._replace(actor=actor, replay=replay, params=params)
+
+    return body
+
+
 def make_collect_graph(step: Callable, carry, cfg, env, buffer,
                        route: str = "populate"):
     """``run(carry, n) -> carry``: ``n`` collect steps of ``step`` (the
@@ -245,13 +310,7 @@ def make_collect_graph(step: Callable, carry, cfg, env, buffer,
     where :func:`make_segment` captures, else that function itself."""
     if not _graphed(carry, cfg, env, buffer):
         return lambda c, n: populate(step, buffer, c, n)
-
-    def body(c):
-        actor, replay, params = step((c.actor, c.replay, c.params),
-                                     c.generator)
-        return c._replace(actor=actor, replay=replay, params=params)
-
-    graph = CompiledSegment(body, carry, route)
+    graph = CompiledSegment(collect_body(step), carry, route)
     # populate of no further step is populate's end alone: an episode
     # buffer drops its open episodes
     return lambda c, n: populate(step, buffer, graph(c, n), 0)

@@ -20,8 +20,22 @@ are what the train steps take as ``axis_name``:
   every k iterations the parameters and the float Adam moments ``m``, ``v``
   are averaged across DCN (the Adam count is not, nor are the target
   parameters, as in the JAX runner). The port counts those k iterations
-  over the whole run, across ``run_segment`` calls, with the carry's
-  ``iters``; the JAX runner counts them within each call.
+  over the whole run, across ``run_segment`` calls and a resume, from the
+  carry's ``iters``, read once at the start of each call and counted on
+  the host from there; the JAX runner counts them within each call.
+
+The JAX runner jits ``shard_map(lax.scan(iteration))`` for ``run_segment``
+and ``run_populate``. Its counterpart here, when every process group is
+NCCL and the carry is on the card (``learner/segment.py::graph_route``),
+is a CUDA graph of one iteration (and one of one collect step), captured
+at the first call on that call's carry, its all-reduces included, and
+replayed once per iteration; with local SGD a second graph holds the
+iteration followed by the DCN average, and the host's count picks which
+of the two each iteration replays. Every rank captures the same
+collectives and all ranks reach one verdict on each capture. Injected
+uniforms and draws are refused there: a graph draws from the carry's
+generator. Over gloo (which reduces through host memory) or on CPU
+tensors the runner runs eager iterations, as stated by the same gate.
 
 ``cfg.num_envs`` is per rank; the aggregate env throughput is ``num_envs *
 world_size``.
@@ -37,6 +51,7 @@ from ..config import DQNConfig
 from ..device import counter
 from ..learner.actor import init_actor
 from ..learner.loop import LoopCarry, build_loop
+from ..learner.segment import CompiledSegment, collect_body, graph_route
 from ..learner.train_step import pmean_flat
 
 
@@ -68,9 +83,11 @@ class DataParallelRunner:
     rank of the mesh.
 
     The carry lives on ``buffer.device`` (the network's parameters must
-    too). ``run_populate`` and ``run_segment`` take the injected uniforms /
+    too). On the eager route (``graphed`` false: gloo, or CPU tensors)
+    ``run_populate`` and ``run_segment`` take the injected uniforms /
     draws of ``build_loop``'s ``populate_step`` and ``iteration``, one entry
-    per collect step or per iteration."""
+    per collect step or per iteration; on the graph route they raise
+    ``ValueError`` if given them (module docstring)."""
 
     def __init__(self, env, network, buffer, cfg: DQNConfig, eps_fn,
                  gamma: float, mesh=None, dcn_sync_every: int = 1):
@@ -96,6 +113,13 @@ class DataParallelRunner:
         self._iteration, self._populate_step, self.optimizer = build_loop(
             env, network, buffer, cfg, eps_fn, gamma, axis_name=grad_axis)
         self.device = buffer.device
+        groups = (grad_axis if isinstance(grad_axis, tuple)
+                  else (grad_axis,)) + (
+                      (self._dcn,) if self.dcn_sync_every > 1 else ())
+        # the static gate: graph replays for NCCL on the card, else eager
+        self.graphed = (torch.device(self.device).type == "cuda"
+                        and graph_route(cfg, env, buffer, groups))
+        self._graphs = {}
 
     def init_carry(self, seed: int) -> LoopCarry:
         """A fresh carry: the parameters from ``seed`` (equal on every
@@ -120,15 +144,45 @@ class DataParallelRunner:
             loss=zero, gnorm=zero.clone(), sync_acc=counter(0, dev),
             iters=counter(0, dev))
 
+    def _graph(self, kind: str, carry) -> CompiledSegment:
+        """The graph ``kind`` ("populate", "segment" or "sync": the
+        iteration then the DCN average) on ``carry``'s tensors, captured
+        on the first call that gives them."""
+        g = self._graphs.get(kind)
+        if g is None or not g.holds(carry):
+            body = {"populate": collect_body(self._populate_step),
+                    "segment": self._iteration,
+                    "sync": self._synced_iteration}[kind]
+            g = self._graphs[kind] = CompiledSegment(
+                body, carry, f"DataParallelRunner.{kind} (NCCL)",
+                group=dist.group.WORLD)
+        return g
+
+    def _refuse_injected(self, *draws) -> None:
+        if any(d is not None for d in draws):
+            raise ValueError(
+                "DataParallelRunner: the NCCL route on the card replays "
+                "CUDA graphs that draw from the carry's generator; injected "
+                "uniforms and draws run on the eager route only (gloo, or "
+                "CPU tensors)")
+
     def run_populate(self, carry: LoopCarry, n_iters: int,
                      collect_u: Optional[Sequence] = None) -> LoopCarry:
         """``n_iters`` ε=1 collect steps into this rank's replay (open
         episodes stay open, as in the JAX runner)."""
+        if self.graphed:
+            self._refuse_injected(collect_u)
+            return self._graph("populate", carry)(carry, n_iters)
         cc = (carry.actor, carry.replay, carry.params)
         for i in range(n_iters):
             cc = self._populate_step(
                 cc, carry.generator, None if collect_u is None else collect_u[i])
         return carry._replace(actor=cc[0], replay=cc[1])
+
+    def _synced_iteration(self, carry: LoopCarry, **draws) -> LoopCarry:
+        carry = self._iteration(carry, **draws)
+        self._average_across_dcn(carry)
+        return carry
 
     def run_segment(self, carry: LoopCarry, n_iters: int,
                     collect_u: Optional[Sequence] = None,
@@ -137,16 +191,32 @@ class DataParallelRunner:
         are iteration i's injected uniforms (lists, as ``iteration`` takes
         them). With local SGD, the carry's parameters and Adam moments are
         averaged across DCN after every ``dcn_sync_every``-th iteration of
-        the run."""
+        the run. On the graph route the first call captures the graphs on
+        its carry (``n_iters = 0`` captures them only)."""
         k = self.dcn_sync_every
+        # the run's iteration count, read once per call: from here the host
+        # counts, so no iteration reads the device
+        done = int(carry.iters) if k > 1 else 0
+        if self.graphed:
+            self._refuse_injected(collect_u, sample_u)
+            plain = self._graph("segment", carry)
+            if k == 1:
+                return plain(carry, n_iters)
+            sync = self._graph("sync", carry)
+            i = 0
+            while i < n_iters:
+                r = (done + i + 1) % k
+                # one averaging iteration, or the plain ones before it
+                m = 1 if r == 0 else min(n_iters - i, k - r)
+                carry = (sync if r == 0 else plain)(carry, m)
+                i += m
+            return carry
         for i in range(n_iters):
-            carry = self._iteration(
+            step = (self._synced_iteration
+                    if k > 1 and (done + i + 1) % k == 0 else self._iteration)
+            carry = step(
                 carry, collect_u=None if collect_u is None else collect_u[i],
                 sample_u=None if sample_u is None else sample_u[i])
-            # the data-parallel route runs eagerly: the period is read
-            # from the device counter
-            if k > 1 and int(carry.iters) % k == 0:
-                self._average_across_dcn(carry)
         return carry
 
     @torch.no_grad()
