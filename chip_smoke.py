@@ -2053,42 +2053,27 @@ def _solve_ff(torch, dev, logdir, n_iters, resume=False):
 
 def _solve_parts(torch, fn):
     """``(fn(), {part: seconds})``: ``fn()``, a ``solve``, with the seconds
-    it spends in each part that is not a segment's replays: "capture"
-    (``make_collect_graph`` and ``make_segment``: the warm-ups, captures
-    and guard replays), "populate" (the populate graph's replays),
-    "evaluation" and "save" (the best model and the train state), each
-    call timed from an idle queue to the device's end."""
-    from deepqlearning_tpu_torch.solver import checkpoint
-    from deepqlearning_tpu_torch.solver import solver as sm
+    the port's recorder (``utils/profiling.py``) gives each part that is
+    not a segment's replays: "capture" (the ``segment.capture`` spans of
+    the solve's populate graph and segment: the warm-ups, captures and
+    guard replays), "populate" (the populate graph's replays), "evaluation"
+    and "save" (the spans ``solve.evaluation`` and ``solve.save``: the
+    best model and the train state), each ending when the card has done
+    its work."""
+    from deepqlearning_tpu_torch.utils import profiling
 
-    parts = dict.fromkeys(("capture", "populate", "evaluation", "save"), 0.0)
+    profiling.reset()
+    out = fn()
+    totals = profiling.snapshot()["totals"]
 
-    def timed(key, f):
-        def call(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = f(*a, **kw)
-            torch.cuda.synchronize()
-            parts[key] += time.perf_counter() - t0
-            return out
-        return call
+    def seconds(name, solve_only=False):
+        return sum(t["total_s"] for route, t in totals.get(name, {}).items()
+                   if route.startswith("solve on") or not solve_only)
 
-    saved = [(sm, "make_segment", sm.make_segment),
-             (sm, "make_collect_graph", sm.make_collect_graph),
-             (sm, "evaluation", sm.evaluation),
-             (checkpoint, "save_model", checkpoint.save_model),
-             (checkpoint, "save_train_state", checkpoint.save_train_state)]
-    sm.make_segment = timed("capture", sm.make_segment)
-    sm.make_collect_graph = lambda *a, **kw: timed(
-        "populate", timed("capture", saved[1][2])(*a, **kw))
-    sm.evaluation = timed("evaluation", sm.evaluation)
-    checkpoint.save_model = timed("save", checkpoint.save_model)
-    checkpoint.save_train_state = timed("save", checkpoint.save_train_state)
-    try:
-        return fn(), parts
-    finally:
-        for mod, name, f in saved:
-            setattr(mod, name, f)
+    return out, dict(capture=seconds("segment.capture", True),
+                     populate=seconds("populate"),
+                     evaluation=seconds("solve.evaluation"),
+                     save=seconds("solve.save"))
 
 
 def _solve_drqn(torch, logdir, n_iters):

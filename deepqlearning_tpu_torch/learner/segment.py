@@ -69,8 +69,21 @@ the route, where it does not.
 
 Launch counts: a kernel wrapper counts a launch where Python calls it, so
 the warm-up and the capture count one each and the replays none (they
-launch no Python); what the replays launch is read from a
-``torch.profiler`` trace of them (``chip_smoke.py``).
+launch no Python). What a graph route launches is the recorder's
+(``utils/profiling.py``) ``segment.replays`` times
+``segment.graph_nodes`` for the route: the nodes of the captured
+iteration, counted by type at every capture (``segment.graph_nodes.
+kernel``, ...), with no profiler.
+
+Spans and counters (``utils/profiling.py``), all outside the captured
+code: ``segment.capture`` around a graph's making, with the children
+``segment.warmup``, ``segment.graph`` (the capture and the node count)
+and ``segment.guard``; ``segment.run`` and the counter
+``segment.replays`` on each call, eager or replayed; ``populate`` around
+:func:`make_collect_graph`'s run. Each takes the route as its attribute.
+A call of a :class:`CompiledSegment` now and then times its replays with
+two CUDA events, one before the first and one after the last
+(``profiling.ReplaySampler``).
 """
 from __future__ import annotations
 
@@ -80,6 +93,8 @@ import torch
 from torch.utils._pytree import tree_flatten
 
 from ..envs.base import Env
+from ..ops.cuda.build import graph_nodes
+from ..utils import profiling
 from .loop import populate
 
 
@@ -142,6 +157,10 @@ class CompiledSegment:
     watchdog thread may query its events while this thread captures."""
 
     def __init__(self, iteration: Callable, carry, route: str, group=None):
+        with profiling.span("segment.capture", route=route):
+            self._capture(iteration, carry, route, group)
+
+    def _capture(self, iteration, carry, route, group) -> None:
         self.route = route
         self.static = carry
         leaves, self._spec = tree_flatten(carry)
@@ -151,47 +170,60 @@ class CompiledSegment:
         tensors = [x for x in leaves if torch.is_tensor(x)]
         device = tensors[0].device
 
-        # warm-up on a side stream; its result is what one replay must give
-        snapshot = [t.clone() for t in tensors]
-        states = [g.get_state() for g in gens]
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._copy_back(iteration(carry), "warm-up")
-        main.wait_stream(side)
-        expect = [t.clone() for t in tensors]
-        expect_states = [g.get_state() for g in gens]
-        self._restore(tensors, snapshot, gens, states)
+        self._sampler = profiling.ReplaySampler(route, device)
 
-        self.graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            self.graph.register_generator_state(g)
-        failed = None
-        try:
-            with torch.cuda.graph(self.graph, capture_error_mode=(
-                    "global" if group is None else "thread_local")):
-                self._copy_back(iteration(carry), "capture")
-        except Exception as e:  # re-raised below, on every rank
-            failed = e
-        if _agree(failed is not None, group, device):
-            where = device if failed is not None else "another rank"
-            raise RuntimeError(
-                f"{route}: capturing one iteration as a CUDA graph failed "
-                f"on {where}; this route runs only as a graph (an iteration "
-                "must not read the device from the host: no .item(), "
-                "bool(t), int(t) or data-dependent shapes; a collective "
-                "must run on NCCL, without TORCH_NCCL_BLOCKING_WAIT)"
-            ) from failed
+        # warm-up on a side stream; its result is what one replay must give
+        with profiling.span("segment.warmup", route=route):
+            snapshot = [t.clone() for t in tensors]
+            states = [g.get_state() for g in gens]
+            main = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._copy_back(iteration(carry), "warm-up")
+            main.wait_stream(side)
+            expect = [t.clone() for t in tensors]
+            expect_states = [g.get_state() for g in gens]
+            self._restore(tensors, snapshot, gens, states)
+
+        with profiling.span("segment.graph", route=route):
+            # kept after capture so that its nodes can be counted, then
+            # instantiated before the first replay
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for g in gens:
+                self.graph.register_generator_state(g)
+            failed = None
+            try:
+                with torch.cuda.graph(self.graph, capture_error_mode=(
+                        "global" if group is None else "thread_local")):
+                    self._copy_back(iteration(carry), "capture")
+            except Exception as e:  # re-raised below, on every rank
+                failed = e
+            if _agree(failed is not None, group, device):
+                where = device if failed is not None else "another rank"
+                raise RuntimeError(
+                    f"{route}: capturing one iteration as a CUDA graph "
+                    f"failed on {where}; this route runs only as a graph (an "
+                    "iteration must not read the device from the host: no "
+                    ".item(), bool(t), int(t) or data-dependent shapes; a "
+                    "collective must run on NCCL, without "
+                    "TORCH_NCCL_BLOCKING_WAIT)") from failed
+            nodes = graph_nodes(self.graph.raw_cuda_graph())
+            self.graph.instantiate()
+            profiling.put("segment.graph_nodes", sum(nodes.values()), route)
+            for kind, k in nodes.items():
+                profiling.put(f"segment.graph_nodes.{kind}", k, route)
 
         # the guard: host state that the capture froze shows as a replay
         # that differs from the eager iteration
-        self.graph.replay()
-        differ = sum(not torch.equal(t, e) for t, e in zip(tensors, expect))
-        differ += sum(not torch.equal(g.get_state(), s)
-                      for g, s in zip(gens, expect_states))
-        self._restore(tensors, snapshot, gens, states)
-        differ = _agree(differ, group, device)
+        with profiling.span("segment.guard", route=route):
+            self.graph.replay()
+            differ = sum(not torch.equal(t, e)
+                         for t, e in zip(tensors, expect))
+            differ += sum(not torch.equal(g.get_state(), s)
+                          for g, s in zip(gens, expect_states))
+            self._restore(tensors, snapshot, gens, states)
+            differ = _agree(differ, group, device)
         if differ:
             most = "" if group is None else " (on the rank where most differ)"
             raise RuntimeError(
@@ -254,18 +286,29 @@ class CompiledSegment:
             raise ValueError(
                 f"{self.route}: run_segment takes the carry it was made from "
                 "(or one it returned): its tensors are the graph's buffers")
-        for _ in range(int(n)):
-            self.graph.replay()
+        n = int(n)
+        with profiling.span("segment.run", route=self.route, n=n):
+            profiling.count("segment.replays", n, self.route)
+            ev = self._sampler.start(n)
+            if ev:
+                ev[0].record()
+            for _ in range(n):
+                self.graph.replay()
+            if ev:
+                ev[1].record()
         return self.static
 
 
-def _eager_segment(iteration: Callable):
+def _eager_segment(iteration: Callable, route: str):
     """``run_segment(carry, n)``: ``n`` eager iterations, the same
     contract as :class:`CompiledSegment`'s."""
 
     def run_segment(carry, n: int):
-        for _ in range(int(n)):
-            carry = iteration(carry)
+        n = int(n)
+        with profiling.span("segment.run", route=route, n=n):
+            profiling.count("segment.replays", n, route)
+            for _ in range(n):
+                carry = iteration(carry)
         return carry
 
     return run_segment
@@ -285,7 +328,7 @@ def make_segment(iteration: Callable, carry, cfg, env, buffer,
     the carry the segments will run on: it is the graph's static carry,
     and ``run_segment`` returns it."""
     if not _graphed(carry, cfg, env, buffer):
-        return _eager_segment(iteration)
+        return _eager_segment(iteration, route)
     return CompiledSegment(iteration, carry, route)
 
 
@@ -307,10 +350,21 @@ def make_collect_graph(step: Callable, carry, cfg, env, buffer,
     ε = 1 ``populate_step`` of ``build_loop``) on the carry's actor,
     replay and generator, then an episode buffer's ``reset_in_progress``:
     ``populate`` of ``learner/loop.py``, as replays of one CUDA graph
-    where :func:`make_segment` captures, else that function itself."""
-    if not _graphed(carry, cfg, env, buffer):
-        return lambda c, n: populate(step, buffer, c, n)
-    graph = CompiledSegment(collect_body(step), carry, route)
-    # populate of no further step is populate's end alone: an episode
-    # buffer drops its open episodes
-    return lambda c, n: populate(step, buffer, graph(c, n), 0)
+    where :func:`make_segment` captures, else that function itself. On
+    the graph route ``run`` returns once the replays' work is done on the
+    card, so that the ``populate`` span holds it (the next graph's
+    capture would wait for it anyway)."""
+    graph = (CompiledSegment(collect_body(step), carry, route)
+             if _graphed(carry, cfg, env, buffer) else None)
+
+    def run(c, n: int):
+        with profiling.span("populate", route=route, n=int(n)):
+            if graph is None:
+                return populate(step, buffer, c, n)
+            # populate of no further step is populate's end alone: an
+            # episode buffer drops its open episodes
+            c = populate(step, buffer, graph(c, n), 0)
+            torch.cuda.synchronize(c.generator.device)
+            return c
+
+    return run

@@ -182,8 +182,19 @@ def ptxas_report(kernels):
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with its signatures."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (if needed) and load the kernel library, with its signatures
+    (the span ``kernels.load``; the counter ``kernels.nvcc_builds`` is 1
+    where it ran ``nvcc``, 0 where the library was built already)."""
+    from ...utils import profiling
+
+    with profiling.span("kernels.load"):
+        built = _library_path().exists()
+        lib = _bind(ctypes.CDLL(str(build())))
+    profiling.count("kernels.nvcc_builds", int(not built))
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
     NP = ctypes.POINTER(NetDesc)
@@ -264,3 +275,46 @@ def require_cuda(*tensors) -> None:
             raise ValueError(f"expected CUDA tensors on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("expected contiguous tensors")
+
+
+# CUgraphNodeType of the CUDA driver API (cuda.h)
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+@functools.lru_cache(maxsize=None)
+def _driver() -> ctypes.CDLL:
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    for fn in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType):
+        fn.restype = ctypes.c_int
+    return cu
+
+
+def graph_nodes(graph: int) -> dict:
+    """The nodes of a captured CUDA graph (``cudaGraph_t``, which is the
+    driver's ``CUgraph``, as ``torch.cuda.CUDAGraph(keep_graph=True)
+    .raw_cuda_graph()`` gives it) by node type: ``{"kernel": n, ...}``."""
+    cu = _driver()
+    n = ctypes.c_size_t(0)
+    _driver_check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    _driver_check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)))
+    out, kind = {}, ctypes.c_int()
+    for node in nodes[:n.value]:
+        _driver_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        name = (NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
+                else f"type{kind.value}")
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _driver_check(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"counting a CUDA graph's nodes: CUDA driver "
+                           f"error {err}")

@@ -62,6 +62,7 @@ from ..models.chain import isrecurrent
 from ..models.dueling import create_dueling_network
 from ..replay.episode import EpisodeReplayBuffer
 from ..replay.prioritized import PrioritizedReplayBuffer
+from ..utils import profiling
 from . import checkpoint
 from .evaluation import basic_evaluation, evaluation
 from .exploration import EpsGreedyPolicy, LinearDecaySchedule, eps_schedule
@@ -248,8 +249,9 @@ class DeepQLearningSolver:
         while done_iters < total_iters:
             n = min(seg_iters, total_iters - done_iters)
             seg_t0 = time.perf_counter()
-            carry = run_segment(carry, n)
-            loss_val = float(carry.loss)  # waits for the segment's work
+            with profiling.span("solve.segment", route, n):
+                carry = run_segment(carry, n)
+                loss_val = float(carry.loss)  # waits for the segment's work
             seg_s = time.perf_counter() - seg_t0
             done_iters += n
             t0 = (done_iters - n) * spi
@@ -261,15 +263,18 @@ class DeepQLearningSolver:
                 save_next = True
 
             if eval_next:
-                scores_eval, steps_eval, info_eval = evaluation(
-                    self.evaluation_policy, network, carry.params, env,
-                    cfg.num_ep_eval, cfg.max_episode_length, gens["eval"],
-                    cfg.verbose)
+                with profiling.span("solve.evaluation", route):
+                    scores_eval, steps_eval, info_eval = evaluation(
+                        self.evaluation_policy, network, carry.params, env,
+                        cfg.num_ep_eval, cfg.max_episode_length,
+                        gens["eval"], cfg.verbose)
                 eval_next = False
                 if save_next:
-                    model_saved, saved_mean_reward = checkpoint.save_model(
-                        self.logdir, carry.params, scores_eval,
-                        saved_mean_reward, model_saved, cfg.verbose)
+                    with profiling.span("solve.save", route):
+                        model_saved, saved_mean_reward = \
+                            checkpoint.save_model(
+                                self.logdir, carry.params, scores_eval,
+                                saved_mean_reward, model_saved, cfg.verbose)
                     save_next = False
                 if logger is not None:
                     logger.log_value("eval_reward", scores_eval, step=t1)
@@ -280,10 +285,11 @@ class DeepQLearningSolver:
 
             if crossed(cfg.log_freq, t0, t1):
                 sps = (n * spi / seg_s) if seg_s else 0.0
-                grad_val = float(carry.gnorm)
-                avg100 = float(avg_recent(carry.actor.ret_ring,
-                                          carry.actor.cnt_ring))
-                eps_val = float(eps_fn(t1))
+                with profiling.span("solve.log", route):
+                    grad_val = float(carry.gnorm)
+                    avg100 = float(avg_recent(carry.actor.ret_ring,
+                                              carry.actor.cnt_ring))
+                    eps_val = float(eps_fn(t1))
                 self.metrics["t"].append(t1)
                 self.metrics["loss"].append(loss_val)
                 self.metrics["grad"].append(grad_val)
@@ -302,7 +308,8 @@ class DeepQLearningSolver:
                         f"{sps:,.0f} steps/s")
 
         if self.logdir is not None:
-            checkpoint.save_train_state(self.logdir, carry)
+            with profiling.span("solve.save", route):
+                checkpoint.save_train_state(self.logdir, carry)
         if logger is not None:
             logger.close()
 

@@ -1,2 +1,2 @@
-from .profiling import StepTimer, enable_nan_checks, trace
+from .profiling import enable_nan_checks, trace
 from .tb_writer import TBWriter

@@ -131,9 +131,10 @@ def test_episode_size_fn_matches_jax(E, max_size, maxlen, T):
 
 # --- the names ---------------------------------------------------------
 # ROADMAP's "Not to port" list: the one-hot gather, the envs' State
-# NamedTuples, the fused Adam layout
+# NamedTuples, the fused Adam layout, the step timer
 NOT_TO_PORT = {"ops/lookup.py": {"take0"},
-               "learner/train_step.py": {"FusedAdamState"}}
+               "learner/train_step.py": {"FusedAdamState"},
+               "utils/profiling.py": {"StepTimer"}}
 ENV_METHODS = ("reset", "step", "observe")
 
 

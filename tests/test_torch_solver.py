@@ -623,8 +623,7 @@ def test_eval_deterministic_given_generator_seed():
 
 
 def test_profiling_hooks(tmp_path):
-    from deepqlearning_tpu_torch.utils import (
-        StepTimer, enable_nan_checks, trace)
+    from deepqlearning_tpu_torch.utils import enable_nan_checks, trace
 
     with trace(str(tmp_path)):
         torch.ones(4).sum()
@@ -633,5 +632,3 @@ def test_profiling_hooks(tmp_path):
     assert torch.is_anomaly_enabled()
     enable_nan_checks(False)
     assert not torch.is_anomaly_enabled()
-    timer = StepTimer()
-    assert timer.tick() is None and timer.tick() >= 0.0
