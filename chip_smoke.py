@@ -10,7 +10,7 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 2. build: compiles the kernel library, prints the seconds; then the
    replay buffers and ``init_carry`` built with no ``device`` argument must
    hold their tensors on the card;
-3. kernels: each kernel (K1-K8) against its plain PyTorch twin on the
+3. kernels: each kernel (K1-K9) against its plain PyTorch twin on the
    card, at the main paths' shapes, with stated tolerances, both times and
    the kernel's bound (the least time for the same bytes or FLOPs on the
    card) and its share of it (K3/K5 also against the tile-order reference
@@ -27,9 +27,11 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    at the CartPole solve's shapes, 2^16 leaves / 4096 draws in 16 and U =
    16, B = 256 with its dueling 4-64-64-2 net; K1 and K2 also at the
    image-observation DQN's shapes: B = 512, A = 4 on the Q values of its
-   bf16 conv net cast to f32, and 2^15 leaves / 2048 draws in 4); then K1
-   (B = 32, 512, 4096, and the conv route's), K2 (also the conv route's),
-   K4 and K6 (each env), K7 and K8 timed by their
+   bf16 conv net cast to f32, and 2^15 leaves / 2048 draws in 4; K9, the
+   plain steps' Adam, at the benchmark's two configurations' parameters,
+   3 steps bit for bit, beside the twin eager and as one graph replay);
+   then K1 (B = 32, 512, 4096, and the conv route's), K2 (also the conv
+   route's), K4 and K6 (each env), K7, K8 and K9 timed by their
    device events alone, beside their wrappers' CUDA-event times, and an
    empty kernel launched as K1 is, K1's launch floor;
 4. slices: the small feed-forward loop (on SimpleGridWorld and on
@@ -44,8 +46,8 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
    then the grouped plain loop: 2048 envs, U = 4, batch 512, 2^15 PER and
    the 512-wide dueling net of ``examples/image_conv_dqn.py``, which the
-   K3 and K4 plans refuse (K1 exactly U times per iteration, K2, the plain
-   collect step; K3, K4 and K7 never);
+   K3 and K4 plans refuse (K1 and K9 exactly U times per iteration, K2,
+   the plain collect step; K3, K4 and K7 never);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), populate and
    the iterations as graph replays (the wrappers called by the graphs'
@@ -96,9 +98,9 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     U = 4);
 14. U = 1 profile: ``solve``'s iteration at U = 1 (phase 11 (a)'s
     configuration, as ``ops/cuda/loop_profile.py::u1_loop`` also builds
-    it) the same way (K1, K2 and K4 exactly once per iteration);
+    it) the same way (K1, K2, K4 and K9 exactly once per iteration);
 15. grouped plain profile: phase 6's grouped plain loop the same way
-    (K1 exactly U = 4 times and K2 once per iteration);
+    (K1 and K9 exactly U = 4 times and K2 once per iteration);
 16. CartPole profile: the CartPole solve's loop the same way (K4, K2
     and K3 exactly once per iteration);
 17. conv profile: 11 (e)'s loop the same way (K1 U = 4 times and K2 once
@@ -130,7 +132,7 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     mesh: two graphs) routes in the one-rank NCCL world: 3 replays
     against 3 eager iterations from cloned carries, every tensor and the
     generator's state bit for bit; the replays draw fresh numbers (they
-    differ from eager iterations that reuse one generator state); K1-K8
+    differ from eager iterations that reuse one generator state); K1-K9
     launches per replay; ``torch.cuda.memory_allocated`` flat over 100
     replays; eager beside graph from an idle queue (medians of 8: host
     ms and ms per iteration, env-steps/s, busy share, device ms and
@@ -824,6 +826,65 @@ def _conv_route_kernels(torch, dev, tk, ts, results):
          + _kernel_line("K2", *t, *b))
 
 
+def phase_adam_kernel(torch, dev, results):
+    """K9 (``ops/cuda/adam.py``) at the benchmark's two configurations'
+    parameters (``kernel_events.adam_nets``): 3 steps against the plain
+    twin, bit for bit (params, moments, count, max-abs); then the wrapper's
+    time by CUDA events, the twin's eager and as the replay of one captured
+    CUDA graph (the ATen chain as the plain steps' graphs ran it before
+    K9), and the bound: g, m, v and p read and m, v and p written once at
+    3.35 TB/s. The kernel's device time follows in phase 3's device
+    events."""
+    from deepqlearning_tpu_torch.learner.train_step import AdamState
+    from deepqlearning_tpu_torch.ops.cuda import adam
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import (
+        adam_inputs, adam_nets)
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    by = {}
+    for name in adam_nets(torch, dev):
+        opt, grads, state, params = adam_inputs(torch, dev, g, name)
+        rp = {k: t.clone() for k, t in params.items()}
+        rs = AdamState({k: t.clone() for k, t in state.m.items()},
+                       {k: t.clone() for k, t in state.v.items()},
+                       state.count.clone())
+        for step in range(3):
+            gk = adam.adam_update(opt, grads, state, params)
+            gp = adam.adam_update_plain(opt, grads, rs, rp)
+            _check(torch.equal(gk, gp) and torch.equal(state.count, rs.count)
+                   and all(torch.equal(params[k], rp[k])
+                           and torch.equal(state.m[k], rs.m[k])
+                           and torch.equal(state.v[k], rs.v[k])
+                           for k in params),
+                   f"K9 {name}: step {step + 1} differs from the plain twin")
+        ms = _time_ms(lambda: adam.adam_update(opt, grads, state, params),
+                      200)
+        pms = _time_ms(lambda: adam.adam_update_plain(opt, grads, rs, rp),
+                       50)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            adam.adam_update_plain(opt, grads, rs, rp)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            adam.adam_update_plain(opt, grads, rs, rp)
+        gms = _time_ms(graph.replay, 200)
+        n = sum(p.numel() for p in params.values())
+        nbytes = _nbytes(grads) + 2 * _nbytes(params, state.m, state.v)
+        bms, bound_by = _bound(nbytes, 12 * n)
+        by[name] = dict(params=n, tensors=len(params), bytes=nbytes, ms=ms,
+                        plain_ms=pms, plain_graph_ms=gms, bound_ms=bms,
+                        bound_by=bound_by)
+        del graph
+        _say(f"K9 adam_update {name} ({len(params)} tensors, {n} params): "
+             f"3 steps equal to the plain twin bit for bit | "
+             + _kernel_line("K9", ms, pms, bms, bound_by)
+             + f"; the twin as one graph replay {gms:.4f} ms")
+    results["adam_update"] = dict(
+        max_abs_err=0.0, **by["nature_dueling_dqn bf16"], by_config=by)
+
+
 def phase_kernels(torch, dev, results):
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
@@ -1357,12 +1418,17 @@ def phase_device_events(results):
         rows[f"K6 fused_collect (recurrent) {env} {cell} E=16384"] = (
             ("fused_collect_rnn", env), "device_ms",
             results["fused_collect_rnn"]["by_env"][env]["bound_ms"])
+    for name, r in results["adam_update"]["by_config"].items():
+        rows[f"K9 adam_update {name}"] = (("adam_update", name), "device_ms",
+                                          r["bound_ms"])
     _check(set(measured) == set(rows),
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
         key, field, bound = rows[name]
         entry = (results[key] if isinstance(key, str) else
                  results[key[0]][key[1]] if key[1] == "conv_route" else
+                 results[key[0]]["by_config"][key[1]]
+                 if key[0] == "adam_update" else
                  results[key[0]]["by_env"][key[1]])
         entry[field] = r["device_ms"]
         tail = ("the launch floor" if bound is None else
@@ -1377,6 +1443,8 @@ def phase_device_events(results):
                      results["td_loss"][f"floor_ms{sfx}"])
         _say(f"K1 B={B}: {k1:.6f} ms against the empty kernel's "
              f"{floor:.6f} ms, {k1 / floor:.3f}x the launch floor")
+    k9 = results["adam_update"]
+    k9["device_ms"] = k9["by_config"]["nature_dueling_dqn bf16"]["device_ms"]
 
 
 def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
@@ -2194,9 +2262,9 @@ def phase_solve(torch, dev, card, run_path):
     with tempfile.TemporaryDirectory() as logdir:
         (solver, policy, sps), ff = run_path(
             "solve (feed-forward)", lambda: _solve_ff(torch, dev, logdir, n),
-            ("td_loss", "tree_sample", "fused_collect"),
+            ("td_loss", "tree_sample", "fused_collect", "adam_update"),
             ("fused_group_update",))
-        _check(ff["td_loss"] == ff["tree_sample"] == 2
+        _check(ff["td_loss"] == ff["tree_sample"] == ff["adam_update"] == 2
                and ff["fused_collect"] == 4, f"solve: wrapper calls {ff}")
         _check(_train_state_counters(torch, logdir) == (n, n * 4096),
                "solve: saved train state")
@@ -2221,15 +2289,15 @@ def phase_solve(torch, dev, card, run_path):
         ((_, _, sps_r), seen, per_launch), rs = run_path(
             "solve (resume)", lambda: _graph_launch_trace(
                 torch, lambda: _solve_ff(torch, dev, logdir, m, resume=True)),
-            ("td_loss", "tree_sample", "fused_collect"),
+            ("td_loss", "tree_sample", "fused_collect", "adam_update"),
             ("fused_group_update",))
-        _check(rs["td_loss"] == rs["tree_sample"] == 2
+        _check(rs["td_loss"] == rs["tree_sample"] == rs["adam_update"] == 2
                and rs["fused_collect"] == 4, f"resume: wrapper calls {rs}")
         # the segment: the eager warm-up and m replays; populate (4 steps,
         # train_start = 4 x 4096): the eager warm-up and 4 replays (each
         # graph's guard replay left out)
         want = {"td_loss_kernel": m + 1, "tree_sample_kernel": m + 1,
-                "fc_kernel": m + 1 + 4 + 1}
+                "adam_kernel": m + 1, "fc_kernel": m + 1 + 4 + 1}
         _check(seen == want, f"resume: the trace saw {seen}, not {want}")
         _check(len(per_launch) == 2 and all(len(x) == 1 for x in per_launch),
                f"resume: the graphs' replays differ in their device events "
@@ -2536,14 +2604,15 @@ def _conv_solve_seed(torch, card, run_path, seed):
         (solver, policy), cnt = run_path(
             f"conv solve (seed {seed})",
             lambda: image_conv_dqn.main(logdir=logdir, seed=seed),
-            ("td_loss", "tree_sample"),
+            ("td_loss", "tree_sample", "adam_update"),
             ("fused_group_update", "fused_collect", "fused_grads"))
         secs = time.perf_counter() - t0
         cfg = solver.config
         _check(solver.device is None, "the conv solve runs with device=None")
         iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
         U = cfg.updates_per_iter
-        _check(cnt["td_loss"] == 2 * U and cnt["tree_sample"] == 2,
+        _check(cnt["td_loss"] == cnt["adam_update"] == 2 * U
+               and cnt["tree_sample"] == 2,
                f"conv solve: {iters} iterations of U={U}, wrapper calls "
                f"{cnt}")
         _check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
@@ -2588,9 +2657,10 @@ def phase_conv_profile(torch, dev, card, run_path):
                       net=conv_net(torch, dev), env=env,
                       max_episode_length=6, target_update_freq=512 * 64,
                       learning_rate=1e-3, dtype=torch.bfloat16),
-        ("td_loss", "tree_sample"), absent)
+        ("td_loss", "tree_sample", "adam_update"), absent)
     cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, by_name = res
     _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
+           and per_iter.get("adam_kernel", (0,))[0] == cfg.updates_per_iter
            and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
            f"conv loop: launches per iteration {per_iter}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
@@ -2870,11 +2940,13 @@ def phase_per_instance(torch, dev, card, run_path):
         "per-instance StaticArrayMDP solve",
         lambda: _graph_launch_trace(
             torch, lambda: _solve_static_mdp(torch, dev, StaticArrayMDP)),
-        ("td_loss", "tree_sample"), ("fused_group_update", "fused_collect"))
+        ("td_loss", "tree_sample", "adam_update"),
+        ("fused_group_update", "fused_collect"))
     _check(r > 1.0, f"per-instance StaticArrayMDP: greedy return {r} <= 1.0")
-    _check(mdp["td_loss"] == mdp["tree_sample"] == 2,
+    _check(mdp["td_loss"] == mdp["tree_sample"] == mdp["adam_update"] == 2,
            f"StaticArrayMDP solve: wrapper calls {mdp}")
-    want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1}
+    want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1,
+            "adam_kernel": n_b + 1}
     _check(seen_b == want, f"StaticArrayMDP solve: the trace saw {seen_b}, "
                            f"not {want}")
     _say(f"per-instance (b): StaticArrayMDP (initial_state(generator)) "
@@ -3180,25 +3252,28 @@ def _segment_routes(torch, dev):
                       "fused_collect": 1}),
         "U=1": (lambda: _loop_setup(torch, dev, 4096, 1 << 18, 512, 4096, 4,
                                     target_update_freq=2 * 4096),
-                {"td_loss": 1, "tree_sample": 1, "fused_collect": 1}),
+                {"td_loss": 1, "tree_sample": 1, "fused_collect": 1,
+                 "adam_update": 1}),
         "grouped plain": (
             lambda: _loop_setup(torch, dev, 2048, 1 << 15, 512, 512, 2,
                                 net=_dueling_net(torch, dev, 512, torch.relu),
                                 target_update_freq=2 * 2048),
-            {"td_loss": 4, "tree_sample": 1}),
+            {"td_loss": 4, "tree_sample": 1, "adam_update": 4}),
         "conv": (lambda: _loop_setup(
             torch, dev, 2048, 1 << 15, 512, 512, 1, net=conv_net(torch, dev),
             env=TestMDP((20, 20), 4, 6), max_episode_length=6,
             target_update_freq=2 * 2048, learning_rate=1e-3,
-            dtype=torch.bfloat16), {"td_loss": 4, "tree_sample": 1}),
+            dtype=torch.bfloat16),
+            {"td_loss": 4, "tree_sample": 1, "adam_update": 4}),
         "CartPole": (cartpole, {"fused_collect": 1, "tree_sample": 1,
                                 "fused_group_update": 1}),
         "DRQN": (lambda: _drqn_setup(torch, dev),
                  {"fused_drqn_group_update": 1, "fused_collect_rnn": 1}),
-        # autograd BPTT, Adam per parameter and the plain recurrent
-        # collect: no kernel of the port but the sample's gathers
+        # autograd BPTT, Adam (K9) per sub-update and the plain recurrent
+        # collect
         "DRQN plain": (lambda: _drqn_setup(torch, dev, fused_updates=False,
-                                           fused_collect=False), {}),
+                                           fused_collect=False),
+                       {"adam_update": 4}),
         "per-instance GridWorld": (
             lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512, 4096, 2,
                                 env=GridWorld()),
@@ -3275,7 +3350,7 @@ def _all_wrappers():
     """Every kernel wrapper of the port by name; each counts the calls
     that launch (or, under capture, record) its kernel in ``.launches``."""
     from deepqlearning_tpu_torch.ops.cuda import (
-        fused_collect as fc, fused_drqn as fd, fused_update as fu,
+        adam, fused_collect as fc, fused_drqn as fd, fused_update as fu,
         td_kernel as tk, tree_sample as ts)
 
     return {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
@@ -3285,6 +3360,7 @@ def _all_wrappers():
             "fused_collect_rnn": fc.fused_collect_rnn_cuda,
             "fused_grads": fu.fused_grads_cuda,
             "fused_drqn_grads": fd.fused_drqn_grads_cuda,
+            "adam_update": adam.adam_update,
             # the data-parallel updates (calls; each launches K7 / K8, the
             # all-reduce and an Adam kernel per sub-update)
             "dp_update": fu.fused_dp_group_update_cuda,
@@ -3301,6 +3377,7 @@ SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
            "fused_collect_rnn": "fc_rnn_kernel",
            "fused_grads": "fu_group_kernel",
            "fused_drqn_grads": "dr_group_kernel",
+           "adam_update": "adam_kernel",
            "adam": "dq_adam_flat_kernel"}
 
 
@@ -3867,6 +3944,7 @@ def main():
     # 3. kernels vs plain, and the short kernels by their device events
     results = {}
     phase_kernels(torch, dev, results)
+    phase_adam_kernel(torch, dev, results)
     phase_device_events(results)
 
     # 4. the small slices on the card vs the CPU, and the conv net
@@ -3898,34 +3976,37 @@ def main():
     (cfg, sps, loss), head = run_path(
         "headline loop",
         lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 20, 2),
-        ("tree_sample", "fused_group_update", "fused_collect"))
+        ("tree_sample", "fused_group_update", "fused_collect"),
+        ("adam_update",))
     _say(f"headline loop: 131072 envs, 2^20 replay, batch 512, U="
          f"{cfg.updates_per_iter}: {sps:.1f} env-steps/s, "
          f"{1000.0 * cfg.env_steps_per_iter / sps:.4f} ms/iteration, loss "
          f"{loss:.5g} | {card} | launches {head}")
     (cfg, sps2, loss2), _ = run_path(
         "ungrouped loop", lambda: _loop(torch, dev, 128, 4096, 32, 128, 20, 4),
-        ("td_loss", "tree_sample", "fused_collect"))
+        ("td_loss", "tree_sample", "fused_collect", "adam_update"))
     _say(f"ungrouped loop: 128 envs, batch 32, U={cfg.updates_per_iter}: "
          f"{sps2:.1f} env-steps/s, loss {loss2:.5g} | {card}")
     n_wide = 20
     (cfg, sps_w, loss_w), wide = run_path(
         "grouped plain loop", lambda: _wide_loop(torch, dev, n_wide),
-        ("td_loss", "tree_sample"),
+        ("td_loss", "tree_sample", "adam_update"),
         ("fused_group_update", "fused_grads", "fused_collect"))
     U = cfg.updates_per_iter
-    # U loss heads in each of the eager warm-up iteration and
-    # make_segment's warm-up and capture; the n_wide replays call no wrapper
-    _check(wide["td_loss"] == U * 3,
-           f"grouped plain loop: K1's wrapper called {wide['td_loss']} times, "
-           f"not U x (eager warm-up, graph warm-up, capture) = {U * 3}")
+    # U loss heads and U Adam launches (K9) in each of the eager warm-up
+    # iteration and make_segment's warm-up and capture; the n_wide replays
+    # call no wrapper
+    _check(wide["td_loss"] == wide["adam_update"] == U * 3,
+           f"grouped plain loop: K1's and K9's wrappers called "
+           f"{wide['td_loss']} and {wide['adam_update']} times, not U x "
+           f"(eager warm-up, graph warm-up, capture) = {U * 3}")
     _say(f"grouped plain loop: 2048 envs, dueling 2-512-512-4 relu (the K3 "
          f"and K4 plans refuse it), 2^15 PER, batch 512, U={U}: {sps_w:.1f} "
          f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_w:.4f} "
          f"ms/iteration, loss {loss_w:.5g} | {card} | launches {wide}")
     (cfg, sps3, loss3), rec = run_path(
         "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
-        ("fused_drqn_group_update", "fused_collect_rnn"))
+        ("fused_drqn_group_update", "fused_collect_rnn"), ("adam_update",))
     _drqn_calls(rec, "DRQN loop")
     _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
          f"512, trace 8, U={cfg.updates_per_iter}, populate and 50 "
@@ -3946,7 +4027,7 @@ def main():
                       net=_dueling_net(torch, dev, 64, torch.tanh, 2, 3),
                       env=MountainCar(), max_episode_length=4),
         ("tree_sample", "fused_group_update", "fused_collect"),
-        ("td_loss",))
+        ("td_loss", "adam_update"))
     _check(mc["fused_collect"] == 2 + 3 and mc["tree_sample"] == 3
            and mc["fused_group_update"] == 3,
            f"MountainCar loop: launches {mc}")
@@ -3962,7 +4043,7 @@ def main():
     (cfg, sps4, ms4, loss4, cap4, seen4, prof4), dph = run_path(
         "DP headline loop", lambda: _dp_loop(torch, dev, False, 20, N),
         ("fused_grads", "tree_sample", "fused_collect"),
-        ("fused_group_update",))
+        ("fused_group_update", "adam_update"))
     U = cfg.updates_per_iter
     # the iteration's graph is captured once: its warm-up and capture call
     # K7's wrapper and pmean_flat U times each; the replays call none
@@ -3984,7 +4065,7 @@ def main():
     (cfg, sps5, ms5, loss5, cap5, seen5, prof5), dpr = run_path(
         "DP DRQN loop", lambda: _dp_loop(torch, dev, True, 20, N),
         ("fused_drqn_grads", "fused_collect_rnn"),
-        ("fused_drqn_group_update",))
+        ("fused_drqn_group_update", "adam_update"))
     U = cfg.updates_per_iter
     _check(dpr["pmean_flat"] == 2 * U == dpr["fused_drqn_grads"]
            and dpr["drqn_dp_update"] == 2, f"DP DRQN: counts {dpr}")
@@ -4060,13 +4141,16 @@ def main():
          f"{tree[1]} device ms per draw | {card} | launches {rec}")
 
     # 14. solve's U = 1 iteration (phase 11 (a)'s configuration), profiled
-    # beside phases 12 and 13: one K4, one K2 and one K1 per iteration
+    # beside phases 12 and 13: one K4, one K2, one K1 and one K9 per
+    # iteration
     (cfg, sps, loss, it_ms, enq, busy, dev_ms, per_iter, _), u1 = run_path(
         "U=1 loop (profiled)",
         lambda: _loop(torch, dev, 4096, 1 << 18, 512, 4096, 10, 4, 10,
                       target_update_freq=8 * 4096),
-        ("td_loss", "tree_sample", "fused_collect"), ("fused_group_update",))
-    for k in ("td_loss_kernel", "tree_sample_kernel", "fc_kernel"):
+        ("td_loss", "tree_sample", "fused_collect", "adam_update"),
+        ("fused_group_update",))
+    for k in ("td_loss_kernel", "tree_sample_kernel", "fc_kernel",
+              "adam_kernel"):
         _check(per_iter.get(k, (0,))[0] == 1.0,
                f"U=1 loop: {k} launches per iteration {per_iter}")
     _say(f"U=1 loop (solve (a)'s iteration), profiled: {it_ms:.4f} "
@@ -4077,12 +4161,14 @@ def main():
          f"ms) by kernel {per_iter} | {card} | launches {u1}")
 
     # 15. the grouped plain loop (path of phase 6) profiled the same way:
-    # U = 4 K1 launches and one K2 launch per iteration
+    # U = 4 K1 launches, U = 4 K9 launches and one K2 launch per iteration
     (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), wide = run_path(
         "grouped plain loop (profiled)",
-        lambda: _wide_loop(torch, dev, 10, 10), ("td_loss", "tree_sample"),
+        lambda: _wide_loop(torch, dev, 10, 10),
+        ("td_loss", "tree_sample", "adam_update"),
         ("fused_group_update", "fused_grads", "fused_collect"))
     _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
+           and per_iter.get("adam_kernel", (0,))[0] == cfg.updates_per_iter
            and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
            f"grouped plain loop: launches per iteration {per_iter}")
     _say(f"grouped plain loop, profiled: {sps:.1f} env-steps/s and "
@@ -4136,6 +4222,8 @@ def main():
         "fused_drqn_grads": (
             "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
             "deepqlearning_tpu/ops/pallas/fused_drqn.py:773"),
+        "adam_update": ("deepqlearning_tpu_torch/csrc/adam.cu",
+                        "none: optax's Adam, fused by XLA on the TPU"),
     }
     # no single PyTorch call computes any of these functions (a fused
     # TD head, a sum-tree descent, whole train phases, env steps)
@@ -4155,7 +4243,9 @@ def main():
                               "data-parallel routes' CUDA graphs)",
                "fused_drqn_grads": "dr_group_kernel (cooperative, U=1; in "
                                    "the data-parallel routes' CUDA "
-                                   "graphs)"}
+                                   "graphs)",
+               "adam_update": "adam_kernel (the plain steps' Adam and "
+                              "gradient max-abs, one launch per update)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
                     source=src[k][0], replaces=src[k][1],
                     launches=launches[k], **results[k], library_ms=None)

@@ -44,8 +44,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops.helpers import (
-    flatten, globalnorm, huber_loss, select_action, unflatten)
+from ..ops.helpers import flatten, huber_loss, select_action, unflatten
 
 
 class TrainResult(NamedTuple):
@@ -78,6 +77,9 @@ class Adam:
                  b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self._consts = {}
+        # per device: kernel K9's max-abs ticket and partials
+        # (ops/cuda/adam.py)
+        self.workspace = {}
 
     def _rounded(self, dtype):
         """(1-β1, β1, 1-β2, β2, ε, -lr) rounded to ``dtype``, as floats: a
@@ -99,20 +101,15 @@ class Adam:
             count=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
-    @torch.no_grad()
-    def update(self, grads, state: AdamState, params) -> AdamState:
-        state.count.add_(1)
-        t = state.count.float()
-        bc1 = 1.0 - self.b1 ** t
-        bc2 = 1.0 - self.b2 ** t
-        for k, g in grads.items():
-            m, v, p = state.m[k], state.v[k], params[k]
-            c1, b1, c2, b2, eps, neg_lr = self._rounded(p.dtype)
-            m.mul_(b1).add_(c1 * g)
-            v.mul_(b2).add_(c2 * (g * g))
-            p.add_(neg_lr * ((m / bc1.to(m.dtype))
-                             / (torch.sqrt(v / bc2.to(v.dtype)) + eps)))
-        return state
+    def update(self, grads, state: AdamState, params):
+        """One Adam step from ``grads``, in place on ``params``, ``state.m``,
+        ``state.v`` and ``state.count``. Returns ``(state, grad_norm)``, the
+        gradients' max-abs entry (``ops/helpers.py::globalnorm``) taken in
+        the same pass: kernel K9 on the card, its plain twin (ATen ops) on
+        the CPU, bit for bit alike (``ops/cuda/adam.py``)."""
+        from ..ops.cuda.adam import adam_update
+
+        return state, adam_update(self, grads, state, params)
 
 
 def make_optimizer(learning_rate: float) -> Adam:
@@ -223,8 +220,7 @@ def _make_batch_update(network, buffer, gamma, double_q, optimizer,
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
         if axis_name is not None:
             grads = pmean_flat(grads, axis_name)
-        grad_norm = globalnorm(grads)
-        optimizer.update(grads, opt_state, params)
+        _, grad_norm = optimizer.update(grads, opt_state, params)
         return params, opt_state, td.detach(), prio, loss.detach(), grad_norm
 
     return update
@@ -409,8 +405,7 @@ def _make_drqn_update(network, gamma, double_q, optimizer, axis_name=None):
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
         if axis_name is not None:
             grads = pmean_flat(grads, axis_name)
-        grad_norm = globalnorm(grads)
-        optimizer.update(grads, opt_state, params)
+        _, grad_norm = optimizer.update(grads, opt_state, params)
         return loss.detach(), grad_norm
 
     return update

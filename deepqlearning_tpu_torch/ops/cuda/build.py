@@ -96,6 +96,22 @@ class DrqnDesc(ctypes.Structure):
     )
 
 
+AD_MAXT = 64  # AD_MAXT of csrc/adam.cu
+AD_MAXB = 1024  # AD_MAXB
+
+
+class AdamTab(ctypes.Structure):
+    """Mirror of ``struct AdamTab`` in ``csrc/adam.cu``."""
+
+    _fields_ = [
+        ("p", ctypes.c_void_p * AD_MAXT), ("m", ctypes.c_void_p * AD_MAXT),
+        ("v", ctypes.c_void_p * AD_MAXT), ("g", ctypes.c_void_p * AD_MAXT),
+        ("n", ctypes.c_int * AD_MAXT), ("start", ctypes.c_int * (AD_MAXT + 1)),
+        ("flags", ctypes.c_int * AD_MAXT), ("nt", ctypes.c_int),
+        ("k", (ctypes.c_float * 6) * 2),
+    ]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
@@ -225,6 +241,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                 P, P, P, P, P, F, I, P, P, P, P, P, P, I, P],
         "dq_drqn_adam": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I, P,
                          F, F, F, F, P, P],
+        "dq_adam_update": [ctypes.POINTER(AdamTab), P, F, F, P, I, I, I, P,
+                           P],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

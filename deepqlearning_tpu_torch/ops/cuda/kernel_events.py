@@ -6,24 +6,26 @@ A wrapper timed with CUDA events around back-to-back calls measures the
 kernel only when the device is slower than the host's enqueue of the next
 call. K1 (``td_loss_kernel``), K2 (``tree_sample_kernel``), K4
 (``fc_kernel``), K6 (``fc_rnn_kernel``), K7 and K8 (the grads-emitting
-sub-updates of the data-parallel routes) are short, so this times each by
-the device's own events under ``torch.profiler`` (the kernel's launches
-alone, matched by name) beside the CUDA-event time of its wrapper, at the
-main paths' shapes: K1 at B = 512, at the ungrouped loop's B = 32 and at
-B = 4096 (A = 4, double-Q, int64 actions as the replay gives them), K2 on
-2^20 leaves with 16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32),
-Dense(32, 4))`` (and on CartPole and MountainCar), K4 at 131072 envs on
-each env it steps (:func:`collect_cases`), K7 (``fu_group_kernel`` at U =
-1) at the DP headline's B = 512 with the dueling 2-64-64-4 net and
-double-Q, K8 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T =
-8 with the LSTM32 net and double-Q, and K1 and K2 on the image-observation
-DQN's route (:func:`conv_cases`). Beside K1 it times an empty kernel
-launched as K1 is (``td_kernel.cu::empty_kernel``, K1's block, or its
-cluster of blocks past 512 rows): the launch floor under K1.
+sub-updates of the data-parallel routes) and K9 (``adam_kernel``, the plain
+steps' Adam) are short, so this times each by the device's own events
+under ``torch.profiler`` (the kernel's launches alone, matched by name)
+beside the CUDA-event time of its wrapper, at the main paths' shapes: K1
+at B = 512, at the ungrouped loop's B = 32 and at B = 4096 (A = 4,
+double-Q, int64 actions as the replay gives them), K2 on 2^20 leaves with
+16384 draws, K6 at 16384 envs with ``Chain(LSTM(2, 32), Dense(32, 4))``
+(and on CartPole and MountainCar), K4 at 131072 envs on each env it steps
+(:func:`collect_cases`), K7 (``fu_group_kernel`` at U = 1) at the DP
+headline's B = 512 with the dueling 2-64-64-4 net and double-Q, K8
+(``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
+LSTM32 net and double-Q, K9 at the benchmark's two configurations
+(:func:`adam_cases`), and K1 and K2 on the image-observation DQN's route
+(:func:`conv_cases`). Beside K1 it times an empty kernel launched as K1 is
+(``td_kernel.cu::empty_kernel``, K1's block, or its cluster of blocks
+past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
 
 It uses only the wrappers' call signatures of the parent commits (and
-skips the empty kernel and the envs where a checkout lacks them), so the
+skips the empty kernel, the envs and K9 where a checkout lacks them), so the
 file can be copied into another checkout of the port (the same path) to
 time that checkout's kernels the same way, in the same call.
 """
@@ -153,6 +155,58 @@ def cases(torch, dev):
     out["K8 fused_drqn_grads U=1 DP DRQN LSTM32 B=512 T=8"] = (
         "dr_group_kernel", lambda: fd.fused_drqn_grads_cuda(
             k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
+    out.update(adam_cases(torch, dev, g))
+    return out
+
+
+def adam_nets(torch, dev):
+    """``{name: (network, dtype, learning rate)}``: the benchmark's two
+    configurations (``port_bench/configs/``), the dueling 2-64-64-4 tanh
+    MLP in f32 (12 tensors, 9,029 parameters) and the Nature DQN trunk
+    with 512-wide dueling streams in bf16 (14 tensors, 3,292,837)."""
+    from deepqlearning_tpu_torch import (
+        Activation, Chain, Conv2D, Dense, Flatten, create_dueling_network)
+
+    relu, tanh = torch.relu, torch.tanh
+    mlp = create_dueling_network(Chain(
+        Flatten(), Dense(2, 64, tanh, device=dev),
+        Dense(64, 64, tanh, device=dev), Dense(64, 4, device=dev)))
+    nature = create_dueling_network(Chain(
+        Activation(lambda x: x.to(torch.bfloat16)),
+        Conv2D(4, 32, (8, 8), (4, 4), "VALID", relu, device=dev),
+        Conv2D(32, 64, (4, 4), (2, 2), "VALID", relu, device=dev),
+        Conv2D(64, 64, (3, 3), (1, 1), "VALID", relu, device=dev), Flatten(),
+        Dense(3136, 512, relu, device=dev), Dense(512, 4, device=dev)))
+    return {"grid_dueling_mlp f32": (mlp, torch.float32, 1e-4),
+            "nature_dueling_dqn bf16": (nature, torch.bfloat16, 6.25e-5)}
+
+
+def adam_inputs(torch, dev, g, name):
+    """``(optimizer, grads, state, params)`` of K9 at :func:`adam_nets`'
+    ``name``: fresh parameters and Adam state, gradients of standard
+    deviation 0.01."""
+    from deepqlearning_tpu_torch.learner.train_step import make_optimizer
+
+    net, dtype, lr = adam_nets(torch, dev)[name]
+    params = {k: v.detach().clone() for k, v in net.init(g, dtype).items()}
+    opt = make_optimizer(lr)
+    grads = {k: (1e-2 * torch.randn(p.shape, generator=g, device=dev)).to(
+        dtype) for k, p in params.items()}
+    return opt, grads, opt.init(params), params
+
+
+def adam_cases(torch, dev, g):
+    """K9 (``adam_kernel``) at both :func:`adam_nets`, each call one Adam
+    step in place. Only where the checkout has K9."""
+    try:
+        from deepqlearning_tpu_torch.ops.cuda import adam
+    except ImportError:
+        return {}
+    out = {}
+    for name in adam_nets(torch, dev):
+        ins = adam_inputs(torch, dev, g, name)
+        out[f"K9 adam_update {name}"] = (
+            "adam_kernel", lambda ins=ins: adam.adam_update(*ins))
     return out
 
 

@@ -38,7 +38,7 @@ class _Recorder:
 
     def update(self, grads, state, params):
         self.grads = {k: g.detach().clone() for k, g in grads.items()}
-        return state
+        return state, None  # Adam.update's (state, gradient max-abs)
 
 
 def _close(a, b, rtol=1e-5, atol=1e-7):
