@@ -153,8 +153,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
                                 idle_gaps=[[k, v] for k, v in gaps[:10]])
     out["card"] = card_line() if cuda else "cpu"
     out["reference"] = dict(ref["ties"], setup_held_s=held)
-    out["checks"] = {k: {"value": nums[k], "limit": limits[k]}
-                     for k in check.NAMES}
-    for k in check.NAMES:
-        log(f"check {k} {nums[k]!r} limit {limits[k]!r}")
+    out["counters"] = program.adam_counters()
+    out["checks"] = {k: {"value": nums.get(k), "limit": v}
+                     for k, v in limits.items()}
+    for k, v in limits.items():
+        log(f"check {k} {nums.get(k)!r} limit {v!r}")
     return out

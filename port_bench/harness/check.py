@@ -28,7 +28,18 @@ the reference did. Each has its limit in the cell's file (``limits``);
 * ``rows_bad``: rows the loop inserted that differ from the reference's in
   any field, counted exactly. A greedy action that differs from the
   reference's is taken as the loop's where its Q value is within the
-  reference's tie tolerance of the best (``reference/loop.py``).
+  reference's tie tolerance of the best (``reference/loop.py``). Over an
+  episode replay, per iteration, the envs whose new ring row differs and
+  the envs whose episode records (every ``(start, length)``, the record
+  count and the open episode's length) differ (``reference/drqn.py``).
+* ``hidden_gap`` (a recurrent loop): the actor's recurrent state ``(h,
+  c)`` after each iteration, the relative L2 gap between the loop's and
+  the reference's, the largest over the three.
+
+A cell is judged on the numbers its file's ``limits`` name: a
+feed-forward cell on the first six, a recurrent one (an episode replay,
+no priorities) on ``loss_gap``, ``grad_gap``, ``change_gap``, ``rows_bad``
+and ``hidden_gap``.
 
 Each limit lies between two readings taken on the card: the largest that
 sound runs of the port gave over a dozen seeds or more, and the smallest
@@ -42,10 +53,6 @@ import math
 from typing import Dict
 
 import torch
-
-NAMES = ("loss_gap", "grad_gap", "change_gap", "prio_gap", "td1_gap",
-         "rows_bad")
-
 
 def _norms(d: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(v.double().norm()) for k, v in d.items()}
@@ -91,28 +98,34 @@ def numbers(start: dict, prog: dict, ref: dict) -> Dict[str, float]:
 
     ch = leaf_gap(change({k: prog[k] for k in ("params", "target")}),
                   change(ref), keep)
-    return dict(loss_gap=loss, grad_gap=grad, change_gap=ch,
-                prio_gap=float(ref["prio_gap"]),
-                td1_gap=(math.nan if ref["td1_gap"] is None
-                         else float(ref["td1_gap"])),
-                rows_bad=float(ref["rows_bad"]))
+    return dict(loss_gap=loss, grad_gap=grad, change_gap=ch, **ref["judged"])
 
 
 def verdict(nums: Dict[str, float], limits: Dict[str, float]) -> bool:
-    return all(math.isfinite(nums[k]) and nums[k] <= limits[k]
-               for k in NAMES)
+    """Every number the cell's ``limits`` name is finite and within its
+    limit (a number the run did not give fails)."""
+    return all(math.isfinite(nums.get(k, math.nan)) and nums[k] <= v
+               for k, v in limits.items())
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    b = b.cpu().double()
+    return float((a.cpu().double() - b).norm() / b.norm())
 
 
 def unchanged(start: dict, ref: dict) -> Dict[str, float]:
     """The numbers of a step that returns its state unchanged, read
-    without a run: the loss stays the carry's, nothing moves."""
+    without a run: the loss stays the carry's, nothing moves, no row is
+    written, and the priorities or the recurrent state stay the start's."""
     prog = dict(loss=[0.0] * len(ref["loss"]),
                 m1={k: torch.zeros_like(v) for k, v in ref["m1"].items()},
                 params=start["params"], target=start["target"])
     out = numbers(start, prog, ref)
-    leaves = ref["tree"][0].cpu().double()
-    out["prio_gap"] = float((start["tree"][0].double() - leaves).norm()
-                            / leaves.norm())
-    out["td1_gap"] = out["prio_gap"]
+    if "tree" in ref:
+        out["prio_gap"] = _rel(start["tree"][0], ref["tree"][0])
+        out["td1_gap"] = out["prio_gap"]
+    else:
+        out["hidden_gap"] = max(_rel(start["hidden"], h)
+                                for h in ref["hidden"])
     out["rows_bad"] = float(len(ref["loss"]) * start["obs"].shape[0])
     return out

@@ -2,7 +2,8 @@
 per-layer metric or a kernel's work count is added by adding a file:
 
 * ``configs/<config>.json``: a model configuration (its network, env,
-  precision and algorithm constants);
+  precision and algorithm constants; ``recurrence`` makes it a DRQN over
+  an episode replay);
 * ``workloads/<cell>.json``: a cell: its configuration's name, its traffic
   (env count, train frequency, batch, replay, target period, replay start,
   iterations per segment) and the limits of its correctness numbers;
@@ -14,7 +15,8 @@ per-layer metric or a kernel's work count is added by adding a file:
   port's env, its state width and uniforms per step and reset, and
   ``Reference``, the plain batched env of the check;
 * ``layers/<kind>.py``: a network layer kind on both sides:
-  ``program(args, device)``, the port's layer, and the plain forward, the
+  ``program(args, device)``, the port's layer, and the plain forward (a
+  recurrent kind, ``RECURRENT``: its plain step and zero state), the
   output shape, the multiply-adds and the parameters that the reference and
   the work counts take from it.
 

@@ -21,7 +21,10 @@ def bound_s(flops: float, nbytes: float, peak_flops: float = F32_PEAK):
 
 def traffic(config: dict, cell: dict) -> dict:
     """The loop's sizes from a cell's traffic (the solver's arithmetic:
-    ``train_freq`` env steps per update)."""
+    ``train_freq`` env steps per update); a recurrent configuration
+    (``recurrence``) adds its ``trace_length`` and populates as ``solve``
+    does, for at least ``max_episode_length + 1`` lockstep steps.
+    ``buffer_size`` counts rows, or a recurrent replay's episodes."""
     E, tf = cell["num_envs"], cell["train_freq"]
     steps = max(1, tf // E)
     if E % tf and tf % E:
@@ -29,7 +32,7 @@ def traffic(config: dict, cell: dict) -> dict:
     if steps != 1:
         raise ValueError("the benchmark runs one collect step per iteration")
     U = max(1, E * steps // tf)
-    return dict(
+    out = dict(
         num_envs=E, train_freq=tf, batch_size=cell["batch_size"],
         buffer_size=cell.get("buffer_size", config.get("replay_capacity")),
         target_update_freq=cell["target_update_freq"],
@@ -38,6 +41,12 @@ def traffic(config: dict, cell: dict) -> dict:
         segment_iters=cell["segment_iters"], updates_per_iter=U,
         env_steps_per_iter=E * steps,
         max_episode_length=config["max_episode_length"])
+    if "recurrence" in config:
+        # solve's floor: every env commits an episode before the first draw
+        out["populate_steps"] = max(out["populate_steps"],
+                                    config["max_episode_length"] + 1)
+        out["trace_length"] = config["recurrence"]["trace_length"]
+    return out
 
 
 def forward_flops(net) -> int:
@@ -50,9 +59,9 @@ def forward_flops(net) -> int:
 def first_layer_flops(net) -> int:
     """FLOPs of the layers that read the observation: their input
     gradient is never taken (the base's first layer with parameters, or
-    both heads' first where the base has none)."""
-    base, val, adv = net.macs()
-    return 2 * (base[0] if base else val[0] + adv[0])
+    both heads' first where the base has none; of a recurrent cell only
+    its input product, ``Net.first_macs``)."""
+    return 2 * net.first_macs()
 
 
 def step_flops(net, config: dict, tr: dict) -> int:
@@ -60,12 +69,13 @@ def step_flops(net, config: dict, tr: dict) -> int:
     collect's forward over every env, and per sub-update the forward on s
     with its backward (each layer's weight gradient and every input
     gradient but the observation's), the online forward on s' (double-Q)
-    and the target forward on s'."""
+    and the target forward on s', for each of its rows, or of a recurrent
+    update's B·T window steps."""
     f = forward_flops(net)
     per_row = f + f * (2 if config["double_q"] else 1) + f + (
         f - first_layer_flops(net))
     return tr["num_envs"] * f + tr["updates_per_iter"] * tr[
-        "batch_size"] * per_row
+        "batch_size"] * tr.get("trace_length", 1) * per_row
 
 
 def obs_numel(config: dict) -> int:

@@ -1,7 +1,7 @@
 """Readings that the correctness limits are set from, for one cell.
 
     python3 port_bench/readings.py --workload <cell> --seeds 1,2,3 \
-        [--variants program,control,half_batch,altered,unchanged]
+        [--variants program,control,half_batch,altered,unchanged,...]
 
 For each seed: the benchmark's set-up and its three checked iterations of
 the port's loop, then the plain reference from the same state, and the
@@ -12,8 +12,12 @@ for f32 and scaled e4m3 products for bf16, in the port's place);
 ``half_batch`` (the reference with half of each batch left out, the mean
 over the rest); ``altered`` (the reference with one env's reward altered
 where the collect produces it); ``unchanged`` (a step that returns its
-state unchanged, read without a run). No timed window: training's
-readings need none. Prints one JSON line per seed and variant.
+state unchanged, read without a run); and of a recurrent cell, the
+reference with ``no_reset`` (the recurrent state not zeroed at an
+episode's end), ``skip_update`` (the last sub-update of each iteration
+left out) or ``no_mask`` (the window's mask left out of the loss). Without
+``--variants``, every variant that the cell's route has. No timed window:
+training's readings need none. Prints one JSON line per seed and variant.
 """
 import argparse
 import json
@@ -24,6 +28,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 VARIANTS = ("program", "control", "half_batch", "altered", "unchanged")
+RECURRENT = ("no_reset", "skip_update", "no_mask")
 
 
 def readings(name, seed, variants, device, reg=None):
@@ -76,17 +81,23 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variants")
     args = ap.parse_args(argv)
     import torch
+
+    from port_bench.harness.registry import Registry
 
     if not torch.cuda.is_available():
         print("readings: no CUDA device", file=sys.stderr)
         return 2
+    reg = Registry()
+    variants = (args.variants.split(",") if args.variants else VARIANTS + (
+        RECURRENT if "recurrence" in reg.config(
+            reg.cell(args.workload)["config"]) else ()))
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        res = readings(args.workload, seed, args.variants.split(","),
-                       torch.device("cuda:0"))
+        res = readings(args.workload, seed, variants,
+                       torch.device("cuda:0"), reg)
         for v, nums in res.items():
             print(json.dumps(dict(workload=args.workload, seed=seed,
                                   variant=v, **nums)), flush=True)

@@ -44,6 +44,7 @@ benchmark's registry.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -74,6 +75,15 @@ def ulp(dtype: str, scale: torch.Tensor) -> torch.Tensor:
     _m, e = torch.frexp(scale.float().clamp(min=2.0 ** -100))
     return torch.ldexp(torch.ones_like(scale, dtype=torch.float32),
                        e - 1 - MANTISSA[dtype])
+
+
+def _differ(ours, theirs, n: int, device) -> int:
+    """Rows of ``n`` that differ in any field between two tuples of
+    tensors with ``n`` leading rows."""
+    bad = torch.zeros(n, dtype=torch.bool, device=device)
+    for a, b in zip(ours, theirs):
+        bad |= ~(a == b.to(device)).reshape(n, -1).all(dim=1)
+    return int(bad.sum())
 
 
 class Adam:
@@ -114,7 +124,10 @@ class Follow:
 
     ``prec`` is the precision of the products (``nets.Precision``);
     ``fault`` plants one fault where the reference stands in for the
-    program (``"half_batch"``, ``"altered"``) and is None otherwise."""
+    program (``"half_batch"``, ``"altered"``) and is None otherwise.
+    ``reference/drqn.py`` takes the replay, the collect's Q and its store
+    over (``_init_replay``, ``_act_q``, ``_store``, ``_end_step``) and the
+    train step, for a recurrent loop over an episode replay."""
 
     def __init__(self, spec, traffic, snap, device, parts, prec=None,
                  fault=None, keep_rows=False):
@@ -142,6 +155,17 @@ class Follow:
         self.ep_step = snap["ep_step"].to(device).clone()
         self.t = int(snap["t"])
         self.sync_acc = int(snap["sync_acc"])
+        self.gen = torch.Generator(device=device)
+        self.gen.set_state(snap["gen_state"])
+        self.rows_bad = 0
+        self.actions_excused = 0
+        self.ties_followed = 0
+        self.greedy_ulps = 0.0
+        self.double_q_ulps = 0.0
+        self.greedy_checked = 0
+        self._init_replay(spec, traffic, snap, device)
+
+    def _init_replay(self, spec, traffic, snap, device):
         C = traffic["buffer_size"]
         n = int(snap["rows_obs"].shape[0])
         sdt = getattr(torch, spec["dtype"])
@@ -155,16 +179,8 @@ class Follow:
         tree = tuple(x.to(device).clone() for x in snap["tree"])
         self.replay = Replay(obs, nobs, sc, tree, snap["pos"], snap["size"],
                              spec["per"], self.env.obs_shape)
-        self.gen = torch.Generator(device=device)
-        self.gen.set_state(snap["gen_state"])
-        self.rows_bad = 0
-        self.actions_excused = 0
         self.prio_gap = 0.0
         self.td1_gap = None
-        self.ties_followed = 0
-        self.greedy_ulps = 0.0
-        self.double_q_ulps = 0.0
-        self.greedy_checked = 0
 
     # -- collect -------------------------------------------------------
     def _gap_ulps(self, q, scale, chosen, best):
@@ -182,7 +198,7 @@ class Follow:
         tt = torch.tensor(self.t, dtype=torch.int64, device=self.dev)
         eps = epsilon(self.spec["exploration"], tt)
         with torch.no_grad():
-            q, scale = self.net.q(self.params, self.obs, self.prec)
+            q, scale = self._act_q()
         ns, nr = self.ns, self.nr
         greedy = torch.argmax(q, dim=1)
         if self.fused:
@@ -218,20 +234,7 @@ class Follow:
             r[0] += 1.0
         ended = (done > 0.5) | (self.ep_step + 1 >= self.tr[
             "max_episode_length"])
-        idx = self.replay.insert(self.obs, action, r, nobs, done)
-        if self.keep_rows:
-            sc = self.replay.scalars[idx].cpu()
-            self.rows.append(dict(obs=self.replay.obs[idx].cpu(),
-                                  next_obs=self.replay.next_obs[idx].cpu(),
-                                  scalars=sc, action=sc[:, 0]))
-        if judge is not None:
-            ours = (self.replay.obs[idx], self.replay.next_obs[idx],
-                    self.replay.scalars[idx])
-            theirs = (judge["obs"], judge["next_obs"], judge["scalars"])
-            bad = torch.zeros(E, dtype=torch.bool, device=self.dev)
-            for a, b in zip(ours, theirs):
-                bad |= ~(a == b.to(self.dev)).reshape(E, -1).all(dim=1)
-            self.rows_bad += int(bad.sum())
+        self._store(action, r, nobs, done, ended, judge)
         if not self.fused:
             reset_u = (torch.rand(nr, E, generator=self.gen, device=self.dev)
                        if nr else None)
@@ -243,6 +246,30 @@ class Follow:
         self.ep_step = torch.where(ended, 0, self.ep_step + 1).to(
             torch.int32)
         self.t = min(self.t + E, 1 << 30)
+        self._end_step(ended, judge)
+
+    def _act_q(self):
+        """The collect's ``(Q, scale)`` of the envs' observations."""
+        return self.net.q(self.params, self.obs, self.prec)
+
+    def _store(self, action, r, nobs, done, ended, judge):
+        """Insert the step's transitions; keep them (``keep_rows``) and
+        count those that differ from the loop's (``judge``)."""
+        E = action.shape[0]
+        idx = self.replay.insert(self.obs, action, r, nobs, done)
+        if self.keep_rows:
+            sc = self.replay.scalars[idx].cpu()
+            self.rows.append(dict(obs=self.replay.obs[idx].cpu(),
+                                  next_obs=self.replay.next_obs[idx].cpu(),
+                                  scalars=sc, action=sc[:, 0]))
+        if judge is not None:
+            ours = (self.replay.obs[idx], self.replay.next_obs[idx],
+                    self.replay.scalars[idx])
+            theirs = (judge["obs"], judge["next_obs"], judge["scalars"])
+            self.rows_bad += _differ(ours, theirs, E, self.dev)
+
+    def _end_step(self, ended, judge):
+        """After a collect step: nothing to carry in a feed-forward loop."""
 
     # -- train ---------------------------------------------------------
     def _q(self, params, x):
@@ -356,6 +383,26 @@ class Follow:
                                  / ours[first].double().norm())
         self.replay.tree = theirs
 
+    def judged(self) -> dict:
+        """The numbers judged as the iterations went (``harness/check.py``):
+        ``prio_gap``, ``td1_gap`` (None before any update) and
+        ``rows_bad``."""
+        return dict(prio_gap=float(self.prio_gap),
+                    td1_gap=(math.nan if self.td1_gap is None
+                             else float(self.td1_gap)),
+                    rows_bad=float(self.rows_bad))
+
+    def end_state(self) -> dict:
+        """What a step left unchanged is read against: the priorities."""
+        return dict(tree=self.replay.tree)
+
+    def tie_readings(self) -> dict:
+        return dict(actions_excused=self.actions_excused,
+                    ties_followed=self.ties_followed,
+                    greedy_ulps=self.greedy_ulps,
+                    double_q_ulps=self.double_q_ulps,
+                    greedy_checked=self.greedy_checked)
+
     def iteration(self, judge=None):
         self.collect(judge)
         self.train(judge)
@@ -373,24 +420,24 @@ def follow(spec, traffic, snap, device, steps: List[Optional[dict]],
     """Run ``len(steps)`` iterations from ``snap`` (``steps[k]``: the
     measured loop's rows of iteration ``k``, or None); returns a dict
     with each iteration's ``loss``, Adam's first moment ``m1`` after the
-    first, the ``params``, ``target`` and priority ``tree`` after the
-    last, and ``rows_bad``, ``prio_gap``, ``td1_gap`` and
-    the tie readings (module docstring); with ``keep_rows`` also the
-    ``rows`` it inserted, per iteration. ``parts`` finds the env's and the
-    layers' files (the benchmark's registry)."""
-    f = Follow(spec, traffic, snap, device, parts, prec, fault, keep_rows)
+    first, the ``params`` and ``target`` after the last, the numbers
+    ``judged`` as it went (``Follow.judged``), what a step left unchanged
+    is read against (``Follow.state``: the priority ``tree``, or a
+    recurrent loop's ``hidden`` states) and the tie readings (module
+    docstring); with ``keep_rows`` also what it inserted (``rows``), per
+    iteration. A configuration with ``recurrence`` takes the recurrent
+    loop (``reference/drqn.py``), any other this module's. ``parts``
+    finds the env's and the layers' files (the benchmark's registry)."""
+    if "recurrence" in spec:
+        from .drqn import FollowRecurrent as cls
+    else:
+        cls = Follow
+    f = cls(spec, traffic, snap, device, parts, prec, fault, keep_rows)
     out = {"loss": []}
     for k, judge in enumerate(steps):
         out["loss"].append(f.iteration(judge))
         if k == 0:
             out["m1"] = {n: v.clone() for n, v in f.adam.m.items()}
-    out.update(params=f.params, target=f.target,
-               tree=f.replay.tree, rows_bad=f.rows_bad,
-               prio_gap=f.prio_gap, td1_gap=f.td1_gap,
-               ties=dict(actions_excused=f.actions_excused,
-                         ties_followed=f.ties_followed,
-                         greedy_ulps=f.greedy_ulps,
-                         double_q_ulps=f.double_q_ulps,
-                         greedy_checked=f.greedy_checked),
-               rows=f.rows)
+    out.update(params=f.params, target=f.target, judged=f.judged(),
+               ties=f.tie_readings(), rows=f.rows, **f.end_state())
     return out

@@ -8,7 +8,9 @@ is the advantage head, a copy with its last layer ``Dense(n, 1)`` the value
 head, the layers before it the shared base; ``Q = V + A - mean_a A``.
 Parameters are a dict keyed as the program keys its own
 (``base.layers.<i>.w``, ``val.layers.<j>.b``, ...), so a snapshot of the
-program's state can be read.
+program's state can be read. A recurrent layer kind (``RECURRENT``, such as
+``layers/LSTM.py``) steps a state of its own, which the base carries: a
+list with one entry per base layer, None for a stateless one.
 
 Precision follows the configuration: parameters and activations in its
 dtype (f32 or bf16); every product is taken in f32 on f32 copies of the
@@ -80,6 +82,8 @@ class Net:
             if name == "base":
                 shape = s
         self.num_actions = adv[-1][1][1]
+        self.recurrent = any(getattr(m, "RECURRENT", False)
+                             for m, _a, _p, _s in self.streams["base"])
 
     def macs(self):
         """Multiply-adds per sample of each layer with parameters:
@@ -87,24 +91,52 @@ class Net:
         return tuple([m.macs(s, a) for m, a, _p, s in self.streams[k]
                       if m.PARAMS] for k in ("base", "val", "adv"))
 
+    def first_macs(self) -> int:
+        """Multiply-adds per sample of the layers that read the observation:
+        the base's first layer with parameters, or both heads' first where
+        the base has none (of a layer whose file gives ``obs_macs``, such as
+        a cell, only its product with that input)."""
+        base, val, adv = ([(m, a, s) for m, a, _p, s in self.streams[k]
+                           if m.PARAMS] for k in ("base", "val", "adv"))
+        macs = lambda m, a, s: getattr(m, "obs_macs", m.macs)(s, a)
+        return macs(*base[0]) if base else macs(*val[0]) + macs(*adv[0])
+
     def n_params(self) -> int:
         return sum(m.n_params(a) for ls in self.streams.values()
                    for m, a, _p, _s in ls)
 
     def fused_collect(self) -> bool:
-        """Whether the port's fused collect (K4) runs every layer."""
-        return all(m.fused_collect(a) for ls in self.streams.values()
-                   for m, a, _p, _s in ls)
+        """Whether the port's fused collect (K4, or K6 for a base that is
+        one recurrent cell) runs every layer."""
+        ok = all(m.fused_collect(a) for ls in self.streams.values()
+                 for m, a, _p, _s in ls)
+        cells = [getattr(m, "RECURRENT", False)
+                 for m, _a, _p, _s in self.streams["base"] if m.PARAMS]
+        return ok and (not self.recurrent or cells == [True])
 
-    def q(self, params, obs, prec: Precision = Precision()):
+    def init_state(self, n: int, dtype, device) -> list:
+        """The base's state of ``n`` rows at an episode's start."""
+        return [m.init_state(n, a, dtype, device)
+                if getattr(m, "RECURRENT", False) else None
+                for m, a, _p, _s in self.streams["base"]]
+
+    def q(self, params, obs, prec: Precision = Precision(), state=None):
         """``(Q [N, A], scale [N])`` in the configuration's dtype of
         observations ``obs [N, *obs_shape]``; ``scale`` is the largest
         magnitude among a row's V, A and Q in f32, the size its roundings
-        are taken at."""
+        are taken at. A recurrent network steps from ``state``
+        (``init_state``'s form) and returns its next state last."""
+        new = []
         with prec.flags():
             x = obs
-            for mod, args, prefix, _s in self.streams["base"]:
-                x = mod.forward(x, params, prefix, args, prec)
+            for k, (mod, args, prefix, _s) in enumerate(
+                    self.streams["base"]):
+                if getattr(mod, "RECURRENT", False):
+                    x, s = mod.step(x, state[k], params, prefix, args, prec)
+                    new.append(s)
+                else:
+                    x = mod.forward(x, params, prefix, args, prec)
+                    new.append(None)
             outs = []
             for k in ("val", "adv"):
                 h = x
@@ -115,4 +147,15 @@ class Net:
         q = v + a - a.mean(dim=-1, keepdim=True)
         scale = torch.cat([v.float().abs(), a.float().abs(),
                            q.float().abs()], dim=1).amax(dim=1)
-        return q, scale
+        return (q, scale) if state is None else (q, scale, new)
+
+    def unroll(self, params, xs, prec: Precision = Precision()):
+        """``(Q [N, T, A], scale [N, T])`` of windows ``xs [N, T,
+        *obs_shape]``, stepped from a zero state."""
+        state = self.init_state(xs.shape[0], xs.dtype, xs.device)
+        qs, scales = [], []
+        for t in range(xs.shape[1]):
+            q, scale, state = self.q(params, xs[:, t], prec, state)
+            qs.append(q)
+            scales.append(scale)
+        return torch.stack(qs, dim=1), torch.stack(scales, dim=1)

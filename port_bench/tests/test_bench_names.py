@@ -60,9 +60,12 @@ def test_every_part_is_found_by_name():
     for w in BENCH["workloads"]:
         cell = reg.cell(w["name"])
         assert cell["config"] == w["config"]
-        work.traffic(reg.config(cell["config"]), cell)
-        assert set(cell["limits"]) == {"loss_gap", "grad_gap", "change_gap",
-                                       "prio_gap", "td1_gap", "rows_bad"}
+        conf = reg.config(cell["config"])
+        work.traffic(conf, cell)
+        judged = ({"rows_bad", "hidden_gap"} if "recurrence" in conf
+                  else {"prio_gap", "td1_gap", "rows_bad"})
+        assert set(cell["limits"]) == {"loss_gap", "grad_gap",
+                                       "change_gap"} | judged
     for m in BENCH["per_layer"]:
         assert callable(reg.metric(m["name"]).read)
     for cell in (w["name"] for w in BENCH["workloads"]):
@@ -72,7 +75,9 @@ def test_every_part_is_found_by_name():
         env = reg.env(conf["env"]["kind"])
         assert callable(env.program) and env.Reference
         for layer in conf["net"]["layers"]:
-            assert callable(reg.layer(layer[0]).forward)
+            part = reg.layer(layer[0])
+            assert callable(part.step if getattr(part, "RECURRENT", False)
+                            else part.forward)
 
 
 def test_added_files_are_picked_up(bench_copy, tmp_path):
@@ -148,7 +153,8 @@ def test_added_files_are_picked_up(bench_copy, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["segment.host_ms_per_replay",
-                                  "device.idle_share", "k2_roofline"])
+                                  "device.idle_share", "k2_roofline",
+                                  "k5_roofline", "k6_roofline"])
 def test_readers_without_a_trace_return_nothing(name):
     from types import SimpleNamespace
 

@@ -81,3 +81,43 @@ def test_tree_levels_and_k2_bytes():
     D = 16384
     assert nbytes == 16 * D + 4 * 64 * (16384 + 256 + 4) + 4 * 4 * 1
     assert flops == D * (64 + 64 + 64 + 4)
+
+
+def test_drqn_k5_k6_and_step_work():
+    """``grid_drqn.learner`` (U = 4, B = 512, T = 8, 16384 envs, LSTM(2,
+    32) and dueling heads 32-1 and 32-4, double-Q): per step the cell's
+    (2 + 32)·128 = 4352 and the heads' 32 + 128 multiply-adds, 4512. K5:
+    2·U·B·T·4512·(2 + 2) FLOPs (``chip_smoke.py::_drqn_update_flops``);
+    bytes: per window step obs and next obs 16, action 4, reward, done
+    and mask 12, Q(s') 16, and the 4645 parameters with both moments read
+    and written. K6: K4's count with the state rows h;c (64 f32) read and
+    written per env. The step: the collect's forward over the envs, and
+    per window step the forward on s, on s' twice, the weight gradient
+    and every input gradient but x·wi's (2·128 multiply-adds)."""
+    from types import SimpleNamespace
+
+    from port_bench.harness import work
+    from port_bench.harness.registry import Registry
+
+    reg = Registry()
+    c = _conf("grid_drqn")
+    net = _net(c)
+    tr = work.traffic(c, reg.cell("grid_drqn.learner"))
+    assert (tr["updates_per_iter"], tr["trace_length"]) == (4, 8)
+    assert tr["populate_steps"] == 101
+    macs, P = 4512, (2 + 32 + 1) * 128 + 33 + 132
+    assert sum(sum(m) for m in net.macs()) == macs and net.n_params() == P
+    assert net.recurrent and net.fused_collect()
+    ctx = SimpleNamespace(work=work, config=c, traffic=tr, net=net,
+                          registry=reg)
+    steps = 4 * 512 * 8
+    flops, nbytes = reg.kernel("dr_group_kernel").work(ctx)
+    assert flops == 2 * steps * macs * 4 == 591_396_864
+    assert nbytes == steps * 48 + 24 * P + 16
+    E = 16384
+    k6_flops, k6_bytes = reg.kernel("fc_rnn_kernel").work(ctx)
+    assert k6_flops == E * 2 * macs
+    assert k6_bytes == (E * (8 + 12 + 4 + 4 + 24) + 4 * P + 4
+                        + E * (32 + 8 + 12 + 4 + 4) + 12 + E * 2 * 4 * 64)
+    assert work.step_flops(net, c, tr) == E * 2 * macs + steps * (
+        5 * 2 * macs - 2 * 2 * 128)
