@@ -25,7 +25,8 @@ from .envs.tiger import TigerPOMDP
 from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .learner.segment import make_collect_graph, make_segment
 from .models.chain import (
-    GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, isrecurrent)
+    GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, MaxPool2D, Residual,
+    isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
 from .ops.helpers import (
     batch_trajectories, flattenbatch, globalnorm, huber_loss)
@@ -58,7 +59,7 @@ __all__ = [
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
     "init_carry", "populate", "make_segment", "make_collect_graph",
     "Activation", "Chain", "Conv2D", "Dense",
-    "Flatten",
+    "Flatten", "MaxPool2D", "Residual",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",
     "DuelingNetwork", "create_dueling_network", "batch_trajectories",

@@ -81,12 +81,18 @@ code: ``segment.capture`` around a graph's making, with the children
 and ``segment.guard``; ``segment.run`` and the counter
 ``segment.replays`` on each call, eager or replayed; ``populate`` around
 :func:`make_collect_graph`'s run. Each takes the route as its attribute.
+The counters ``segment.layer_calls.conv2d``, ``.maxpool2d`` and
+``.residual`` of a route hold the forward calls of those layers
+(``models/chain.py``) that one iteration makes: put at every capture from
+the layers' own counters, as ``segment.graph_nodes`` is, and on an eager
+route at every iteration.
 A call of a :class:`CompiledSegment` now and then times its replays with
 two CUDA events, one before the first and one after the last
 (``profiling.ReplaySampler``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -134,6 +140,22 @@ def _check_leaves(leaves, what: str) -> None:
             f"{what}: the carry holds host values ({', '.join(host)}); a "
             "graph replays device work only, so every counter must be a "
             "device tensor (build the carry with init_carry)")
+
+
+# the layers that count their forward calls (``models/chain.py``)
+LAYER_CALLS = ("conv2d", "maxpool2d", "residual")
+
+
+@contextlib.contextmanager
+def layer_calls(route: str):
+    """Put the counters ``segment.layer_calls.<layer>`` of ``route``: the
+    forward calls of each layer of :data:`LAYER_CALLS` that the block
+    made (none where it raised)."""
+    before = [profiling.counter(f"model.{k}") for k in LAYER_CALLS]
+    yield
+    for k, b in zip(LAYER_CALLS, before):
+        profiling.put(f"segment.layer_calls.{k}",
+                      profiling.counter(f"model.{k}") - b, route)
 
 
 def _agree(count: int, group, device) -> int:
@@ -194,8 +216,9 @@ class CompiledSegment:
                 self.graph.register_generator_state(g)
             failed = None
             try:
-                with torch.cuda.graph(self.graph, capture_error_mode=(
-                        "global" if group is None else "thread_local")):
+                with layer_calls(route), torch.cuda.graph(
+                        self.graph, capture_error_mode=(
+                            "global" if group is None else "thread_local")):
                     self._copy_back(iteration(carry), "capture")
             except Exception as e:  # re-raised below, on every rank
                 failed = e
@@ -308,7 +331,8 @@ def _eager_segment(iteration: Callable, route: str):
         with profiling.span("segment.run", route=route, n=n):
             profiling.count("segment.replays", n, route)
             for _ in range(n):
-                carry = iteration(carry)
+                with layer_calls(route):
+                    carry = iteration(carry)
         return carry
 
     return run_segment

@@ -1,7 +1,9 @@
 """Layer stack ("Chain") as ``nn.Module``s.
 
 Counterpart of ``deepqlearning_tpu.models.chain``: Dense, Flatten,
-Activation, Conv2D, the recurrent cells LSTM and GRU, and Chain. Parameters
+Activation, Conv2D, the recurrent cells LSTM and GRU, and Chain; besides,
+MaxPool2D and Residual (a skip connection around a Chain), which the JAX
+package does not have, for the IMPALA ResNet trunk. Parameters
 keep the JAX layout — ``w [din, dout]``, ``b [dout]``; a Conv2D's ``w [kh,
 kw, in, out]`` (HWIO) over NHWC inputs; a cell's ``wi [in, gH]``, ``wh [H,
 gH]``, ``b [gH]`` with the gates in the order i,f,g,o (LSTM) or r,z,n (GRU)
@@ -33,6 +35,11 @@ c)`` for LSTM, ``(h,)`` for GRU), ``apply(params, x, state) -> (y, state')``
 steps once and ``apply_sequence(params, xs [T, B, ...], state)`` unrolls
 over time with the cells' input projections hoisted out of the time loop.
 A feed-forward network's ``apply`` returns ``(y, ())``.
+
+Conv2D, MaxPool2D and Residual count their forward calls in the recorder
+(``utils/profiling.py``: ``model.conv2d``, ``model.maxpool2d``,
+``model.residual``). The count is host code: under a CUDA graph it runs
+at capture and never on a replay.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+
+from ..utils import profiling
 
 
 class _Functional(nn.Module):
@@ -276,21 +285,72 @@ class Conv2D(_Functional):
             self.b.zero_()
 
     def forward(self, x):
-        xc = x.permute(0, 3, 1, 2)                  # NCHW view of NHWC
-        pad = (0, 0)
-        if self.padding == "SAME":
-            (h0, h1), (w0, w1) = (same_pads(n, k, s) for n, k, s in zip(
-                x.shape[1:3], self.kernel, self.stride))
-            if (h0, w0) == (h1, w1):
-                pad = (h0, w0)
-            else:
-                xc = F.pad(xc, (w0, w1, h0, h1))
+        profiling.count("model.conv2d")
+        xc, pad = _nchw_same(x, self.kernel, self.stride, self.padding, 0.0)
         y = _ConvNoTF32.apply(xc, self.w.to(x.dtype).permute(3, 2, 0, 1),
                               self.stride, pad).permute(0, 2, 3, 1)
         y = y.float() + self.b.float()
         if self.activation is not None:
             y = self.activation(y)
         return y.to(x.dtype)
+
+
+def _nchw_same(x, kernel, stride, padding: str, value: float):
+    """The NCHW view of NHWC ``x`` and the symmetric padding that a
+    ``conv2d`` or ``max_pool2d`` takes for lax's ``padding``: SAME's pads
+    where low and high agree, else ``x`` padded with ``value`` by ``F.pad``
+    (the odd pad high) and no padding left to take."""
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "VALID":
+        return xc, (0, 0)
+    (h0, h1), (w0, w1) = (same_pads(n, k, s) for n, k, s in zip(
+        x.shape[1:3], kernel, stride))
+    if (h0, w0) == (h1, w1):
+        return xc, (h0, w0)
+    return F.pad(xc, (w0, w1, h0, h1), value=value), (0, 0)
+
+
+class MaxPool2D(_Functional):
+    """Max pooling over NHWC inputs with lax ``reduce_window`` semantics
+    (``max`` from ``-inf``): windows ``kernel`` apart by ``stride``,
+    ``padding`` ``"SAME"`` (lax's pads, which take no part in the max, the
+    odd pad high: (0, 1) at 84 and 42 for a 3x3 window of stride 2, where
+    PyTorch's symmetric ``padding=1`` would shift every window) or
+    ``"VALID"``. The max is exact in any dtype; ``max_pool2d``'s gradient
+    goes to the first largest element of a window, as XLA's does, and an
+    element that is the largest of several windows gets the sum of their
+    gradients rounded once to its dtype: on the card ``max_pool2d`` sums
+    in f32; on the CPU, whose bf16 kernel sums in bf16, the pool takes an
+    f32 copy."""
+
+    def __init__(self, kernel=(3, 3), stride=(2, 2), padding: str = "SAME"):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                             f"{padding!r}")
+        self.kernel = tuple(int(k) for k in kernel)
+        self.stride = tuple(int(s) for s in stride)
+        self.padding = padding
+
+    def forward(self, x):
+        profiling.count("model.maxpool2d")
+        xc, pad = _nchw_same(x if x.is_cuda else x.float(), self.kernel,
+                             self.stride, self.padding, -math.inf)
+        return F.max_pool2d(xc, self.kernel, self.stride, pad).permute(
+            0, 2, 3, 1).to(x.dtype)
+
+
+class Residual(_Functional):
+    """A skip connection: ``x + inner(x)`` in ``x``'s dtype, around a
+    feed-forward ``inner`` (a Chain) that keeps its input's shape."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x):
+        profiling.count("model.residual")
+        return (x + self.inner(x)).to(x.dtype)
 
 
 def lstm_cell(xi, h, c, wh, b):

@@ -15,7 +15,8 @@ as plain Python values and ``reset()`` empties it.
   range of that session under its own name, so the program's spans stand
   on the device trace's clock beside the kernels they launched.
 * :func:`count` ``(name, n=1, key="")`` adds to a counter;
-  :func:`put` ``(name, value, key="")`` sets one.
+  :func:`put` ``(name, value, key="")`` sets one; :func:`counter`
+  ``(name, key="")`` reads one.
 * :class:`ReplaySampler`: the device time of a CUDA graph's replays,
   sampled without a profiler (``learner/segment.py::CompiledSegment``).
 
@@ -176,6 +177,11 @@ def put(name: str, value, key: str = "") -> None:
     """Set the counter ``name`` under ``key`` to ``value``."""
     if enabled:
         RECORDER.counters[name][key] = value
+
+
+def counter(name: str, key: str = ""):
+    """The counter ``name`` under ``key``, 0 where nothing was counted."""
+    return RECORDER.counters.get(name, {}).get(key, 0)
 
 
 def snapshot() -> dict:

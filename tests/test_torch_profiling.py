@@ -160,6 +160,72 @@ def test_eager_segment_and_populate_record_spans_and_replays():
     assert "segment.capture" not in snap["totals"] and not snap["samples"]
 
 
+def _impala_stack(cin, cout, device):
+    """An IMPALA stack (Espeholt et al. 2018) as the benchmark builds it
+    (``port_bench/layers/ImpalaStack.py``): a 3x3 convolution, a 3x3 max
+    pool of stride 2 and two residual blocks of two 3x3 convolutions."""
+    from pathlib import Path
+
+    from port_bench.harness.registry import load_module
+
+    part = load_module(Path(__file__).resolve().parents[1] / "port_bench"
+                       / "layers" / "ImpalaStack.py")
+    return part.program([cin, cout], device)
+
+
+def _impala_loop(device):
+    """The IMPALA dueling net at 12x12x4 frames (stacks of 4, 8, 8) under
+    the traffic of the cell ``impala_dqn.learner``: 32 envs, ``train_freq``
+    4, so U = 8 grouped plain updates per iteration."""
+    env = dt.TestMDP((12, 12), 4, 6)
+    net = dt.create_dueling_network(dt.Chain(
+        _impala_stack(4, 8, device), _impala_stack(8, 8, device),
+        _impala_stack(8, 8, device), dt.Activation(torch.relu),
+        dt.Flatten(), dt.Dense(2 * 2 * 8, 16, torch.relu, device=device),
+        dt.Dense(16, env.num_actions, device=device)))
+    cfg = dt.DQNConfig(num_envs=32, batch_size=8, buffer_size=256,
+                       train_freq=4, train_start=64, max_episode_length=6,
+                       target_update_freq=64, seed=1)
+    buf = dt.PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
+                                      cfg.batch_size, device=device)
+    it, pop, opt = build_loop(env, net, buf, cfg,
+                              dt.LinearDecaySchedule(1.0, 0.05, 200),
+                              env.discount)
+    c = init_carry(env, net, buf, cfg, opt, device)
+    c = make_collect_graph(pop, c, cfg, env, buf, "impala populate")(c, 4)
+    return env, buf, cfg, it, c
+
+
+# one iteration of the IMPALA loop at U = 8: 18 forwards (the collect's,
+# the target net's over all U·B rows, and per update the online net's on
+# s' and on s), each through 3 stacks of 5 convolutions, 1 pool and 2
+# residual blocks
+LAYER_CALLS = {"conv2d": 18 * 15, "maxpool2d": 18 * 3, "residual": 18 * 6}
+
+
+def _layer_calls(route):
+    counters = profiling.snapshot()["counters"]
+    return {k: counters[f"segment.layer_calls.{k}"][route]
+            for k in LAYER_CALLS}
+
+
+def test_segment_puts_the_layer_calls_of_an_iteration():
+    """The eager segment puts ``segment.layer_calls.*`` of its route at
+    the counts the iteration's structure gives (270 / 54 / 108 at U = 8),
+    the same after more iterations, while the layers' own counters
+    (``model.*``) count every call."""
+    env, buf, cfg, it, c = _impala_loop("cpu")
+    run = make_segment(it, c, cfg, env, buf, "impala segment")
+    model = profiling.counter("model.conv2d")
+    c = run(c, 1)
+    assert _layer_calls("impala segment") == LAYER_CALLS
+    assert profiling.counter("model.conv2d") - model == 18 * 15
+    c = run(c, 2)
+    assert _layer_calls("impala segment") == LAYER_CALLS
+    assert profiling.counter("model.conv2d") - model == 3 * 18 * 15
+    assert profiling.counter("model.maxpool2d") == 3 * 18 * 3 + 4 * 3
+
+
 def test_solve_records_segment_evaluation_and_save_in_order(tmp_path):
     mdp = dt.TestMDP((3,), 2, 4)
     solver = dt.DeepQLearningSolver(
@@ -203,7 +269,10 @@ def _synthetic():
               "populate": {POP: dict(count=1, total_s=0.25, self_s=0.05)}}
     return dict(
         spans=[], totals=totals,
-        counters={"segment.graph_nodes": {SEG: 380, POP: 40}},
+        counters={"segment.graph_nodes": {SEG: 380, POP: 40},
+                  "segment.layer_calls.conv2d": {SEG: 270, POP: 15},
+                  "segment.layer_calls.maxpool2d": {SEG: 54, POP: 3},
+                  "segment.layer_calls.residual": {SEG: 108, POP: 6}},
         samples=[sample(0, 1, 9.0, 50.0),   # a checked call: left out
                  sample(5, 2, 2.0, 0.5),
                  sample(9, 2, 3.0, 0.5),
@@ -219,6 +288,7 @@ READINGS = {
     "segment.node_gap_share": 100.0 * (1.0 - 0.8),
     "setup.capture_s": 2.0,
     "setup.populate_s": 0.25,
+    "segment.trunk_calls": 432,
 }
 
 
@@ -265,3 +335,23 @@ def test_graph_nodes_and_a_sampled_segment_on_the_card():
     (s,) = profiling.snapshot()["samples"]
     assert s["route"] == "Drift" and s["call"] == 0 and s["n"] == 5
     assert 0 < s["device_ms"] <= wall_ms and s["gap_ms"] > 0
+
+
+@pytest.mark.card
+def test_a_capture_puts_the_layer_calls_and_replays_leave_them():
+    """On the card the IMPALA loop's segment is one CUDA graph: its capture
+    puts ``segment.layer_calls.*`` at the eager iteration's counts, the
+    guard replay passes (the pool's backward is deterministic), and
+    replays run no Python: neither those counters nor ``model.*`` move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU form")
+    env, buf, cfg, it, c = _impala_loop(torch.device("cuda:0"))
+    run = make_segment(it, c, cfg, env, buf, "impala segment")
+    assert _layer_calls("impala segment") == LAYER_CALLS
+    model = {k: profiling.counter(f"model.{k}") for k in LAYER_CALLS}
+    c = run(c, 5)
+    torch.cuda.synchronize()
+    assert _layer_calls("impala segment") == LAYER_CALLS
+    assert {k: profiling.counter(f"model.{k}") for k in LAYER_CALLS} == model
+    assert profiling.snapshot()["counters"]["segment.replays"][
+        "impala segment"] == 5
