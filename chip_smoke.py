@@ -10,7 +10,7 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 2. build: compiles the kernel library, prints the seconds; then the
    replay buffers and ``init_carry`` built with no ``device`` argument must
    hold their tensors on the card;
-3. kernels: each kernel (K1-K9) against its plain PyTorch twin on the
+3. kernels: each kernel (K1-K10) against its plain PyTorch twin on the
    card, at the main paths' shapes, with stated tolerances, both times and
    the kernel's bound (the least time for the same bytes or FLOPs on the
    card) and its share of it (K3/K5 also against the tile-order reference
@@ -29,11 +29,16 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    image-observation DQN's shapes: B = 512, A = 4 on the Q values of its
    bf16 conv net cast to f32, and 2^15 leaves / 2048 draws in 4; K9, the
    plain steps' Adam, at the benchmark's two configurations' parameters,
-   3 steps bit for bit, beside the twin eager and as one graph replay);
+   3 steps bit for bit, beside the twin eager and as one graph replay;
+   K10, the layers' epilogue, forward and backward at the Nature and
+   IMPALA cells' shapes, output and product cotangent bit for bit, bias
+   gradient within f32 reassociation, beside the twin eager and both as
+   one graph replay);
    then K1 (B = 32, 512, 4096, and the conv route's), K2 (also the conv
-   route's), K4 and K6 (each env), K7, K8 and K9 timed by their
-   device events alone, beside their wrappers' CUDA-event times, and an
-   empty kernel launched as K1 is, K1's launch floor;
+   route's), K4 and K6 (each env), K7, K8, K9 and K10 (forward and
+   backward) timed by their device events alone, beside their wrappers'
+   CUDA-event times, and an empty kernel launched as K1 is, K1's launch
+   floor;
 4. slices: the small feed-forward loop (on SimpleGridWorld and on
    CartPole) and the small DRQN loop on the card against the same loops on
    the CPU (plain twins) with injected uniforms and draws; then the full
@@ -885,6 +890,104 @@ def phase_adam_kernel(torch, dev, results):
         max_abs_err=0.0, **by["nature_dueling_dqn bf16"], by_config=by)
 
 
+def _bias_act_run(torch, fn, y, b, act, dtype, cot):
+    """``(out, dy, db)`` of the epilogue ``fn`` under the cotangent."""
+    y = y.detach().requires_grad_()
+    b = b.detach().requires_grad_()
+    out = fn(y, b, act, dtype)
+    dy, db = torch.autograd.grad(out, (y, b), cot)
+    return out.detach(), dy, db
+
+
+def _graph_ms(torch, dev, fn, iters=50):
+    """``fn``'s time as the replay of one captured CUDA graph (two eager
+    warm-up calls on a side stream first), by CUDA events."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _time_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
+def phase_bias_act_kernel(torch, dev, results):
+    """K10 (``ops/cuda/bias_act.py``) at the cells' epilogues
+    (``kernel_events.bias_act_shapes``): forward and backward against the
+    plain twin (the ATen chain), the output and the product's cotangent
+    bit for bit, the bias gradient within an f32 sum in another order
+    (n 2^-24 sum|dz| with n = 2 log2(rows) + 2, and a bf16 ulp where the
+    bias is bf16); then, by CUDA events, the wrapper's forward and
+    backward, the twin's eager, and each as the replay of one captured
+    CUDA graph (the twin's: the ATen chain as the graphs ran it before
+    K10); the bound: the product read and the output written (forward),
+    the cotangent and the saved output (or product) read and the product's
+    cotangent written (backward) once at 3.35 TB/s. The kernels' device
+    times follow in phase 3's device events."""
+    from deepqlearning_tpu_torch.ops.cuda import bias_act as ba
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import (
+        bias_act_inputs, bias_act_shapes)
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    by, worst = {}, 0.0
+    for name in bias_act_shapes():
+        y, b, cot, act, od = bias_act_inputs(torch, dev, g, name)
+        out, dy, db = _bias_act_run(torch, ba.bias_act, y, b, act, od, cot)
+        w_out, w_dy, w_db = _bias_act_run(torch, ba.bias_act_plain, y, b,
+                                          act, od, cot)
+        same = all(torch.equal(u.view(torch.int16 if u.element_size() == 2
+                                      else torch.int32),
+                               v.view(torch.int16 if v.element_size() == 2
+                                      else torch.int32))
+                   for u, v in ((out, w_out), (dy, w_dy)))
+        _check(same, f"K10 {name}: the output or the product's cotangent "
+                     "differs from the ATen chain")
+        rows = w_dy.reshape(-1, w_dy.shape[-1]).float()
+        n = 2 * rows.shape[0].bit_length() + 2
+        tol = n * 2.0 ** -24 * rows.abs().sum(0)
+        if db.dtype == torch.bfloat16:
+            tol = tol + w_db.float().abs() * 2.0 ** -7
+        err = (db.float() - w_db.float()).abs()
+        of_tol = float((err / tol.clamp_min(1e-30)).max())
+        _check(bool((err <= tol).all()),
+               f"K10 {name}: bias gradient off by {float(err.max()):.3g}")
+        worst = max(worst, float((err / rows.abs().sum(0).clamp_min(
+            1e-30)).max()))
+        again = _bias_act_run(torch, ba.bias_act, y, b, act, od, cot)
+        _check(torch.equal(again[2], db), f"K10 {name}: two runs differ")
+        step = lambda fn: (lambda: _bias_act_run(torch, fn, y, b, act, od,
+                                                 cot))
+        ms = _time_ms(step(ba.bias_act), 100)
+        pms = _time_ms(step(ba.bias_act_plain), 100)
+        gms = _graph_ms(torch, dev, step(ba.bias_act))
+        pgms = _graph_ms(torch, dev, step(ba.bias_act_plain))
+        src = 0 if act is None else (
+            y if act is torch.tanh and od != torch.float32 else out)
+        fwd = _nbytes(y, out, b)
+        bwd = _nbytes(cot, dy, db) + (_nbytes(src) if act is not None
+                                      else 0)
+        bms, bound_by = _bound(fwd + bwd, 0)
+        by[name] = dict(bytes=fwd + bwd, fwd_bytes=fwd, bwd_bytes=bwd,
+                        ms=ms, plain_ms=pms, graph_ms=gms,
+                        plain_graph_ms=pgms, bound_ms=bms,
+                        fwd_bound_ms=_bound(fwd, 0)[0],
+                        bwd_bound_ms=_bound(bwd, 0)[0], bound_by=bound_by)
+        _say(f"K10 bias_act {name} ({tuple(y.shape)}, {y.dtype} -> {od}): "
+             f"output and product cotangent equal to the ATen chain bit for "
+             f"bit, bias gradient at {of_tol:.3f} of its tolerance, two "
+             f"runs equal | forward and backward: "
+             + _kernel_line("K10", ms, pms, bms, bound_by)
+             + f"; as one graph replay: K10 {gms:.4f} ms, the ATen chain "
+               f"{pgms:.4f} ms")
+    results["bias_act"] = dict(max_abs_err=worst,
+                               **by["IMPALA 32x84x84x16 relu"], by_shape=by)
+
+
 def phase_kernels(torch, dev, results):
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
@@ -1421,6 +1524,12 @@ def phase_device_events(results):
     for name, r in results["adam_update"]["by_config"].items():
         rows[f"K9 adam_update {name}"] = (("adam_update", name), "device_ms",
                                           r["bound_ms"])
+    for name, r in results["bias_act"]["by_shape"].items():
+        rows[f"K10 bias_act {name}"] = (("bias_act", name), "device_ms",
+                                        r["fwd_bound_ms"])
+        rows[f"K10 bias_act_grad {name}"] = (("bias_act", name),
+                                             "grad_device_ms",
+                                             r["bwd_bound_ms"])
     _check(set(measured) == set(rows),
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
@@ -1429,6 +1538,8 @@ def phase_device_events(results):
                  results[key[0]][key[1]] if key[1] == "conv_route" else
                  results[key[0]]["by_config"][key[1]]
                  if key[0] == "adam_update" else
+                 results[key[0]]["by_shape"][key[1]]
+                 if key[0] == "bias_act" else
                  results[key[0]]["by_env"][key[1]])
         entry[field] = r["device_ms"]
         tail = ("the launch floor" if bound is None else
@@ -1445,6 +1556,17 @@ def phase_device_events(results):
              f"{floor:.6f} ms, {k1 / floor:.3f}x the launch floor")
     k9 = results["adam_update"]
     k9["device_ms"] = k9["by_config"]["nature_dueling_dqn bf16"]["device_ms"]
+    k10 = results["bias_act"]
+    for name, r in k10["by_shape"].items():
+        dms = r["device_ms"] + r["grad_device_ms"]
+        _say(f"K10 {name}: forward {r['device_ms']:.6f} + backward "
+             f"{r['grad_device_ms']:.6f} ms on the device, bound "
+             f"{r['bound_ms']:.6f} ms (bytes), share {r['bound_ms'] / dms:.4f}"
+             f"; the ATen chain as one graph replay {r['plain_graph_ms']:.4f}"
+             f" ms")
+    main = k10["by_shape"]["IMPALA 32x84x84x16 relu"]
+    k10["device_ms"] = main["device_ms"]
+    k10["grad_device_ms"] = main["grad_device_ms"]
 
 
 def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
@@ -2295,9 +2417,14 @@ def phase_solve(torch, dev, card, run_path):
                and rs["fused_collect"] == 4, f"resume: wrapper calls {rs}")
         # the segment: the eager warm-up and m replays; populate (4 steps,
         # train_start = 4 x 4096): the eager warm-up and 4 replays (each
-        # graph's guard replay left out)
+        # graph's guard replay left out); K10 in each iteration of the
+        # segment: three forwards of the 6 Dense layers and one backward
+        # (populate's K4 runs no layer, no evaluation falls in the m
+        # iterations)
         want = {"td_loss_kernel": m + 1, "tree_sample_kernel": m + 1,
-                "adam_kernel": m + 1, "fc_kernel": m + 1 + 4 + 1}
+                "adam_kernel": m + 1, "fc_kernel": m + 1 + 4 + 1,
+                "bias_act_kernel": 6 * 3 * (m + 1),
+                "bias_act_grad_kernel": 6 * (m + 1)}
         _check(seen == want, f"resume: the trace saw {seen}, not {want}")
         _check(len(per_launch) == 2 and all(len(x) == 1 for x in per_launch),
                f"resume: the graphs' replays differ in their device events "
@@ -2947,8 +3074,17 @@ def phase_per_instance(torch, dev, card, run_path):
            f"StaticArrayMDP solve: wrapper calls {mdp}")
     want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1,
             "adam_kernel": n_b + 1}
-    _check(seen_b == want, f"StaticArrayMDP solve: the trace saw {seen_b}, "
-                           f"not {want}")
+    _check(_but_k10(seen_b) == want, f"StaticArrayMDP solve: the trace saw "
+                                     f"{seen_b}, not {want}")
+    # K10 on the dueling net's 4 Dense layers: a backward in each update,
+    # and forwards in the updates (three each), the plain collect and the
+    # evaluations, whole nets
+    fwd, bwd = (seen_b.get(k, 0) for k in ("bias_act_kernel",
+                                             "bias_act_grad_kernel"))
+    _check(bwd == 4 * (n_b + 1) and fwd >= 3 * bwd and fwd % 4 == 0,
+           f"StaticArrayMDP solve: K10 launched {fwd} forward and {bwd} "
+           f"backward, not 4 backward per update and whole nets of 4 layers "
+           f"forward")
     _say(f"per-instance (b): StaticArrayMDP (initial_state(generator)) "
          f"through solve(device=None), test_compat's configuration, as "
          f"graph replays: greedy return {r:.4f} (> 1.0); the trace saw "
@@ -2966,9 +3102,17 @@ def phase_per_instance(torch, dev, card, run_path):
            f"MiniPOMDP solve: K5's wrapper called "
            f"{rec['fused_drqn_group_update']} times, not 2 (the graph's "
            "warm-up and capture)")
-    _check(seen_c == {"dr_group_kernel": n + 1},
+    _check(_but_k10(seen_c) == {"dr_group_kernel": n + 1},
            f"MiniPOMDP solve: the trace saw {seen_c}, not K5 once per "
            f"replay ({n}) and in the warm-up")
+    # K10 on the dueling head's 2 Dense layers: forward only (K5 takes the
+    # backward), in each iteration the target unroll and the plain collect,
+    # and the evaluations, whole heads
+    fwd = seen_c.get("bias_act_kernel", 0)
+    _check("bias_act_grad_kernel" not in seen_c and fwd >= 4 * (n + 1)
+           and fwd % 2 == 0,
+           f"MiniPOMDP solve: K10 launched {fwd} forward, not two heads "
+           f"in each iteration and whole heads in all")
     _say(f"per-instance (c): MiniPOMDP through a DRQN solve (LSTM(1,8), "
          f"dueling, 64 envs, U=1, batch 32, trace 8, {n} iterations) as "
          f"graph replays: eval returns "
@@ -3245,41 +3389,53 @@ def _segment_routes(torch, dev):
                                    c, cfg.max_episode_length + 1)
         return it, c, cfg, (env, buf)
 
+    # K10 per iteration: a forward launch per Conv2D and Dense layer of
+    # each net forward in ATen (the dueling Dense nets have 6 such layers,
+    # the conv net 7, the DRQN net's head 1, MiniPOMDP's dueling head 2):
+    # the target's over U·B rows beside K3 and K5, three per autograd
+    # update (target and online on s', online on s; the grouped step's
+    # target once for all U), the plain collect's one; and a backward
+    # launch per layer of each autograd update
     routes = {
         "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
                                          4096, 2),
                      {"tree_sample": 1, "fused_group_update": 1,
-                      "fused_collect": 1}),
+                      "fused_collect": 1, "bias_act": 6}),
         "U=1": (lambda: _loop_setup(torch, dev, 4096, 1 << 18, 512, 4096, 4,
                                     target_update_freq=2 * 4096),
                 {"td_loss": 1, "tree_sample": 1, "fused_collect": 1,
-                 "adam_update": 1}),
+                 "adam_update": 1, "bias_act": 6 * 3, "bias_act_grad": 6}),
         "grouped plain": (
             lambda: _loop_setup(torch, dev, 2048, 1 << 15, 512, 512, 2,
                                 net=_dueling_net(torch, dev, 512, torch.relu),
                                 target_update_freq=2 * 2048),
-            {"td_loss": 4, "tree_sample": 1, "adam_update": 4}),
+            {"td_loss": 4, "tree_sample": 1, "adam_update": 4,
+             "bias_act": 6 * (1 + 2 * 4 + 1), "bias_act_grad": 6 * 4}),
         "conv": (lambda: _loop_setup(
             torch, dev, 2048, 1 << 15, 512, 512, 1, net=conv_net(torch, dev),
             env=TestMDP((20, 20), 4, 6), max_episode_length=6,
             target_update_freq=2 * 2048, learning_rate=1e-3,
             dtype=torch.bfloat16),
-            {"td_loss": 4, "tree_sample": 1, "adam_update": 4}),
+            {"td_loss": 4, "tree_sample": 1, "adam_update": 4,
+             "bias_act": 7 * (1 + 2 * 4 + 1), "bias_act_grad": 7 * 4}),
         "CartPole": (cartpole, {"fused_collect": 1, "tree_sample": 1,
-                                "fused_group_update": 1}),
+                                "fused_group_update": 1, "bias_act": 6}),
         "DRQN": (lambda: _drqn_setup(torch, dev),
-                 {"fused_drqn_group_update": 1, "fused_collect_rnn": 1}),
+                 {"fused_drqn_group_update": 1, "fused_collect_rnn": 1,
+                  "bias_act": 1}),
         # autograd BPTT, Adam (K9) per sub-update and the plain recurrent
         # collect
         "DRQN plain": (lambda: _drqn_setup(torch, dev, fused_updates=False,
                                            fused_collect=False),
-                       {"adam_update": 4}),
+                       {"adam_update": 4, "bias_act": 3 * 4 + 1,
+                        "bias_act_grad": 4}),
         "per-instance GridWorld": (
             lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512, 4096, 2,
                                 env=GridWorld()),
-            {"tree_sample": 1, "fused_group_update": 1}),
+            {"tree_sample": 1, "fused_group_update": 1, "bias_act": 6 * 2}),
         "per-instance MiniPOMDP DRQN": (mini_pomdp,
-                                        {"fused_drqn_group_update": 1}),
+                                        {"fused_drqn_group_update": 1,
+                                         "bias_act": 2 * 2}),
     }
     routes = {name: (single(setup, name), per_iter)
               for name, (setup, per_iter) in routes.items()}
@@ -3289,16 +3445,16 @@ def _segment_routes(torch, dev):
     routes["DP headline"] = (lambda: _dp_route(torch, dev, False),
                              {"fused_grads": 32, "dp_update": 1,
                               "adam": 32, "tree_sample": 1,
-                              "fused_collect": 1})
+                              "fused_collect": 1, "bias_act": 6})
     routes["DP DRQN"] = (lambda: _dp_route(torch, dev, True),
                          {"fused_drqn_grads": 4, "drqn_dp_update": 1,
-                          "adam": 4, "fused_collect_rnn": 1})
+                          "adam": 4, "fused_collect_rnn": 1, "bias_act": 1})
     # local SGD, k = 2, on the (1, 1) mesh: two graphs, the second with
     # the DCN average after the iteration
     routes["DP local SGD (k=2)"] = (lambda: _dp_route(torch, dev, False, 2),
                                     {"fused_grads": 32, "dp_update": 1,
                                      "adam": 32, "tree_sample": 1,
-                                     "fused_collect": 1})
+                                     "fused_collect": 1, "bias_act": 6})
     return routes
 
 
@@ -3350,8 +3506,8 @@ def _all_wrappers():
     """Every kernel wrapper of the port by name; each counts the calls
     that launch (or, under capture, record) its kernel in ``.launches``."""
     from deepqlearning_tpu_torch.ops.cuda import (
-        adam, fused_collect as fc, fused_drqn as fd, fused_update as fu,
-        td_kernel as tk, tree_sample as ts)
+        adam, bias_act as ba, fused_collect as fc, fused_drqn as fd,
+        fused_update as fu, td_kernel as tk, tree_sample as ts)
 
     return {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
             "fused_group_update": fu.fused_group_update_cuda,
@@ -3364,7 +3520,10 @@ def _all_wrappers():
             # the data-parallel updates (calls; each launches K7 / K8, the
             # all-reduce and an Adam kernel per sub-update)
             "dp_update": fu.fused_dp_group_update_cuda,
-            "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda}
+            "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda,
+            # K10, every Conv2D and Dense epilogue on the card: its forward
+            # and backward launches
+            "bias_act": ba.bias_act}
 
 
 # the symbols of the kernels on the graph routes, by wrapper (the
@@ -3378,15 +3537,39 @@ SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
            "fused_grads": "fu_group_kernel",
            "fused_drqn_grads": "dr_group_kernel",
            "adam_update": "adam_kernel",
-           "adam": "dq_adam_flat_kernel"}
+           "adam": "dq_adam_flat_kernel",
+           # K10 forward, one launch per Conv2D or Dense layer a forward
+           # runs, and backward ("bias_act_grad", one per layer that an
+           # autograd update differentiates; the wrapper "bias_act" counts
+           # both)
+           "bias_act": "bias_act_kernel",
+           "bias_act_grad": "bias_act_grad_kernel"}
+
+
+def _wrapper_calls(per_iter):
+    """Wrapper calls from kernel launches by :data:`SYMBOLS`' keys: K10's
+    backward launches are counted by its one wrapper, ``bias_act``."""
+    calls = dict(per_iter)
+    if "bias_act_grad" in calls:
+        calls["bias_act"] = calls.get("bias_act", 0) + calls.pop(
+            "bias_act_grad")
+    return calls
+
+
+def _but_k10(seen):
+    """A trace's launches by symbol without K10's, which follow the nets'
+    layers."""
+    return {k: v for k, v in seen.items()
+            if k not in (SYMBOLS["bias_act"], SYMBOLS["bias_act_grad"])}
 
 
 def _traced_launches(torch, prime, fn):
     """``(fn(), {kernel symbol: launches})``: ``prime()`` and ``fn()`` in
     one ``torch.profiler`` session (``loop_profile.traced``: ``prime()``
     gives each graph its first launch in the session, whose first records
-    the profiler can lose), and the launches of the port's kernels that the
-    trace saw on the device during ``fn()`` (a graph's replays included)."""
+    the profiler can lose), and the launches of the port's kernels that
+    the trace saw on the device during ``fn()`` (a graph's replays
+    included)."""
     from deepqlearning_tpu_torch.ops.cuda.kernel_events import kernel_symbol
     from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
         port_kernels, traced)
@@ -3726,8 +3909,8 @@ def phase_compiled_segment(torch, dev, card):
         _check(graphs and all(isinstance(x, CompiledSegment)
                               for x in graphs), f"{name}: not captured")
         built = {k: w.launches for k, w in names.items() if w.launches}
-        want = {k: 2 * len(graphs) * v for k, v in per_iter.items()
-                if k in names}
+        want = {k: 2 * len(graphs) * v
+                for k, v in _wrapper_calls(per_iter).items() if k in names}
         _check(built == want,
                f"{name}: the warm-ups and captures of {len(graphs)} graphs "
                f"called the wrappers {built} times, not {want}")
@@ -3916,6 +4099,7 @@ def main():
     from deepqlearning_tpu_torch.parallel.launch import free_port
     from deepqlearning_tpu_torch.parallel.multihost import (
         initialize_multihost)
+    from deepqlearning_tpu_torch.utils import profiling
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -3945,6 +4129,7 @@ def main():
     results = {}
     phase_kernels(torch, dev, results)
     phase_adam_kernel(torch, dev, results)
+    phase_bias_act_kernel(torch, dev, results)
     phase_device_events(results)
 
     # 4. the small slices on the card vs the CPU, and the conv net
@@ -3958,13 +4143,27 @@ def main():
     launches = dict.fromkeys(wrappers, 0)
 
     def run_path(name, fn, kernels, absent=()):
+        """``(fn(), wrapper calls)``, each main path with the counters from
+        0. Every path trains a net on the card, and each of its routes runs
+        at least the target's forward through Dense (and Conv2D) layers in
+        ATen: K10 takes every one of their epilogues (the recorder's
+        ``model.bias_act_kernel``, its forward launches, > 0) and the ATen
+        chain none (``model.bias_act_plain`` 0)."""
         for w in (*wrappers.values(), *others.values()):
             w.launches = 0
         tsm.pmean_flat.calls = 0
+        for k in ("bias_act_kernel", "bias_act_plain"):
+            profiling.put(f"model.{k}", 0)
         out = fn()
         counts = {k: w.launches for k, w in (*wrappers.items(),
                                              *others.items())}
         counts["pmean_flat"] = tsm.pmean_flat.calls
+        fwd, plain = (profiling.counter(f"model.{k}")
+                      for k in ("bias_act_kernel", "bias_act_plain"))
+        _check(0 < fwd <= counts["bias_act"] and not plain,
+               f"{name}: {fwd} Conv2D and Dense forwards took K10 and "
+               f"{plain} the ATen chain, and K10 launched "
+               f"{counts['bias_act']} times")
         for k in kernels:
             _check(counts[k] > 0, f"{name} did not launch {k}")
         for k in absent:
@@ -4049,8 +4248,10 @@ def main():
     # K7's wrapper and pmean_flat U times each; the replays call none
     _check(dph["pmean_flat"] == 2 * U == dph["fused_grads"]
            and dph["dp_update"] == 2, f"DP headline: counts {dph}")
+    # K10: the target's forward over U·B rows, 6 Dense layers
     want = {"fu_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
-            "tree_sample_kernel": N, "fc_kernel": N}
+            "tree_sample_kernel": N, "fc_kernel": N,
+            "bias_act_kernel": 6 * N}
     _check(seen4 == want, f"DP headline: the trace of {N} replays saw "
                           f"{seen4}, not {want}")
     _say(f"DP headline loop (NCCL, world 1) as graph replays: 131072 envs, "
@@ -4069,8 +4270,9 @@ def main():
     U = cfg.updates_per_iter
     _check(dpr["pmean_flat"] == 2 * U == dpr["fused_drqn_grads"]
            and dpr["drqn_dp_update"] == 2, f"DP DRQN: counts {dpr}")
+    # K10: the target unroll's Dense head
     want = {"dr_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
-            "fc_rnn_kernel": N}
+            "fc_rnn_kernel": N, "bias_act_kernel": N}
     _check(seen5 == want, f"DP DRQN: the trace of {N} replays saw {seen5}, "
                           f"not {want}")
     _say(f"DP DRQN loop (NCCL, world 1) as graph replays: 16384 envs, "
@@ -4224,6 +4426,9 @@ def main():
             "deepqlearning_tpu/ops/pallas/fused_drqn.py:773"),
         "adam_update": ("deepqlearning_tpu_torch/csrc/adam.cu",
                         "none: optax's Adam, fused by XLA on the TPU"),
+        "bias_act": ("deepqlearning_tpu_torch/csrc/bias_act.cu",
+                     "none: XLA fuses the epilogue into the product on the "
+                     "TPU"),
     }
     # no single PyTorch call computes any of these functions (a fused
     # TD head, a sum-tree descent, whole train phases, env steps)
@@ -4245,7 +4450,10 @@ def main():
                                    "the data-parallel routes' CUDA "
                                    "graphs)",
                "adam_update": "adam_kernel (the plain steps' Adam and "
-                              "gradient max-abs, one launch per update)"}
+                              "gradient max-abs, one launch per update)",
+               "bias_act": "bias_act_kernel and bias_act_grad_kernel "
+                           "(every Conv2D and Dense layer's epilogue on the "
+                           "card, forward and backward)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
                     source=src[k][0], replaces=src[k][1],
                     launches=launches[k], **results[k], library_ms=None)

@@ -36,10 +36,17 @@ steps once and ``apply_sequence(params, xs [T, B, ...], state)`` unrolls
 over time with the cells' input projections hoisted out of the time loop.
 A feed-forward network's ``apply`` returns ``(y, ())``.
 
+A Conv2D's or Dense layer's epilogue (bias, activation, casts) runs on the
+card as K10, one launch forward and one backward (:func:`epilogue`,
+``ops/cuda/bias_act.py``), with the chain's bits; an activation other than
+``torch.relu``, ``torch.tanh`` or None, or a dtype other than f32 and bf16,
+keeps the ATen chain, as CPU tensors do.
+
 Conv2D, MaxPool2D and Residual count their forward calls in the recorder
 (``utils/profiling.py``: ``model.conv2d``, ``model.maxpool2d``,
-``model.residual``). The count is host code: under a CUDA graph it runs
-at capture and never on a replay.
+``model.residual``), and every Conv2D and Dense forward its epilogue's
+route (``model.bias_act_kernel``, ``model.bias_act_plain``). The count is
+host code: under a CUDA graph it runs at capture and never on a replay.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..ops.cuda import bias_act
 from ..utils import profiling
 
 
@@ -145,6 +153,19 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def epilogue(y: torch.Tensor, b: Optional[torch.Tensor],
+             activation: Optional[Callable], dtype: torch.dtype):
+    """A Conv2D's or Dense layer's product ``y [..., C]`` plus ``b`` and
+    through ``activation``, in f32, rounded to ``dtype``: on the card K10
+    (``ops/cuda/bias_act.py``) where it takes the layer (``torch.relu``,
+    ``torch.tanh`` or no activation; f32 or bf16), else the ATen chain. The
+    recorder counts each call's route (``model.bias_act_kernel`` /
+    ``model.bias_act_plain``)."""
+    if bias_act.takes(y, b, activation, dtype):
+        return bias_act.bias_act(y, b, activation, dtype)
+    return bias_act.bias_act_plain(y, b, activation, dtype)
+
+
 class Dense(_Functional):
     """Affine layer with an optional activation (``torch.tanh``,
     ``torch.relu`` or any elementwise callable)."""
@@ -170,12 +191,8 @@ class Dense(_Functional):
                 self.b.zero_()
 
     def forward(self, x):
-        y = dot_f32(x, self.w)  # also over leading [T, B] axes
-        if self.b is not None:
-            y = y + self.b.float()
-        if self.activation is not None:
-            y = self.activation(y)
-        return y.to(x.dtype)
+        # also over leading [T, B] axes
+        return epilogue(dot_f32(x, self.w), self.b, self.activation, x.dtype)
 
 
 class Flatten(_Functional):
@@ -289,10 +306,7 @@ class Conv2D(_Functional):
         xc, pad = _nchw_same(x, self.kernel, self.stride, self.padding, 0.0)
         y = _ConvNoTF32.apply(xc, self.w.to(x.dtype).permute(3, 2, 0, 1),
                               self.stride, pad).permute(0, 2, 3, 1)
-        y = y.float() + self.b.float()
-        if self.activation is not None:
-            y = self.activation(y)
-        return y.to(x.dtype)
+        return epilogue(y, self.b, self.activation, x.dtype)
 
 
 def _nchw_same(x, kernel, stride, padding: str, value: float):

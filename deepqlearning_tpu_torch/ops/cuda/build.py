@@ -243,6 +243,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                          F, F, F, F, P, P],
         "dq_adam_update": [ctypes.POINTER(AdamTab), P, F, F, P, I, I, I, P,
                            P],
+        "dq_bias_act": [P, I, P, I, P, I, P, I, I, I, I, I, I, I, P],
+        "dq_bias_act_grad": [P, I, P, P, I, P, I, P, P, P, I, I, I, I, I, I,
+                             I, I, P],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

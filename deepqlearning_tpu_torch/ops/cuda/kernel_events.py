@@ -18,16 +18,17 @@ double-Q, int64 actions as the replay gives them), K2 on 2^20 leaves with
 headline's B = 512 with the dueling 2-64-64-4 net and double-Q, K8
 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
 LSTM32 net and double-Q, K9 at the benchmark's two configurations
-(:func:`adam_cases`), and K1 and K2 on the image-observation DQN's route
-(:func:`conv_cases`). Beside K1 it times an empty kernel launched as K1 is
-(``td_kernel.cu::empty_kernel``, K1's block, or its cluster of blocks
-past 512 rows): the launch floor under K1.
+(:func:`adam_cases`), K10's forward and backward at the cells' epilogues
+(:func:`bias_act_cases`), and K1 and K2 on the image-observation DQN's
+route (:func:`conv_cases`). Beside K1 it times an empty kernel launched as
+K1 is (``td_kernel.cu::empty_kernel``, K1's block, or its cluster of
+blocks past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
 
 It uses only the wrappers' call signatures of the parent commits (and
-skips the empty kernel, the envs and K9 where a checkout lacks them), so the
-file can be copied into another checkout of the port (the same path) to
-time that checkout's kernels the same way, in the same call.
+skips the empty kernel, the envs, K9 and K10 where a checkout lacks them),
+so the file can be copied into another checkout of the port (the same
+path) to time that checkout's kernels the same way, in the same call.
 """
 import argparse
 import json
@@ -156,6 +157,7 @@ def cases(torch, dev):
         "dr_group_kernel", lambda: fd.fused_drqn_grads_cuda(
             k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
     out.update(adam_cases(torch, dev, g))
+    out.update(bias_act_cases(torch, dev, g))
     return out
 
 
@@ -207,6 +209,60 @@ def adam_cases(torch, dev, g):
         ins = adam_inputs(torch, dev, g, name)
         out[f"K9 adam_update {name}"] = (
             "adam_kernel", lambda ins=ins: adam.adam_update(*ins))
+    return out
+
+
+def bias_act_shapes():
+    """``{name: (product shape, product dtype, bias and output dtype,
+    activation)}``: K10's epilogues on the cells' main shapes (the IMPALA
+    trunk's first two stacks and the Nature trunk's first conv at batch 32,
+    the Nature actor's first conv at 2048 envs, a 512-wide Nature stream,
+    grid_mlp's target forward over 16384 rows)."""
+    bf16, f32 = "bfloat16", "float32"
+    return {
+        "IMPALA 32x84x84x16 relu": ((32, 84, 84, 16), bf16, bf16, "relu"),
+        "IMPALA 32x42x42x32 relu": ((32, 42, 42, 32), bf16, bf16, "relu"),
+        "Nature 32x20x20x32 relu": ((32, 20, 20, 32), bf16, bf16, "relu"),
+        "Nature 2048x20x20x32 relu": ((2048, 20, 20, 32), bf16, bf16,
+                                      "relu"),
+        "Nature stream 32x512 relu": ((32, 512), f32, bf16, "relu"),
+        "grid_mlp 16384x64 tanh": ((16384, 64), f32, f32, "tanh"),
+    }
+
+
+def bias_act_inputs(torch, dev, g, name):
+    """``(y, b, cotangent, activation, output dtype)`` of
+    :func:`bias_act_shapes`' ``name``: a product of standard deviation 3,
+    a bias and a cotangent of 1."""
+    shape, yd, od, act = bias_act_shapes()[name]
+    yd, od = getattr(torch, yd), getattr(torch, od)
+    y = (3 * torch.randn(shape, generator=g, device=dev)).to(yd)
+    b = torch.randn(shape[-1], generator=g, device=dev).to(od)
+    cot = torch.randn(shape, generator=g, device=dev).to(od)
+    return y, b, cot, getattr(torch, act), od
+
+
+def bias_act_cases(torch, dev, g):
+    """K10 at :func:`bias_act_shapes`: the forward (``bias_act_kernel``,
+    each call one forward) and the backward (``bias_act_grad_kernel``,
+    each call a forward and its backward). Only where the checkout has
+    K10."""
+    try:
+        from deepqlearning_tpu_torch.ops.cuda import bias_act as ba
+    except ImportError:
+        return {}
+    out = {}
+    for name in bias_act_shapes():
+        y, b, cot, act, od = bias_act_inputs(torch, dev, g, name)
+        yg, bg = y.clone().requires_grad_(), b.clone().requires_grad_()
+
+        def grad(yg=yg, bg=bg, cot=cot, act=act, od=od):
+            torch.autograd.grad(ba.bias_act(yg, bg, act, od), (yg, bg), cot)
+
+        out[f"K10 bias_act {name}"] = (
+            "bias_act_kernel", lambda y=y, b=b, act=act, od=od:
+            ba.bias_act(y, b, act, od))
+        out[f"K10 bias_act_grad {name}"] = ("bias_act_grad_kernel", grad)
     return out
 
 

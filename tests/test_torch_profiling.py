@@ -272,7 +272,9 @@ def _synthetic():
         counters={"segment.graph_nodes": {SEG: 380, POP: 40},
                   "segment.layer_calls.conv2d": {SEG: 270, POP: 15},
                   "segment.layer_calls.maxpool2d": {SEG: 54, POP: 3},
-                  "segment.layer_calls.residual": {SEG: 108, POP: 6}},
+                  "segment.layer_calls.residual": {SEG: 108, POP: 6},
+                  "segment.layer_calls.bias_act_kernel": {SEG: 90, POP: 5},
+                  "segment.layer_calls.bias_act_plain": {SEG: 30, POP: 0}},
         samples=[sample(0, 1, 9.0, 50.0),   # a checked call: left out
                  sample(5, 2, 2.0, 0.5),
                  sample(9, 2, 3.0, 0.5),
@@ -289,6 +291,7 @@ READINGS = {
     "setup.capture_s": 2.0,
     "setup.populate_s": 0.25,
     "segment.trunk_calls": 432,
+    "segment.bias_act_share": 75.0,
 }
 
 
