@@ -46,8 +46,7 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    the card against its CPU forward, cuDNN's TF32 flag on (the layer turns
    it off for f32 itself), and the f32 gradients;
 5. headline loop: the headline configuration (131072 envs, 2^20 replay,
-   batch 512, train_freq 4096) through ``build_loop``, env-steps/s and
-   ms/iteration;
+   batch 512, train_freq 4096) through ``build_loop``;
 6. ungrouped loop: 128 envs, one update per iteration (the K1 path);
    then the grouped plain loop: 2048 envs, U = 4, batch 512, 2^15 PER and
    the 512-wide dueling net of ``examples/image_conv_dqn.py``, which the
@@ -55,18 +54,17 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    the plain collect step; K3, K4 and K7 never);
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), populate and
-   the iterations as graph replays (the wrappers called by the graphs'
-   warm-ups and captures and one eager warm-up only: K6 5, K5 3),
-   env-steps/s; then MountainCar at the headline's shape (131072 envs,
-   2^20 PER, batch 512, U = 32, dueling 2-64-64-3; episodes cut at 4
-   steps): K4 on a second env inside a loop;
+   the iterations as graph replays (the library called by the graphs'
+   warm-ups and captures and one eager warm-up only: K6 5, K5 3); then
+   MountainCar at the headline's shape (131072 envs, 2^20 PER, batch 512,
+   U = 32, dueling 2-64-64-3; episodes cut at 4 steps): K4 on a second env
+   inside a loop;
 8. DP headline loop: the headline configuration through
    ``DataParallelRunner`` in a one-rank NCCL world (K7, ``pmean_flat``
    and one Adam launch per sub-update), populate and the iterations as
-   replays of the runner's CUDA graphs: ``pmean_flat`` and K7's wrapper
-   called U times by each of the segment graph's warm-up and capture,
-   K7 U times per replay in a primed trace; env-steps/s, ms/iteration,
-   capture seconds, device events and device time per replay;
+   replays of the runner's CUDA graphs: ``pmean_flat``, K7 and the Adam
+   launched U times by each of the segment graph's warm-up and capture,
+   K7 U times per replay in a primed trace;
 9. DP DRQN loop: the DRQN configuration the same way (K8);
 10. two ranks: a small data-parallel slice in two gloo ranks on the one
     card (NCCL refuses two ranks on one device) against the same two-rank
@@ -77,8 +75,8 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     temporary logdir; K1, K2 and K4 at least once per iteration, K3
     never), then ``restore_best_model`` and ``resume=True`` for 5 more
     iterations, which continue the saved counters; (b) the DRQN solve
-    (LSTM(2, 32), dueling, 1024 envs, U = 1, as graph replays: K5's
-    wrapper called 2 times, K6's 4); (c)
+    (LSTM(2, 32), dueling, 1024 envs, U = 1, as graph replays: K5
+    launched 2 times, K6 4); (c)
     ``tests/test_learning.py::test_prioritized_ddqn``'s configuration on
     TestMDP, greedy return >= 1.5; (d) the CartPole solve
     at ``examples/cartpole_dqn.py``'s configuration (256 envs, U = 16,
@@ -93,80 +91,60 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
     return >= 1.0 (optimum 2.1); (f) ``tests/test_learning.py``'s
     ``test_testmdp_drqn`` and ``test_gridworld_ddrqn`` configurations
     (6000 steps each) through ``solve(device=None)``, each greedy return
-    >= 0.0 as those tests ask, with its env-steps/s;
-12. headline profile: the headline loop once more, near the end, with the
-    host's enqueue per iteration and, under ``torch.profiler``, the device
-    busy share and the kernel launches and device time per iteration (K3
-    exactly once: one cooperative launch per grouped call);
-13. DRQN profile: the DRQN loop's replays the same way (K5 and K6
-    exactly once per replay: one cooperative launch per grouped call of
-    U = 4);
-14. U = 1 profile: ``solve``'s iteration at U = 1 (phase 11 (a)'s
-    configuration, as ``ops/cuda/loop_profile.py::u1_loop`` also builds
-    it) the same way (K1, K2, K4 and K9 exactly once per iteration);
-15. grouped plain profile: phase 6's grouped plain loop the same way
-    (K1 and K9 exactly U = 4 times and K2 once per iteration);
-16. CartPole profile: the CartPole solve's loop the same way (K4, K2
-    and K3 exactly once per iteration);
-17. conv profile: 11 (e)'s loop the same way (K1 U = 4 times and K2 once
-    per iteration), then ``scripts/conv_bench.py``'s loop (4096 envs,
-    batch 1024, U = 8, 2^15 PER) in bf16 and f32: ms per iteration and
-    model TFLOP/s by that script's accounting;
-18. per-instance envs (run after 11, before the profiles; its profiles
-    last): ``torch.func.vmap`` with a CUDA generator (each vmapped draw
-    must equal ``torch.rand(E)`` from the same state); (a)
-    :func:`user_envs`' GridWorld, written one instance at a time with a
-    NamedTuple state and no cols, through ``build_loop`` at the headline's
-    shape: K3 and K2 exactly once per iteration, K4 and K1 never, its first
-    2 iterations equal bit for bit to the built-in SimpleGridWorld's plain
-    collect loop (or to the built-in dynamics on row-wise draws, where one
-    ``[2, E]`` draw does not line up with them), env-steps/s, ms and host
-    enqueue per iteration and a ``step_batch``'s host ms beside the built-in
-    env's with ``fused_collect=False``; (b) the per-instance StaticArrayMDP
-    through ``solve(device=None)`` (K1 and K2 once per replay in its
-    trace; greedy return > 1.0); (c) the per-instance MiniPOMDP through a
-    DRQN ``solve`` (K5 once per replay in its trace, K6 never); each as
-    graph replays; last, (a)'s two loops profiled as in phase 12.
-
-19. compiled segment (after 18, before the profiles): the CUDA graph of
-    one iteration (``learner/segment.py``) on the headline, U = 1, grouped
-    plain, conv, CartPole, DRQN (K5, K6), DRQN plain (autograd BPTT, the
-    plain recurrent collect), per-instance GridWorld (K2, K3) and
-    per-instance MiniPOMDP DRQN (K5) routes at full width, and the DP
-    headline (K7), DP DRQN (K8) and DP local SGD (k = 2 on the ``(1, 1)``
-    mesh: two graphs) routes in the one-rank NCCL world: 3 replays
-    against 3 eager iterations from cloned carries, every tensor and the
-    generator's state bit for bit; the replays draw fresh numbers (they
-    differ from eager iterations that reuse one generator state); K1-K9
-    launches per replay; ``torch.cuda.memory_allocated`` flat over 100
-    replays; eager beside graph from an idle queue (medians of 8: host
-    ms and ms per iteration, env-steps/s, busy share, device ms and
-    launches under ``torch.profiler``); then ``basic_evaluation``'s
-    graphs on 11 (a), (b) and (e)'s evaluations against the eager rollout
-    bit for bit, the caller's generator included, eager beside graph per
-    step and per whole evaluation, and an env with a Python counter must
+    >= 0.0 as those tests ask;
+18. per-instance envs (after 11): ``torch.func.vmap`` with a CUDA
+    generator (each vmapped draw must equal ``torch.rand(E)`` from the
+    same state); (a) :func:`user_envs`' GridWorld, written one instance at
+    a time with a NamedTuple state and no cols, through ``build_loop`` at
+    the headline's shape: K3 and K2 launched by the graph's warm-up and
+    capture, K4 and K1 never, its first 2 iterations equal bit for bit to
+    the built-in SimpleGridWorld's plain collect loop (or to the built-in
+    dynamics on row-wise draws, where one ``[2, E]`` draw does not line up
+    with them); (b) the per-instance StaticArrayMDP through
+    ``solve(device=None)`` (K1 and K2 once per replay in its trace; greedy
+    return > 1.0); (c) the per-instance MiniPOMDP through a DRQN ``solve``
+    (K5 once per replay in its trace, K6 never); each as graph replays;
+19. compiled segment (after 18): the CUDA graph of one iteration
+    (``learner/segment.py``) on the headline, U = 1, grouped plain, conv
+    (bf16 and f32), CartPole, DRQN (K5, K6), DRQN plain (autograd BPTT,
+    the plain recurrent collect), per-instance GridWorld and the built-in
+    SimpleGridWorld with the plain collect (K2, K3), and per-instance
+    MiniPOMDP DRQN (K5) routes at full width, and the DP headline (K7), DP
+    DRQN (K8) and DP local SGD (k = 2 on the ``(1, 1)`` mesh: two graphs)
+    routes in the one-rank NCCL world: 3 replays against 3 eager
+    iterations from cloned carries, every tensor and the generator's state
+    bit for bit; the replays draw fresh numbers (they differ from eager
+    iterations that reuse one generator state); the launches per
+    iteration of :func:`_segment_routes`' table at the warm-ups and
+    captures and in a trace of the replays; ``torch.cuda.memory_allocated``
+    flat over 100 replays; then ``basic_evaluation``'s graphs on 11 (a),
+    (b) and (e)'s evaluations against the eager rollout bit for bit, the
+    caller's generator included, and an env with a Python counter must
     make it raise. Last of all, a ``select_fn`` that reads the device from
     the host (``.item()``) must make ``solve`` raise.
     ``python3 chip_smoke.py --segment-only`` runs phases 1, 2 and 19.
 
-The loops of phases 5-9, 12-18 and the solves of 11 and 18 run as replays
-of their CUDA graphs, as ``solve`` runs them, and so do their greedy
-evaluations; 11 (d) and (e) on seeds 0, 1 and 2, each gated.
-``torch.profiler`` can lose the first records of a graph's first launch
-in a session, so each trace that counts a graph's launches either primes
-the session with one launch (``ops/cuda/loop_profile.py::traced``: the
-profiles of 12-18 and 19) or leaves each graph's first launch out (11
-(a)'s resume, 18 (b) and (c)).
+Phases 12-17 are unused: the benchmark times and profiles the loops
+(``python3 port_bench/run.py --workload <cell> --trace 1``). The loops of
+phases 5-9 and the solves of 11 and 18 run as replays of their CUDA
+graphs, as ``solve`` runs them, and so do their greedy evaluations; 11
+(d) and (e) on seeds 0, 1 and 2, each gated. ``torch.profiler`` can lose
+the first records of a graph's first launch in a session, so each trace
+that counts a graph's launches either primes the session with one launch
+(``port_bench/harness/trace.py::traced``: phases 8, 9 and 19) or leaves
+each graph's first launch out (11 (a)'s resume, 18 (b) and (c)).
 
-Each of the paths 5 to 9 and each part of 11 to 18 runs with the launch
-counters (and ``pmean_flat.calls``) zeroed just before it and read just
-after: every kernel of the path must have launched there, K3 / K5 not on
-the data-parallel paths, and ``pmean_flat`` once per sub-update of each
-traced iteration (the graph's warm-up and capture). Prints the
-card's line, a JSON line of per-kernel results, and last the line
-``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+Launches are the recorder's ``kernels.launches`` by the library's entry
+point (``ops/cuda/build.py``), :data:`KERNELS` gives each entry point's
+kernel symbol in a trace. Each of the paths 5 to 9 and each part of 11
+and 18 runs with the recorder emptied just before it and read just after:
+every kernel of the path must have launched there, K3 / K5 not on the
+data-parallel paths, and ``pmean_flat`` (``train.pmean_flat``) once per
+sub-update of each traced iteration (the graph's warm-up and capture).
+Prints the card's line, a JSON line of per-kernel results, and last the
+line ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; without a CUDA device it exits non-zero before printing a
-result. About 4 minutes on an H100, the kernels' build included.
+result.
 """
 import itertools
 import json
@@ -200,12 +178,6 @@ def _time_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-# The card's peaks for a bound (the least time for the same work): FP32 on
-# the CUDA cores and HBM3, NVIDIA H100 SXM data sheet, dense, at 700 W.
-PEAK_F32 = 67e12      # FLOP/s
-PEAK_BYTES = 3.35e12  # bytes/s
-
-
 def _nbytes(*xs):
     """Bytes of tensors, or of the tensors in dicts, lists and tuples."""
     n = 0
@@ -220,10 +192,14 @@ def _nbytes(*xs):
 
 
 def _bound(nbytes, flops):
-    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
-    rate and the operations over the FP32 rate."""
-    tb, tf = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    """``(bound_ms, bound_by)``: the benchmark's bound (``port_bench/
+    harness/work.py``: the larger of the bytes over the memory rate and the
+    operations over the FP32 rate) and which of the two it is."""
+    from port_bench.harness import work
+
+    by = ("bytes" if nbytes / work.PEAK_BYTES
+          >= flops / work.PEAK_FLOPS["float32"] else "operations")
+    return 1e3 * work.bound_s(flops, nbytes), by
 
 
 def _macs(layers):
@@ -1473,8 +1449,8 @@ def phase_device_events(results):
     as K1 is (its block, or its cluster past 512 rows) gives the launch
     floor (``floor_ms``, ``floor_ms_b32``, ``floor_ms_b4096`` in K1's JSON
     entry). It runs in a process of its
-    own: after a profiler session in this process, the profiles of phases
-    12 and 13 missed the first device events of their windows."""
+    own: after a profiler session in this process, later traces in it
+    missed the first device events of their windows."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "deepqlearning_tpu_torch.ops.cuda.kernel_events"],
@@ -2015,28 +1991,21 @@ def _drqn_setup(torch, dev, num_envs=16384, **cfg_kw):
     return it, c, cfg, (env, buf)
 
 
-def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
+def _drqn_loop(torch, dev, num_envs, n_iters):
     """:func:`_drqn_setup`'s loop, one eager warm-up iteration and
-    ``n_iters`` timed ones as replays of its CUDA graph (``make_segment``,
-    as ``solve`` runs them); with ``profile_iters``, then that many
-    replays profiled (see ``_profile_iterations``, its last figure
-    replaced by the launches and device ms of one eager env draw of the
-    episode sample, ``EpisodeReplayBuffer._weighted_env``). The
-    wrappers count populate's warm-up and capture (K6), the eager warm-up
-    (K5, K6) and the segment's warm-up and capture (K5, K6): K6 5, K5 3."""
+    ``n_iters`` as replays of its CUDA graph (``make_segment``, as
+    ``solve`` runs them): ``(cfg, loss)``. The library is called by
+    populate's warm-up and capture (K6), the eager warm-up (K5, K6) and
+    the segment's warm-up and capture (K5, K6): K6 5, K5 3."""
     from deepqlearning_tpu_torch.learner.segment import (
         CompiledSegment, make_segment)
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
 
     it, c, cfg, (env, buf) = _drqn_setup(torch, dev, num_envs)
     c = it(c)  # warm-up
     run = make_segment(it, c, cfg, env, buf, "chip_smoke DRQN loop")
     _check(isinstance(run, CompiledSegment), "the DRQN loop is not captured")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     c = run(c, n_iters)
-    loss = float(c.loss)  # device -> host read ends the timed region
-    dt = time.perf_counter() - t0
+    loss = float(c.loss)
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
@@ -2046,47 +2015,7 @@ def _drqn_loop(torch, dev, num_envs, n_iters, profile_iters=0):
            f"DRQN loop: the ring's step counter {int(c.replay.t)}")
     _check(all(bool(torch.isfinite(s).all()) for s in c.actor.net_state[0]),
            "LSTM state finite")
-    sps = n_iters * cfg.env_steps_per_iter / dt
-    if not profile_iters:
-        return cfg, sps, loss
-    c, *prof, _ = _profile_iterations(torch, lambda x: run(x, 1), c,
-                                      profile_iters)
-    # the episode sample's env draw (in proportion to the envs' records):
-    # its launches and device ms per draw of U·B envs, eagerly
-    u = torch.rand(cfg.updates_per_iter * cfg.batch_size, device=dev)
-    tree = device_profile(torch, lambda x: (buf._weighted_env(x.replay, u),
-                                            x)[1], c, 5)[1]
-    return (cfg, sps, loss, 1e3 * dt / n_iters, *prof,
-            (tree["launches"], tree["device_ms"]))
-
-
-def _drqn_calls(counts, name):
-    """The wrapper calls of :func:`_drqn_loop`: K6 5 (populate's warm-up
-    and capture, the eager warm-up, the segment's warm-up and capture), K5
-    3; the replays call none."""
-    _check(counts["fused_collect_rnn"] == 5
-           and counts["fused_drqn_group_update"] == 3,
-           f"{name}: wrapper calls {counts}, not K6 5 and K5 3 (graph "
-           "warm-ups and captures and one eager iteration)")
-
-
-def _profile_iterations(torch, it, c, n):
-    """``n`` iterations from an idle queue, each timed on the host until
-    ``it`` returns (the enqueue), then ``n`` under ``torch.profiler``
-    (``ops/cuda/loop_profile.py::device_profile``: the device's own events
-    only): returns ``(carry, enqueue ms per iteration, device busy share of
-    the profiled window, device ms per iteration, {kernel symbol: (launches,
-    device ms) per iteration}, {event name: (launches, device ms) per
-    iteration})``; in the first dict ATen's kernels, copies and fills are
-    summed under "other"."""
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
-        device_profile, enqueue_ms)
-
-    c, enq = enqueue_ms(torch, it, c, n)
-    c, prof = device_profile(torch, it, c, n)
-    _check(prof["device_ms"] > 0, "the profiler saw no device time")
-    per_iter = {k: tuple(v) for k, v in prof["by_kernel"].items()}
-    return c, enq, prof["busy"], prof["device_ms"], per_iter, prof["by_name"]
+    return cfg, loss
 
 
 def _dueling_net(torch, dev, width, act, no=2, A=4):
@@ -2150,40 +2079,29 @@ def _loop_setup(torch, dev, num_envs, buffer_size, batch_size, train_freq,
 
 
 def _loop(torch, dev, num_envs, buffer_size, batch_size, train_freq,
-          n_iters, n_pop, profile_iters=0, net=None, env=None, **cfg_kw):
+          n_iters, n_pop, net=None, env=None, **cfg_kw):
     """:func:`_loop_setup`'s loop, a warm-up iteration and ``n_iters``
-    timed ones: ``(cfg, env-steps/s, loss)``, and with ``profile_iters``
-    also the ms per iteration and :func:`_profile_iterations`' figures.
-    After the eager warm-up the iterations run through ``make_segment``,
-    as ``solve`` runs them: replays of one CUDA graph on the routes that
-    ``learner/segment.py`` captures (its warm-up and capture call each
-    kernel's wrapper once more), eagerly on the others."""
+    more: ``(cfg, loss)``. After the eager warm-up the iterations run
+    through ``make_segment``, as ``solve`` runs them: replays of one CUDA
+    graph on the routes that ``learner/segment.py`` captures (its warm-up
+    and capture launch each kernel once more), eagerly on the others."""
     from deepqlearning_tpu_torch.learner.segment import make_segment
 
     it, c, cfg, (env, buf) = _loop_setup(
         torch, dev, num_envs, buffer_size, batch_size, train_freq, n_pop,
         net, env, **cfg_kw)
     c = it(c)  # warm-up
-    run = make_segment(it, c, cfg, env, buf, "chip_smoke loop")
-    it = lambda x: run(x, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c = run(c, n_iters)
-    loss = float(c.loss)  # device -> host read ends the timed region
-    dt = time.perf_counter() - t0
+    c = make_segment(it, c, cfg, env, buf, "chip_smoke loop")(c, n_iters)
+    loss = float(c.loss)
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
     _check(int(c.replay.size) > 0 and int(c.actor.ep_count) > 0,
            "loop progress")
-    sps = n_iters * cfg.env_steps_per_iter / dt
-    if not profile_iters:
-        return cfg, sps, loss
-    return (cfg, sps, loss, 1e3 * dt / n_iters,
-            *_profile_iterations(torch, it, c, profile_iters)[1:])
+    return cfg, loss
 
 
-def _wide_loop(torch, dev, n_iters, profile_iters=0):
+def _wide_loop(torch, dev, n_iters):
     """The grouped plain route at full width: SimpleGridWorld, 2048 envs,
     train_freq 512 (U = 4), batch 512, 2^15-slot PER (α 0.6, β 0.4, ε
     1e-3), double-Q, lr 1e-4, γ 0.95, a target sync every 32768 env steps
@@ -2193,7 +2111,7 @@ def _wide_loop(torch, dev, n_iters, profile_iters=0):
     per iteration the plain collect step, one K2 draw of U·B rows and U
     sub-updates with the K1 loss head."""
     return _loop(torch, dev, 2048, 1 << 15, 512, 512, n_iters, 2,
-                 profile_iters, net=_dueling_net(torch, dev, 512, torch.relu),
+                 net=_dueling_net(torch, dev, 512, torch.relu),
                  target_update_freq=512 * 64)
 
 
@@ -2366,15 +2284,15 @@ def _solve_learning_drqn(torch, name):
 def phase_solve(torch, dev, card, run_path):
     """``DeepQLearningSolver.solve``, the users' front door, on the card:
     (a) the feed-forward solve, ``restore_best_model`` and a resumed solve
-    (U = 1, populate and the iterations as graph replays: K4's wrapper is
-    called by the populate graph's warm-up and capture and the segment's,
-    K1's and K2's by the segment's, K3's never; the resumed solve runs
+    (U = 1, populate and the iterations as graph replays: K4 is launched
+    by the populate graph's warm-up and capture and the segment's, K1 and
+    K2 by the segment's, K3 never; the resumed solve runs
     under ``torch.profiler``, whose trace must hold K1, K2 and K4 once per
     replayed iteration or populate step and eager warm-up, and the same
     device events in every replay of a graph; each graph's first launch,
     the guard's replay, is left out: the profiler can lose its head);
     (b) the DRQN solve (K5 at U = 1 and K6; populate and the segments as
-    graph replays, so the wrappers count warm-ups and captures only);
+    graph replays, so the launch counts hold warm-ups and captures only);
     (c) a learning threshold of the JAX package's tests."""
     import tempfile
 
@@ -2384,10 +2302,11 @@ def phase_solve(torch, dev, card, run_path):
     with tempfile.TemporaryDirectory() as logdir:
         (solver, policy, sps), ff = run_path(
             "solve (feed-forward)", lambda: _solve_ff(torch, dev, logdir, n),
-            ("td_loss", "tree_sample", "fused_collect", "adam_update"),
-            ("fused_group_update",))
-        _check(ff["td_loss"] == ff["tree_sample"] == ff["adam_update"] == 2
-               and ff["fused_collect"] == 4, f"solve: wrapper calls {ff}")
+            ("dq_td_loss", "dq_tree_sample", "dq_fused_collect",
+             "dq_adam_update"), ("dq_fused_update",))
+        _check(ff["dq_td_loss"] == ff["dq_tree_sample"]
+               == ff["dq_adam_update"] == 2 and ff["dq_fused_collect"] == 4,
+               f"solve: launches {ff}")
         _check(_train_state_counters(torch, logdir) == (n, n * 4096),
                "solve: saved train state")
         for f in (checkpoint.CKPT_NAME, checkpoint.TRAIN_STATE_NAME):
@@ -2411,10 +2330,11 @@ def phase_solve(torch, dev, card, run_path):
         ((_, _, sps_r), seen, per_launch), rs = run_path(
             "solve (resume)", lambda: _graph_launch_trace(
                 torch, lambda: _solve_ff(torch, dev, logdir, m, resume=True)),
-            ("td_loss", "tree_sample", "fused_collect", "adam_update"),
-            ("fused_group_update",))
-        _check(rs["td_loss"] == rs["tree_sample"] == rs["adam_update"] == 2
-               and rs["fused_collect"] == 4, f"resume: wrapper calls {rs}")
+            ("dq_td_loss", "dq_tree_sample", "dq_fused_collect",
+             "dq_adam_update"), ("dq_fused_update",))
+        _check(rs["dq_td_loss"] == rs["dq_tree_sample"]
+               == rs["dq_adam_update"] == 2 and rs["dq_fused_collect"] == 4,
+               f"resume: launches {rs}")
         # the segment: the eager warm-up and m replays; populate (4 steps,
         # train_start = 4 x 4096): the eager warm-up and 4 replays (each
         # graph's guard replay left out); K10 in each iteration of the
@@ -2443,14 +2363,13 @@ def phase_solve(torch, dev, card, run_path):
         ((solver, sps_d), parts), rec = run_path(
             "solve (DRQN)", lambda: _solve_parts(
                 torch, lambda: _solve_drqn(torch, logdir, nd)),
-            ("fused_drqn_group_update", "fused_collect_rnn"))
+            ("dq_fused_drqn", "dq_fused_collect_rnn"))
         total = nd * 1024 / sps_d
-        # populate and the segments as graph replays: the wrappers count
-        # populate's warm-up and capture (K6) and the segment's (K5, K6),
-        # where the eager solve counted every step (K6 131, K5 30)
-        _check(rec["fused_drqn_group_update"] == 2
-               and rec["fused_collect_rnn"] == 4,
-               f"DRQN solve: wrapper calls {rec}, not K5 2 and K6 4")
+        # populate and the segments as graph replays: the library is called
+        # by populate's warm-up and capture (K6) and the segment's (K5, K6),
+        # where the eager solve launched every step (K6 131, K5 30)
+        _check(rec["dq_fused_drqn"] == 2 and rec["dq_fused_collect_rnn"] == 4,
+               f"DRQN solve: launches {rec}, not K5 2 and K6 4")
         _say(f"solve (b) DRQN: LSTM(2,32), dueling, episode replay, 1024 "
              f"envs, U=1, batch 512, trace 8, {nd} iterations, populate "
              f"and the segments as graph replays: {sps_d:.1f} env-steps/s "
@@ -2461,7 +2380,7 @@ def phase_solve(torch, dev, card, run_path):
              f"| {card} | launches {rec}")
     (r, steps, dt), lrn = run_path(
         "solve (learning)", lambda: _solve_learning(torch),
-        ("td_loss", "tree_sample"))
+        ("dq_td_loss", "dq_tree_sample"))
     _say(f"solve (c) learning: test_prioritized_ddqn's config on TestMDP, "
          f"10000 steps in {dt:.2f} s: greedy return {r:.4f} (>= 1.5, "
          f"optimum 2.1), {steps:.2f} steps | {card} | launches {lrn}")
@@ -2475,16 +2394,16 @@ def phase_drqn_learning(torch, card, run_path):
                        ("test_gridworld_ddrqn", True)):
         (r, sps_l, spi), drq = run_path(
             f"solve (f) {name}", lambda: _solve_learning_drqn(torch, name),
-            ("fused_drqn_group_update",))
-        # graph routes: a wrapper is called by the graphs' warm-ups and
+            ("dq_fused_drqn",))
+        # graph routes: a kernel is launched by the graphs' warm-ups and
         # captures only, never once per iteration: K5 by the segment's
         # (one update per iteration), K6 (SimpleGridWorld; TestMDP has no
         # cols) by populate's (one collect step) and the segment's (spi
         # collect steps per iteration)
-        want = {"fused_drqn_group_update": 2,
-                "fused_collect_rnn": 2 + 2 * spi if cols else 0}
-        _check(all(drq[k] == v for k, v in want.items()),
-               f"solve (f) {name}: wrapper calls {drq}, not {want}")
+        want = {"dq_fused_drqn": 2,
+                "dq_fused_collect_rnn": 2 + 2 * spi if cols else 0}
+        _check(all(drq.get(k, 0) == v for k, v in want.items()),
+               f"solve (f) {name}: launches {drq}, not {want}")
         _say(f"solve (f) learning: {name}'s configuration (6000 steps, "
              f"one env, {spi} collect steps and one update per iteration) "
              f"through solve(device=None) as graph replays: "
@@ -2536,9 +2455,10 @@ def phase_cartpole_solve(torch, dev, card, run_path):
     """The slice's path: the CartPole solve on each of ``SEEDS``, each
     with the counters from zero. Every iteration launches K4 (on
     CartPole), K2 and K3 once (U = 16, B = 256), as graph replays (phase
-    16 reads them from a trace): the wrappers are called by the warm-ups
-    and captures alone, K4's twice for populate and twice for the
-    segment, K2's and K3's twice, K1's never. The returned policy's greedy return over 64 episodes (a
+    19's CartPole route reads them from a trace): the kernels are
+    launched by the warm-ups and captures alone, K4 twice for populate and
+    twice for the segment, K2 and K3 twice, K1 never. The returned
+    policy's greedy return over 64 episodes (a
     generator seeded 7) must reach 150 of 200, the example's full-episode
     balance (``docs/PARITY.md``), on every seed."""
     import tempfile
@@ -2551,11 +2471,11 @@ def phase_cartpole_solve(torch, dev, card, run_path):
             (solver, policy, iters, sps), cnt = run_path(
                 f"CartPole solve (seed {seed})",
                 lambda: _solve_cartpole(torch, logdir, seed),
-                ("fused_collect", "tree_sample", "fused_group_update"),
-                ("td_loss", "fused_collect_rnn", "fused_grads"))
-        _check(cnt["fused_collect"] == 4
-               and cnt["tree_sample"] == cnt["fused_group_update"] == 2,
-               f"CartPole solve: {iters} iterations, wrapper calls {cnt}")
+                ("dq_fused_collect", "dq_tree_sample", "dq_fused_update"),
+                ("dq_td_loss", "dq_fused_collect_rnn", "dq_fused_grads"))
+        _check(cnt["dq_fused_collect"] == 4
+               and cnt["dq_tree_sample"] == cnt["dq_fused_update"] == 2,
+               f"CartPole solve: {iters} iterations, launches {cnt}")
         r, steps, _ = basic_evaluation(policy.network, policy.params,
                                        CartPole(), 64, 200, 7)
         returns[seed] = r
@@ -2672,41 +2592,15 @@ def phase_conv_forward(torch, dev):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _conv_fwd_flops(net, obs_shape):
-    """Forward FLOPs per sample (2 per multiply-add) of a dueling conv net,
-    by ``scripts/conv_bench.py``'s accounting ("SAME" convolutions)."""
-    from deepqlearning_tpu_torch import Conv2D, Dense, Flatten
-
-    def chain(ch, shape):
-        fl = 0
-        for layer in ch.layers:
-            if isinstance(layer, Conv2D):
-                (h, w, _), (sh, sw) = shape, layer.stride
-                ho, wo = -(-h // sh), -(-w // sw)
-                kh, kw = layer.kernel
-                fl += (2 * ho * wo * kh * kw * layer.in_channels
-                       * layer.out_channels)
-                shape = (ho, wo, layer.out_channels)
-            elif isinstance(layer, Dense):
-                fl += 2 * layer.in_dim * layer.out_dim
-                shape = (layer.out_dim,)
-            elif isinstance(layer, Flatten):
-                shape = (int(np.prod(shape)),)
-        return fl, shape
-
-    fb, shape = chain(net.base, obs_shape)
-    return fb + chain(net.val, shape)[0] + chain(net.adv, shape)[0]
-
-
 def phase_conv_solve(torch, dev, card, run_path):
     """11 (e): ``examples/image_conv_dqn.py``'s solve at full width, its
     configuration unchanged (TestMDP with (20, 20, 4) obs, 2048 envs, the
     bf16 dueling conv net 4-32-64-128 with 3200-512 heads, 2^15 bf16 PER,
     batch 512, U = 4, 400,000 steps, 8 evaluations of 128 episodes), through
     the example's ``main`` with ``device=None`` (the card) and a temporary
-    logdir. As graph replays (phase 17 reads their launches from a trace):
-    K1's wrapper called U times and K2's once by each of the segment's
-    warm-up and capture, K3's, K4's and K7's never. A save and a restore: ``restore_best_model`` equals the
+    logdir. As graph replays (phase 19's conv route reads their launches
+    from a trace): K1 launched U times and K2 once by each of the segment's
+    warm-up and capture, K3, K4 and K7 never. A save and a restore: ``restore_best_model`` equals the
     returned policy (the best model, restored at the end). The best greedy
     evaluation return (128 episodes; the optimum is 2.1) must reach 1.0,
     the threshold of ``tests/test_learning.py::test_bf16_replay_storage``
@@ -2731,17 +2625,16 @@ def _conv_solve_seed(torch, card, run_path, seed):
         (solver, policy), cnt = run_path(
             f"conv solve (seed {seed})",
             lambda: image_conv_dqn.main(logdir=logdir, seed=seed),
-            ("td_loss", "tree_sample", "adam_update"),
-            ("fused_group_update", "fused_collect", "fused_grads"))
+            ("dq_td_loss", "dq_tree_sample", "dq_adam_update"),
+            ("dq_fused_update", "dq_fused_collect", "dq_fused_grads"))
         secs = time.perf_counter() - t0
         cfg = solver.config
         _check(solver.device is None, "the conv solve runs with device=None")
         iters = -(-cfg.max_steps // cfg.env_steps_per_iter)
         U = cfg.updates_per_iter
-        _check(cnt["td_loss"] == cnt["adam_update"] == 2 * U
-               and cnt["tree_sample"] == 2,
-               f"conv solve: {iters} iterations of U={U}, wrapper calls "
-               f"{cnt}")
+        _check(cnt["dq_td_loss"] == cnt["dq_adam_update"] == 2 * U
+               and cnt["dq_tree_sample"] == 2,
+               f"conv solve: {iters} iterations of U={U}, launches {cnt}")
         _check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
                    and bool(torch.isfinite(p).all())
                    for p in policy.params.values()),
@@ -2764,62 +2657,6 @@ def _conv_solve_seed(torch, card, run_path, seed):
          f"(optimum 2.1, threshold 1.0); save and restore ok | {card} | "
          f"launches {cnt}")
     return top
-
-
-def phase_conv_profile(torch, dev, card, run_path):
-    """17: one iteration of the conv solve's loop (11 (e)'s configuration
-    through ``build_loop``) profiled as phases 12-16 (K1 U = 4 times and K2
-    once per iteration), then ``scripts/conv_bench.py``'s loop (4096 envs,
-    batch 1024, train_freq 512: U = 8, 2^15 PER) in bf16 and f32, a warm-up
-    and 5 timed iterations each: ms per iteration and the model TFLOP/s by
-    that script's accounting, ``fwd_flops x (E + 5·U·B)`` per iteration."""
-    from deepqlearning_tpu_torch import TestMDP
-    from deepqlearning_tpu_torch.ops.cuda.kernel_events import conv_net
-
-    env = TestMDP((20, 20), 4, 6)
-    absent = ("fused_group_update", "fused_grads", "fused_collect")
-    res, cnt = run_path(
-        "conv loop (profiled)",
-        lambda: _loop(torch, dev, 2048, 1 << 15, 512, 512, 10, 1, 10,
-                      net=conv_net(torch, dev), env=env,
-                      max_episode_length=6, target_update_freq=512 * 64,
-                      learning_rate=1e-3, dtype=torch.bfloat16),
-        ("td_loss", "tree_sample", "adam_update"), absent)
-    cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, by_name = res
-    _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
-           and per_iter.get("adam_kernel", (0,))[0] == cfg.updates_per_iter
-           and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
-           f"conv loop: launches per iteration {per_iter}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    _say(f"conv loop (the conv solve's iteration: 2048 envs, bf16, U="
-         f"{cfg.updates_per_iter}, B=512), profiled: {sps:.1f} env-steps/s "
-         f"and {ms:.4f} ms/iteration over 10 iterations; host enqueue "
-         f"{enq:.4f} ms/iteration (each from an idle queue); device busy "
-         f"share {busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
-         f"torch.profiler, 10 iterations); per iteration (launches, device "
-         f"ms) by kernel {per_iter} | {card} | launches {cnt}")
-    _say(f"conv loop, device time by event name, per iteration (launches, "
-         f"device ms), the 16 longest (names cut at 100 characters): "
-         f"{ {k[:100]: v for k, v in top[:16]} } | {card}")
-    flops = _conv_fwd_flops(conv_net(torch, "cpu"), env.obs_shape)
-    for bf16 in (True, False):
-        dtype = torch.bfloat16 if bf16 else torch.float32
-        (cfg, sps, loss), cnt = run_path(
-            f"conv_bench loop {dtype}",
-            lambda: _loop(torch, dev, 4096, 1 << 15, 1024, 512, 5, 1,
-                          net=conv_net(torch, dev, bf16), env=env,
-                          max_episode_length=6, dtype=dtype),
-            ("td_loss", "tree_sample"), absent)
-        U, B, E = cfg.updates_per_iter, cfg.batch_size, cfg.num_envs
-        it_ms = 1e3 * cfg.env_steps_per_iter / sps
-        tflops = flops * (E + 5 * U * B) / (it_ms * 1e-3) / 1e12
-        peak = 989.0 if bf16 else 67.0  # dense bf16 tensor / f32 CUDA
-        _say(f"conv_bench loop {dtype}: 4096 envs, batch 1024, U={U}, 2^15 "
-             f"PER: {it_ms:.4f} ms/iteration, {sps:.1f} env-steps/s, model "
-             f"{tflops:.3f} TFLOP/s ({flops / 1e6:.3f} MFLOP forward per "
-             f"sample x (E + 5·U·B) per iteration), {tflops / peak:.5f} of "
-             f"the {peak:g} TFLOP/s {'bf16' if bf16 else 'f32'} peak, loss "
-             f"{loss:.5g} | {card} | launches {cnt}")
 
 
 def _vmap_draws(torch, dev, E):
@@ -2869,71 +2706,34 @@ def _row_draw_gridworld(torch):
     return RowDrawGridWorld()
 
 
-def _host_ms(torch, fn, n):
-    """Host ms of each of ``n`` calls of ``fn``, each from an idle queue
-    and timed until it returns."""
-    out = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        out.append(1e3 * (time.perf_counter() - t0))
-    return out
-
-
-def _pi_headline(torch, dev, env, n_cmp, n_time, n_enq,
-                 shape=(131072, 1 << 20, 512, 4096), **cfg_kw):
-    """The headline loop (``shape``: 131072 envs, 2^20 PER, batch 512,
-    train_freq 4096, so U = 32; dueling 2-64-64-4 tanh, 2 populate steps)
-    on ``env``: ``n_cmp`` iterations, then a snapshot of the carry, a
-    warm-up, ``n_time`` timed iterations and ``n_enq`` more from an idle
-    queue, then the env's ``step_batch`` alone, ``n_enq`` times from an idle
-    queue. Returns ``(snapshot, cfg, env-steps/s, ms/iteration, median
-    host enqueue ms/iteration, median host ms of a step_batch)``; the
-    snapshot holds the env state as ``[E, 3]`` (px, py, terminal). The
-    iterations are replays of the loop's CUDA graph (``make_segment``, as
-    ``solve`` runs them): the wrappers count its warm-up and capture."""
+def _pi_headline(torch, dev, env, n_cmp, **cfg_kw):
+    """The headline loop (131072 envs, 2^20 PER, batch 512, train_freq
+    4096, so U = 32; dueling 2-64-64-4 tanh, 2 populate steps) on ``env``:
+    ``n_cmp`` iterations as replays of the loop's CUDA graph
+    (``make_segment``, as ``solve`` runs them), then a snapshot of the
+    carry, the env state as ``[E, 3]`` (px, py, terminal), and 20 more
+    iterations that must finish episodes: ``(snapshot, cfg)``."""
     from deepqlearning_tpu_torch.learner.segment import (
         CompiledSegment, make_segment)
 
-    it, c, cfg, (_, buf) = _loop_setup(torch, dev, *shape, 2, env=env,
-                                       **cfg_kw)
+    it, c, cfg, (_, buf) = _loop_setup(torch, dev, 131072, 1 << 20, 512,
+                                       4096, 2, env=env, **cfg_kw)
     run = make_segment(it, c, cfg, env, buf,
                        f"chip_smoke {type(env).__name__} headline")
     _check(isinstance(run, CompiledSegment),
            f"{type(env).__name__}: the headline loop is not captured")
-    it = lambda x: run(x, 1)
-    for _ in range(n_cmp):
-        c = it(c)
+    c = run(c, n_cmp)
     st = c.actor.env_state
     if not torch.is_tensor(st):
         st = torch.cat([st.pos, st.terminal[:, None]], dim=1)
-    snap = dict(state=st.clone(), obs=c.actor.obs.clone(),
-                ep_step=c.actor.ep_step.clone(), ep_ret=c.actor.ep_ret.clone(),
-                rows=c.replay.rows.clone(), leaves=c.replay.tree[0].clone(),
-                loss=c.loss.clone(),
-                **{k: v.clone() for k, v in c.params.items()})
-    c = it(c)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_time):
-        c = it(c)
-    loss = float(c.loss)  # device -> host read ends the timed region
-    dt = time.perf_counter() - t0
-    _check(np.isfinite(loss), "per-instance headline: loss finite")
-    box = [c]
-
-    def one():
-        box[0] = it(box[0])
-
-    enq = float(np.median(_host_ms(torch, one, n_enq)))
-    c = box[0]
+    snap = dict(state=st, obs=c.actor.obs, ep_step=c.actor.ep_step,
+                ep_ret=c.actor.ep_ret, rows=c.replay.rows,
+                leaves=c.replay.tree[0], loss=c.loss, **c.params)
+    snap = {k: v.clone() for k, v in snap.items()}
+    c = run(c, 20)
+    _check(np.isfinite(float(c.loss)), "per-instance headline: loss finite")
     _check(int(c.actor.ep_count) > 0, "per-instance headline: progress")
-    action = torch.zeros(shape[0], dtype=torch.long, device=dev)
-    step = float(np.median(_host_ms(torch, lambda: env.step_batch(
-        c.actor.env_state, action, c.generator), n_enq)))
-    sps = n_time * cfg.env_steps_per_iter / dt
-    return snap, cfg, sps, 1e3 * dt / n_time, enq, step
+    return snap, cfg
 
 
 def _solve_static_mdp(torch, dev, StaticArrayMDP):
@@ -3000,13 +2800,12 @@ def phase_per_instance(torch, dev, card, run_path):
     on the card, batched by ``torch.func.vmap``: first vmap with a CUDA
     generator; then, each as replays of its CUDA graph, (a) the
     per-instance GridWorld through ``build_loop`` at the headline's shape
-    (K3 and K2 called by the graph's warm-up and capture, K4 and K1 never:
-    the collect kernel serves no env without cols; once per replay in the
-    traces of :func:`phase_per_instance_profile`), its first iterations
-    equal bit for bit to the built-in SimpleGridWorld's plain collect loop
-    from the same seed (or, where one ``[2, E]`` draw does not line up with
-    the vmapped draws, to the built-in dynamics on row-wise draws), both
-    timed; (b) the per-instance StaticArrayMDP through
+    (K3 and K2 launched by the graph's warm-up and capture, K4 and K1
+    never: the collect kernel serves no env without cols; once per replay
+    in phase 19's trace of the route), its first iterations equal bit for
+    bit to the built-in SimpleGridWorld's plain collect loop from the same
+    seed (or, where one ``[2, E]`` draw does not line up with the vmapped
+    draws, to the built-in dynamics on row-wise draws); (b) the per-instance StaticArrayMDP through
     ``solve(device=None)`` (K1 and K2 once per replay in its trace; greedy
     return > 1.0); (c) the per-instance MiniPOMDP through a DRQN ``solve``
     (K5 once per replay in its trace, K6 never)."""
@@ -3022,25 +2821,23 @@ def phase_per_instance(torch, dev, card, run_path):
 
     from deepqlearning_tpu_torch import SimpleGridWorld
 
-    n_cmp, n_time, n_enq = 2, 10, 8
-    kernels = ("tree_sample", "fused_group_update")
-    absent = ("fused_collect", "td_loss")
+    n_cmp = 2
+    kernels = ("dq_tree_sample", "dq_fused_update")
+    absent = ("dq_fused_collect", "dq_td_loss")
     ref_env = SimpleGridWorld() if one_block else _row_draw_gridworld(torch)
-    (ref, cfg, sps_b, ms_b, enq_b, step_b), built = run_path(
+    (ref, cfg), built = run_path(
         "built-in GridWorld, plain collect",
-        lambda: _pi_headline(torch, dev, ref_env, n_cmp, n_time, n_enq,
+        lambda: _pi_headline(torch, dev, ref_env, n_cmp,
                              fused_collect=False), kernels, absent)
-    (pis, cfg, sps_p, ms_p, enq_p, step_p), pi = run_path(
+    (pis, cfg), pi = run_path(
         "per-instance GridWorld",
-        lambda: _pi_headline(torch, dev, GridWorld(), n_cmp, n_time, n_enq),
-        kernels, absent)
-    # graph replays: the wrappers count the segment's warm-up and capture;
-    # the launches per replay are read from the traces of the profiles
-    # (phase_per_instance_profile)
+        lambda: _pi_headline(torch, dev, GridWorld(), n_cmp), kernels, absent)
+    # graph replays: the counts hold the segment's warm-up and capture;
+    # phase 19 reads both routes' launches per replay from a trace
     for name, counts in (("per-instance", pi), ("built-in", built)):
-        _check(counts["fused_group_update"] == counts["tree_sample"] == 2,
-               f"{name} GridWorld loop: wrapper calls {counts}, not K3 = "
-               f"K2 = 2 (the graph's warm-up and capture)")
+        _check(counts["dq_fused_update"] == counts["dq_tree_sample"] == 2,
+               f"{name} GridWorld loop: launches {counts}, not K3 = K2 = 2 "
+               f"(the graph's warm-up and capture)")
     differ = [k for k in ref if not torch.equal(ref[k], pis[k])]
     _check(not differ, f"per-instance GridWorld vs the built-in env after "
                        f"{n_cmp} iterations: {differ} differ")
@@ -3050,37 +2847,34 @@ def phase_per_instance(torch, dev, card, run_path):
     _say(f"per-instance (a): GridWorld written one instance at a time "
          f"(NamedTuple state, no cols) through build_loop at the headline's "
          f"shape (131072 envs, 2^20 PER, batch 512, U={U}, dueling 2-64-64-4 "
-         f"tanh), as graph replays: {sps_p:.1f} env-steps/s, {ms_p:.4f} "
-         f"ms/iteration, host enqueue {enq_p:.4f} ms/iteration, step_batch "
-         f"{step_p:.4f} ms on the host (medians of {n_enq}, each from an "
-         f"idle queue); the built-in SimpleGridWorld with "
-         f"fused_collect=False in the same call, as graph replays too: "
-         f"{sps_b:.1f} env-steps/s, {ms_b:.4f} ms/iteration, enqueue "
-         f"{enq_b:.4f}, step_batch {step_b:.4f}; after {n_cmp} iterations "
+         f"tanh), as graph replays, and the built-in SimpleGridWorld with "
+         f"fused_collect=False the same way: after {n_cmp} iterations "
          f"equal bit for bit (params, env state, obs, replay, loss) to the "
          f"{ref_name} | {card} | launches {pi}")
 
     # (b) and (c) run under torch.profiler: the trace (each graph's guard
     # replay left out) sees a kernel in the segment's eager warm-up and in
-    # every replay, and the wrappers count the warm-up and the capture
+    # every replay, and the launch counts hold the warm-up and the capture
     ((r, n_b), seen_b, per_b), mdp = run_path(
         "per-instance StaticArrayMDP solve",
         lambda: _graph_launch_trace(
             torch, lambda: _solve_static_mdp(torch, dev, StaticArrayMDP)),
-        ("td_loss", "tree_sample", "adam_update"),
-        ("fused_group_update", "fused_collect"))
+        ("dq_td_loss", "dq_tree_sample", "dq_adam_update"),
+        ("dq_fused_update", "dq_fused_collect"))
     _check(r > 1.0, f"per-instance StaticArrayMDP: greedy return {r} <= 1.0")
-    _check(mdp["td_loss"] == mdp["tree_sample"] == mdp["adam_update"] == 2,
-           f"StaticArrayMDP solve: wrapper calls {mdp}")
-    want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1,
-            "adam_kernel": n_b + 1}
-    _check(_but_k10(seen_b) == want, f"StaticArrayMDP solve: the trace saw "
-                                     f"{seen_b}, not {want}")
+    _check(mdp["dq_td_loss"] == mdp["dq_tree_sample"]
+           == mdp["dq_adam_update"] == 2, f"StaticArrayMDP solve: launches "
+                                          f"{mdp}")
     # K10 on the dueling net's 4 Dense layers: a backward in each update,
     # and forwards in the updates (three each), the plain collect and the
     # evaluations, whole nets
-    fwd, bwd = (seen_b.get(k, 0) for k in ("bias_act_kernel",
-                                             "bias_act_grad_kernel"))
+    rest = dict(seen_b)
+    fwd, bwd = (rest.pop(k, 0) for k in ("bias_act_kernel",
+                                          "bias_act_grad_kernel"))
+    want = {"td_loss_kernel": n_b + 1, "tree_sample_kernel": n_b + 1,
+            "adam_kernel": n_b + 1}
+    _check(rest == want, f"StaticArrayMDP solve: the trace saw {seen_b}, "
+                         f"not {want} beside K10")
     _check(bwd == 4 * (n_b + 1) and fwd >= 3 * bwd and fwd % 4 == 0,
            f"StaticArrayMDP solve: K10 launched {fwd} forward and {bwd} "
            f"backward, not 4 backward per update and whole nets of 4 layers "
@@ -3096,21 +2890,19 @@ def phase_per_instance(torch, dev, card, run_path):
         "per-instance MiniPOMDP DRQN solve",
         lambda: _graph_launch_trace(
             torch, lambda: _solve_mini_pomdp(torch, MiniPOMDP, n)),
-        ("fused_drqn_group_update",),
-        ("fused_collect_rnn", "fused_collect"))
-    _check(rec["fused_drqn_group_update"] == 2,
-           f"MiniPOMDP solve: K5's wrapper called "
-           f"{rec['fused_drqn_group_update']} times, not 2 (the graph's "
-           "warm-up and capture)")
-    _check(_but_k10(seen_c) == {"dr_group_kernel": n + 1},
-           f"MiniPOMDP solve: the trace saw {seen_c}, not K5 once per "
-           f"replay ({n}) and in the warm-up")
+        ("dq_fused_drqn",), ("dq_fused_collect_rnn", "dq_fused_collect"))
+    _check(rec["dq_fused_drqn"] == 2,
+           f"MiniPOMDP solve: K5 launched {rec['dq_fused_drqn']} times, not "
+           f"2 (the graph's warm-up and capture)")
     # K10 on the dueling head's 2 Dense layers: forward only (K5 takes the
     # backward), in each iteration the target unroll and the plain collect,
     # and the evaluations, whole heads
-    fwd = seen_c.get("bias_act_kernel", 0)
-    _check("bias_act_grad_kernel" not in seen_c and fwd >= 4 * (n + 1)
-           and fwd % 2 == 0,
+    rest = dict(seen_c)
+    fwd = rest.pop("bias_act_kernel", 0)
+    _check(rest == {"dr_group_kernel": n + 1},
+           f"MiniPOMDP solve: the trace saw {seen_c}, not K5 once per "
+           f"replay ({n}) and in the warm-up beside K10's forward")
+    _check(fwd >= 4 * (n + 1) and fwd % 2 == 0,
            f"MiniPOMDP solve: K10 launched {fwd} forward, not two heads "
            f"in each iteration and whole heads in all")
     _say(f"per-instance (c): MiniPOMDP through a DRQN solve (LSTM(1,8), "
@@ -3121,61 +2913,15 @@ def phase_per_instance(torch, dev, card, run_path):
          f"segment) | {card} | launches {rec}")
 
 
-def phase_per_instance_profile(torch, dev, card, run_path):
-    """Phase 18 (a)'s two loops profiled as phase 12 profiles the headline
-    (K3 and K2 exactly once per iteration in each): the per-instance
-    GridWorld and the built-in SimpleGridWorld with ``fused_collect=False``,
-    in that order."""
-    from deepqlearning_tpu_torch import SimpleGridWorld
-
-    GridWorld = user_envs()[0]
-    for name, env, kw in (
-            ("per-instance GridWorld", GridWorld(), {}),
-            ("built-in SimpleGridWorld, plain collect", SimpleGridWorld(),
-             dict(fused_collect=False))):
-        (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), counts = \
-            run_path(f"{name} (profiled)",
-                     lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096,
-                                   10, 2, 10, env=env, **kw),
-                     ("tree_sample", "fused_group_update"),
-                     ("fused_collect", "td_loss"))
-        for k in ("fu_group_kernel", "tree_sample_kernel"):
-            _check(per_iter.get(k, (0,))[0] == 1.0,
-                   f"{name}: {k} launches per iteration {per_iter}")
-        _say(f"{name} loop at the headline's shape, profiled: {sps:.1f} "
-             f"env-steps/s and {ms:.4f} ms/iteration over 10 iterations; "
-             f"host enqueue {enq:.4f} ms/iteration (each from an idle "
-             f"queue); device busy share {busy:.4f} and device time "
-             f"{dev_ms:.4f} ms/iteration (under torch.profiler, 10 "
-             f"iterations); per iteration (launches, device ms) by kernel "
-             f"{per_iter} | {card} | launches {counts}")
-
-
-def _cartpole_loop(torch, dev, n_iters):
-    """The CartPole solve's loop, built as ``solve`` builds it (stock
-    ε-greedy, so K4) and run as ``solve`` runs it (replays of its CUDA
-    graph), populated, ``n_iters`` iterations to warm up and fill the
-    replay, then 20 iterations profiled (``_profile_iterations``)."""
-    from deepqlearning_tpu_torch import (
-        CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
-        create_dueling_network)
-    from deepqlearning_tpu_torch.learner.loop import (
-        build_loop, init_carry, populate)
-    from deepqlearning_tpu_torch.learner.segment import make_segment
-
-    env = CartPole()
-    net = create_dueling_network(_cartpole_model(torch, dev))
-    cfg = DQNConfig(**CARTPOLE_CFG, logdir=None)
-    buf = PrioritizedReplayBuffer(env.obs_shape, cfg.buffer_size,
-                                  cfg.batch_size, device=dev)
-    it, pop, opt = build_loop(env, net, buf, cfg,
-                              LinearDecaySchedule(*CARTPOLE_EPS),
-                              env.discount)
-    c = populate(pop, buf, init_carry(env, net, buf, cfg, opt, dev), 1)
-    run = make_segment(it, c, cfg, env, buf, "chip_smoke CartPole loop")
-    c = run(c, n_iters)
-    torch.cuda.synchronize()
-    return _profile_iterations(torch, lambda x: run(x, 1), c, 20)[1:]
+# launches per iteration of :func:`_dp_setup`'s routes by entry point,
+# headline (False) and DRQN (True): per sub-update K7 (K8), the all-reduce
+# and an Adam launch; one collect step (and PER draw); K10 on the target's
+# forward, 6 Dense layers (the DRQN head's 1)
+DP_ITERATION = {
+    False: {"dq_fused_grads": 32, "dq_fused_adam": 32, "dq_tree_sample": 1,
+            "dq_fused_collect": 1, "dq_bias_act": 6},
+    True: {"dq_fused_drqn_grads": 4, "dq_drqn_adam": 4,
+           "dq_fused_collect_rnn": 1, "dq_bias_act": 1}}
 
 
 def _dp_setup(torch, dev, recurrent, dcn_sync_every=1):
@@ -3233,35 +2979,23 @@ def _dp_setup(torch, dev, recurrent, dcn_sync_every=1):
 
 def _dp_loop(torch, dev, recurrent, n_iters, n_trace=3):
     """:func:`_dp_setup`'s loop as ``solve`` would run it: the first
-    ``run_segment`` call captures the iteration (timed), warm-up replays,
-    ``n_iters`` timed replays, then a trace of ``n_trace`` replays after
-    one that primes the session, and the device profile of 5."""
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
-
+    ``run_segment`` call captures the iteration, warm-up and ``n_iters``
+    replays, then a trace of ``n_trace`` replays after one that primes the
+    session: ``(cfg, loss, {kernel symbol: launches in the trace})``."""
     runner, c, cfg = _dp_setup(torch, dev, recurrent)
     warmup = 3 if recurrent else 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     c = runner.run_segment(c, 0)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-    c = runner.run_segment(c, warmup)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c = runner.run_segment(c, n_iters)
-    loss = float(c.loss)  # device -> host read ends the timed region
-    dt = time.perf_counter() - t0
+    c = runner.run_segment(c, warmup + n_iters)
+    loss = float(c.loss)
     _check(np.isfinite(loss) and np.isfinite(float(c.gnorm)), "loss finite")
     _check(all(bool(torch.isfinite(p).all()) for p in c.params.values()),
            "params finite")
     c, seen = _traced_launches(torch, lambda: runner.run_segment(c, 1),
                                lambda: runner.run_segment(c, n_trace))
-    c, prof = device_profile(torch, lambda x: runner.run_segment(x, 1), c, 5)
     _check(int(c.actor.ep_count) > 0
-           and int(c.iters) == warmup + n_iters + n_trace + 1 + 6,
+           and int(c.iters) == warmup + n_iters + n_trace + 1,
            "loop progress")
-    return (cfg, n_iters * cfg.env_steps_per_iter / dt,
-            1000.0 * dt / n_iters, loss, capture_s, seen, prof)
+    return cfg, loss, seen
 
 
 def _clone_carry(torch, c):
@@ -3320,10 +3054,10 @@ def _dp_route(torch, dev, recurrent, dcn_sync_every=1):
 
 
 def _segment_routes(torch, dev):
-    """Phase 19's routes at full width: ``{name: (setup, wrapper calls per
-    iteration)}``, ``setup()`` giving ``(eager iteration, carry, cfg,
-    make_run)`` after populate, ``make_run(carry)`` the graphs captured on
-    that carry: ``(run_segment, [CompiledSegment])``."""
+    """Phase 19's routes at full width: ``{name: (setup, launches per
+    iteration by entry point)}``, ``setup()`` giving ``(eager iteration,
+    carry, cfg, make_run)`` after populate, ``make_run(carry)`` the graphs
+    captured on that carry: ``(run_segment, [CompiledSegment])``."""
     from deepqlearning_tpu_torch import (
         CartPole, DQNConfig, LinearDecaySchedule, PrioritizedReplayBuffer,
         TestMDP)
@@ -3389,89 +3123,81 @@ def _segment_routes(torch, dev):
                                    c, cfg.max_episode_length + 1)
         return it, c, cfg, (env, buf)
 
-    # K10 per iteration: a forward launch per Conv2D and Dense layer of
-    # each net forward in ATen (the dueling Dense nets have 6 such layers,
-    # the conv net 7, the DRQN net's head 1, MiniPOMDP's dueling head 2):
-    # the target's over U·B rows beside K3 and K5, three per autograd
-    # update (target and online on s', online on s; the grouped step's
-    # target once for all U), the plain collect's one; and a backward
-    # launch per layer of each autograd update
+    # K10 per iteration: a forward launch (dq_bias_act) per Conv2D and
+    # Dense layer of each net forward in ATen (the dueling Dense nets have
+    # 6 such layers, the conv net 7, the DRQN net's head 1, MiniPOMDP's
+    # dueling head 2): the target's over U·B rows beside K3 and K5, three
+    # per autograd update (target and online on s', online on s; the
+    # grouped step's target once for all U), the plain collect's one; and a
+    # backward launch (dq_bias_act_grad) per layer of each autograd update
+    head = {"dq_tree_sample": 1, "dq_fused_update": 1}
     routes = {
         "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
                                          4096, 2),
-                     {"tree_sample": 1, "fused_group_update": 1,
-                      "fused_collect": 1, "bias_act": 6}),
+                     dict(head, dq_fused_collect=1, dq_bias_act=6)),
         "U=1": (lambda: _loop_setup(torch, dev, 4096, 1 << 18, 512, 4096, 4,
                                     target_update_freq=2 * 4096),
-                {"td_loss": 1, "tree_sample": 1, "fused_collect": 1,
-                 "adam_update": 1, "bias_act": 6 * 3, "bias_act_grad": 6}),
+                {"dq_td_loss": 1, "dq_tree_sample": 1, "dq_fused_collect": 1,
+                 "dq_adam_update": 1, "dq_bias_act": 6 * 3,
+                 "dq_bias_act_grad": 6}),
         "grouped plain": (
             lambda: _loop_setup(torch, dev, 2048, 1 << 15, 512, 512, 2,
                                 net=_dueling_net(torch, dev, 512, torch.relu),
                                 target_update_freq=2 * 2048),
-            {"td_loss": 4, "tree_sample": 1, "adam_update": 4,
-             "bias_act": 6 * (1 + 2 * 4 + 1), "bias_act_grad": 6 * 4}),
+            {"dq_td_loss": 4, "dq_tree_sample": 1, "dq_adam_update": 4,
+             "dq_bias_act": 6 * (1 + 2 * 4 + 1), "dq_bias_act_grad": 6 * 4}),
         "conv": (lambda: _loop_setup(
             torch, dev, 2048, 1 << 15, 512, 512, 1, net=conv_net(torch, dev),
             env=TestMDP((20, 20), 4, 6), max_episode_length=6,
             target_update_freq=2 * 2048, learning_rate=1e-3,
             dtype=torch.bfloat16),
-            {"td_loss": 4, "tree_sample": 1, "adam_update": 4,
-             "bias_act": 7 * (1 + 2 * 4 + 1), "bias_act_grad": 7 * 4}),
-        "CartPole": (cartpole, {"fused_collect": 1, "tree_sample": 1,
-                                "fused_group_update": 1, "bias_act": 6}),
+            {"dq_td_loss": 4, "dq_tree_sample": 1, "dq_adam_update": 4,
+             "dq_bias_act": 7 * (1 + 2 * 4 + 1), "dq_bias_act_grad": 7 * 4}),
+        # the same net and loop in f32, where no K3, K4 or K7 plan takes
+        # the conv net either
+        "conv f32": (lambda: _loop_setup(
+            torch, dev, 2048, 1 << 15, 512, 512, 1,
+            net=conv_net(torch, dev, bf16=False),
+            env=TestMDP((20, 20), 4, 6), max_episode_length=6,
+            target_update_freq=2 * 2048, learning_rate=1e-3),
+            {"dq_td_loss": 4, "dq_tree_sample": 1, "dq_adam_update": 4,
+             "dq_bias_act": 7 * (1 + 2 * 4 + 1), "dq_bias_act_grad": 7 * 4}),
+        "CartPole": (cartpole, dict(head, dq_fused_collect=1, dq_bias_act=6)),
         "DRQN": (lambda: _drqn_setup(torch, dev),
-                 {"fused_drqn_group_update": 1, "fused_collect_rnn": 1,
-                  "bias_act": 1}),
+                 {"dq_fused_drqn": 1, "dq_fused_collect_rnn": 1,
+                  "dq_bias_act": 1}),
         # autograd BPTT, Adam (K9) per sub-update and the plain recurrent
         # collect
         "DRQN plain": (lambda: _drqn_setup(torch, dev, fused_updates=False,
                                            fused_collect=False),
-                       {"adam_update": 4, "bias_act": 3 * 4 + 1,
-                        "bias_act_grad": 4}),
+                       {"dq_adam_update": 4, "dq_bias_act": 3 * 4 + 1,
+                        "dq_bias_act_grad": 4}),
         "per-instance GridWorld": (
             lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512, 4096, 2,
                                 env=GridWorld()),
-            {"tree_sample": 1, "fused_group_update": 1, "bias_act": 6 * 2}),
+            dict(head, dq_bias_act=6 * 2)),
+        # the built-in env on the plain collect step, beside the
+        # per-instance one
+        "built-in GridWorld, plain collect": (
+            lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512, 4096, 2,
+                                fused_collect=False),
+            dict(head, dq_bias_act=6 * 2)),
         "per-instance MiniPOMDP DRQN": (mini_pomdp,
-                                        {"fused_drqn_group_update": 1,
-                                         "bias_act": 2 * 2}),
+                                        {"dq_fused_drqn": 1,
+                                         "dq_bias_act": 2 * 2}),
     }
     routes = {name: (single(setup, name), per_iter)
               for name, (setup, per_iter) in routes.items()}
-    # the data-parallel routes in the one-rank NCCL world: per sub-update
-    # K7 (K8), the all-reduce and an Adam launch, in the graph
-    # (and "adam": the Adam kernel launched by the update's wrapper)
+    # the data-parallel routes in the one-rank NCCL world
     routes["DP headline"] = (lambda: _dp_route(torch, dev, False),
-                             {"fused_grads": 32, "dp_update": 1,
-                              "adam": 32, "tree_sample": 1,
-                              "fused_collect": 1, "bias_act": 6})
+                             DP_ITERATION[False])
     routes["DP DRQN"] = (lambda: _dp_route(torch, dev, True),
-                         {"fused_drqn_grads": 4, "drqn_dp_update": 1,
-                          "adam": 4, "fused_collect_rnn": 1, "bias_act": 1})
+                         DP_ITERATION[True])
     # local SGD, k = 2, on the (1, 1) mesh: two graphs, the second with
     # the DCN average after the iteration
     routes["DP local SGD (k=2)"] = (lambda: _dp_route(torch, dev, False, 2),
-                                    {"fused_grads": 32, "dp_update": 1,
-                                     "adam": 32, "tree_sample": 1,
-                                     "fused_collect": 1, "bias_act": 6})
+                                    DP_ITERATION[False])
     return routes
-
-
-def _idle_ms(torch, fn, c, n):
-    """``n`` calls of ``fn`` each from an idle queue: ``(carry, median host
-    ms until fn returns, median ms until the device is done)``."""
-    host, total = [], []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        c = fn(c)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host.append(1e3 * (t1 - t0))
-        total.append(1e3 * (t2 - t0))
-    return c, float(np.median(host)), float(np.median(total))
 
 
 def _capture_failure(torch):
@@ -3502,82 +3228,54 @@ def _capture_failure(torch):
                          "host read without raising")
 
 
-def _all_wrappers():
-    """Every kernel wrapper of the port by name; each counts the calls
-    that launch (or, under capture, record) its kernel in ``.launches``."""
-    from deepqlearning_tpu_torch.ops.cuda import (
-        adam, bias_act as ba, fused_collect as fc, fused_drqn as fd,
-        fused_update as fu, td_kernel as tk, tree_sample as ts)
-
-    return {"td_loss": tk.td_loss_cuda, "tree_sample": ts.tree_sample_cuda,
-            "fused_group_update": fu.fused_group_update_cuda,
-            "fused_collect": fc.fused_collect_cuda,
-            "fused_drqn_group_update": fd.fused_drqn_group_update_cuda,
-            "fused_collect_rnn": fc.fused_collect_rnn_cuda,
-            "fused_grads": fu.fused_grads_cuda,
-            "fused_drqn_grads": fd.fused_drqn_grads_cuda,
-            "adam_update": adam.adam_update,
-            # the data-parallel updates (calls; each launches K7 / K8, the
-            # all-reduce and an Adam kernel per sub-update)
-            "dp_update": fu.fused_dp_group_update_cuda,
-            "drqn_dp_update": fd.fused_drqn_dp_group_update_cuda,
-            # K10, every Conv2D and Dense epilogue on the card: its forward
-            # and backward launches
-            "bias_act": ba.bias_act}
+# the kernel each entry point of the library (``ops/cuda/build.py``)
+# launches, by its symbol in a trace (K5's global-memory variant
+# ``dr_group_gm_kernel`` serves wide nets on no traced route)
+KERNELS = {"dq_td_loss": "td_loss_kernel", "dq_empty": "empty_kernel",
+           "dq_tree_sample": "tree_sample_kernel",
+           "dq_fused_update": "fu_group_kernel",
+           "dq_fused_grads": "fu_group_kernel",
+           "dq_fused_adam": "dq_adam_flat_kernel",
+           "dq_fused_collect": "fc_kernel",
+           "dq_fused_collect_rnn": "fc_rnn_kernel",
+           "dq_fused_drqn": "dr_group_kernel",
+           "dq_fused_drqn_grads": "dr_group_kernel",
+           "dq_drqn_adam": "dq_adam_flat_kernel",
+           "dq_adam_update": "adam_kernel",
+           "dq_bias_act": "bias_act_kernel",
+           "dq_bias_act_grad": "bias_act_grad_kernel"}
 
 
-# the symbols of the kernels on the graph routes, by wrapper (the
-# data-parallel updates' wrappers launch K7 / K8 through fused_grads and
-# fused_drqn_grads, and have no kernel of their own)
-SYMBOLS = {"td_loss": "td_loss_kernel", "tree_sample": "tree_sample_kernel",
-           "fused_group_update": "fu_group_kernel",
-           "fused_collect": "fc_kernel",
-           "fused_drqn_group_update": "dr_group_kernel",
-           "fused_collect_rnn": "fc_rnn_kernel",
-           "fused_grads": "fu_group_kernel",
-           "fused_drqn_grads": "dr_group_kernel",
-           "adam_update": "adam_kernel",
-           "adam": "dq_adam_flat_kernel",
-           # K10 forward, one launch per Conv2D or Dense layer a forward
-           # runs, and backward ("bias_act_grad", one per layer that an
-           # autograd update differentiates; the wrapper "bias_act" counts
-           # both)
-           "bias_act": "bias_act_kernel",
-           "bias_act_grad": "bias_act_grad_kernel"}
+def _launches():
+    """The recorder's kernel launches since its last reset, by entry point
+    (those that launched)."""
+    from deepqlearning_tpu_torch.utils import profiling
+
+    counts = {e: profiling.counter("kernels.launches", e) for e in KERNELS}
+    return {e: n for e, n in counts.items() if n}
 
 
-def _wrapper_calls(per_iter):
-    """Wrapper calls from kernel launches by :data:`SYMBOLS`' keys: K10's
-    backward launches are counted by its one wrapper, ``bias_act``."""
-    calls = dict(per_iter)
-    if "bias_act_grad" in calls:
-        calls["bias_act"] = calls.get("bias_act", 0) + calls.pop(
-            "bias_act_grad")
-    return calls
-
-
-def _but_k10(seen):
-    """A trace's launches by symbol without K10's, which follow the nets'
-    layers."""
-    return {k: v for k, v in seen.items()
-            if k not in (SYMBOLS["bias_act"], SYMBOLS["bias_act_grad"])}
+def _symbols(per_entry):
+    """Launches by entry point summed by kernel symbol."""
+    out = {}
+    for e, n in per_entry.items():
+        out[KERNELS[e]] = out.get(KERNELS[e], 0) + n
+    return out
 
 
 def _traced_launches(torch, prime, fn):
     """``(fn(), {kernel symbol: launches})``: ``prime()`` and ``fn()`` in
-    one ``torch.profiler`` session (``loop_profile.traced``: ``prime()``
-    gives each graph its first launch in the session, whose first records
-    the profiler can lose), and the launches of the port's kernels that
-    the trace saw on the device during ``fn()`` (a graph's replays
-    included)."""
-    from deepqlearning_tpu_torch.ops.cuda.kernel_events import kernel_symbol
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import (
-        port_kernels, traced)
+    one ``torch.profiler`` session (``port_bench/harness/trace.py::
+    traced``: ``prime()`` gives each graph its first launch in the session,
+    whose first records the profiler can lose), and the launches of the
+    port's kernels that the trace saw on the device during ``fn()`` (a
+    graph's replays included)."""
+    from port_bench.harness.trace import kernel_symbol, traced
 
-    out, events, _ = traced(torch, prime, fn)
-    ours, seen = port_kernels(), {}
-    for e in events:
-        sym = kernel_symbol(e.name)
+    out, events, _, _ = traced(torch, prime, fn)
+    ours, seen = set(KERNELS.values()), {}
+    for name, _, _ in events:
+        sym = kernel_symbol(name)
         if sym in ours:
             seen[sym] = seen.get(sym, 0) + 1
     return out, seen
@@ -3589,14 +3287,13 @@ def _graph_launch_trace(torch, fn):
     The launches of the port's kernels leave out each graph's first launch
     (the first ``cudaGraphLaunch`` after each ``cudaGraphInstantiate``: the
     segment's guard replay), whose first records the profiler can lose
-    (``loop_profile.traced``); the list gives, for each graph in the order
+    (``port_bench/harness/trace.py``); the list gives, for each graph in the order
     of instantiation, the set of device event counts of its other launches
     (one number where every replay was recorded whole)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deepqlearning_tpu_torch.ops.cuda.kernel_events import kernel_symbol
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import port_kernels
+    from port_bench.harness.trace import kernel_symbol
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3622,7 +3319,7 @@ def _graph_launch_trace(torch, fn):
             fresh = False
         else:
             graphs[-1][e.id] = 0
-    ours, seen = port_kernels(), {}
+    ours, seen = set(KERNELS.values()), {}
     for e in events:
         if e.device_type != DeviceType.CUDA or e.id in first:
             continue
@@ -3734,24 +3431,13 @@ def phase_eval_graph(torch, dev, card):
     (every tensor and the generator's state); three whole evaluations
     against the eager rollout (``_eval_rollout``) on the same seeds, the
     means and the caller's generator state bit for bit; memory flat over
-    100 step replays; eager beside graph from an idle queue, per step
-    (medians of 8: host ms and ms; busy share, device ms and launches
-    under ``torch.profiler``, 5 steps) and per whole evaluation (median of
-    3, seconds); then an env with a Python counter makes the evaluation
-    raise. Returns ``{name: rows}``."""
-    from torch.utils._pytree import tree_map
-
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+    100 step replays; then an env with a Python counter makes the
+    evaluation raise."""
     from deepqlearning_tpu_torch.solver import evaluation as ev
 
     N = 3
-    table = {}
     for name, (env, net, params, n, L) in _eval_routes(torch, dev).items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         graph = ev.eval_graph(net, params, env, n, dev)
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
         # the step graph against eager steps from one reset state
         gen = torch.Generator(device=dev).manual_seed(5)
         torch._foreach_copy_(list(graph.params.values()),
@@ -3786,42 +3472,11 @@ def phase_eval_graph(torch, dev, card):
         m1 = torch.cuda.memory_allocated(dev)
         _check(m1 == m0, f"eval {name}: memory {m0} -> {m1} over 100 "
                          "replays")
-        rows = {}
-        for mode in ("eager", "graph"):
-            if mode == "eager":
-                c0 = _clone_carry(torch, graph.carry)
-                fn = lambda x: step(x)
-                whole = lambda: ev._eval_rollout(env, params, net, n, L,
-                                                 torch.Generator(device=dev)
-                                                 .manual_seed(9))
-            else:
-                c0 = graph.carry
-                fn = lambda x: graph.step(x, 1)
-                whole = lambda: ev.basic_evaluation(net, params, env, n, L, 9)
-            with torch.no_grad():
-                c0, host, ms = _idle_ms(torch, fn, c0, 8)
-                c0, prof = device_profile(torch, fn, c0, 5)
-            secs = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                whole()
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-            rows[mode] = dict(
-                ms=round(ms, 4), host_ms=round(host, 4),
-                busy=round(prof["busy"], 4),
-                device_ms=round(prof["device_ms"], 4),
-                launches=prof["launches"],
-                eval_s=round(float(np.median(secs)), 4))
-        table[name] = rows
         _say(f"evaluation graph, {name} ({n} episodes, {L + 1} steps): "
              f"reset and {N} step replays = eager steps bit for bit; 3 "
              f"evaluations = the eager rollout bit for bit (means and the "
              f"caller's generator); memory flat at {m1} bytes over 100 "
-             f"replays; capture {capture_s:.3f} s; per step and whole "
-             f"evaluation: eager {rows['eager']} | graph {rows['graph']} | "
-             f"{card}")
+             f"replays | {card}")
         del graph
     from deepqlearning_tpu_torch import Chain, Dense
 
@@ -3842,7 +3497,6 @@ def phase_eval_graph(torch, dev, card):
         raise AssertionError("eval host state guard: an env with a Python "
                              "counter was captured without raising")
     torch.cuda.empty_cache()
-    return table
 
 
 def phase_compiled_segment(torch, dev, card):
@@ -3854,22 +3508,19 @@ def phase_compiled_segment(torch, dev, card):
     (two eager runs first: where they differ, the graph is held to the
     eager runs' own spread); (b) the replays draw fresh numbers: they
     differ from eager iterations that reuse one generator state; (c) the
-    warm-up and the capture of each graph call each wrapper as often as
-    one iteration launches its kernel, the replays call none, and a
-    ``torch.profiler`` trace of N more replays (after one that primes the
-    session: ``loop_profile.traced``) sees each kernel N times as often;
-    (d) ``torch.cuda.memory_allocated`` is flat over 100 replays; then
-    eager beside graph from an idle queue (medians of 8: host ms and ms
-    until the device is done per iteration; env-steps/s over 10
-    back-to-back; busy share, device ms and launches per iteration under
-    ``torch.profiler``, 5 iterations). (f) a user env with a Python
-    counter makes ``make_segment`` raise. (g) the greedy evaluation's
-    graphs (:func:`phase_eval_graph`). Last, (e): a ``select_fn`` with a
-    host read makes ``solve`` raise on the card."""
+    warm-up and the capture of each graph launch each kernel as often as
+    one iteration does (:func:`_segment_routes`' table, by entry point),
+    the replays call the library never, and a ``torch.profiler`` trace of
+    N more replays (after one that primes the session) sees each kernel N
+    times as often; (d) ``torch.cuda.memory_allocated`` is flat over 100
+    replays. (f) a user env with a Python counter makes ``make_segment``
+    raise. (g) the greedy evaluation's graphs (:func:`phase_eval_graph`).
+    Last, (e): a ``select_fn`` with a host read makes ``solve`` raise on
+    the card."""
     import torch.distributed as dist
 
     from deepqlearning_tpu_torch.learner.segment import CompiledSegment
-    from deepqlearning_tpu_torch.ops.cuda.loop_profile import device_profile
+    from deepqlearning_tpu_torch.utils import profiling
 
     own_world = not dist.is_initialized()
     if own_world:
@@ -3879,9 +3530,7 @@ def phase_compiled_segment(torch, dev, card):
 
         initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
                              backend="nccl")
-    names = _all_wrappers()
     N = 3
-    table = {}
     for name, (setup, per_iter) in _segment_routes(torch, dev).items():
         it, c, cfg, make_run = setup()
         c = it(c)  # fills the replay past one batch, as a solve's first
@@ -3899,23 +3548,17 @@ def phase_compiled_segment(torch, dev, card):
         for _ in range(N):
             stale.generator.set_state(g0)
             stale = it(stale)
-        t0 = time.perf_counter()
         g = _clone_carry(torch, base)
-        for w in names.values():
-            w.launches = 0
+        profiling.reset()
         run, graphs = make_run(g)
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
         _check(graphs and all(isinstance(x, CompiledSegment)
                               for x in graphs), f"{name}: not captured")
-        built = {k: w.launches for k, w in names.items() if w.launches}
-        want = {k: 2 * len(graphs) * v
-                for k, v in _wrapper_calls(per_iter).items() if k in names}
+        built = _launches()
+        want = {e: 2 * len(graphs) * v for e, v in per_iter.items()}
         _check(built == want,
                f"{name}: the warm-ups and captures of {len(graphs)} graphs "
-               f"called the wrappers {built} times, not {want}")
-        for w in names.values():
-            w.launches = 0
+               f"launched {built}, not {want}")
+        profiling.reset()
         g = run(g, N)
         diff = _carry_diff(torch, g, runs[0])
         if not spread:
@@ -3932,14 +3575,9 @@ def phase_compiled_segment(torch, dev, card):
         # (c) N more replays under the profiler, after one that primes it
         g, seen = _traced_launches(torch, lambda: run(g, 1),
                                    lambda: run(g, N))
-        counts = {k: w.launches for k, w in names.items() if w.launches}
-        _check(not counts, f"{name}: {2 * N + 1} replays called the "
-                           f"wrappers {counts}")
-        syms = {}
-        for k, v in per_iter.items():
-            if k in SYMBOLS:
-                syms[SYMBOLS[k]] = syms.get(SYMBOLS[k], 0) + v
-        want = {sym: v * N for sym, v in syms.items()}
+        _check(not _launches(), f"{name}: {2 * N + 1} replays called the "
+                                f"library: {_launches()}")
+        want = {sym: v * N for sym, v in _symbols(per_iter).items()}
         _check(seen == want, f"{name}: the trace of {N} replays saw "
                              f"{seen}, not {want}")
         torch.cuda.synchronize()
@@ -3949,59 +3587,19 @@ def phase_compiled_segment(torch, dev, card):
         m1 = torch.cuda.memory_allocated(dev)
         _check(m1 == m0, f"{name}: memory {m0} -> {m1} over 100 replays")
         _check(bool(torch.isfinite(g.loss)), f"{name}: loss not finite")
-        # eager beside graph, each from its own carry
-        rows = {}
-        spi = cfg.env_steps_per_iter
-
-        def eager_n(x, n):
-            for _ in range(n):
-                x = it(x)
-            return x
-
-        for mode, fn, many, c0 in (
-                ("eager", it, eager_n, runs[1]),
-                ("graph", lambda x: run(x, 1), run, g)):
-            c0, host, ms = _idle_ms(torch, fn, c0, 8)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            c0 = many(c0, 10)
-            torch.cuda.synchronize()
-            sps = 10 * spi / (time.perf_counter() - t0)
-            c0, prof = device_profile(torch, fn, c0, 5)
-            _check(prof["device_ms"] > 0, f"{name} {mode}: no device time")
-            rows[mode] = dict(
-                ms=round(ms, 4), host_ms=round(host, 4), sps=round(sps, 1),
-                busy=round(prof["busy"], 4),
-                device_ms=round(prof["device_ms"], 4),
-                launches=prof["launches"],
-                by_kernel={k: tuple(round(x, 4) for x in v)
-                           for k, v in prof["by_kernel"].items()})
-            top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])
-            rows[mode]["top"] = {k[:60]: tuple(round(x, 4) for x in v)
-                                 for k, v in top[:12]}
-        for sym, v in syms.items():
-            _check(rows["graph"]["by_kernel"].get(sym, (0,))[0] == v,
-                   f"{name}: the profiler saw {sym} launched "
-                   f"{rows['graph']['by_kernel'].get(sym)} times per replay, "
-                   f"not {v}")
-        table[name] = rows
         _say(f"compiled segment, {name} (U={cfg.updates_per_iter}, "
              f"{cfg.num_envs} envs, {cfg.dtype}): graph = eager over {N} "
              f"iterations ({'bit for bit' if not spread else 'within 4x the eager spread ' + str(spread)}), "
-             f"fresh draws, wrapper calls at the warm-ups and captures of "
-             f"{len(graphs)} graph(s) {built}, "
-             f"launches in the trace of {N} replays {seen}, memory flat at "
-             f"{m1} bytes "
-             f"over 100 replays, capture {capture_s:.2f} s; eager "
-             f"{rows['eager']} | graph {rows['graph']} | {card}")
+             f"fresh draws, launches at the warm-ups and captures of "
+             f"{len(graphs)} graph(s) {built}, in the trace of {N} replays "
+             f"{seen}, memory flat at {m1} bytes over 100 replays | {card}")
         del run, graphs, g, base, runs, stale, c
         torch.cuda.empty_cache()
     if own_world:
         dist.destroy_process_group()
     _say(f"compiled segment (f): a user env with a Python counter makes "
          f"make_segment raise: {_host_state_guard(torch, dev)[:300]!r}")
-    table.update(phase_eval_graph(torch, dev, card))
-    return table
+    phase_eval_graph(torch, dev, card)
 
 
 def _two_rank_slice(rank, world, device):
@@ -4094,7 +3692,6 @@ def main():
         return 1
     import torch.distributed as dist
 
-    from deepqlearning_tpu_torch.learner import train_step as tsm
     from deepqlearning_tpu_torch.ops.cuda import build
     from deepqlearning_tpu_torch.parallel.launch import free_port
     from deepqlearning_tpu_torch.parallel.multihost import (
@@ -4137,157 +3734,128 @@ def main():
     phase_drqn_slice(torch, dev)
     phase_conv_forward(torch, dev)
 
-    # 5. - 7. the main paths, each with the counters from zero
-    wrappers = _all_wrappers()
-    others = {k: wrappers.pop(k) for k in ("dp_update", "drqn_dp_update")}
-    launches = dict.fromkeys(wrappers, 0)
+    # 5. - 7. the main paths, each with the recorder emptied before it
+    launches = {}
 
     def run_path(name, fn, kernels, absent=()):
-        """``(fn(), wrapper calls)``, each main path with the counters from
-        0. Every path trains a net on the card, and each of its routes runs
-        at least the target's forward through Dense (and Conv2D) layers in
-        ATen: K10 takes every one of their epilogues (the recorder's
-        ``model.bias_act_kernel``, its forward launches, > 0) and the ATen
-        chain none (``model.bias_act_plain`` 0)."""
-        for w in (*wrappers.values(), *others.values()):
-            w.launches = 0
-        tsm.pmean_flat.calls = 0
-        for k in ("bias_act_kernel", "bias_act_plain"):
-            profiling.put(f"model.{k}", 0)
+        """``(fn(), launches by entry point, of those that launched, and
+        "pmean_flat" calls)``,
+        each main path with the recorder emptied before it. Every path
+        trains a net on the card, and each of its routes runs at least the
+        target's forward through Dense (and Conv2D) layers in ATen: K10
+        takes every one of their epilogues (the recorder's
+        ``model.bias_act_kernel`` forwards, > 0, each one K10 forward
+        launch) and the ATen chain none (``model.bias_act_plain`` 0)."""
+        profiling.reset()
         out = fn()
-        counts = {k: w.launches for k, w in (*wrappers.items(),
-                                             *others.items())}
-        counts["pmean_flat"] = tsm.pmean_flat.calls
+        counts = _launches()
+        counts["pmean_flat"] = profiling.counter("train.pmean_flat")
         fwd, plain = (profiling.counter(f"model.{k}")
                       for k in ("bias_act_kernel", "bias_act_plain"))
-        _check(0 < fwd <= counts["bias_act"] and not plain,
+        _check(0 < fwd == counts.get("dq_bias_act") and not plain,
                f"{name}: {fwd} Conv2D and Dense forwards took K10 and "
-               f"{plain} the ATen chain, and K10 launched "
-               f"{counts['bias_act']} times")
+               f"{plain} the ATen chain, and K10's forward launched "
+               f"{counts.get('dq_bias_act', 0)} times")
         for k in kernels:
-            _check(counts[k] > 0, f"{name} did not launch {k}")
+            _check(k in counts, f"{name} did not launch {k}")
         for k in absent:
-            _check(counts[k] == 0, f"{name} launched {k}")
-        for k in wrappers:
-            launches[k] += counts[k]
+            _check(k not in counts, f"{name} launched {k}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
         return out, counts
 
-    (cfg, sps, loss), head = run_path(
+    (cfg, loss), head = run_path(
         "headline loop",
         lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 20, 2),
-        ("tree_sample", "fused_group_update", "fused_collect"),
-        ("adam_update",))
+        ("dq_tree_sample", "dq_fused_update", "dq_fused_collect"),
+        ("dq_adam_update",))
     _say(f"headline loop: 131072 envs, 2^20 replay, batch 512, U="
-         f"{cfg.updates_per_iter}: {sps:.1f} env-steps/s, "
-         f"{1000.0 * cfg.env_steps_per_iter / sps:.4f} ms/iteration, loss "
-         f"{loss:.5g} | {card} | launches {head}")
-    (cfg, sps2, loss2), _ = run_path(
+         f"{cfg.updates_per_iter}, 20 iterations: loss {loss:.5g} | {card} "
+         f"| launches {head}")
+    (cfg, loss2), _ = run_path(
         "ungrouped loop", lambda: _loop(torch, dev, 128, 4096, 32, 128, 20, 4),
-        ("td_loss", "tree_sample", "fused_collect", "adam_update"))
+        ("dq_td_loss", "dq_tree_sample", "dq_fused_collect",
+         "dq_adam_update"))
     _say(f"ungrouped loop: 128 envs, batch 32, U={cfg.updates_per_iter}: "
-         f"{sps2:.1f} env-steps/s, loss {loss2:.5g} | {card}")
-    n_wide = 20
-    (cfg, sps_w, loss_w), wide = run_path(
-        "grouped plain loop", lambda: _wide_loop(torch, dev, n_wide),
-        ("td_loss", "tree_sample", "adam_update"),
-        ("fused_group_update", "fused_grads", "fused_collect"))
+         f"loss {loss2:.5g} | {card}")
+    (cfg, loss_w), wide = run_path(
+        "grouped plain loop", lambda: _wide_loop(torch, dev, 20),
+        ("dq_td_loss", "dq_tree_sample", "dq_adam_update"),
+        ("dq_fused_update", "dq_fused_grads", "dq_fused_collect"))
     U = cfg.updates_per_iter
     # U loss heads and U Adam launches (K9) in each of the eager warm-up
-    # iteration and make_segment's warm-up and capture; the n_wide replays
-    # call no wrapper
-    _check(wide["td_loss"] == wide["adam_update"] == U * 3,
-           f"grouped plain loop: K1's and K9's wrappers called "
-           f"{wide['td_loss']} and {wide['adam_update']} times, not U x "
-           f"(eager warm-up, graph warm-up, capture) = {U * 3}")
+    # iteration and make_segment's warm-up and capture; the replays call
+    # the library never
+    _check(wide["dq_td_loss"] == wide["dq_adam_update"] == U * 3,
+           f"grouped plain loop: K1 and K9 launched {wide['dq_td_loss']} and "
+           f"{wide['dq_adam_update']} times, not U x (eager warm-up, graph "
+           f"warm-up, capture) = {U * 3}")
     _say(f"grouped plain loop: 2048 envs, dueling 2-512-512-4 relu (the K3 "
-         f"and K4 plans refuse it), 2^15 PER, batch 512, U={U}: {sps_w:.1f} "
-         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_w:.4f} "
-         f"ms/iteration, loss {loss_w:.5g} | {card} | launches {wide}")
-    (cfg, sps3, loss3), rec = run_path(
+         f"and K4 plans refuse it), 2^15 PER, batch 512, U={U}: loss "
+         f"{loss_w:.5g} | {card} | launches {wide}")
+    (cfg, loss3), rec = run_path(
         "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
-        ("fused_drqn_group_update", "fused_collect_rnn"), ("adam_update",))
-    _drqn_calls(rec, "DRQN loop")
+        ("dq_fused_drqn", "dq_fused_collect_rnn"), ("dq_adam_update",))
+    _check(rec["dq_fused_collect_rnn"] == 5 and rec["dq_fused_drqn"] == 3,
+           f"DRQN loop: launches {rec}, not K6 5 and K5 3 (graph warm-ups "
+           "and captures and one eager iteration)")
     _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
          f"512, trace 8, U={cfg.updates_per_iter}, populate and 50 "
-         f"iterations as graph replays: {sps3:.1f} env-steps/s, "
-         f"{1000.0 * cfg.env_steps_per_iter / sps3:.4f} ms/iteration, loss "
-         f"{loss3:.5g} | {card} | launches {rec}")
+         f"iterations as graph replays: loss {loss3:.5g} | {card} | "
+         f"launches {rec}")
     # K4 on a second env at full width inside a loop: MountainCar at the
     # headline's shape (2 populate steps, a warm-up and 5 iterations, the
     # 5 as graph replays), with episodes cut at 4 steps so that K4 resets
     # envs within those 8 steps (the car needs ~100 steps to reach the
-    # goal). The wrappers count the 2 populate steps, the eager warm-up and
+    # goal). The counts hold the 2 populate steps, the eager warm-up and
     # make_segment's warm-up and capture
     from deepqlearning_tpu_torch import MountainCar
 
-    (cfg, sps_m, loss_m), mc = run_path(
+    (cfg, loss_m), mc = run_path(
         "MountainCar loop",
         lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 5, 2,
                       net=_dueling_net(torch, dev, 64, torch.tanh, 2, 3),
                       env=MountainCar(), max_episode_length=4),
-        ("tree_sample", "fused_group_update", "fused_collect"),
-        ("td_loss", "adam_update"))
-    _check(mc["fused_collect"] == 2 + 3 and mc["tree_sample"] == 3
-           and mc["fused_group_update"] == 3,
-           f"MountainCar loop: launches {mc}")
+        ("dq_tree_sample", "dq_fused_update", "dq_fused_collect"),
+        ("dq_td_loss", "dq_adam_update"))
+    _check(mc["dq_fused_collect"] == 2 + 3 and mc["dq_tree_sample"] == 3
+           and mc["dq_fused_update"] == 3, f"MountainCar loop: launches {mc}")
     _say(f"MountainCar loop: 131072 envs, 2^20 replay, batch 512, U="
-         f"{cfg.updates_per_iter}, dueling 2-64-64-3 tanh: {sps_m:.1f} "
-         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps_m:.4f} "
-         f"ms/iteration, loss {loss_m:.5g} | {card} | launches {mc}")
+         f"{cfg.updates_per_iter}, dueling 2-64-64-3 tanh: loss "
+         f"{loss_m:.5g} | {card} | launches {mc}")
 
     # 8. - 9. the data-parallel routes in a one-rank NCCL world
     torch.cuda.set_device(dev)
     initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
     N = 3
-    (cfg, sps4, ms4, loss4, cap4, seen4, prof4), dph = run_path(
-        "DP headline loop", lambda: _dp_loop(torch, dev, False, 20, N),
-        ("fused_grads", "tree_sample", "fused_collect"),
-        ("fused_group_update", "adam_update"))
-    U = cfg.updates_per_iter
-    # the iteration's graph is captured once: its warm-up and capture call
-    # K7's wrapper and pmean_flat U times each; the replays call none
-    _check(dph["pmean_flat"] == 2 * U == dph["fused_grads"]
-           and dph["dp_update"] == 2, f"DP headline: counts {dph}")
-    # K10: the target's forward over U·B rows, 6 Dense layers
-    want = {"fu_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
-            "tree_sample_kernel": N, "fc_kernel": N,
-            "bias_act_kernel": 6 * N}
-    _check(seen4 == want, f"DP headline: the trace of {N} replays saw "
-                          f"{seen4}, not {want}")
-    _say(f"DP headline loop (NCCL, world 1) as graph replays: 131072 envs, "
-         f"2^20 replay, batch 512, U={U}: {sps4:.1f} env-steps/s, "
-         f"{ms4:.4f} ms/iteration (non-DP headline above: {sps:.1f} "
-         f"env-steps/s, {1000.0 * cfg.env_steps_per_iter / sps:.4f} "
-         f"ms/iteration), loss {loss4:.5g}; capture {cap4:.3f} s; the trace "
-         f"of {N} replays saw {seen4}; per replay {prof4['launches']} device "
-         f"events (the graph's kernel and copy nodes), device time "
-         f"{prof4['device_ms']} ms, busy {prof4['busy']} | {card} | "
-         f"wrapper calls {dph}")
-    (cfg, sps5, ms5, loss5, cap5, seen5, prof5), dpr = run_path(
-        "DP DRQN loop", lambda: _dp_loop(torch, dev, True, 20, N),
-        ("fused_drqn_grads", "fused_collect_rnn"),
-        ("fused_drqn_group_update", "adam_update"))
-    U = cfg.updates_per_iter
-    _check(dpr["pmean_flat"] == 2 * U == dpr["fused_drqn_grads"]
-           and dpr["drqn_dp_update"] == 2, f"DP DRQN: counts {dpr}")
-    # K10: the target unroll's Dense head
-    want = {"dr_group_kernel": U * N, "dq_adam_flat_kernel": U * N,
-            "fc_rnn_kernel": N, "bias_act_kernel": N}
-    _check(seen5 == want, f"DP DRQN: the trace of {N} replays saw {seen5}, "
-                          f"not {want}")
-    _say(f"DP DRQN loop (NCCL, world 1) as graph replays: 16384 envs, "
-         f"LSTM(2,32), U={U}: {sps5:.1f} env-steps/s, {ms5:.4f} "
-         f"ms/iteration (non-DP DRQN above: {sps3:.1f} env-steps/s), loss "
-         f"{loss5:.5g}; capture {cap5:.3f} s; the trace of {N} replays saw "
-         f"{seen5}; per replay {prof5['launches']} device events, device "
-         f"time {prof5['device_ms']} ms, busy {prof5['busy']} | {card} | "
-         f"wrapper calls {dpr}")
+    for name, recurrent, update, adam, kernels, absent in (
+            ("DP headline loop", False, "dq_fused_grads", "dq_fused_adam",
+             ("dq_tree_sample", "dq_fused_collect"),
+             ("dq_fused_update", "dq_adam_update")),
+            ("DP DRQN loop", True, "dq_fused_drqn_grads", "dq_drqn_adam",
+             ("dq_fused_collect_rnn",), ("dq_fused_drqn", "dq_adam_update"))):
+        (cfg, loss, seen), dp = run_path(
+            name, lambda: _dp_loop(torch, dev, recurrent, 20, N),
+            (update, adam, *kernels), absent)
+        U = cfg.updates_per_iter
+        # the iteration's graph is captured once: its warm-up and capture
+        # launch K7 (K8) and the Adam and call pmean_flat U times each; the
+        # replays call none
+        _check(dp["pmean_flat"] == 2 * U == dp[update] == dp[adam],
+               f"{name}: counts {dp}")
+        want = {sym: v * N
+                for sym, v in _symbols(DP_ITERATION[recurrent]).items()}
+        _check(seen == want, f"{name}: the trace of {N} replays saw {seen}, "
+                             f"not {want}")
+        _say(f"{name} (NCCL, world 1) as graph replays: "
+             f"{cfg.num_envs} envs, U={U}: loss {loss:.5g}; the trace of {N} "
+             f"replays saw {seen} | {card} | launches {dp}")
     # the NCCL world stays for phase 19's data-parallel routes
 
     # 10. two gloo ranks on the one card vs the same program on the CPU
     phase_two_ranks()
 
-    # 11. solve, the users' entry point, each part with the counters from 0
+    # 11. solve, the users' entry point, each part with the recorder from 0
     phase_solve(torch, dev, card, run_path)
     # 11 (d). the CartPole solve (examples/cartpole_dqn.py)
     phase_cartpole_solve(torch, dev, card, run_path)
@@ -4296,137 +3864,49 @@ def main():
     # 11 (f). the JAX package's DRQN learning tests on the card
     phase_drqn_learning(torch, card, run_path)
 
-    # 18. envs and problems written one instance at a time, before the
-    # profiles (a profiler session can leave host costs behind it)
+    # 18. envs and problems written one instance at a time
     phase_per_instance(torch, dev, card, run_path)
 
     # 19. the compiled segment: graph replays against eager iterations on
     # each route it captures (the data-parallel ones in phase 8's NCCL
-    # world) and the evaluation's graphs, before the profiles
+    # world) and the evaluation's graphs
     phase_compiled_segment(torch, dev, card)
     dist.destroy_process_group()
 
-    # 12. the headline loop again, profiled last (a profiler session can
-    # leave per-launch host costs behind it for the loops that follow)
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), head = run_path(
-        "headline loop (profiled)",
-        lambda: _loop(torch, dev, 131072, 1 << 20, 512, 4096, 10, 2, 10),
-        ("tree_sample", "fused_group_update", "fused_collect"))
-    # one grouped call per iteration, so one K3 launch per iteration (the
-    # replaced design launched 2·U)
-    _check(per_iter.get("fu_group_kernel", (0,))[0] == 1.0,
-           f"headline loop: K3 launches per grouped call {per_iter}")
-    _say(f"headline loop, profiled: {sps:.1f} env-steps/s and {ms:.4f} "
-         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
-         f"ms/iteration (each from an idle queue); device busy share "
-         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
-         f"torch.profiler, 10 iterations); per iteration (launches, device "
-         f"ms) by kernel {per_iter} | {card} | launches {head}")
-
-    # 13. the DRQN loop again, as graph replays, profiled beside phase 12:
-    # one grouped call of U sub-updates per iteration, so one K5 launch per
-    # replay (the replaced design launched 2·U), and one K6 launch
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, tree), rec = run_path(
-        "DRQN loop (profiled)", lambda: _drqn_loop(torch, dev, 16384, 10, 10),
-        ("fused_drqn_group_update", "fused_collect_rnn"))
-    _drqn_calls(rec, "DRQN loop (profiled)")
-    for k in ("dr_group_kernel", "fc_rnn_kernel"):
-        _check(per_iter.get(k, (0,))[0] == 1.0,
-               f"DRQN loop: {k} launches per replay {per_iter}")
-    _say(f"DRQN loop, profiled: {sps:.1f} env-steps/s and {ms:.4f} "
-         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
-         f"ms/iteration (each from an idle queue); device busy share "
-         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
-         f"torch.profiler, 10 iterations, U={cfg.updates_per_iter}); per "
-         f"iteration (launches, device ms) by kernel {per_iter}; the "
-         f"sample's env draw (_weighted_env, eager) {tree[0]} launches and "
-         f"{tree[1]} device ms per draw | {card} | launches {rec}")
-
-    # 14. solve's U = 1 iteration (phase 11 (a)'s configuration), profiled
-    # beside phases 12 and 13: one K4, one K2, one K1 and one K9 per
-    # iteration
-    (cfg, sps, loss, it_ms, enq, busy, dev_ms, per_iter, _), u1 = run_path(
-        "U=1 loop (profiled)",
-        lambda: _loop(torch, dev, 4096, 1 << 18, 512, 4096, 10, 4, 10,
-                      target_update_freq=8 * 4096),
-        ("td_loss", "tree_sample", "fused_collect", "adam_update"),
-        ("fused_group_update",))
-    for k in ("td_loss_kernel", "tree_sample_kernel", "fc_kernel",
-              "adam_kernel"):
-        _check(per_iter.get(k, (0,))[0] == 1.0,
-               f"U=1 loop: {k} launches per iteration {per_iter}")
-    _say(f"U=1 loop (solve (a)'s iteration), profiled: {it_ms:.4f} "
-         f"ms/iteration over 10 iterations; host enqueue {enq:.4f} "
-         f"ms/iteration (each from an idle queue); device busy share "
-         f"{busy:.4f} and device time {dev_ms:.4f} ms/iteration (under "
-         f"torch.profiler, 10 iterations); per iteration (launches, device "
-         f"ms) by kernel {per_iter} | {card} | launches {u1}")
-
-    # 15. the grouped plain loop (path of phase 6) profiled the same way:
-    # U = 4 K1 launches, U = 4 K9 launches and one K2 launch per iteration
-    (cfg, sps, loss, ms, enq, busy, dev_ms, per_iter, _), wide = run_path(
-        "grouped plain loop (profiled)",
-        lambda: _wide_loop(torch, dev, 10, 10),
-        ("td_loss", "tree_sample", "adam_update"),
-        ("fused_group_update", "fused_grads", "fused_collect"))
-    _check(per_iter.get("td_loss_kernel", (0,))[0] == cfg.updates_per_iter
-           and per_iter.get("adam_kernel", (0,))[0] == cfg.updates_per_iter
-           and per_iter.get("tree_sample_kernel", (0,))[0] == 1.0,
-           f"grouped plain loop: launches per iteration {per_iter}")
-    _say(f"grouped plain loop, profiled: {sps:.1f} env-steps/s and "
-         f"{ms:.4f} ms/iteration over 10 iterations; host enqueue "
-         f"{enq:.4f} ms/iteration (each from an idle queue); device busy "
-         f"share {busy:.4f} and device time {dev_ms:.4f} ms/iteration "
-         f"(under torch.profiler, 10 iterations, U={cfg.updates_per_iter}); "
-         f"per iteration (launches, device ms) by kernel {per_iter} | "
-         f"{card} | launches {wide}")
-
-    # 16. the CartPole solve's loop profiled the same way: K4 (CartPole),
-    # K2 and K3 exactly once per iteration
-    (enq, busy, dev_ms, per_iter, _), cp = run_path(
-        "CartPole loop (profiled)", lambda: _cartpole_loop(torch, dev, 40),
-        ("fused_collect", "tree_sample", "fused_group_update"), ("td_loss",))
-    for k in ("fc_kernel", "tree_sample_kernel", "fu_group_kernel"):
-        _check(per_iter.get(k, (0,))[0] == 1.0,
-               f"CartPole loop: {k} launches per iteration {per_iter}")
-    _say(f"CartPole loop (the CartPole solve's iteration: 256 envs, U=16, "
-         f"B=256), profiled: host enqueue {enq:.4f} ms/iteration (each from "
-         f"an idle queue); device busy share {busy:.4f} and device time "
-         f"{dev_ms:.4f} ms/iteration (under torch.profiler, 20 iterations); "
-         f"per iteration (launches, device ms) by kernel {per_iter} | "
-         f"{card} | launches {cp}")
-
-    # 17. the conv solve's loop profiled, and conv_bench's loop in bf16
-    # and f32
-    phase_conv_profile(torch, dev, card, run_path)
-    # 18 (profiles). the per-instance env's loop and the built-in env's
-    # plain loop, profiled
-    phase_per_instance_profile(torch, dev, card, run_path)
-
+    # each kernel's entry points, source and the TPU kernel it replaces
     src = {
-        "td_loss": ("deepqlearning_tpu_torch/csrc/td_kernel.cu",
+        "td_loss": (("dq_td_loss",),
+                    "deepqlearning_tpu_torch/csrc/td_kernel.cu",
                     "deepqlearning_tpu/ops/pallas/td_kernel.py:72"),
-        "tree_sample": ("deepqlearning_tpu_torch/csrc/tree_sample.cu",
+        "tree_sample": (("dq_tree_sample",),
+                        "deepqlearning_tpu_torch/csrc/tree_sample.cu",
                         "deepqlearning_tpu/ops/pallas/tree_sample.py:195"),
         "fused_group_update": (
+            ("dq_fused_update",),
             "deepqlearning_tpu_torch/csrc/fused_update.cu",
             "deepqlearning_tpu/ops/pallas/fused_update.py:421"),
-        "fused_collect": ("deepqlearning_tpu_torch/csrc/fused_collect.cu",
+        "fused_collect": (("dq_fused_collect",),
+                          "deepqlearning_tpu_torch/csrc/fused_collect.cu",
                           "deepqlearning_tpu/ops/pallas/fused_collect.py:434"),
         "fused_drqn_group_update": (
-            "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
+            ("dq_fused_drqn",), "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
             "deepqlearning_tpu/ops/pallas/fused_drqn.py:662"),
         "fused_collect_rnn": (
+            ("dq_fused_collect_rnn",),
             "deepqlearning_tpu_torch/csrc/fused_collect.cu",
             "deepqlearning_tpu/ops/pallas/fused_collect.py:434"),
-        "fused_grads": ("deepqlearning_tpu_torch/csrc/fused_update.cu",
+        "fused_grads": (("dq_fused_grads", "dq_fused_adam"),
+                        "deepqlearning_tpu_torch/csrc/fused_update.cu",
                         "deepqlearning_tpu/ops/pallas/fused_update.py:575"),
         "fused_drqn_grads": (
+            ("dq_fused_drqn_grads", "dq_drqn_adam"),
             "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
             "deepqlearning_tpu/ops/pallas/fused_drqn.py:773"),
-        "adam_update": ("deepqlearning_tpu_torch/csrc/adam.cu",
+        "adam_update": (("dq_adam_update",),
+                        "deepqlearning_tpu_torch/csrc/adam.cu",
                         "none: optax's Adam, fused by XLA on the TPU"),
-        "bias_act": ("deepqlearning_tpu_torch/csrc/bias_act.cu",
+        "bias_act": (("dq_bias_act", "dq_bias_act_grad"),
+                     "deepqlearning_tpu_torch/csrc/bias_act.cu",
                      "none: XLA fuses the epilogue into the product on the "
                      "TPU"),
     }
@@ -4455,9 +3935,10 @@ def main():
                            "(every Conv2D and Dense layer's epilogue on the "
                            "card, forward and backward)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
-                    source=src[k][0], replaces=src[k][1],
-                    launches=launches[k], **results[k], library_ms=None)
-               for k in wrappers]
+                    source=source, replaces=replaces,
+                    launches=sum(launches.get(e, 0) for e in entries),
+                    **results[k], library_ms=None)
+               for k, (entries, source, replaces) in src.items()]
     # 19 (e), last: a capture that fails raises (nothing runs after it)
     _say(f"compiled segment: a select_fn with a host read makes solve "
          f"raise: {_capture_failure(torch)[:300]!r}")

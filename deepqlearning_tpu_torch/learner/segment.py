@@ -67,10 +67,10 @@ right after the capture and requires it to equal the warm-up iteration bit
 for bit (every carry tensor and the generator's state), and raises, naming
 the route, where it does not.
 
-Launch counts: a kernel wrapper counts a launch where Python calls it, so
-the warm-up and the capture count one each and the replays none (they
-launch no Python). What a graph route launches is the recorder's
-(``utils/profiling.py``) ``segment.replays`` times
+Launch counts: the recorder's ``kernels.launches`` counts a launch where
+Python calls the kernel library, so the warm-up and the capture count one
+each and the replays none (they launch no Python). What a graph route
+launches is the recorder's (``utils/profiling.py``) ``segment.replays`` times
 ``segment.graph_nodes`` for the route: the nodes of the captured
 iteration, counted by type at every capture (``segment.graph_nodes.
 kernel``, ...), with no profiler.

@@ -45,6 +45,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..ops.helpers import flatten, huber_loss, select_action, unflatten
+from ..utils import profiling
 
 
 class TrainResult(NamedTuple):
@@ -162,11 +163,11 @@ def pmean_flat(grads, axis_name):
     ``all_reduce(SUM)`` over each in order, then divide by the product of
     their sizes (the hierarchical mode of the JAX ``pmean_flat``). The
     collective is issued even over a group of one; the reduction runs in
-    f32 and each gradient comes back in its own dtype.
-    ``pmean_flat.calls`` counts the calls."""
+    f32 and each gradient comes back in its own dtype. The recorder's
+    ``train.pmean_flat`` counts the calls."""
     import torch.distributed as dist
 
-    pmean_flat.calls += 1
+    profiling.count("train.pmean_flat")
     flat = grads if isinstance(grads, torch.Tensor) else flatten(grads, grads)
     n = 1
     for g in _groups(axis_name):
@@ -175,9 +176,6 @@ def pmean_flat(grads, axis_name):
     flat.div_(n)
     return flat if isinstance(grads, torch.Tensor) else unflatten(
         flat, grads, grads)
-
-
-pmean_flat.calls = 0
 
 
 def _make_batch_update(network, buffer, gamma, double_q, optimizer,

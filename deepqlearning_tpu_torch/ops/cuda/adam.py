@@ -22,10 +22,11 @@ in a workspace of ``1 + AD_MAXB`` ints per device that the optimizer keeps
 partials), so one optimizer's calls on a device must not overlap on two
 streams.
 
-Counts: ``adam_update.launches`` (K9 launches: one per call up to
-``AD_MAXT`` tensors) and the recorder's ``train.adam_kernel`` (calls that
-launched K9) and ``train.adam_plain`` (calls of the twin); inside a CUDA
-graph they count the warm-up and the capture, not the replays.
+Counts: the recorder's ``kernels.launches`` under ``dq_adam_update`` (K9
+launches, ``build.py``: one per call up to ``AD_MAXT`` tensors),
+``train.adam_kernel`` (calls that launched K9) and ``train.adam_plain``
+(calls of the twin); inside a CUDA graph they count the warm-up and the
+capture, not the replays.
 """
 from __future__ import annotations
 
@@ -176,9 +177,5 @@ def adam_update(opt, grads, state, params) -> torch.Tensor:
             stream)
         build.check(err, "adam_update")
         base += grid
-    adam_update.launches += len(tabs)
     profiling.count("train.adam_kernel")
     return gnorm
-
-
-adam_update.launches = 0

@@ -22,8 +22,9 @@ backward's bias sum meets in a ticket of one int that the forward's launch
 zeroes for it, one per forward call that may need a bias gradient, so no
 two launches share one.
 
-Counts: ``bias_act.launches`` (K10 launches, forward and backward) and the
-recorder's ``model.bias_act_kernel`` (forward calls that launched K10) and
+Counts: the recorder's ``kernels.launches`` under ``dq_bias_act`` and
+``dq_bias_act_grad`` (K10's forward and backward launches, ``build.py``),
+``model.bias_act_kernel`` (forward calls that launched K10) and
 ``model.bias_act_plain`` (forward calls of the ATen chain); inside a CUDA
 graph they count the warm-up and the capture, not the replays.
 """
@@ -155,7 +156,6 @@ class _BiasAct(torch.autograd.Function):
             out.data_ptr(), KINDS[dtype], _ptr(ctx.ticket), code, M, C,
             int(vec > 1), tx, ty, grid, build.stream_ptr(y.device))
         build.check(err, "bias_act")
-        bias_act.launches += 1
         ctx.shape, ctx.code, ctx.y_dtype = (M, C), code, y.dtype
         if code == 2 and dtype != torch.float32:
             ctx.code = 3  # tanh recomputed from the product and the bias
@@ -187,7 +187,6 @@ class _BiasAct(torch.autograd.Function):
             _ptr(ctx.ticket if need_b else None), _ptr(db), _bias_kind(db),
             code, M, C, int(vec > 1), tx, ty, grid, build.stream_ptr(dev))
         build.check(err, "bias_act backward")
-        bias_act.launches += 1
         return dy, db, None, None
 
 
@@ -197,6 +196,3 @@ def bias_act(y, b, act, dtype):
     out = _BiasAct.apply(y, b, act, dtype)
     profiling.count("model.bias_act_kernel")
     return out
-
-
-bias_act.launches = 0

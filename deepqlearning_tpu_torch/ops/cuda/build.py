@@ -9,6 +9,14 @@ launch function returns ``cudaGetLastError()``, which :func:`check` turns
 into an exception. A failed build raises; nothing falls back to the plain
 PyTorch versions.
 
+Every call of an entry point that launches work (all but the
+``*_max_grid`` queries) adds 1 to the recorder's counter
+``kernels.launches`` under the entry point's name (``dq_td_loss``,
+``dq_fused_grads``, ...): the one count of the port's kernel launches.
+Each entry point launches at most one kernel. It counts Python calls, so
+inside a CUDA graph the warm-up and the capture count and the replays do
+not; the recorder's ``enabled = False`` stops it too.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
 """
@@ -251,9 +259,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if not name.endswith("_max_grid"):
+            setattr(lib, name, _counted(name, fn))
     lib.dq_error_string.argtypes = [ctypes.c_int]
     lib.dq_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _counted(name: str, fn):
+    """``fn``, adding 1 to ``kernels.launches`` under ``name`` per call."""
+    from ...utils import profiling
+
+    def launch(*args):
+        profiling.count("kernels.launches", 1, name)
+        return fn(*args)
+
+    return launch
 
 
 def check(err: int, what: str) -> None:

@@ -399,12 +399,8 @@ def fused_collect_cuda(env, plan: CollectPlan, params, *, obs, state,
         state_out.data_ptr(), ep_step_out.data_ptr(), ep_ret_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))
     build.check(err, "fused_collect")
-    fused_collect_cuda.launches += 1
     return (fields, obs_out, state_out, ep_step_out, ep_ret_out,
             partials.sum(dim=0))
-
-
-fused_collect_cuda.launches = 0
 
 
 def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
@@ -454,12 +450,8 @@ def fused_collect_rnn_cuda(env, plan: CollectPlan, params, *, obs, state,
         ep_step_out.data_ptr(), ep_ret_out.data_ptr(), nstate_out.data_ptr(),
         partials.data_ptr(), build.stream_ptr(dev))
     build.check(err, "fused_collect (recurrent)")
-    fused_collect_rnn_cuda.launches += 1
     return (fields, obs_out, state_out, ep_step_out, ep_ret_out,
             partials.sum(dim=0), nstate_out)
-
-
-fused_collect_rnn_cuda.launches = 0
 
 
 def eps_tensor(eps, device) -> torch.Tensor:

@@ -527,12 +527,8 @@ def fused_drqn_group_update_cuda(plan: DRQNPlan, params, m, v, count, obs,
         loss.data_ptr(), gnorm.data_ptr(), stage.data_ptr(),
         _ptr(_act_scratch(plan, T, grid, dev)), grid, build.stream_ptr(dev))
     build.check(err, "fused_drqn_group_update")
-    fused_drqn_group_update_cuda.launches += 1
     count.add_(U)
     return loss, gnorm
-
-
-fused_drqn_group_update_cuda.launches = 0
 
 
 def fused_drqn_group_update(plan: DRQNPlan, params, m, v, count, obs, nobs,
@@ -590,11 +586,7 @@ def fused_drqn_grads_cuda(plan: DRQNPlan, params, obs, nobs, action, reward,
         flat.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
         _ptr(_act_scratch(plan, T, grid, dev)), grid, build.stream_ptr(dev))
     build.check(err, "fused_drqn_grads")
-    fused_drqn_grads_cuda.launches += 1
     return flat, loss, gnorm
-
-
-fused_drqn_grads_cuda.launches = 0
 
 
 def _check_windows(n, obs, nobs, action, reward, done, mask, q_sp_tgt):
@@ -681,18 +673,13 @@ def fused_drqn_dp_group_update_cuda(plan: DRQNPlan, params, m, v, count,
             *scratch, *(base + u * step for base, step in per_u), act, grid,
             stream)
         build.check(err, "fused_drqn_grads")
-        fused_drqn_grads_cuda.launches += 1
         reduce(flat[u])
         err = lib.dq_drqn_adam(d, P, M, V, cnt, u, per_u[0][0] +
                                u * per_u[0][1], lr, b1, b2, adam_eps,
                                g_out + 4 * u, stream)
         build.check(err, "fused_drqn_dp_group_update (Adam)")
-    fused_drqn_dp_group_update_cuda.launches += 1
     count.add_(U)
     return loss[U - 1], gnorm[U - 1]
-
-
-fused_drqn_dp_group_update_cuda.launches = 0
 
 
 def fused_drqn_dp_group_update(plan: DRQNPlan, params, m, v, count, obs,

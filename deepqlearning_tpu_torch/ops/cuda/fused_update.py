@@ -447,12 +447,8 @@ def fused_group_update_cuda(plan: FusedPlan, params, m, v, count, obs, nobs,
         part_loss.data_ptr(), loss.data_ptr(), gnorm.data_ptr(),
         stage.data_ptr(), launch_grid(plan, B, dev), build.stream_ptr(dev))
     build.check(err, "fused_group_update")
-    fused_group_update_cuda.launches += 1
     count.add_(U)
     return td.view(U, B), prio.view(U, B), loss, gnorm
-
-
-fused_group_update_cuda.launches = 0
 
 
 def fused_group_update(plan: FusedPlan, params, m, v, count, obs, nobs,
@@ -541,11 +537,7 @@ def fused_grads_cuda(plan: FusedPlan, params, obs_s, obs_sp, action, reward,
         part_loss.data_ptr(), flat.data_ptr(), loss.data_ptr(),
         gnorm.data_ptr(), launch_grid(plan, B, dev), build.stream_ptr(dev))
     build.check(err, "fused_grads")
-    fused_grads_cuda.launches += 1
     return flat, td, prio, loss, gnorm
-
-
-fused_grads_cuda.launches = 0
 
 
 def fused_grads(plan: FusedPlan, params, obs_s, obs_sp, action, reward, done,
@@ -654,18 +646,13 @@ def fused_dp_group_update_cuda(plan: FusedPlan, params, m, v, count, obs,
                                  *(base + u * step for base, step in per_u),
                                  grid, stream)
         build.check(err, "fused_grads")
-        fused_grads_cuda.launches += 1
         reduce(flat[u])
         err = lib.dq_fused_adam(d, P, M, V, cnt, u, per_u[0][0] +
                                 u * per_u[0][1], lr, b1, b2, adam_eps,
                                 g_out + 4 * u, stream)
         build.check(err, "fused_dp_group_update (Adam)")
-    fused_dp_group_update_cuda.launches += 1
     count.add_(U)
     return td.view(U, B), prio.view(U, B), loss[U - 1], gnorm[U - 1]
-
-
-fused_dp_group_update_cuda.launches = 0
 
 
 def fused_dp_group_update(plan: FusedPlan, params, m, v, count, obs, nobs,

@@ -81,11 +81,7 @@ def td_loss_cuda(q_s, q_sp_online, q_sp_target, action, reward, done,
         int(bool(double_q)), loss.data_ptr(), td.data_ptr(), prio.data_ptr(),
         grad.data_ptr(), build.stream_ptr(q_s.device))
     build.check(err, "td_loss")
-    td_loss_cuda.launches += 1
     return loss, td, prio, grad
-
-
-td_loss_cuda.launches = 0
 
 
 def empty_cuda(device, B: int) -> None:
@@ -97,10 +93,6 @@ def empty_cuda(device, B: int) -> None:
         raise ValueError(f"the empty kernel runs on CUDA, not {device}")
     err = build.library().dq_empty(B, build.stream_ptr(device))
     build.check(err, "empty")
-    empty_cuda.launches += 1
-
-
-empty_cuda.launches = 0
 
 
 class _TDLoss(torch.autograd.Function):

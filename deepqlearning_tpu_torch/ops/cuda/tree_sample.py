@@ -115,11 +115,7 @@ def tree_sample_cuda(tree, mass, n_batches: int = 1):
         _levels(key), mass.data_ptr(), D, n_batches, idx.data_ptr(),
         prio.data_ptr(), build.stream_ptr(mass.device))
     build.check(err, "tree_sample")
-    tree_sample_cuda.launches += 1
     return idx, prio
-
-
-tree_sample_cuda.launches = 0
 
 
 def tree_sample(tree, mass, n_batches: int = 1):

@@ -23,8 +23,13 @@ as plain Python values and ``reset()`` empties it.
 No span may sit inside code that a CUDA graph captures: host code there
 runs once, at capture, and never on a replay.
 
+The port's kernel launches are counted here too, once, where the kernel
+library is bound (``ops/cuda/build.py``): ``kernels.launches`` keyed by
+the C entry point (``dq_td_loss``, ``dq_fused_update``, ...).
+
 ``enabled`` (module flag) turns all recording off, for tests and for
-measuring what recording costs; it is not a setting of the solver.
+measuring what recording costs, and with it the launch count; it is not a
+setting of the solver.
 
 ``trace(logdir)`` records a ``torch.profiler`` trace (host, and the card's
 kernels when CUDA is available) into ``logdir`` for TensorBoard or

@@ -321,7 +321,8 @@ def test_segment_puts_the_epilogue_routes_of_an_iteration():
     assert counters["segment.layer_calls.bias_act_kernel"][
         "k10 segment"] == 0
     assert profiling.counter("model.bias_act_plain") - before == 2 * 18 * 5
-    assert k10.bias_act.launches == 0
+    assert sum(profiling.counter("kernels.launches", e)
+               for e in ("dq_bias_act", "dq_bias_act_grad")) == 0
 
 
 class _CountBackward(torch.autograd.Function):
@@ -339,8 +340,9 @@ class _CountBackward(torch.autograd.Function):
 
 # ``chip_smoke.py`` phase 19's single-card routes at full width (its
 # data-parallel routes need a process group)
-SMOKE_ROUTES = ["headline", "U=1", "grouped plain", "conv", "CartPole",
-                "DRQN", "DRQN plain", "per-instance GridWorld",
+SMOKE_ROUTES = ["headline", "U=1", "grouped plain", "conv", "conv f32",
+                "CartPole", "DRQN", "DRQN plain", "per-instance GridWorld",
+                "built-in GridWorld, plain collect",
                 "per-instance MiniPOMDP DRQN"]
 
 
@@ -350,7 +352,8 @@ def test_smoke_routes_epilogues_per_iteration(route, monkeypatch):
     route's graph replays to: the routes run the same layers on the CPU
     (the kernel wrappers' twins), so an iteration's epilogue forwards
     (``model.bias_act_plain`` here) and the backwards of those epilogues
-    are its K10 forward and backward launches on the card."""
+    are its K10 forward and backward launches on the card, the table's
+    entry points ``dq_bias_act`` and ``dq_bias_act_grad``."""
     import chip_smoke
 
     plain = k10.bias_act_plain
@@ -368,8 +371,8 @@ def test_smoke_routes_epilogues_per_iteration(route, monkeypatch):
     _CountBackward.calls = 0
     it(c)
     assert (profiling.counter("model.bias_act_plain") - before,
-            _CountBackward.calls) == (per_iter["bias_act"],
-                                      per_iter.get("bias_act_grad", 0))
+            _CountBackward.calls) == (per_iter["dq_bias_act"],
+                                      per_iter.get("dq_bias_act_grad", 0))
 
 
 # -------------------------------------------------------------------- card
@@ -448,12 +451,15 @@ def _bias_close(ours, want, dz):
                          ids=[f"{c[0]}-{c[4]}" for c in CASES])
 def test_k10_equals_twin_eager(card, name, shape, yd, od, act):
     y, b, g = _case(shape, yd, od, card)
-    launches = k10.bias_act.launches
+    entries = ("dq_bias_act", "dq_bias_act_grad")
+    launches = [profiling.counter("kernels.launches", e) for e in entries]
     out, dy, db = _run(k10.bias_act, y, b, ACTS[act], DTYPES[od], g)
     w_out, w_dy, w_db = _run(k10.bias_act_plain, y, b, ACTS[act],
                              DTYPES[od], g)
     torch.cuda.synchronize()
-    assert k10.bias_act.launches == launches + 2
+    # one forward and one backward launch
+    assert [profiling.counter("kernels.launches", e)
+            for e in entries] == [n + 1 for n in launches]
     _bits([out, dy], [w_out, w_dy])
     _bias_close(db, w_db, w_dy.float())
     counters = profiling.snapshot()["counters"]

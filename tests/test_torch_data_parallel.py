@@ -212,9 +212,10 @@ def test_build_loop_routes_under_axis(world_of_one, monkeypatch, recurrent,
     over the axis. Every sub-update issues one ``pmean_flat``, even over a
     group of one rank."""
     import deepqlearning_tpu_torch as dt
-    from deepqlearning_tpu_torch.learner import loop, train_step
+    from deepqlearning_tpu_torch.learner import loop
     from deepqlearning_tpu_torch.ops.cuda import (
         fused_drqn, fused_update, td_kernel)
+    from deepqlearning_tpu_torch.utils import profiling
 
     calls = []
     _spy(monkeypatch, loop, factory, calls)
@@ -244,10 +245,10 @@ def test_build_loop_routes_under_axis(world_of_one, monkeypatch, recurrent,
     c = loop.populate(pop, buf, loop.init_carry(env, net, buf, cfg, opt,
                                                 device="cpu"), 6)
     calls.clear()
-    n0 = train_step.pmean_flat.calls
+    n0 = profiling.counter("train.pmean_flat")
     c = it(c)
     assert torch.isfinite(c.loss) and int(c.opt_state.count) == 2
-    assert train_step.pmean_flat.calls - n0 == 2  # U = 2 sub-updates
+    assert profiling.counter("train.pmean_flat") - n0 == 2  # U = 2 sub-updates
     assert "fused_group_update_plain" not in calls
     assert "fused_drqn_group_update_plain" not in calls
     if kernel is not None:

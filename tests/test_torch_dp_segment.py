@@ -29,7 +29,6 @@ from torch.utils._pytree import tree_flatten  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import deepqlearning_tpu_torch as dt  # noqa: E402
-from deepqlearning_tpu_torch.learner import train_step  # noqa: E402
 from deepqlearning_tpu_torch.learner.segment import (  # noqa: E402
     collect_body, graph_route, nccl_groups)
 from deepqlearning_tpu_torch.parallel.launch import free_port  # noqa: E402
@@ -37,6 +36,7 @@ from deepqlearning_tpu_torch.parallel.mesh import (  # noqa: E402
     DataParallelRunner, make_mesh)
 from deepqlearning_tpu_torch.parallel.multihost import hybrid_mesh  # noqa: E402
 from deepqlearning_tpu_torch.solver import evaluation as ev  # noqa: E402
+from deepqlearning_tpu_torch.utils import profiling  # noqa: E402
 
 from test_torch_compiled_segment import NoHostRead  # noqa: E402
 
@@ -100,12 +100,12 @@ def test_no_host_read_in_a_dp_iteration(world_of_one, kind):
     U = runner.cfg.updates_per_iter
     iteration = (runner._synced_iteration if local_sgd
                  else runner._iteration)
-    n0 = train_step.pmean_flat.calls
+    n0 = profiling.counter("train.pmean_flat")
     with NoHostRead():
         c = collect_body(runner._populate_step)(c)
         c = iteration(c)
     # U gradient all-reduces, and local SGD's average of params, m and v
-    assert train_step.pmean_flat.calls - n0 == U + local_sgd
+    assert profiling.counter("train.pmean_flat") - n0 == U + local_sgd
     assert all(isinstance(x, (torch.Tensor, torch.Generator))
                for x in tree_flatten(c)[0])
     assert int(c.iters) == 2 and bool(torch.isfinite(c.loss))

@@ -160,7 +160,7 @@ def test_loop_trains_without_replacement():
     bypasses the stratified descent (K2)."""
     import deepqlearning_tpu_torch as dt
     from deepqlearning_tpu_torch.learner.loop import build_loop
-    from deepqlearning_tpu_torch.ops.cuda import tree_sample
+    from deepqlearning_tpu_torch.utils import profiling
 
     env = dt.SimpleGridWorld()
     net = dt.create_dueling_network(dt.Chain(
@@ -174,8 +174,8 @@ def test_loop_trains_without_replacement():
     c = dt.init_carry(env, net, buf, cfg, opt, device="cpu")
     cc = pop((c.actor, c.replay, c.params), c.generator)
     c = c._replace(actor=cc[0], replay=cc[1])
-    before = tree_sample.tree_sample_cuda.launches
+    before = profiling.counter("kernels.launches", "dq_tree_sample")
     for _ in range(2):
         c = it(c)
     assert np.isfinite(float(c.loss)) and c.replay.size == 192
-    assert tree_sample.tree_sample_cuda.launches == before
+    assert profiling.counter("kernels.launches", "dq_tree_sample") == before

@@ -255,7 +255,7 @@ def _dp_runner(dev, kind, dcn_sync_every=1):
                                     ("headline", 2)])
 def test_dp_graphs_replay_eager_iterations(nccl_world, kind, k):
     from deepqlearning_tpu_torch.learner.segment import CompiledSegment
-    from deepqlearning_tpu_torch.ops.cuda import fused_drqn, fused_update
+    from deepqlearning_tpu_torch.utils import profiling
 
     runner = _dp_runner(nccl_world, kind, k)
     assert runner.graphed
@@ -263,13 +263,13 @@ def test_dp_graphs_replay_eager_iterations(nccl_world, kind, k):
     c = runner.run_populate(runner.init_carry(0), n_pop)
     c = runner._iteration(c)  # fills the replay past a batch; iters = 1
     e = _clone(c)
-    wrapper = (fused_drqn.fused_drqn_grads_cuda if kind == "drqn"
-               else fused_update.fused_grads_cuda)
-    wrapper.launches = 0
+    entry = "dq_fused_drqn_grads" if kind == "drqn" else "dq_fused_grads"
+    n0 = profiling.counter("kernels.launches", entry)
     c = runner.run_segment(c, 3)
     U = runner.cfg.updates_per_iter
-    # warm-up and capture of each graph call the wrapper; replays do not
-    assert wrapper.launches == 2 * U * (2 if k > 1 else 1)
+    # warm-up and capture of each graph launch K7 / K8; replays do not
+    assert (profiling.counter("kernels.launches", entry) - n0
+            == 2 * U * (2 if k > 1 else 1))
     assert all(isinstance(g, CompiledSegment)
                for g in runner._graphs.values())
     for _ in range(3):
