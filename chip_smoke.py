@@ -10,7 +10,7 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 2. build: compiles the kernel library, prints the seconds; then the
    replay buffers and ``init_carry`` built with no ``device`` argument must
    hold their tensors on the card;
-3. kernels: each kernel (K1-K10) against its plain PyTorch twin on the
+3. kernels: each kernel (K1-K11) against its plain PyTorch twin on the
    card, at the main paths' shapes, with stated tolerances, both times and
    the kernel's bound (the least time for the same bytes or FLOPs on the
    card) and its share of it (K3/K5 also against the tile-order reference
@@ -33,7 +33,12 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
    K10, the layers' epilogue, forward and backward at the Nature and
    IMPALA cells' shapes, output and product cotangent bit for bit, bias
    gradient within f32 reassociation, beside the twin eager and both as
-   one graph replay);
+   one graph replay; K11, the DRQN target net's Q(s'), at the
+   ``grid_drqn.learner`` cell's 2048 windows of 8 steps and on three other
+   nets (GRU, Dense before the cell, two-layer heads, an odd window
+   count, a 64-step trace), within f32 reassociation, two calls and ten
+   graph replays bit for bit, beside the twin eager and as one graph
+   replay);
    then K1 (B = 32, 512, 4096, and the conv route's), K2 (also the conv
    route's), K4 and K6 (each env), K7, K8, K9 and K10 (forward and
    backward) timed by their device events alone, beside their wrappers'
@@ -55,7 +60,8 @@ It builds the hand-written kernels from ``deepqlearning_tpu_torch/csrc``
 7. DRQN loop: ``scripts/drqn_bench.py``'s configuration (16384 envs,
    LSTM(2, 32), episode replay, batch 512, trace 8, U = 4), populate and
    the iterations as graph replays (the library called by the graphs'
-   warm-ups and captures and one eager warm-up only: K6 5, K5 3); then
+   warm-ups and captures and one eager warm-up only: K6 5, K5 and K11
+   3); then
    MountainCar at the headline's shape (131072 envs, 2^20 PER, batch 512,
    U = 32, dueling 2-64-64-3; episodes cut at 4 steps): K4 on a second env
    inside a loop;
@@ -964,6 +970,73 @@ def phase_bias_act_kernel(torch, dev, results):
                                **by["IMPALA 32x84x84x16 relu"], by_shape=by)
 
 
+def phase_drqn_target_kernel(torch, dev, results):
+    """K11 (``ops/cuda/fused_drqn.py::drqn_target_q``) against its plain
+    twin (the network's ATen unroll) on ``kernel_events.drqn_target_nets``:
+    equal within f32 sums in another order (rtol 1e-5, atol 1e-5 of
+    max(1, |Q|)), two calls and ten replays of one captured CUDA graph bit
+    for bit; then, by CUDA events, the wrapper, K11 as 20 launches in one
+    graph (per launch), the twin eager and as the replay of one graph (the
+    ATen chain as the DRQN graphs ran it before K11); the bound:
+    2·N·T·macs at the FP32 rate, or the next obs and parameters read and Q
+    written once at 3.35 TB/s. K11's device time follows in phase 3's
+    device events."""
+    from deepqlearning_tpu_torch.ops.cuda import fused_drqn as fd
+    from deepqlearning_tpu_torch.ops.cuda.kernel_events import (
+        drqn_target_inputs, drqn_target_nets)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    by, worst = {}, 0.0
+    for name in drqn_target_nets(torch, dev):
+        plan, net, params, nobs = drqn_target_inputs(torch, dev, g, name)
+        N, T = nobs.shape[0], nobs.shape[1]
+        q = fd.drqn_target_q_cuda(plan, params, nobs)
+        p = fd.drqn_target_q_plain(net, params, nobs)
+        scale = max(1.0, float(p.abs().max()))
+        err = _close(q, p, 1e-5, 1e-5 * scale, f"K11 {name}")
+        worst = max(worst, err / scale)
+        _check(torch.equal(q, fd.drqn_target_q_cuda(plan, params, nobs)),
+               f"K11 {name}: two calls differ")
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fd.drqn_target_q_cuda(plan, params, nobs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.cuda.graph(graph):
+            out = fd.drqn_target_q_cuda(plan, params, nobs)
+        for _ in range(10):
+            out.zero_()
+            graph.replay()
+            _check(torch.equal(out, q), f"K11 {name}: a replay differs")
+        del graph
+        ms = _time_ms(lambda: fd.drqn_target_q_cuda(plan, params, nobs),
+                      100)
+        gms = _graph_ms(torch, dev, lambda: [fd.drqn_target_q_cuda(
+            plan, params, nobs) for _ in range(20)]) / 20
+        pms = _time_ms(lambda: fd.drqn_target_q_plain(net, params, nobs),
+                       20)
+        pgms = _graph_ms(torch, dev,
+                         lambda: fd.drqn_target_q_plain(net, params, nobs))
+        cp = plan.cell
+        macs = _macs(plan.dense) + (cp.in_dim + cp.hidden) * cp.n_gates \
+            * cp.hidden
+        nbytes = _nbytes(nobs, q, params)
+        bms, bound_by = _bound(nbytes, 2 * N * T * macs)
+        by[name] = dict(windows=N, T=T, bytes=nbytes, ms=ms, graph_ms=gms,
+                        plain_ms=pms, plain_graph_ms=pgms, bound_ms=bms,
+                        bound_by=bound_by)
+        _say(f"K11 drqn_target_q {name} ({N} windows of {T} steps): within "
+             f"{err:.3g} of the twin (max |Q| {scale:.3g}), two calls and "
+             f"10 graph replays bit for bit | "
+             + _kernel_line("K11", gms, pms, bms, bound_by)
+             + f"; the wrapper eager {ms:.4f} ms, the twin as one graph "
+               f"replay {pgms:.4f} ms")
+    results["drqn_target"] = dict(
+        max_abs_err=worst, **by["LSTM32 dueling (grid_drqn.learner)"],
+        by_net=by)
+
+
 def phase_kernels(torch, dev, results):
     from deepqlearning_tpu_torch import (
         Chain, Dense, Flatten, create_dueling_network)
@@ -1441,7 +1514,8 @@ def phase_recurrent_kernels(torch, dev, g, results):
 
 def phase_device_events(results):
     """K1 (B = 512, the ungrouped loop's B = 32, and 4096), K2, K4 and K6
-    (on each env they step), K7 and K8 timed by their device events alone (``ops/cuda/kernel_events.py``:
+    (on each env they step), K7, K8, K9, K10 and K11 timed by their device
+    events alone (``ops/cuda/kernel_events.py``:
     the kernel's launches under ``torch.profiler``, matched by name) beside
     their wrappers' CUDA-event times: for a kernel this short the wrapper's
     time is the host's enqueue of the next call, not the kernel. The share
@@ -1506,6 +1580,9 @@ def phase_device_events(results):
         rows[f"K10 bias_act_grad {name}"] = (("bias_act", name),
                                              "grad_device_ms",
                                              r["bwd_bound_ms"])
+    for name, r in results["drqn_target"]["by_net"].items():
+        rows[f"K11 drqn_target_q {name}"] = (("drqn_target", name),
+                                             "device_ms", r["bound_ms"])
     _check(set(measured) == set(rows),
            f"kernel_events measured {sorted(measured)}")
     for name, r in measured.items():
@@ -1516,6 +1593,8 @@ def phase_device_events(results):
                  if key[0] == "adam_update" else
                  results[key[0]]["by_shape"][key[1]]
                  if key[0] == "bias_act" else
+                 results[key[0]]["by_net"][key[1]]
+                 if key[0] == "drqn_target" else
                  results[key[0]]["by_env"][key[1]])
         entry[field] = r["device_ms"]
         tail = ("the launch floor" if bound is None else
@@ -1543,6 +1622,9 @@ def phase_device_events(results):
     main = k10["by_shape"]["IMPALA 32x84x84x16 relu"]
     k10["device_ms"] = main["device_ms"]
     k10["grad_device_ms"] = main["grad_device_ms"]
+    k11 = results["drqn_target"]
+    k11["device_ms"] = k11["by_net"][
+        "LSTM32 dueling (grid_drqn.learner)"]["device_ms"]
 
 
 def _k5_check(torch, dev, fd, name, plan, params, data, double_q, U, B, T,
@@ -1996,7 +2078,8 @@ def _drqn_loop(torch, dev, num_envs, n_iters):
     ``n_iters`` as replays of its CUDA graph (``make_segment``, as
     ``solve`` runs them): ``(cfg, loss)``. The library is called by
     populate's warm-up and capture (K6), the eager warm-up (K5, K6) and
-    the segment's warm-up and capture (K5, K6): K6 5, K5 3."""
+    the segment's warm-up and capture (K5, K6, and K11 beside K5): K6 5,
+    K5 and K11 3."""
     from deepqlearning_tpu_torch.learner.segment import (
         CompiledSegment, make_segment)
 
@@ -2895,16 +2978,16 @@ def phase_per_instance(torch, dev, card, run_path):
            f"MiniPOMDP solve: K5 launched {rec['dq_fused_drqn']} times, not "
            f"2 (the graph's warm-up and capture)")
     # K10 on the dueling head's 2 Dense layers: forward only (K5 takes the
-    # backward), in each iteration the target unroll and the plain collect,
-    # and the evaluations, whole heads
+    # backward, K11 the target unroll), in each iteration the plain
+    # collect, and the evaluations, whole heads
     rest = dict(seen_c)
     fwd = rest.pop("bias_act_kernel", 0)
-    _check(rest == {"dr_group_kernel": n + 1},
-           f"MiniPOMDP solve: the trace saw {seen_c}, not K5 once per "
-           f"replay ({n}) and in the warm-up beside K10's forward")
-    _check(fwd >= 4 * (n + 1) and fwd % 2 == 0,
-           f"MiniPOMDP solve: K10 launched {fwd} forward, not two heads "
-           f"in each iteration and whole heads in all")
+    _check(rest == {"dr_group_kernel": n + 1, "dr_target_kernel": n + 1},
+           f"MiniPOMDP solve: the trace saw {seen_c}, not K5 and K11 once "
+           f"per replay ({n}) and in the warm-up beside K10's forward")
+    _check(fwd >= 2 * (n + 1) and fwd % 2 == 0,
+           f"MiniPOMDP solve: K10 launched {fwd} forward, not a head in "
+           f"each iteration and whole heads in all")
     _say(f"per-instance (c): MiniPOMDP through a DRQN solve (LSTM(1,8), "
          f"dueling, 64 envs, U=1, batch 32, trace 8, {n} iterations) as "
          f"graph replays: eval returns "
@@ -2915,13 +2998,13 @@ def phase_per_instance(torch, dev, card, run_path):
 
 # launches per iteration of :func:`_dp_setup`'s routes by entry point,
 # headline (False) and DRQN (True): per sub-update K7 (K8), the all-reduce
-# and an Adam launch; one collect step (and PER draw); K10 on the target's
-# forward, 6 Dense layers (the DRQN head's 1)
+# and an Adam launch; one collect step (and PER draw); the target's
+# forward: K10 on its 6 Dense layers, or K11 for the DRQN net
 DP_ITERATION = {
     False: {"dq_fused_grads": 32, "dq_fused_adam": 32, "dq_tree_sample": 1,
             "dq_fused_collect": 1, "dq_bias_act": 6},
     True: {"dq_fused_drqn_grads": 4, "dq_drqn_adam": 4,
-           "dq_fused_collect_rnn": 1, "dq_bias_act": 1}}
+           "dq_fused_collect_rnn": 1, "dq_drqn_target": 1}}
 
 
 def _dp_setup(torch, dev, recurrent, dcn_sync_every=1):
@@ -3126,10 +3209,11 @@ def _segment_routes(torch, dev):
     # K10 per iteration: a forward launch (dq_bias_act) per Conv2D and
     # Dense layer of each net forward in ATen (the dueling Dense nets have
     # 6 such layers, the conv net 7, the DRQN net's head 1, MiniPOMDP's
-    # dueling head 2): the target's over U·B rows beside K3 and K5, three
-    # per autograd update (target and online on s', online on s; the
-    # grouped step's target once for all U), the plain collect's one; and a
-    # backward launch (dq_bias_act_grad) per layer of each autograd update
+    # dueling head 2): the target's over U·B rows beside K3 (beside K5 the
+    # target's unroll is K11, dq_drqn_target), three per autograd update
+    # (target and online on s', online on s; the grouped step's target
+    # once for all U), the plain collect's one; and a backward launch
+    # (dq_bias_act_grad) per layer of each autograd update
     head = {"dq_tree_sample": 1, "dq_fused_update": 1}
     routes = {
         "headline": (lambda: _loop_setup(torch, dev, 131072, 1 << 20, 512,
@@ -3165,7 +3249,7 @@ def _segment_routes(torch, dev):
         "CartPole": (cartpole, dict(head, dq_fused_collect=1, dq_bias_act=6)),
         "DRQN": (lambda: _drqn_setup(torch, dev),
                  {"dq_fused_drqn": 1, "dq_fused_collect_rnn": 1,
-                  "dq_bias_act": 1}),
+                  "dq_drqn_target": 1}),
         # autograd BPTT, Adam (K9) per sub-update and the plain recurrent
         # collect
         "DRQN plain": (lambda: _drqn_setup(torch, dev, fused_updates=False,
@@ -3184,7 +3268,8 @@ def _segment_routes(torch, dev):
             dict(head, dq_bias_act=6 * 2)),
         "per-instance MiniPOMDP DRQN": (mini_pomdp,
                                         {"dq_fused_drqn": 1,
-                                         "dq_bias_act": 2 * 2}),
+                                         "dq_drqn_target": 1,
+                                         "dq_bias_act": 2}),
     }
     routes = {name: (single(setup, name), per_iter)
               for name, (setup, per_iter) in routes.items()}
@@ -3243,7 +3328,8 @@ KERNELS = {"dq_td_loss": "td_loss_kernel", "dq_empty": "empty_kernel",
            "dq_drqn_adam": "dq_adam_flat_kernel",
            "dq_adam_update": "adam_kernel",
            "dq_bias_act": "bias_act_kernel",
-           "dq_bias_act_grad": "bias_act_grad_kernel"}
+           "dq_bias_act_grad": "bias_act_grad_kernel",
+           "dq_drqn_target": "dr_target_kernel"}
 
 
 def _launches():
@@ -3727,6 +3813,7 @@ def main():
     phase_kernels(torch, dev, results)
     phase_adam_kernel(torch, dev, results)
     phase_bias_act_kernel(torch, dev, results)
+    phase_drqn_target_kernel(torch, dev, results)
     phase_device_events(results)
 
     # 4. the small slices on the card vs the CPU, and the conv net
@@ -3742,20 +3829,23 @@ def main():
         "pmean_flat" calls)``,
         each main path with the recorder emptied before it. Every path
         trains a net on the card, and each of its routes runs at least the
-        target's forward through Dense (and Conv2D) layers in ATen: K10
-        takes every one of their epilogues (the recorder's
+        target's forward: through Dense (and Conv2D) layers in ATen, where
+        K10 takes every one of their epilogues (the recorder's
         ``model.bias_act_kernel`` forwards, > 0, each one K10 forward
-        launch) and the ATen chain none (``model.bias_act_plain`` 0)."""
+        launch) and the ATen chain none (``model.bias_act_plain`` 0), or,
+        beside K5 and K8, in K11 (``dq_drqn_target``)."""
         profiling.reset()
         out = fn()
         counts = _launches()
         counts["pmean_flat"] = profiling.counter("train.pmean_flat")
         fwd, plain = (profiling.counter(f"model.{k}")
                       for k in ("bias_act_kernel", "bias_act_plain"))
-        _check(0 < fwd == counts.get("dq_bias_act") and not plain,
+        _check(fwd == counts.get("dq_bias_act", 0) and not plain
+               and (fwd > 0 or "dq_drqn_target" in counts),
                f"{name}: {fwd} Conv2D and Dense forwards took K10 and "
                f"{plain} the ATen chain, and K10's forward launched "
-               f"{counts.get('dq_bias_act', 0)} times")
+               f"{counts.get('dq_bias_act', 0)} times, K11 "
+               f"{counts.get('dq_drqn_target', 0)}")
         for k in kernels:
             _check(k in counts, f"{name} did not launch {k}")
         for k in absent:
@@ -3795,10 +3885,12 @@ def main():
          f"{loss_w:.5g} | {card} | launches {wide}")
     (cfg, loss3), rec = run_path(
         "DRQN loop", lambda: _drqn_loop(torch, dev, 16384, 50),
-        ("dq_fused_drqn", "dq_fused_collect_rnn"), ("dq_adam_update",))
-    _check(rec["dq_fused_collect_rnn"] == 5 and rec["dq_fused_drqn"] == 3,
-           f"DRQN loop: launches {rec}, not K6 5 and K5 3 (graph warm-ups "
-           "and captures and one eager iteration)")
+        ("dq_fused_drqn", "dq_fused_collect_rnn", "dq_drqn_target"),
+        ("dq_adam_update", "dq_bias_act"))
+    _check(rec["dq_fused_collect_rnn"] == 5
+           and rec["dq_fused_drqn"] == rec["dq_drqn_target"] == 3,
+           f"DRQN loop: launches {rec}, not K6 5 and K5 and K11 3 (graph "
+           "warm-ups and captures and one eager iteration)")
     _say(f"DRQN loop: 16384 envs, LSTM(2,32), episode replay 4096, batch "
          f"512, trace 8, U={cfg.updates_per_iter}, populate and 50 "
          f"iterations as graph replays: loss {loss3:.5g} | {card} | "
@@ -3833,7 +3925,8 @@ def main():
              ("dq_tree_sample", "dq_fused_collect"),
              ("dq_fused_update", "dq_adam_update")),
             ("DP DRQN loop", True, "dq_fused_drqn_grads", "dq_drqn_adam",
-             ("dq_fused_collect_rnn",), ("dq_fused_drqn", "dq_adam_update"))):
+             ("dq_fused_collect_rnn", "dq_drqn_target"),
+             ("dq_fused_drqn", "dq_adam_update", "dq_bias_act"))):
         (cfg, loss, seen), dp = run_path(
             name, lambda: _dp_loop(torch, dev, recurrent, 20, N),
             (update, adam, *kernels), absent)
@@ -3909,6 +4002,10 @@ def main():
                      "deepqlearning_tpu_torch/csrc/bias_act.cu",
                      "none: XLA fuses the epilogue into the product on the "
                      "TPU"),
+        "drqn_target": (("dq_drqn_target",),
+                        "deepqlearning_tpu_torch/csrc/fused_drqn.cu",
+                        "none: XLA fuses the target net's unroll on the TPU "
+                        "(deepqlearning_tpu/learner/train_step.py:464)"),
     }
     # no single PyTorch call computes any of these functions (a fused
     # TD head, a sum-tree descent, whole train phases, env steps)
@@ -3933,7 +4030,10 @@ def main():
                               "gradient max-abs, one launch per update)",
                "bias_act": "bias_act_kernel and bias_act_grad_kernel "
                            "(every Conv2D and Dense layer's epilogue on the "
-                           "card, forward and backward)"}
+                           "card, forward and backward)",
+               "drqn_target": "dr_target_kernel (the target net's Q(s') "
+                              "over every window of a recurrent step; in "
+                              "the DRQN routes' CUDA graphs)"}
     kernels = [dict(name=k, kernel=symbols[k], route="cuda",
                     source=source, replaces=replaces,
                     launches=sum(launches.get(e, 0) for e in entries),

@@ -64,6 +64,11 @@
 // product split over four lanes was slower). Arithmetic stays FP32 FMA on
 // the CUDA cores: TF32 would change the double-Q argmax and the parity with
 // the JAX package.
+//
+// K11 (dr_target_kernel, at the end of this file) computes K5's and K8's
+// input Q_tgt(s'): the frozen target net's zero-state unroll over every
+// window of the step, forward only, on the same descriptor and gate
+// arithmetic.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -954,4 +959,233 @@ DQ_API int dq_drqn_adam(const DrqnDesc* d, const int64_t* p_ptrs,
   dr_tab(d, p_ptrs, m_ptrs, v_ptrs, &tab);
   return (int)dq_launch_adam_flat(tab, d->n_params, count, u, grad, lr, b1,
                                   b2, adam_eps, gnorm, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// K11: the target net's Q(s') over N windows of T steps from a zero state,
+// the input q_sp_tgt of K5 and K8. It replaces no Pallas kernel: the JAX
+// package leaves this unroll to XLA, which fuses it; in ATen it was ~108
+// short kernels per call (the input projection, per step a GEMM and ~11
+// elementwise kernels on strided gate views, the stack, the heads, two
+// transposes). The work is small (at the loop's shapes, 2048 windows of 8
+// steps of LSTM(2, 32) and a dueling head: ~148 MFLOP, 2.2 µs at the FP32
+// peak) and a chain of T dependent steps, so the kernel is bound by the
+// latency of that chain, not by bytes or FLOPs.
+//
+// A plain grid (no grid barrier, no atomics: a call is deterministic and
+// replays bit for bit): a block per tile of W windows (DT_TILE, fewer where
+// shared memory is short). The block copies the params into K5's padded
+// shared layout (dq_load_padded) and advances its windows step by step
+// with K5's forward arithmetic: the Dense layers before the cell (dq_dot),
+// the gates and the cell update a thread per row pair and hidden unit
+// (dr_pair_dot on the rows' h and cell input feature-major, by step
+// parity), then the heads' layers of one depth side by side and the
+// dueling combination (dr_mean, dr_q), written straight to q [N, T, A].
+// Only two step blocks a row are kept (by step parity): nothing is kept
+// for a backward pass. The windows' next obs are read from global memory
+// where a step needs them.
+//
+// Measured (PERF.md §6; clock64 marks of block 0 in a timing build):
+// at the loop's shapes a step takes ~7K cycles, ~5K of them the gate step
+// with 8 warps an SM (the latency of its dependent shared-memory loads
+// and FMAs), and the param copy ~10K. Staging the obs in shared memory, a
+// compile-time gate count and a deeper param copy each took ~2 µs off the
+// ~36 µs, less than 1 % of the iteration: not kept.
+#define DT_THREADS 256
+#define DT_TILE 16
+#define DT_MAX_SMEM (200 * 1024)  // fused_update.py's MAX_SMEM
+
+// A tile's shared layout past the params: two step blocks per row by step
+// parity [2, W, step_floats], the rows' h feature-major [2, H, rp] and
+// their cell input [2, cin, rp], rp = W rounded up to 4.
+struct DtLayout {
+  int W, rp, f_st, f_ht, f_xt, smem_floats;
+};
+
+static DtLayout dt_layout(const DrqnDesc& d, int W) {
+  DtLayout l;
+  l.W = W;
+  l.rp = (W + 3) & ~3;
+  l.f_st = d.n_sp;
+  l.f_ht = (l.f_st + 2 * W * d.step_floats + 3) & ~3;
+  l.f_xt = l.f_ht + 2 * d.H * l.rp;
+  l.smem_floats = l.f_xt + 2 * d.cin * l.rp;
+  return l;
+}
+
+struct DtArgs {
+  DrqnDesc d;
+  DqTab tab;
+  DtLayout l;
+  const float* nobs;  // [N, T, in_dim]
+  float* q;           // [N, T, A]
+  int N;
+};
+
+// Row r's step block at time t.
+__device__ __forceinline__ float* dt_blk(const DtArgs& a, float* smem, int r,
+                                         int t) {
+  return smem + a.l.f_st + ((t & 1) * a.l.W + r) * a.d.step_floats;
+}
+
+// Row r's next observation at time t (window g0 + r), in global memory.
+__device__ __forceinline__ const float* dt_obs(const DtArgs& a, int g0, int r,
+                                               int t) {
+  return a.nobs + ((size_t)(g0 + r) * a.d.T + t) * a.d.in_dim;
+}
+
+// Dense layers la and lb (-1: none) side by side on the R rows at time t,
+// dr_dense_fwd's arithmetic; the last layer before the cell also writes
+// xT of this step's parity.
+__device__ __forceinline__ void dt_dense(const DtArgs& a, float* smem, int g0,
+                                         int R, int t, int la, int lb) {
+  const DrqnDesc& d = a.d;
+  const int na = (la >= 0) ? R * d.dout[la] : 0;
+  const int nb = (lb >= 0) ? R * d.dout[lb] : 0;
+  for (int k = threadIdx.x; k < na + nb; k += blockDim.x) {
+    const int l = (k < na) ? la : lb, kk = (k < na) ? k : k - na;
+    const int n = d.dout[l], r = kk / n, o = kk - r * n;
+    float* st = dt_blk(a, smem, r, t);
+    const float* in = (d.in_a[l] < 0) ? dt_obs(a, g0, r, t) : st + d.in_a[l];
+    const float z = dq_dot(in, smem + d.sw[l] + o, d.ldw[l], d.din[l]);
+    const float y = dq_act(z + smem[d.sb[l] + o], d.act[l]);
+    st[d.off_a[l] + o] = y;
+    if (l == d.n_pre - 1)
+      smem[a.l.f_xt + ((t & 1) * d.cin + o) * a.l.rp + r] = y;
+  }
+  __syncthreads();
+}
+
+// One time step of the target net on the tile's R rows, then Q(s') of
+// each row into q. No barrier after the Q writes: the next step writes the
+// other parity's step blocks, and this parity's only after its barriers.
+__device__ __forceinline__ void dt_step(const DtArgs& a, float* smem, int g0,
+                                        int R, int t) {
+  const DrqnDesc& d = a.d;
+  const float* sp = smem;
+  const int H = d.H, rp = a.l.rp;
+  for (int l = 0; l < d.n_pre; ++l) dt_dense(a, smem, g0, R, t, l, -1);
+  // the gates and the cell, dr_forward_step's arithmetic: thread (row pair
+  // p, hidden unit j) takes every gate column of unit j for its two rows
+  const int NG = (d.cell == 0) ? 4 : 3, cur = t & 1;
+  const float2* xT = reinterpret_cast<const float2*>(
+      smem + a.l.f_xt + cur * d.cin * rp);
+  const float2* hT =
+      reinterpret_cast<const float2*>(smem + a.l.f_ht + cur * H * rp);
+  float* hTn = smem + a.l.f_ht + (cur ^ 1) * H * rp;
+  const int np = (R + 1) >> 1;
+  for (int k = threadIdx.x; k < np * H; k += blockDim.x) {
+    const int p = k / H, j = k - p * H;
+    float xi[4][2] = {}, hh[4][2] = {}, b[4] = {};
+    dr_pair_dot(xT + p, rp >> 1, sp + d.s_wi + j, d.ld_wi, H, NG, d.cin, xi);
+    dr_pair_dot(hT + p, rp >> 1, sp + d.s_wh + j, d.ld_wh, H, NG, H, hh);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      if (g < NG) b[g] = sp[d.s_bc + g * H + j];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = 2 * p + q;
+      if (r >= R) break;
+      float* st = dt_blk(a, smem, r, t);
+      const float* prev = t ? dt_blk(a, smem, r, t - 1) : nullptr;
+      float h;
+      if (d.cell == 0) {
+        const float ig = dr_sigmoid(xi[0][q] + hh[0][q] + b[0]);
+        const float fg = dr_sigmoid(xi[1][q] + hh[1][q] + b[1]);
+        const float gg = tanhf(xi[2][q] + hh[2][q] + b[2]);
+        const float og = dr_sigmoid(xi[3][q] + hh[3][q] + b[3]);
+        const float cp = prev ? prev[d.a_c + j] : 0.0f;
+        const float c = fg * cp + ig * gg;
+        st[d.a_c + j] = c;
+        h = og * tanhf(c);
+      } else {
+        const float rg = dr_sigmoid(xi[0][q] + hh[0][q] + b[0]);
+        const float zg = dr_sigmoid(xi[1][q] + hh[1][q] + b[1]);
+        const float n = tanhf((xi[2][q] + b[2]) + rg * hh[2][q]);
+        const float hp = prev ? prev[d.a_h + j] : 0.0f;
+        h = (1.0f - zg) * n + zg * hp;
+      }
+      st[d.a_h + j] = h;
+      hTn[j * rp + r] = h;
+    }
+  }
+  // the next step's observations into xT of the next parity when the cell
+  // reads them
+  if (d.n_pre == 0 && t + 1 < d.T)
+    for (int k = threadIdx.x; k < R * d.cin; k += blockDim.x) {
+      const int r = k / d.cin, i = k - r * d.cin;
+      smem[a.l.f_xt + (cur ^ 1) * d.cin * rp + i * rp + r] =
+          dt_obs(a, g0, r, t + 1)[i];
+    }
+  __syncthreads();
+  const int lv = d.n_pre, la = d.n_pre + d.n_val;
+  for (int s = 0; s < max(d.n_val, d.n_adv); ++s)
+    dt_dense(a, smem, g0, R, t, s < d.n_val ? lv + s : -1,
+             s < d.n_adv ? la + s : -1);
+  const int A = d.A;
+  for (int k = threadIdx.x; k < R * A; k += blockDim.x) {
+    const int r = k / A, c = k - r * A;
+    const float* st = dt_blk(a, smem, r, t);
+    a.q[((size_t)(g0 + r) * d.T + t) * A + c] = dr_q(d, st, c, dr_mean(d, st));
+  }
+}
+
+__global__ void __launch_bounds__(DT_THREADS)
+    dr_target_kernel(const __grid_constant__ DtArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ DqTab tab;
+  const DrqnDesc& d = a.d;
+  const int rp = a.l.rp, g0 = blockIdx.x * a.l.W;
+  const int R = min(a.l.W, a.N - g0);
+  dq_tab_copy(a.tab, tab);
+  // the zero state: both parities of hT; xT of step 0 holds the rows'
+  // first observations when the cell reads them
+  for (int k = threadIdx.x; k < 2 * d.H * rp; k += blockDim.x)
+    smem[a.l.f_ht + k] = 0.0f;
+  for (int k = threadIdx.x; k < 2 * d.cin * rp; k += blockDim.x) {
+    const int i = k / rp, r = k - i * rp;
+    smem[a.l.f_xt + k] = (d.n_pre == 0 && i < d.cin && r < R)
+                             ? dt_obs(a, g0, r, 0)[i] : 0.0f;
+  }
+  __syncthreads();
+  dq_load_padded(tab, d.n_params, smem);
+  for (int t = 0; t < d.T; ++t) dt_step(a, smem, g0, R, t);
+}
+
+// The shared memory each device allows dr_target_kernel so far (only ever
+// raised).
+static int dt_smem_allowed[DR_MAX_DEVICES];
+
+// q [N, T, A] = the target net's Q over next_obs [N, T, in_dim] from a zero
+// state, params in the plan's packed order; launched on stream.
+DQ_API int dq_drqn_target(const DrqnDesc* d, const int64_t* p_ptrs, int N,
+                          const void* nobs, void* q, void* stream) {
+  if (!dr_desc_ok(d) || N < 1) return (int)cudaErrorInvalidValue;
+  DtArgs a;
+  a.d = *d;
+  dr_tab(d, p_ptrs, nullptr, nullptr, &a.tab);
+  int W = DT_TILE;
+  while (W > 1 && dt_layout(*d, W).smem_floats * (int)sizeof(float) >
+                      DT_MAX_SMEM)
+    W >>= 1;
+  a.l = dt_layout(*d, W);
+  a.nobs = (const float*)nobs;
+  a.q = (float*)q;
+  a.N = N;
+  const int smem = a.l.smem_floats * (int)sizeof(float);
+  if (smem > DT_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= DR_MAX_DEVICES ||
+                             smem > dt_smem_allowed[dev])) {
+    err = cudaFuncSetAttribute(dr_target_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess && dev < DR_MAX_DEVICES)
+      dt_smem_allowed[dev] = smem;
+  }
+  if (err != cudaSuccess) return (int)err;
+  dr_target_kernel<<<(N + W - 1) / W, DT_THREADS, smem,
+                     (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -460,8 +460,10 @@ def make_fused_grouped_drqn_train_step(network, buffer, gamma: float,
     """The grouped recurrent step with the online unrolls, the masked loss,
     BPTT and Adam of all U sub-updates in kernel K5. The target net's Q(s')
     (one zero-state unroll over all U·B windows; the target net is frozen
-    within the step) stays outside the kernel, as plain torch."""
-    from ..ops.cuda.fused_drqn import drqn_plan_for, fused_drqn_group_update
+    within the step) comes before it from kernel K11
+    (``ops/cuda/fused_drqn.py::drqn_target_q``)."""
+    from ..ops.cuda.fused_drqn import (
+        drqn_plan_for, drqn_target_q, fused_drqn_group_update)
 
     B, T, U = buffer.batch_size, buffer.trace_length, int(n_updates)
     plan = drqn_plan_for(network, T, B, double_q)
@@ -474,14 +476,12 @@ def make_fused_grouped_drqn_train_step(network, buffer, gamma: float,
         batch = buffer.sample_n(replay_state, U, draws=u,
                                 generator=generator)
         with torch.no_grad():
-            nobs_t = _time_major(batch.next_obs)
-            q_tgt, _ = network.apply_sequence(
-                target_params, nobs_t,
-                network.init_state(U * B, nobs_t.device))   # [T, U·B, A]
+            q_tgt = drqn_target_q(plan, network, target_params,
+                                  batch.next_obs)            # [U·B, T, A]
             loss, gnorm = fused_drqn_group_update(
                 plan, params, opt_state.m, opt_state.v, opt_state.count,
                 batch.obs, batch.next_obs, batch.action, batch.reward,
-                batch.done, batch.mask, _time_major(q_tgt), gamma=gamma,
+                batch.done, batch.mask, q_tgt, gamma=gamma,
                 double_q=double_q, lr=learning_rate, batch_size=B,
                 n_updates=U)
         return TrainResult(params, opt_state, replay_state, loss, gnorm)
@@ -493,12 +493,14 @@ def make_fused_dp_drqn_train_step(network, buffer, gamma: float,
                                   double_q: bool, learning_rate: float,
                                   n_updates: int, axis_name):
     """The data-parallel recurrent step: one u-major draw of U·B windows and
-    the target net's zero-state unroll once on all of them, then per
-    sub-update kernel K8 (unrolls, masked loss, BPTT, emitting the flat
-    gradient), :func:`pmean_flat` of that vector over ``axis_name`` and one
-    Adam launch at ``t = count + u + 1``
+    the target net's zero-state unroll once on all of them (kernel K11,
+    ``ops/cuda/fused_drqn.py::drqn_target_q``), then per sub-update kernel
+    K8 (unrolls, masked loss, BPTT, emitting the flat gradient),
+    :func:`pmean_flat` of that vector over ``axis_name`` and one Adam
+    launch at ``t = count + u + 1``
     (``ops/cuda/fused_drqn.py::fused_drqn_dp_group_update``). U >= 1."""
-    from ..ops.cuda.fused_drqn import drqn_plan_for, fused_drqn_dp_group_update
+    from ..ops.cuda.fused_drqn import (
+        drqn_plan_for, drqn_target_q, fused_drqn_dp_group_update)
 
     check_axis(axis_name)
     if axis_name is None:
@@ -515,14 +517,12 @@ def make_fused_dp_drqn_train_step(network, buffer, gamma: float,
         batch = buffer.sample_n(replay_state, U, draws=u,
                                 generator=generator)
         with torch.no_grad():
-            nobs_t = _time_major(batch.next_obs)
-            q_tgt, _ = network.apply_sequence(
-                target_params, nobs_t,
-                network.init_state(U * B, nobs_t.device))   # [T, U·B, A]
+            q_tgt = drqn_target_q(plan, network, target_params,
+                                  batch.next_obs)            # [U·B, T, A]
             loss, gnorm = fused_drqn_dp_group_update(
                 plan, params, opt_state.m, opt_state.v, opt_state.count,
                 batch.obs, batch.next_obs, batch.action, batch.reward,
-                batch.done, batch.mask, _time_major(q_tgt), reduce=reduce,
+                batch.done, batch.mask, q_tgt, reduce=reduce,
                 gamma=gamma, double_q=double_q, lr=learning_rate,
                 batch_size=B, n_updates=U)
         return TrainResult(params, opt_state, replay_state, loss, gnorm)

@@ -249,6 +249,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                 P, P, P, P, P, F, I, P, P, P, P, P, P, I, P],
         "dq_drqn_adam": [ctypes.POINTER(DrqnDesc), I64P, I64P, I64P, P, I, P,
                          F, F, F, F, P, P],
+        "dq_drqn_target": [ctypes.POINTER(DrqnDesc), I64P, I, P, P, P],
         "dq_adam_update": [ctypes.POINTER(AdamTab), P, F, F, P, I, I, I, P,
                            P],
         "dq_bias_act": [P, I, P, I, P, I, P, I, I, I, I, I, I, I, P],

@@ -37,6 +37,12 @@ are plain references in the kernel's sum order (per-tile partials summed in
 tile order), held against the JAX kernel on the CPU and against K5/K8 on
 the card at a tighter tolerance than the autograd twins'.
 
+K11 (:func:`drqn_target_q`) computes their input ``q_sp_tgt``: the frozen
+target net's zero-state unroll over all U·B windows of a step in one plain
+launch (a block per tile of windows, K5's forward arithmetic, no grid
+barrier), in place of the network's ATen unroll, which stays its plain
+twin and the CPU route.
+
 :func:`drqn_plan_for` is the gate, on the network family of the JAX
 kernel: ``[Flatten]* [Dense]* LSTM|GRU`` and a Dense or dueling head with a
 scalar value head, with this card's limits in place of the TPU's VMEM
@@ -57,6 +63,7 @@ import torch
 from ...models.chain import GRU, LSTM, Chain, Flatten, gru_cell, lstm_cell
 from ...models.dueling import DuelingNetwork
 from ...ops.helpers import flatten, huber_loss, select_action, unflatten
+from ...utils import profiling
 from . import build
 from .fused_update import (
     _ACTS, MAX_ACTIONS, MAX_SMEM, FusedPlan, LayerPlan, _apply_act,
@@ -701,3 +708,51 @@ def fused_drqn_dp_group_update(plan: DRQNPlan, params, m, v, count, obs,
               reward, done, mask, q_sp_tgt, reduce=reduce, gamma=gamma,
               double_q=double_q, lr=lr, batch_size=batch_size,
               n_updates=n_updates, b1=b1, b2=b2, adam_eps=adam_eps)
+
+
+# ------------- K11: the target net's Q(s') over every window of a step
+
+def drqn_target_q_plain(network, params, next_obs):
+    """Plain PyTorch version of :func:`drqn_target_q`: the network's own
+    zero-state unroll (``apply_sequence``) over the windows, time-major,
+    returned batch-major (a view)."""
+    profiling.count("train.drqn_target_plain")
+    xs = next_obs.transpose(0, 1)
+    q, _ = network.apply_sequence(params, xs,
+                                  network.init_state(xs.shape[1], xs.device))
+    return q.transpose(0, 1)
+
+
+def drqn_target_q_cuda(plan: DRQNPlan, params, next_obs):
+    """Launch K11 (one kernel on the current stream) into a new ``[N, T,
+    A]`` f32 tensor."""
+    N, T = next_obs.shape[0], next_obs.shape[1]
+    nobs = next_obs.reshape(N, T, -1)
+    build.require_shape(nobs, (N, T, plan.in_dim), "next_obs")
+    tensors = [params[k] for k in plan.names]
+    for k, t in zip(plan.names, tensors):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{k} is {t.dtype}; kernel K11 takes float32")
+    nobs = nobs.float().contiguous()
+    build.require_cuda(nobs, *tensors)
+    d = plan.desc(T)
+    _require_sizes(plan, d, tensors)
+    q = torch.empty(N, T, plan.head.num_actions, dtype=torch.float32,
+                    device=nobs.device)
+    build.check(build.library().dq_drqn_target(
+        d, _ptrs(tensors), N, nobs.data_ptr(), q.data_ptr(),
+        build.stream_ptr(nobs.device)), "drqn_target_q")
+    profiling.count("train.drqn_target_kernel")
+    return q
+
+
+def drqn_target_q(plan: DRQNPlan, network, params, next_obs):
+    """The target net's Q over ``next_obs [N, T, *obs]``, each window
+    unrolled from a zero state: ``[N, T, A]``, the ``q_sp_tgt`` of
+    :func:`fused_drqn_group_update` and :func:`fused_drqn_dp_group_update`.
+    ``params`` (the frozen target's) are read only. CUDA tensors take K11
+    (the recorder counts ``train.drqn_target_kernel``), CPU tensors the
+    network's own unroll (``train.drqn_target_plain``)."""
+    if next_obs.is_cuda:
+        return drqn_target_q_cuda(plan, params, next_obs)
+    return drqn_target_q_plain(network, params, next_obs)

@@ -19,14 +19,17 @@ headline's B = 512 with the dueling 2-64-64-4 net and double-Q, K8
 (``dr_group_kernel`` at U = 1) at the DP DRQN's B = 512, T = 8 with the
 LSTM32 net and double-Q, K9 at the benchmark's two configurations
 (:func:`adam_cases`), K10's forward and backward at the cells' epilogues
-(:func:`bias_act_cases`), and K1 and K2 on the image-observation DQN's
+(:func:`bias_act_cases`), K11 (``dr_target_kernel``, the DRQN target's
+Q(s')) at the DRQN cell's 2048 windows and three other nets
+(:func:`drqn_target_cases`), and K1 and K2 on the image-observation DQN's
 route (:func:`conv_cases`). Beside K1 it times an empty kernel launched as
 K1 is (``td_kernel.cu::empty_kernel``, K1's block, or its cluster of
 blocks past 512 rows): the launch floor under K1.
 Prints the card's name and power limit, then one JSON line.
 
 It uses only the wrappers' call signatures of the parent commits (and
-skips the empty kernel, the envs, K9 and K10 where a checkout lacks them),
+skips the empty kernel, the envs, K9, K10 and K11 where a checkout lacks
+them),
 so the file can be copied into another checkout of the port (the same
 path) to time that checkout's kernels the same way, in the same call.
 """
@@ -158,6 +161,7 @@ def cases(torch, dev):
             k8_plan, k8_params, **k8_data, gamma=0.95, double_q=True))
     out.update(adam_cases(torch, dev, g))
     out.update(bias_act_cases(torch, dev, g))
+    out.update(drqn_target_cases(torch, dev, g))
     return out
 
 
@@ -263,6 +267,58 @@ def bias_act_cases(torch, dev, g):
             "bias_act_kernel", lambda y=y, b=b, act=act, od=od:
             ba.bias_act(y, b, act, od))
         out[f"K10 bias_act_grad {name}"] = ("bias_act_grad_kernel", grad)
+    return out
+
+
+def drqn_target_nets(torch, dev):
+    """``{name: (network, N windows, T)}``: the networks K11 is held to its
+    twin on: ``grid_drqn.learner``'s (dueling LSTM(2, 32), A = 4) at the
+    cell's 2048 windows of 8 steps; a GRU16 with a Dense layer before it
+    and a plain head on an odd window count (a ragged last tile); a
+    dueling GRU with two-layer heads; an LSTM over a long trace."""
+    from deepqlearning_tpu_torch import (
+        GRU, LSTM, Chain, Dense, create_dueling_network)
+
+    return {
+        "LSTM32 dueling (grid_drqn.learner)": (create_dueling_network(Chain(
+            LSTM(2, 32, device=dev), Dense(32, 4, device=dev))), 2048, 8),
+        "GRU16 after Dense, plain head": (Chain(
+            Dense(2, 16, torch.tanh, device=dev), GRU(16, 16, device=dev),
+            Dense(16, 3, device=dev)), 1001, 8),
+        "GRU32 dueling, two-layer heads": (create_dueling_network(Chain(
+            Dense(2, 16, torch.tanh, device=dev), GRU(16, 32, device=dev),
+            Dense(32, 32, torch.relu, device=dev),
+            Dense(32, 4, device=dev))), 513, 8),
+        "LSTM32 long trace": (Chain(LSTM(2, 32, device=dev),
+                                    Dense(32, 4, device=dev)), 67, 64),
+    }
+
+
+def drqn_target_inputs(torch, dev, g, name):
+    """``(plan, network, params, next_obs)`` of :func:`drqn_target_nets`'
+    ``name``: fresh parameters, next obs uniform on [0, 10) (the grid's
+    coordinates)."""
+    from deepqlearning_tpu_torch.ops.cuda import fused_drqn as fd
+
+    net, N, T = drqn_target_nets(torch, dev)[name]
+    plan = fd.drqn_plan_for(net, T, N)
+    nobs = 10 * torch.rand(N, T, plan.in_dim, generator=g, device=dev)
+    return plan, net, net.init(g), nobs
+
+
+def drqn_target_cases(torch, dev, g):
+    """K11 (``dr_target_kernel``) at :func:`drqn_target_nets`. Only where
+    the checkout has K11."""
+    from deepqlearning_tpu_torch.ops.cuda import fused_drqn as fd
+
+    if not hasattr(fd, "drqn_target_q_cuda"):
+        return {}
+    out = {}
+    for name in drqn_target_nets(torch, dev):
+        plan, _, params, nobs = drqn_target_inputs(torch, dev, g, name)
+        out[f"K11 drqn_target_q {name}"] = (
+            "dr_target_kernel", lambda p=(plan, params, nobs):
+            fd.drqn_target_q_cuda(*p))
     return out
 
 

@@ -353,26 +353,42 @@ def test_smoke_routes_epilogues_per_iteration(route, monkeypatch):
     (the kernel wrappers' twins), so an iteration's epilogue forwards
     (``model.bias_act_plain`` here) and the backwards of those epilogues
     are its K10 forward and backward launches on the card, the table's
-    entry points ``dq_bias_act`` and ``dq_bias_act_grad``."""
+    entry points ``dq_bias_act`` and ``dq_bias_act_grad``; but those of
+    K11's twin (the DRQN target's unroll) are K11's one launch there,
+    ``dq_drqn_target``."""
     import chip_smoke
 
-    plain = k10.bias_act_plain
+    from deepqlearning_tpu_torch.ops.cuda import fused_drqn
+
+    plain, twin = k10.bias_act_plain, fused_drqn.drqn_target_q_plain
+    k11 = {"calls": 0, "epilogues": 0}
 
     def counted(y, b, act, dtype):
         out = plain(y, b, act, dtype)
         return _CountBackward.apply(out) if out.requires_grad else out
 
+    def target_twin(*args):
+        before = profiling.counter("model.bias_act_plain")
+        out = twin(*args)
+        k11["calls"] += 1
+        k11["epilogues"] += profiling.counter("model.bias_act_plain") - before
+        return out
+
     monkeypatch.setattr(k10, "bias_act_plain", counted)
+    monkeypatch.setattr(fused_drqn, "drqn_target_q_plain", target_twin)
     setup, per_iter = chip_smoke._segment_routes(
         torch, torch.device("cpu"))[route]
     it, c, cfg, _ = setup()
     c = it(c)  # fills the replay past one batch, as phase 19 does
     before = profiling.counter("model.bias_act_plain")
     _CountBackward.calls = 0
+    k11.update(calls=0, epilogues=0)
     it(c)
-    assert (profiling.counter("model.bias_act_plain") - before,
-            _CountBackward.calls) == (per_iter["dq_bias_act"],
-                                      per_iter.get("dq_bias_act_grad", 0))
+    forwards = profiling.counter("model.bias_act_plain") - before
+    assert (forwards - k11["epilogues"], _CountBackward.calls,
+            k11["calls"]) == (per_iter.get("dq_bias_act", 0),
+                              per_iter.get("dq_bias_act_grad", 0),
+                              per_iter.get("dq_drqn_target", 0))
 
 
 # -------------------------------------------------------------------- card

@@ -61,7 +61,7 @@ def test_the_table_has_the_kernels_and_their_queries():
             "dq_fused_grads", "dq_fused_adam", "dq_fused_collect",
             "dq_fused_collect_rnn", "dq_fused_drqn", "dq_fused_drqn_grads",
             "dq_drqn_adam", "dq_adam_update", "dq_bias_act",
-            "dq_bias_act_grad", "dq_empty"} <= set(LAUNCHES)
+            "dq_bias_act_grad", "dq_drqn_target", "dq_empty"} <= set(LAUNCHES)
     assert set(QUERIES) == {"dq_fused_update_max_grid",
                             "dq_fused_drqn_max_grid"}
 
