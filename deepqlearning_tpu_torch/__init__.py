@@ -26,7 +26,7 @@ from .learner.loop import LoopCarry, build_loop, init_carry, populate
 from .learner.segment import make_collect_graph, make_segment
 from .models.chain import (
     GRU, LSTM, Activation, Chain, Conv2D, Dense, Flatten, MaxPool2D, Residual,
-    isrecurrent)
+    SoftMoE, isrecurrent)
 from .models.dueling import DuelingNetwork, create_dueling_network
 from .ops.helpers import (
     batch_trajectories, flattenbatch, globalnorm, huber_loss)
@@ -59,7 +59,7 @@ __all__ = [
     "build_loop", "DataParallelRunner", "make_mesh", "dryrun_multichip",
     "init_carry", "populate", "make_segment", "make_collect_graph",
     "Activation", "Chain", "Conv2D", "Dense",
-    "Flatten", "MaxPool2D", "Residual",
+    "Flatten", "MaxPool2D", "Residual", "SoftMoE",
     "GRU", "LSTM", "isrecurrent", "EpisodeBatch", "EpisodeDraws",
     "EpisodeReplayBuffer", "EpisodeReplayState",
     "DuelingNetwork", "create_dueling_network", "batch_trajectories",

@@ -81,11 +81,11 @@ code: ``segment.capture`` around a graph's making, with the children
 and ``segment.guard``; ``segment.run`` and the counter
 ``segment.replays`` on each call, eager or replayed; ``populate`` around
 :func:`make_collect_graph`'s run. Each takes the route as its attribute.
-The counters ``segment.layer_calls.conv2d``, ``.maxpool2d`` and
-``.residual`` of a route hold the forward calls of those layers
-(``models/chain.py``) that one iteration makes, and ``.bias_act_kernel``
-and ``.bias_act_plain`` the Conv2D and Dense forwards whose epilogue took
-K10 or the ATen chain: put at every capture from
+The counters ``segment.layer_calls.conv2d``, ``.maxpool2d``,
+``.residual`` and ``.soft_moe`` of a route hold the forward calls of those
+layers (``models/chain.py``) that one iteration makes, and
+``.bias_act_kernel`` and ``.bias_act_plain`` the Conv2D, Dense and SoftMoE
+forwards whose epilogue took K10 or the ATen chain: put at every capture from
 the layers' own counters, as ``segment.graph_nodes`` is, and on an eager
 route at every iteration.
 A call of a :class:`CompiledSegment` now and then times its replays with
@@ -145,9 +145,9 @@ def _check_leaves(leaves, what: str) -> None:
 
 
 # the layers that count their forward calls, and the two routes of the
-# Conv2D and Dense epilogues (``models/chain.py``)
-LAYER_CALLS = ("conv2d", "maxpool2d", "residual", "bias_act_kernel",
-               "bias_act_plain")
+# Conv2D, Dense and SoftMoE experts' epilogues (``models/chain.py``)
+LAYER_CALLS = ("conv2d", "maxpool2d", "residual", "soft_moe",
+               "bias_act_kernel", "bias_act_plain")
 
 
 @contextlib.contextmanager

@@ -2,8 +2,9 @@
 
 Counterpart of ``deepqlearning_tpu.models.chain``: Dense, Flatten,
 Activation, Conv2D, the recurrent cells LSTM and GRU, and Chain; besides,
-MaxPool2D and Residual (a skip connection around a Chain), which the JAX
-package does not have, for the IMPALA ResNet trunk. Parameters
+MaxPool2D and Residual (a skip connection around a Chain), for the IMPALA
+ResNet trunk, and SoftMoE (a soft mixture of experts over a map's
+positions), which the JAX package does not have. Parameters
 keep the JAX layout — ``w [din, dout]``, ``b [dout]``; a Conv2D's ``w [kh,
 kw, in, out]`` (HWIO) over NHWC inputs; a cell's ``wi [in, gH]``, ``wh [H,
 gH]``, ``b [gH]`` with the gates in the order i,f,g,o (LSTM) or r,z,n (GRU)
@@ -42,10 +43,11 @@ card as K10, one launch forward and one backward (:func:`epilogue`,
 ``torch.relu``, ``torch.tanh`` or None, or a dtype other than f32 and bf16,
 keeps the ATen chain, as CPU tensors do.
 
-Conv2D, MaxPool2D and Residual count their forward calls in the recorder
-(``utils/profiling.py``: ``model.conv2d``, ``model.maxpool2d``,
-``model.residual``), and every Conv2D and Dense forward its epilogue's
-route (``model.bias_act_kernel``, ``model.bias_act_plain``). The count is
+Conv2D, MaxPool2D, Residual and SoftMoE count their forward calls in the
+recorder (``utils/profiling.py``: ``model.conv2d``, ``model.maxpool2d``,
+``model.residual``, ``model.soft_moe``), and every Conv2D and Dense forward
+and SoftMoE's experts their epilogue's route (``model.bias_act_kernel``,
+``model.bias_act_plain``). The count is
 host code: under a CUDA graph it runs at capture and never on a replay.
 """
 from __future__ import annotations
@@ -75,7 +77,7 @@ class _Functional(nn.Module):
         parameter dict (views of the module's parameters)."""
         self.to(dtype)
         for m in self.modules():
-            if isinstance(m, (Dense, Conv2D, LSTM, GRU)):
+            if isinstance(m, (Dense, Conv2D, LSTM, GRU, SoftMoE)):
                 m.reset_parameters(generator)
         return params_of(self)
 
@@ -117,15 +119,19 @@ def _glorot_(w: torch.Tensor, generator, fan_in: Optional[int] = None,
 
 
 class _DotBF16(torch.autograd.Function):
-    """``x @ w`` of bf16 operands with an f32 result on the card: one
-    tensor-core GEMM (cuBLAS, ``torch.mm(..., out_dtype=float32)``) with
-    f32 accumulation, the products exact. The backward takes the f32
-    cotangent as it comes, promoting the other operand, and gives each
-    gradient in its operand's dtype, as ``x.float() @ w.float()`` would."""
+    """``x @ w`` of bf16 operands with an f32 result on the card, ``x [...,
+    K]`` by ``w [K, N]`` or a batch ``x [B, M, K]`` by ``w [B, K, N]``: one
+    tensor-core GEMM (cuBLAS, ``torch.mm`` or ``torch.bmm`` with
+    ``out_dtype=float32``) with f32 accumulation, the products exact. The
+    backward takes the f32 cotangent as it comes, promoting the other
+    operand, and gives each gradient in its operand's dtype, as
+    ``x.float() @ w.float()`` would."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        if w.dim() == 3:
+            return torch.bmm(x, w, out_dtype=torch.float32)
         x2 = x.reshape(-1, x.shape[-1])
         return torch.mm(x2, w, out_dtype=torch.float32).reshape(
             x.shape[:-1] + (w.shape[1],))
@@ -133,21 +139,24 @@ class _DotBF16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
+        if w.dim() == 2:
+            g = g.reshape(-1, g.shape[-1])
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = (g2 @ w.float().t()).to(x.dtype).reshape(x.shape)
+            gx = (g @ w.float().mT).to(x.dtype).reshape(x.shape)
         if ctx.needs_input_grad[1]:
-            gw = (x.reshape(-1, x.shape[-1]).float().t() @ g2).to(w.dtype)
+            xr = x.reshape(g.shape[:-1] + x.shape[-1:])
+            gw = (xr.float().mT @ g).to(w.dtype)
         return gx, gw
 
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in f32 over any leading axes, as ``jnp.dot(x, w,
-    preferred_element_type=float32)``. Two bf16 operands on the card take
-    :class:`_DotBF16`; otherwise the operands are promoted to f32 (a bf16
-    product is exact there, so the sums are the same) and f32 operands are
-    used as they are (TF32 off by PyTorch's default)."""
+    """``x @ w`` in f32 over any leading axes, or batched (``w [B, K,
+    N]``), as ``jnp.dot(x, w, preferred_element_type=float32)``. Two bf16
+    operands on the card take :class:`_DotBF16`; otherwise the operands
+    are promoted to f32 (a bf16 product is exact there, so the sums are the
+    same) and f32 operands are used as they are (TF32 off by PyTorch's
+    default)."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
         return _DotBF16.apply(x, w)
     return x.float() @ w.float()
@@ -365,6 +374,81 @@ class Residual(_Functional):
     def forward(self, x):
         profiling.count("model.residual")
         return (x + self.inner(x)).to(x.dtype)
+
+
+class SoftMoE(_Functional):
+    """Soft MoE (Puigcerver et al. 2023, arXiv:2308.00951) over the
+    positions of an NHWC map, as Obando-Ceron et al. 2024
+    (arXiv:2402.08609) put it in place of a value network's penultimate
+    layer, one token per position ("PerConv"): ``x [N, h, w, d]`` is read
+    as ``m = h·w`` tokens ``X [N, m, d]``, and with ``experts`` experts of
+    ``slots_per_expert`` slots each (``n``, ``p``) and ``Φ [d, n·p]``::
+
+        L = X·Φ                                      [N, m, n·p]
+        D = softmax of L over the tokens (axis m)
+        C = softmax of L over the slots (axis n·p)
+        X̃ = Dᵀ·X                                     [N, n·p, d]
+        Ỹ_s = relu(X̃_s·W_e + b_e), expert e = ⌊s/p⌋  [N, n·p, hidden]
+        Y = C·Ỹ                                      [N, m, hidden]
+
+    and returns ``Y``. Parameters, drawn in this order: ``phi [d, n·p]``
+    and ``w [n, d, hidden]`` (each expert's weight), Glorot-uniform as a
+    Dense layer's (over ``d`` and ``n·p``, over ``d`` and ``hidden``), and
+    ``b [n·hidden]``, the experts' biases side by side, zero.
+
+    Roundings, in the input's dtype ``t`` (bf16 on the conv route): each
+    of the four products sums exact products of ``t`` operands in f32
+    (:func:`dot_f32`: a bf16 GEMM with an f32 result on the card, the
+    experts one batched product over the experts); both softmaxes are
+    taken in f32 on the f32 ``L``, then D and C are rounded to ``t``; X̃ is
+    rounded to ``t``; the experts' bias and ReLU are taken in f32 on their
+    f32 product and rounded to ``t`` (:func:`epilogue`: on the card K10,
+    one launch forward and one backward over ``[N, p, n·hidden]``, the
+    experts of a slot side by side in a row, the biases as one vector); Y
+    is rounded to ``t``.
+
+    Counts each forward call in the recorder (``model.soft_moe``)."""
+
+    def __init__(self, dim: int, experts: int, slots_per_expert: int,
+                 hidden: int, device=None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.experts = int(dim), int(experts)
+        self.slots, self.hidden = int(slots_per_expert), int(hidden)
+        kw = dict(device=device, dtype=dtype)
+        n, p = self.experts, self.slots
+        self.phi = nn.Parameter(torch.empty(self.dim, n * p, **kw))
+        self.w = nn.Parameter(torch.empty(n, self.dim, self.hidden, **kw))
+        self.b = nn.Parameter(torch.zeros(n * self.hidden, **kw))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            _glorot_(self.phi, generator)
+            _glorot_(self.w, generator, self.dim, self.hidden)
+            self.b.zero_()
+
+    @staticmethod
+    def _weights(logits: torch.Tensor, dtype: torch.dtype):
+        """``(D, C)`` of the f32 logits ``[N, m, n·p]``: each slot's
+        weights over the tokens and each token's over the slots, taken in
+        f32 and rounded to ``dtype``."""
+        return (torch.softmax(logits, dim=1).to(dtype),
+                torch.softmax(logits, dim=2).to(dtype))
+
+    def forward(self, x):
+        profiling.count("model.soft_moe")
+        N, t = x.shape[0], x.dtype
+        n, p, d, H = self.experts, self.slots, self.dim, self.hidden
+        X = x.reshape(N, -1, d)
+        D, C = self._weights(dot_f32(X, self.phi), t)
+        xs = dot_f32(D.transpose(1, 2), X).to(t)  # [N, n·p, d]
+        xe = xs.view(N, n, p, d).transpose(0, 1).reshape(n, N * p, d)
+        ye = dot_f32(xe, self.w)  # [n, N·p, hidden]
+        # rows (sample, slot j), each holding that slot of every expert
+        ye = ye.view(n, N, p, H).permute(1, 2, 0, 3).reshape(N, p, n * H)
+        ye = epilogue(ye, self.b, torch.relu, t)
+        ys = ye.view(N, p, n, H).transpose(1, 2).reshape(N, n * p, H)
+        return dot_f32(C, ys).to(t)
 
 
 def lstm_cell(xi, h, c, wh, b):
